@@ -1,0 +1,429 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (leanyolo_tpu_torch) on one NVIDIA card.
+
+Phases, each of which fails loudly (non-zero exit):
+
+1. the card's name and power limit (nvidia-smi);
+2. build the kernels from leanyolo_tpu_torch/kernels/csrc (build/kernels/);
+3. each kernel against its plain PyTorch version on the card, at the shapes
+   of the serving path (yolov10s, 640 px, batch 32);
+4. the serving path: yolov10s at full width and depth, random weights from a
+   seed, folded to bf16, answers uint8 requests of batch 1, 8 and 32 through
+   Predictor.run_batch; the launches of every kernel are counted over these
+   requests. Then the kernel path is held against the all-plain path on the
+   card, and an fp32 run on the card against an fp32 run on the CPU at a
+   small input;
+5. times from CUDA events (warm-up, median of 20+ runs): each kernel, its
+   plain version and the PyTorch call that computes the same function, and
+   the serving path's images per second at batch 32.
+
+The second-to-last line is a JSON object with one entry per kernel; the
+last is {"ok": true, "device": {...}}.
+
+Usage: python3 chip_smoke.py
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM published peaks (NVIDIA data sheet, dense) for the bounds.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
+
+IMGSZ = 640
+BATCH = 32
+MAX_DET = 300
+NC = 80
+SEED = 0  # weights, images and test inputs all come from it
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()
+    return out[0]
+
+
+def cuda_ms(fn, *, warmup: int = 3, runs: int = 20) -> float:
+    """Median milliseconds of fn() over `runs` timed runs, CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Run the port with each kernel wrapper replaced by its plain version.
+
+    The port has no such switch: the wrappers dispatch on the tensor's
+    device alone. This swaps the module attributes the port calls through,
+    for the all-plain reference run on the card only.
+    """
+    from leanyolo_tpu_torch.kernels import dwconv, stem, topk
+
+    saved = (stem.fused_stem, dwconv.dw7x7_bias_silu, topk.topk)
+    stem.fused_stem = lambda *a, dtype=None, **kw: stem.fused_stem_plain(*a, dtype=dtype or a[1].dtype, **kw)
+    dwconv.dw7x7_bias_silu = dwconv.dw7x7_bias_silu_plain
+    topk.topk = topk.topk_plain
+    try:
+        yield
+    finally:
+        stem.fused_stem, dwconv.dw7x7_bias_silu, topk.topk = saved
+
+
+def make_model(seed: int):
+    """yolov10s, random weights from `seed`, BN statistics calibrated on one
+    batch of random images.
+
+    With fresh BN statistics (mean 0, var 1) the random net's activations
+    fade layer by layer and every score lands near 0.5; setting each BN's
+    running mean and variance from the batch it sees keeps them near unit
+    scale, so the scores spread and the decode has a real ranking to get
+    right.
+    """
+    import torch
+    from leanyolo_tpu_torch import YOLOv10
+    from leanyolo_tpu_torch.models.yolov10.layers import BatchNorm
+
+    model = YOLOv10.create("yolov10s", class_names=[f"c{i}" for i in range(NC)], seed=seed).cuda().eval()
+
+    def set_stats(bn, args):
+        y = args[0].float()
+        bn.running_mean.copy_(y.mean(dim=(0, 2, 3)))
+        bn.running_var.copy_(y.var(dim=(0, 2, 3)))
+
+    hooks = [m.register_forward_pre_hook(set_stats) for m in model.modules() if isinstance(m, BatchNorm)]
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    images = torch.randint(0, 256, (4, IMGSZ, IMGSZ, 3), generator=g, device="cuda", dtype=torch.uint8)
+    model(images)
+    for h in hooks:
+        h.remove()
+    return model.cpu()
+
+
+def phase_kernels(folded, seed: int, records: dict) -> None:
+    """Each kernel against its plain version at the serving path's shapes."""
+    import torch
+    from leanyolo_tpu_torch.kernels import dwconv, stem, topk
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bb = folded.backbone
+    w0, b0 = bb.cv0.conv.weight, bb.cv0.conv.bias
+    w1, b1 = bb.cv1.conv.weight, bb.cv1.conv.bias
+    images = torch.randint(0, 256, (BATCH, IMGSZ, IMGSZ, 3), generator=g, device=dev, dtype=torch.uint8)
+
+    # Tolerances: kernel and plain version round at the same points; their
+    # fp32 sums differ in order, so a rounding can land one bf16 ulp apart
+    # (2^-8 relative) and carry through the next layer. Limit: 4 ulps of the
+    # output's largest magnitude in bf16, 1e-4 of it in fp32.
+    for dtype, ulps in ((torch.bfloat16, 4 * 2.0 ** -8), (torch.float32, 1e-4)):
+        ws = [t.to(dtype) for t in (w0, b0, w1, b1)]
+        ref = stem.fused_stem_plain(images, *ws, dtype=dtype)
+        got = stem.fused_stem(images, *ws, dtype=dtype)
+        torch.cuda.synchronize()
+        err, lim = max_err(got, ref), ulps * max(1.0, float(ref.float().abs().max()))
+        print(f"kernel stem {dtype} {tuple(got.shape)}: max_abs_err {err:.6g} (limit {lim:.6g})", flush=True)
+        if not err <= lim or got.shape != (BATCH, IMGSZ // 4, IMGSZ // 4, 64):
+            fail("stem kernel disagrees with its plain version")
+        if dtype == torch.bfloat16:
+            records["stem"]["max_abs_err"] = err
+
+    dw = folded.backbone.c8.m[0].cv1[2]
+    c = dw.conv.weight.shape[0]
+    for dtype, ulps in ((torch.bfloat16, 4 * 2.0 ** -8), (torch.float32, 1e-4)):
+        x = torch.randn(BATCH, 20, 20, c, generator=g, device=dev).to(dtype)
+        w, b = dw.conv.weight.to(dtype), dw.conv.bias.to(dtype)
+        ref = dwconv.dw7x7_bias_silu_plain(x, w, b)
+        got = dwconv.dw7x7_bias_silu(x, w, b)
+        torch.cuda.synchronize()
+        err, lim = max_err(got, ref), ulps * max(1.0, float(ref.float().abs().max()))
+        print(f"kernel dw7x7 {dtype} {tuple(got.shape)}: max_abs_err {err:.6g} (limit {lim:.6g})", flush=True)
+        if not err <= lim:
+            fail("dw7x7 kernel disagrees with its plain version")
+        if dtype == torch.bfloat16:
+            records["dw7x7"]["max_abs_err"] = err
+
+    worst = 0.0
+    for n in (8400, 24000):
+        for dtype in (torch.bfloat16, torch.float32):
+            # Coarse values force many ties, signed zeros included.
+            x = (torch.randn(BATCH, n, generator=g, device=dev) * 4).round() / 4
+            x[:, ::7] = -0.0
+            x = x.to(dtype)
+            for canon in (True, False):
+                rv, ri = topk.topk_plain(x, MAX_DET, canon_zero=canon)
+                gv, gi = topk.topk(x, MAX_DET, canon_zero=canon)
+                torch.cuda.synchronize()
+                same_idx = bool(torch.equal(gi, ri))
+                same_val = bool(torch.equal(gv.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                                            rv.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)))
+                print(f"kernel topk {dtype} [{BATCH},{n}] k={MAX_DET} canon_zero={canon}: "
+                      f"indices equal {same_idx}, value bits equal {same_val}", flush=True)
+                if not (same_idx and same_val):
+                    fail("topk kernel disagrees with its plain version")
+                worst = max(worst, max_err(gv, rv))
+    records["topk"]["max_abs_err"] = worst
+
+
+def check_dets(dets, num, b: int) -> None:
+    import torch
+
+    if tuple(dets.shape) != (b, MAX_DET, 6) or tuple(num.shape) != (b,):
+        fail(f"dets shape {tuple(dets.shape)}, num shape {tuple(num.shape)}")
+    if not bool(torch.isfinite(dets).all()):
+        fail("non-finite detections")
+    cls, scores = dets[..., 5], dets[..., 4]
+    if not bool(((cls >= 0) & (cls < NC) & (cls == cls.round())).all()):
+        fail("classes are not integers in [0, 80)")
+    if not bool(((scores >= 0) & (scores <= 1)).all()):
+        fail("scores outside [0, 1]")
+    if not bool((scores[:, 1:] <= scores[:, :-1]).all()):
+        fail("scores not sorted in descending order")
+
+
+def phase_main(model, seed: int, records: dict):
+    """Serve the requests, check them, compare paths; returns the predictor
+    and the batch-32 request on the card for the timing phase."""
+    import numpy as np
+    import torch
+    from leanyolo_tpu_torch import Predictor, kernels
+    from leanyolo_tpu_torch.models.yolov10.decode import decode_topk
+
+    pred = Predictor(model, imgsz=IMGSZ, decode="topk", dtype="bfloat16", fuse=True, max_det=MAX_DET)
+    rng = np.random.RandomState(seed)
+    requests = {b: rng.randint(0, 256, (b, IMGSZ, IMGSZ, 3)).astype(np.uint8) for b in (1, 8, BATCH)}
+
+    kernels.reset_launches()
+    results = {b: pred.run_batch(imgs) for b, imgs in requests.items()}
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"main path launches over requests of batch {list(requests)}: {launches}", flush=True)
+    for name, n in launches.items():
+        records[name]["launches"] = n
+        if n == 0:
+            fail(f"kernel {name} was not launched on the main path")
+    for b, (dets, num) in results.items():
+        check_dets(dets, num, b)
+        print(f"request batch {b}: dets {tuple(dets.shape)}, num above conf {num.tolist()[:8]}, "
+              f"top score {float(dets[0, 0, 4]):.4f}", flush=True)
+
+    # Kernel path against the all-plain path on the card, on the batch of 8.
+    x8 = torch.from_numpy(requests[8]).cuda()
+    maps_k = pred.raw(x8)
+    with plain_kernels():
+        maps_p = pred.raw(x8)
+        pred32 = Predictor(model, imgsz=IMGSZ, dtype="float32", fuse=True)
+        maps_p32 = pred32.raw(x8)
+    maps_k32 = pred32.raw(x8)
+    torch.cuda.synchronize()
+    # fp32: the kernels change only the order of fp32 sums; the maps agree
+    # to 1e-3 of their scale. bf16: both paths round at the same points, but
+    # a one-ulp flip from another summation order grows through the ~90
+    # layers of a net whose BN keeps activations at unit scale. The limit is
+    # the bf16 rounding noise itself: the RMS gap between kernel and plain
+    # bf16 maps may not exceed the RMS gap between the plain bf16 and the
+    # plain fp32 maps.
+    for lvl in range(3):
+        for j, name in enumerate(("reg", "cls")):
+            k32, p32 = maps_k32[lvl][j].float(), maps_p32[lvl][j].float()
+            err32, scale = max_err(k32, p32), float(p32.abs().max())
+            kb, pb = maps_k[lvl][j].float(), maps_p[lvl][j].float()
+            gap_k = float((kb - pb).pow(2).mean().sqrt())
+            gap_bf16 = float((pb - p32).pow(2).mean().sqrt())
+            print(f"head P{lvl + 3} {name}: fp32 kernel vs plain max_abs_err {err32:.6g} of scale {scale:.6g}; "
+                  f"bf16 kernel vs plain rms {gap_k:.6g} (max {max_err(kb, pb):.6g}), "
+                  f"bf16 vs fp32 plain rms {gap_bf16:.6g}", flush=True)
+            if not err32 <= 1e-3 * max(1.0, scale):
+                fail("fp32 kernel path disagrees with the plain path on the head maps")
+            if not gap_k <= gap_bf16:
+                fail("bf16 kernel path is further from the plain path than bf16 rounding allows")
+    with torch.inference_mode():
+        d_k = decode_topk(maps_k, num_classes=NC, strides=model.cfg.strides, max_det=MAX_DET)
+        with plain_kernels():
+            d_p = decode_topk(maps_k, num_classes=NC, strides=model.cfg.strides, max_det=MAX_DET)
+    torch.cuda.synchronize()
+    if not torch.equal(d_k, d_p):
+        fail("decode on identical head maps differs between the top-k kernel and its plain version")
+    print("decode on identical head maps: kernel and plain outputs bit-equal", flush=True)
+
+    # fp32 on the card (kernels) against fp32 on the CPU (plain), small input.
+    small = rng.randint(0, 256, (2, 128, 128, 3)).astype(np.uint8)
+    gpu32 = Predictor(model, imgsz=128, dtype="float32", fuse=True).raw(small)
+    cpu32 = Predictor(model, imgsz=128, dtype="float32", fuse=True, device="cpu").raw(small)
+    for lvl, (g_, c_) in enumerate(zip(gpu32, cpu32)):
+        for a, b in zip(g_, c_):
+            err, scale = max_err(a.cpu(), b), float(b.abs().max())
+            if not err <= 1e-3 * max(1.0, scale):
+                fail(f"fp32 card vs CPU head map P{lvl + 3}: max_abs_err {err} of scale {scale}")
+    print("fp32 head maps, card vs CPU at [2,128,128,3]: within 1e-3 of scale", flush=True)
+    return pred, torch.from_numpy(requests[BATCH]).cuda()
+
+
+def phase_times(folded, seed: int, records: dict, pred, x32) -> None:
+    import torch
+    import torch.nn.functional as F
+    from leanyolo_tpu_torch.kernels import dwconv, stem, topk
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    bf = torch.bfloat16
+
+    bb = folded.backbone
+    w0, b0, w1, b1 = (t.to(dev, bf) for t in (bb.cv0.conv.weight, bb.cv0.conv.bias, bb.cv1.conv.weight, bb.cv1.conv.bias))
+    images = torch.randint(0, 256, (BATCH, IMGSZ, IMGSZ, 3), generator=g, device=dev, dtype=torch.uint8)
+    w0c, w1c = w0.contiguous(memory_format=torch.channels_last), w1.contiguous(memory_format=torch.channels_last)
+
+    def stem_library():
+        x = images.permute(0, 3, 1, 2).to(bf, memory_format=torch.channels_last)
+        return F.silu(F.conv2d(F.silu(F.conv2d(x, w0c, b0, 2, 1)), w1c, b1, 2, 1))
+
+    h0, w0_ = IMGSZ // 2, IMGSZ // 2
+    h1, w1_ = IMGSZ // 4, IMGSZ // 4
+    r = records["stem"]
+    r["ms"] = cuda_ms(lambda: stem.fused_stem(images, w0, b0, w1, b1))
+    r["plain_ms"] = cuda_ms(lambda: stem.fused_stem_plain(images, w0, b0, w1, b1, dtype=bf))
+    r["library_ms"] = cuda_ms(stem_library)
+    stem_bytes = images.numel() + BATCH * h1 * w1_ * 64 * 2 + 2 * (w0.numel() + b0.numel() + w1.numel() + b1.numel())
+    stem_ops = 2 * BATCH * (h0 * w0_ * 32 * 27 + h1 * w1_ * 64 * 288)
+    set_bound(r, stem_bytes, stem_ops, "bf16")
+
+    dw = folded.backbone.c8.m[0].cv1[2]
+    c = dw.conv.weight.shape[0]
+    x = torch.randn(BATCH, 20, 20, c, generator=g, device=dev).to(bf)
+    w, b = dw.conv.weight.to(dev, bf), dw.conv.bias.to(dev, bf)
+    xc = x.permute(0, 3, 1, 2)  # channels_last view of the NHWC tensor
+    wc = w.contiguous(memory_format=torch.channels_last)
+    r = records["dw7x7"]
+    r["ms"] = cuda_ms(lambda: dwconv.dw7x7_bias_silu(x, w, b))
+    r["plain_ms"] = cuda_ms(lambda: dwconv.dw7x7_bias_silu_plain(x, w, b))
+    r["library_ms"] = cuda_ms(lambda: F.silu(F.conv2d(xc, wc, b, 1, 3, 1, c)))
+    set_bound(r, 2 * x.numel() * 2 + 2 * (w.numel() + b.numel()), 2 * 49 * x.numel(), "bf16")
+
+    # Top-k at both decode shapes; the record sums the pair, as the main path
+    # launches one of each per request.
+    r = records["topk"]
+    ms = plain = lib = 0.0
+    nbytes = nops = 0
+    for n in (8400, 24000):
+        xs = torch.randn(BATCH, n, generator=g, device=dev).to(bf)
+        ms += cuda_ms(lambda: topk.topk(xs, MAX_DET, canon_zero=True))
+        plain += cuda_ms(lambda: topk.topk_plain(xs, MAX_DET, canon_zero=True))
+        lib += cuda_ms(lambda: torch.topk(xs, MAX_DET, dim=-1))
+        print(f"topk [{BATCH},{n}] k={MAX_DET}: cumulative kernel {ms:.4f} ms, plain {plain:.4f}, torch.topk {lib:.4f}")
+        nbytes += xs.numel() * 2 + BATCH * MAX_DET * (2 + 4)
+        nops += xs.numel()  # one key and one comparison per element per pass; passes vary with the data
+    r.update(ms=ms, plain_ms=plain, library_ms=lib)
+    set_bound(r, nbytes, nops, "fp32")
+
+    # The serving step, kernels against plain versions in turns (plain,
+    # kernel, kernel, plain) so drift in the card's clocks shows.
+    step = {"kernels": [], "plain": []}
+    for which in ("plain", "kernels", "kernels", "plain"):
+        ctx = plain_kernels() if which == "plain" else contextlib.nullcontext()
+        with ctx:
+            step[which].append(cuda_ms(lambda: pred.run_batch(x32), warmup=3, runs=20))
+    for which, ms in step.items():
+        print(f"main path yolov10s 640 bf16 batch {BATCH}, {which}: ms/batch {ms[0]:.4f} {ms[1]:.4f}, "
+              f"img/s {BATCH / ms[0] * 1e3:.2f} {BATCH / ms[1] * 1e3:.2f} (uint8 batch already on the card)",
+              flush=True)
+
+    # Where the serving step's device time goes, by kernel (5 steps).
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            pred.run_batch(x32)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    total = sum(e.self_device_time_total for e in events)
+    print(f"profile, 5 steps at batch {BATCH}: device time {total / 5 / 1e3:.4f} ms/step; top kernels:", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
+        print(f"  {e.self_device_time_total / 5 / 1e3:9.4f} ms/step {e.count // 5:5d} calls/step  {e.key[:90]}", flush=True)
+
+
+def set_bound(r: dict, nbytes: float, nops: float, kind: str) -> None:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / PEAK_OPS_PER_S[kind] * 1e3
+    r["bound_ms"] = max(t_bytes, t_ops)
+    r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(HERE, "leanyolo_tpu_torch")):
+        print("chip_smoke.py: the leanyolo_tpu_torch package is not beside this script", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    # fp32 comparisons hold plain fp32 math: no TF32 in cuDNN or matmuls.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    from leanyolo_tpu_torch.kernels import _build
+    from leanyolo_tpu_torch.models.yolov10.fold import fold_model
+
+    card = card_line()
+    print(card, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
+
+    t0 = time.perf_counter()
+    _build.ext()
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    records = {
+        name: {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": 0}
+        for name, src, rep in (
+            ("stem", "leanyolo_tpu_torch/kernels/csrc/stem.cu", "experiments/stem_pallas.py:293"),
+            ("dw7x7", "leanyolo_tpu_torch/kernels/csrc/dw7x7.cu", "experiments/exp_dw_pallas.py:79"),
+            ("topk", "leanyolo_tpu_torch/kernels/csrc/topk.cu", "leanyolo_tpu/ops/topk.py:69"),
+        )
+    }
+    model = make_model(SEED)
+    folded = fold_model(model, dtype=torch.bfloat16).cuda()
+    phase_kernels(folded, SEED, records)
+    pred, x32 = phase_main(model, SEED, records)
+    phase_times(folded, SEED, records, pred, x32)
+
+    print(card, flush=True)
+    print(json.dumps({"kernels": list(records.values())}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

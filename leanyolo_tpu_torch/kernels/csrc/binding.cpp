@@ -1,0 +1,71 @@
+// PyTorch binding of the port's kernels: the one source that includes
+// PyTorch's headers. It checks what the Python wrappers already checked
+// (device, dtype, contiguity), launches on the current stream and checks
+// the launch.
+#include <torch/extension.h>
+#include <ATen/cuda/CUDAContext.h>
+#include <c10/cuda/CUDAException.h>
+
+#include "kernels.h"
+
+namespace {
+
+void check(const torch::Tensor& t, const char* name) {
+  TORCH_CHECK(t.is_cuda(), name, ": expected a CUDA tensor");
+  TORCH_CHECK(t.is_contiguous(), name, ": expected a contiguous tensor");
+}
+
+bool act_is_bf16(const torch::Tensor& t, const char* name) {
+  TORCH_CHECK(t.scalar_type() == at::kBFloat16 || t.scalar_type() == at::kFloat, name,
+              ": expected bfloat16 or float32");
+  return t.scalar_type() == at::kBFloat16;
+}
+
+void stem(torch::Tensor x, torch::Tensor w0, torch::Tensor b0, torch::Tensor w1, torch::Tensor b1,
+          torch::Tensor out) {
+  for (auto* p : {&x, &w0, &b0, &w1, &b1, &out}) check(*p, "stem");
+  const bool bf16 = act_is_bf16(out, "stem out");
+  for (auto* p : {&w0, &b0, &w1, &b1}) TORCH_CHECK(p->scalar_type() == out.scalar_type(), "stem: weight dtype");
+  const bool x_u8 = x.scalar_type() == at::kByte;
+  TORCH_CHECK(x_u8 || x.scalar_type() == out.scalar_type(), "stem: images must be uint8 or the activation dtype");
+  TORCH_CHECK(x.dim() == 4 && x.size(3) == 3, "stem: images [B,H,W,3]");
+  const int B = x.size(0), H = x.size(1), W = x.size(2);
+  const int c0 = w0.size(3), c1 = w1.size(3);
+  TORCH_CHECK(H % 32 == 0 && W % 32 == 0, "stem: H, W % 32");
+  TORCH_CHECK(out.size(0) == B && out.size(1) == H / 4 && out.size(2) == W / 4 && out.size(3) == c1, "stem: out shape");
+  C10_CUDA_CHECK(launch_stem(x.data_ptr(), x_u8, w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                             out.data_ptr(), B, H, W, c0, c1, bf16, at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void dw7x7(torch::Tensor x, torch::Tensor w, torch::Tensor b, torch::Tensor out) {
+  for (auto* p : {&x, &w, &b, &out}) check(*p, "dw7x7");
+  const bool bf16 = act_is_bf16(x, "dw7x7 x");
+  for (auto* p : {&w, &b, &out}) TORCH_CHECK(p->scalar_type() == x.scalar_type(), "dw7x7: dtype");
+  TORCH_CHECK(x.dim() == 4 && out.sizes() == x.sizes(), "dw7x7: x, out [B,H,W,C]");
+  const int C = x.size(3);
+  TORCH_CHECK(w.numel() == 49 * C && b.numel() == C, "dw7x7: w [49,C], b [C]");
+  C10_CUDA_CHECK(launch_dw7x7(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), x.size(0), x.size(1),
+                              x.size(2), C, bf16, at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void topk(torch::Tensor x, int64_t k, bool canon_zero, torch::Tensor vals, torch::Tensor idx) {
+  for (auto* p : {&x, &vals, &idx}) check(*p, "topk");
+  const bool bf16 = act_is_bf16(x, "topk x");
+  TORCH_CHECK(x.dim() == 2 && vals.scalar_type() == x.scalar_type() && idx.scalar_type() == at::kInt, "topk: types");
+  const int rows = x.size(0), n = x.size(1);
+  TORCH_CHECK(k >= 1 && k <= 1024 && k <= n, "topk: 1 <= k <= min(n, 1024)");
+  TORCH_CHECK(vals.size(0) == rows && vals.size(1) == k && idx.size(0) == rows && idx.size(1) == k, "topk: out shape");
+  C10_CUDA_CHECK(launch_topk(x.data_ptr(), rows, n, static_cast<int>(k), canon_zero, bf16, vals.data_ptr(),
+                             idx.data_ptr<int32_t>(), at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+}  // namespace
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("stem", &stem, "fused stem: conv3x3 s2 + bias + SiLU, twice");
+  m.def("dw7x7", &dw7x7, "depthwise 7x7 + bias + SiLU");
+  m.def("topk", &topk, "exact per-row top-k");
+}

@@ -1,0 +1,25 @@
+// Launchers of the port's CUDA kernels, with a plain C++ interface: no
+// PyTorch header reaches nvcc. Each launches on `stream` and returns the
+// first CUDA error it met while configuring the launch (cudaSuccess if
+// none); the caller checks the launch itself right after.
+#pragma once
+
+#include <cuda_runtime_api.h>
+#include <cstdint>
+
+// Fused stem (stem.cu). x [B,H,W,3] uint8 (x_u8) or the activation type;
+// w0 [3,3,3,c0] and w1 [3,3,c0,c1] HWIO, b0 [c0], b1 [c1], out [B,H/4,W/4,c1],
+// all in the activation type (bf16 when bf16, else fp32). H, W % 32 == 0.
+cudaError_t launch_stem(const void* x, bool x_u8, const void* w0, const void* b0, const void* w1,
+                        const void* b1, void* out, int B, int H, int W, int c0, int c1, bool bf16,
+                        cudaStream_t stream);
+
+// Depthwise 7x7, pad 3, + bias + SiLU (dw7x7.cu). x, out [B,H,W,C];
+// w [49,C]; b [C]; all bf16 (bf16) or fp32.
+cudaError_t launch_dw7x7(const void* x, const void* w, const void* b, void* out, int B, int H, int W, int C,
+                         bool bf16, cudaStream_t stream);
+
+// Exact per-row top-k (topk.cu). x [rows, n] bf16 or fp32; vals [rows, k]
+// in x's type; idx [rows, k] int32. k <= 1024.
+cudaError_t launch_topk(const void* x, int rows, int n, int k, bool canon_zero, bool bf16, void* vals,
+                        int32_t* idx, cudaStream_t stream);

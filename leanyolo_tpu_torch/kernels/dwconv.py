@@ -1,0 +1,45 @@
+"""Depthwise 7x7 conv (pad 3, stride 1) + bias + SiLU: CUDA kernel (csrc/dw7x7.cu)
+and plain version.
+
+The folded RepVGGDW block (`leanyolo_tpu/models/yolov10/layers.py:359-361`).
+Replaces the JAX package's Pallas kernel `experiments/exp_dw_pallas.py:75
+dw_pallas`, for any B, H, W, C. Rounding follows the folded JAX forward: the
+fp32 sum is rounded to the activation dtype, then the bias add and the SiLU
+each round again.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import LAUNCHES
+from ._build import check_cuda, ext
+
+
+def dw7x7_bias_silu_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x [B, H, W, C] NHWC, w [C, 1, 7, 7], b [C] -> [B, H, W, C] in x's dtype."""
+    c = x.shape[-1]
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), None, 1, 3, 1, c)
+    return F.silu(y + b.to(y.dtype).view(1, -1, 1, 1)).permute(0, 2, 3, 1)
+
+
+def dw7x7_bias_silu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x [B, H, W, C] NHWC (contiguous on the card), w [C, 1, 7, 7], b [C]."""
+    if x.device.type == "cpu":
+        return dw7x7_bias_silu_plain(x, w, b)
+    check_cuda(x, "dw7x7 x")
+    if x.dtype not in (torch.bfloat16, torch.float32) or x.ndim != 4:
+        raise ValueError(f"dw7x7: bf16 or fp32 NHWC input, got {x.dtype} {tuple(x.shape)}")
+    c = x.shape[-1]
+    if tuple(w.shape) != (c, 1, 7, 7) or tuple(b.shape) != (c,):
+        raise ValueError(f"dw7x7: need w [{c}, 1, 7, 7] and b [{c}], got {tuple(w.shape)}, {tuple(b.shape)}")
+    wk = w.to(x.dtype).reshape(c, 49).t().contiguous()  # [49, C]: a tap's channels contiguous
+    bk = b.to(x.dtype).contiguous()
+    check_cuda(wk, "dw7x7 w")
+    check_cuda(bk, "dw7x7 b")
+    out = torch.empty_like(x)
+    if x.numel():
+        ext().dw7x7(x, wk, bk, out)
+        LAUNCHES["dw7x7"] += 1
+    return out

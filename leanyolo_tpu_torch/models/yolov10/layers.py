@@ -1,0 +1,333 @@
+"""YOLOv10 building blocks as PyTorch modules.
+
+Counterparts of the JAX package's `leanyolo_tpu/models/yolov10/layers.py:156-528`.
+Module and parameter names mirror the JAX parameter tree one-to-one
+(`cv1`, `m.0.cv2`, `bn.running_var`, ...), so a JAX tree loads by a pure
+name table (convert.py). Activations are NCHW tensors, kept in the
+`channels_last` memory format on the card so cuDNN runs NHWC convs; the
+kernels take the NHWC view of the same memory.
+
+Numerics follow the JAX forward, including its rounding points in bf16:
+the conv output is rounded to the activation dtype, then the bias (or the
+BN affine) and the SiLU run in that dtype; PSA attention scores are stored
+in the activation dtype before an fp32 softmax; the upsample-concat 1x1
+conv rounds its two halves separately before the add.
+
+The JAX package's conv-input `optimization_barrier` is a TPU-compiler
+workaround and numerically the identity; it has no counterpart here.
+Training-mode BatchNorm (batch statistics) belongs to the training slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ...kernels import dwconv
+
+BN_EPS = 1e-3
+
+Tensor = torch.Tensor
+
+
+def _uniform(shape, bound: float, generator: Optional[torch.Generator]) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=torch.float32).uniform_(-bound, bound, generator=generator))
+
+
+class Conv(nn.Module):
+    """Plain 2D conv (`weight` OIHW, optional `bias`), torch-style k//2 padding.
+
+    The bias is added after the conv output is rounded to the activation
+    dtype, as the JAX forward does (`conv2d(...) + b.astype(x.dtype)`).
+    Init matches torch's Conv2d default (kaiming-uniform, a=sqrt(5)).
+    """
+
+    def __init__(self, c_in: int, c_out: int, k: int, *, stride: int = 1, groups: int = 1,
+                 padding: Optional[int] = None, bias: bool = False,
+                 generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        self.stride, self.groups = stride, groups
+        self.padding = k // 2 if padding is None else padding
+        fan_in = k * k * (c_in // groups)
+        self.weight = _uniform((c_out, c_in // groups, k, k), math.sqrt(3.0 / fan_in), generator)
+        if bias:
+            self.bias = _uniform((c_out,), 1.0 / math.sqrt(fan_in), generator)
+        else:
+            self.register_parameter("bias", None)
+
+    def conv(self, x: Tensor, weight: Optional[Tensor] = None) -> Tensor:
+        w = self.weight if weight is None else weight
+        return F.conv2d(x, w.to(x.dtype), None, self.stride, self.padding, 1, self.groups)
+
+    def forward(self, x: Tensor) -> Tensor:
+        y = self.conv(x)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype).view(1, -1, 1, 1)
+        return y
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm as an affine epilogue (JAX `_bn_act`, eval branch).
+
+    mul = rsqrt(var + eps) * scale and add = bias - mean * mul are formed in
+    fp32, then cast to the activation dtype before the multiply-add.
+    """
+
+    def __init__(self, c: int) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+
+    def mul_add(self) -> Tuple[Tensor, Tensor]:
+        mul = torch.rsqrt(self.running_var.float() + BN_EPS) * self.weight.float()
+        return mul, self.bias.float() - self.running_mean.float() * mul
+
+    def forward(self, y: Tensor) -> Tensor:
+        mul, add = self.mul_add()
+        return y * mul.to(y.dtype).view(1, -1, 1, 1) + add.to(y.dtype).view(1, -1, 1, 1)
+
+
+class ConvBNAct(nn.Module):
+    """Conv -> BN -> SiLU (JAX `cba_apply`), unfolded or folded.
+
+    Unfolded: `conv` has no bias and `bn` holds the statistics. Folded
+    (fold.py): `conv` carries the bias and `bn` is None.
+    """
+
+    def __init__(self, c_in: int, c_out: int, k: int, *, stride: int = 1, groups: int = 1,
+                 padding: Optional[int] = None, act: bool = True,
+                 generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        self.conv = Conv(c_in, c_out, k, stride=stride, groups=groups, padding=padding, generator=generator)
+        self.bn: Optional[BatchNorm] = BatchNorm(c_out)
+        self.act = act
+
+    @property
+    def folded(self) -> bool:
+        return self.bn is None
+
+    def epilogue(self, y: Tensor) -> Tensor:
+        """BN (or bias) + SiLU on a conv output already in the activation dtype."""
+        if self.bn is not None:
+            y = self.bn(y)
+        elif self.conv.bias is not None:
+            y = y + self.conv.bias.to(y.dtype).view(1, -1, 1, 1)
+        return F.silu(y) if self.act else y
+
+    def forward(self, x: Tensor) -> Tensor:
+        return self.epilogue(self.conv.conv(x))
+
+    def forward_upcat(self, a: Tensor, b: Tensor) -> Tensor:
+        """`forward(cat([upsample2x(a), b]))` for a 1x1 conv, with the conv
+        distributed over the concat (JAX `cba_apply_upcat`): each half is
+        convolved and rounded on its own, then the upsampled a-half is added.
+        """
+        w = self.conv.weight
+        assert w.shape[2] == 1 and w.shape[3] == 1, "upcat distribution needs a 1x1 conv"
+        ca = a.shape[1]
+        ya = self.conv.conv(a, w[:, :ca])
+        yb = self.conv.conv(b, w[:, ca:])
+        return self.epilogue(F.interpolate(ya, scale_factor=2, mode="nearest") + yb)
+
+
+def _cat(xs: Sequence[Tensor]) -> Tensor:
+    return torch.cat(list(xs), dim=1)
+
+
+class Bottleneck(nn.Module):
+    """3x3 -> 3x3 with residual."""
+
+    def __init__(self, c_in: int, c_out: int, *, shortcut: bool, e: float = 1.0, generator=None) -> None:
+        super().__init__()
+        c_hidden = int(c_out * e)
+        self.cv1 = ConvBNAct(c_in, c_hidden, 3, generator=generator)
+        self.cv2 = ConvBNAct(c_hidden, c_out, 3, generator=generator)
+        self.add = shortcut and c_in == c_out
+
+    def forward(self, x: Tensor) -> Tensor:
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+UpcatInput = Union[Tensor, Tuple[Tensor, Tensor]]
+
+
+def _cv1_maybe_upcat(cv1: ConvBNAct, x: UpcatInput) -> Tensor:
+    """`x` may be an `(a, b)` tuple meaning `cat([upsample2x(a), b])`."""
+    if isinstance(x, tuple):
+        return cv1.forward_upcat(*x)
+    return cv1(x)
+
+
+class C2f(nn.Module):
+    """Split-transform-merge C2f; with `lk` a bool, the C2fCIB scaffold
+    (CIB inner blocks with that long-kernel flag)."""
+
+    def __init__(self, c_in: int, c_out: int, n: int, *, shortcut: bool, e: float = 0.5,
+                 lk: Optional[bool] = None, generator=None) -> None:
+        super().__init__()
+        c = int(c_out * e)
+        self.c = c
+        g = generator
+        self.cv1 = ConvBNAct(c_in, 2 * c, 1, generator=g)
+        self.cv2 = ConvBNAct((2 + n) * c, c_out, 1, generator=g)
+        if lk is None:
+            self.m = nn.ModuleList(Bottleneck(c, c, shortcut=shortcut, generator=g) for _ in range(n))
+        else:
+            self.m = nn.ModuleList(CIB(c, c, shortcut=shortcut, lk=lk, generator=g) for _ in range(n))
+
+    def forward(self, x: UpcatInput) -> Tensor:
+        y = _cv1_maybe_upcat(self.cv1, x)
+        ys = [y[:, : self.c], y[:, self.c :]]
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        return self.cv2(_cat(ys))
+
+
+class SPPF(nn.Module):
+    """1x1 -> 3 chained 5x5 max pools -> concat -> 1x1."""
+
+    def __init__(self, c_in: int, c_out: int, k: int = 5, generator=None) -> None:
+        super().__init__()
+        c_hidden = c_in // 2
+        self.k = k
+        self.cv1 = ConvBNAct(c_in, c_hidden, 1, generator=generator)
+        self.cv2 = ConvBNAct(c_hidden * 4, c_out, 1, generator=generator)
+
+    def forward(self, x: Tensor) -> Tensor:
+        x = self.cv1(x)
+        ys = [x]
+        for _ in range(3):
+            ys.append(maxpool2d_same(ys[-1], self.k))
+        return self.cv2(_cat(ys))
+
+
+def maxpool2d_same(x: Tensor, k: int) -> Tensor:
+    """k x k max pool, stride 1, same padding (the pad never wins: -inf)."""
+    return F.max_pool2d(x, k, stride=1, padding=k // 2)
+
+
+class RepVGGDW(nn.Module):
+    """Depthwise 7x7 + 3x3 dual branch, SiLU on the sum (unfolded form).
+
+    fold.py replaces it with `FusedRepVGGDW`, one 7x7 depthwise conv.
+    """
+
+    def __init__(self, ch: int, generator=None) -> None:
+        super().__init__()
+        self.conv = ConvBNAct(ch, ch, 7, groups=ch, padding=3, act=False, generator=generator)
+        self.conv1 = ConvBNAct(ch, ch, 3, groups=ch, padding=1, act=False, generator=generator)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return F.silu(self.conv(x) + self.conv1(x))
+
+
+class FusedRepVGGDW(ConvBNAct):
+    """Folded RepVGGDW: depthwise 7x7 (pad 3) + bias + SiLU.
+
+    Runs through the dw7x7 kernel wrapper (kernels/dwconv.py): the
+    hand-written CUDA kernel for a tensor on the card, its plain PyTorch
+    version for a tensor on the CPU.
+    """
+
+    def __init__(self, ch: int, weight: Tensor, bias: Tensor) -> None:
+        super().__init__(ch, ch, 7, groups=ch, padding=3, act=True, generator=torch.Generator())
+        self.bn = None
+        self.conv.weight = nn.Parameter(weight)
+        self.conv.bias = nn.Parameter(bias)
+
+    def forward(self, x: Tensor) -> Tensor:
+        y = dwconv.dw7x7_bias_silu(x.permute(0, 2, 3, 1).contiguous(), self.conv.weight, self.conv.bias)
+        return y.permute(0, 3, 1, 2)
+
+
+class CIB(nn.Module):
+    """Compact inverted block."""
+
+    def __init__(self, c_in: int, c_out: int, *, shortcut: bool, e: float = 1.0, lk: bool = False,
+                 generator=None) -> None:
+        super().__init__()
+        mid = 2 * int(c_out * e)
+        g = generator
+        self.cv1 = nn.ModuleList([
+            ConvBNAct(c_in, c_in, 3, groups=c_in, generator=g),
+            ConvBNAct(c_in, mid, 1, generator=g),
+            RepVGGDW(mid, generator=g) if lk else ConvBNAct(mid, mid, 3, groups=mid, generator=g),
+            ConvBNAct(mid, c_out, 1, generator=g),
+            ConvBNAct(c_out, c_out, 3, groups=c_out, generator=g),
+        ])
+        self.add = shortcut and c_in == c_out
+
+    def forward(self, x: Tensor) -> Tensor:
+        y = x
+        for m in self.cv1:
+            y = m(y)
+        return x + y if self.add else y
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention over spatial tokens + depthwise positional branch."""
+
+    def __init__(self, dim: int, num_heads: int, attn_ratio: float = 0.5, generator=None) -> None:
+        super().__init__()
+        self.nh = max(1, num_heads)
+        self.hd = dim // self.nh
+        self.kd = int(self.hd * attn_ratio)
+        self.scale = self.kd ** -0.5
+        h = dim + self.kd * self.nh * 2
+        self.qkv = ConvBNAct(dim, h, 1, act=False, generator=generator)
+        self.proj = ConvBNAct(dim, dim, 1, act=False, generator=generator)
+        self.pe = ConvBNAct(dim, dim, 3, groups=dim, act=False, generator=generator)
+
+    def forward(self, x: Tensor) -> Tensor:
+        b, c, h, w = x.shape
+        n, nh, kd, hd = h * w, self.nh, self.kd, self.hd
+        qkv = self.qkv(x).permute(0, 2, 3, 1).reshape(b, n, nh, 2 * kd + hd)
+        q, k, v = qkv[..., :kd], qkv[..., kd : 2 * kd], qkv[..., 2 * kd :]
+        # Scores accumulate in fp32 and are stored in the activation dtype;
+        # the softmax runs in fp32 (JAX layers.py:469-477).
+        attn = (torch.einsum("bine,bjne->bnij", q.float(), k.float()) * self.scale).to(x.dtype)
+        attn = torch.softmax(attn.float(), dim=-1).to(v.dtype)
+        out = torch.einsum("bnij,bjnd->bind", attn.float(), v.float()).to(v.dtype)
+        out = out.reshape(b, h, w, c).permute(0, 3, 1, 2)
+        pe = self.pe(v.reshape(b, h, w, c).permute(0, 3, 1, 2))
+        return self.proj(out + pe)
+
+
+class PSA(nn.Module):
+    """Partial self-attention."""
+
+    def __init__(self, c_in: int, e: float = 0.5, generator=None) -> None:
+        super().__init__()
+        c = int(c_in * e)
+        self.c = c
+        g = generator
+        self.cv1 = ConvBNAct(c_in, 2 * c, 1, generator=g)
+        self.cv2 = ConvBNAct(2 * c, c_in, 1, generator=g)
+        self.attn = Attention(c, max(1, c // 64), 0.5, generator=g)
+        self.ffn = nn.ModuleList([ConvBNAct(c, c * 2, 1, generator=g), ConvBNAct(c * 2, c, 1, act=False, generator=g)])
+
+    def forward(self, x: Tensor) -> Tensor:
+        y = self.cv1(x)
+        a, b = y[:, : self.c], y[:, self.c :]
+        b = b + self.attn(b)
+        b = b + self.ffn[1](self.ffn[0](b))
+        return self.cv2(_cat((a, b)))
+
+
+class SCDown(nn.Module):
+    """Spatial-channel decoupled downsample; no activation on the DW conv."""
+
+    def __init__(self, c_in: int, c_out: int, generator=None) -> None:
+        super().__init__()
+        self.cv1 = ConvBNAct(c_in, c_out, 1, generator=generator)
+        self.cv2 = ConvBNAct(c_out, c_out, 3, stride=2, groups=c_out, act=False, generator=generator)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return self.cv2(self.cv1(x))

@@ -1,0 +1,94 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These tests need an NVIDIA card and skip elsewhere (CUDA kernels have no CPU
+mode). The file imports no JAX, so it runs on a machine without it:
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
+
+Tolerances as in chip_smoke.py: kernel and plain version round at the same
+points but sum in another order, so bf16 outputs may differ by a rounding
+that lands one ulp apart: limit 4 bf16 ulps (2^-8 each) of the output's
+largest magnitude; fp32 (TF32 off) to 1e-4 of it. Top-k is bit-exact.
+"""
+
+from __future__ import annotations
+
+import pytest
+import torch
+
+from leanyolo_tpu_torch import kernels
+from leanyolo_tpu_torch.kernels import dwconv, stem, topk
+from torch_parity import cuda_device  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.cuda
+
+
+def _limit(ref: torch.Tensor, dtype) -> float:
+    scale = max(1.0, float(ref.float().abs().max()))
+    return (4 * 2.0 ** -8 if dtype == torch.bfloat16 else 1e-4) * scale
+
+
+@pytest.fixture(autouse=True)
+def _no_tf32():
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,w,c0,c1", [(2, 64, 96, 32, 64), (1, 128, 128, 16, 32), (32, 640, 640, 32, 64)])
+@pytest.mark.parametrize("u8", [True, False])
+def test_stem_kernel(cuda_device, dtype, b, h, w, c0, c1, u8):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    img = torch.randint(0, 256, (b, h, w, 3), generator=g, device=cuda_device, dtype=torch.uint8)
+    if not u8:
+        img = img.to(dtype)
+    ws = [torch.randn(s, generator=g, device=cuda_device).mul(sc).to(dtype)
+          for s, sc in (((c0, 3, 3, 3), 0.01), ((c0,), 0.1), ((c1, c0, 3, 3), 0.1), ((c1,), 0.1))]
+    ref = stem.fused_stem_plain(img, *ws, dtype=dtype)
+    n = kernels.LAUNCHES["stem"]
+    got = stem.fused_stem(img, *ws)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["stem"] == n + 1
+    assert got.shape == (b, h // 4, w // 4, c1) and got.is_contiguous()
+    assert float((got.float() - ref.float()).abs().max()) <= _limit(ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(32, 20, 20, 512), (2, 13, 9, 48), (1, 40, 40, 33)])
+def test_dw7x7_kernel(cuda_device, dtype, shape):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    c = shape[-1]
+    x = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    w = (torch.randn(c, 1, 7, 7, generator=g, device=cuda_device) * 0.1).to(dtype)
+    b = (torch.randn(c, generator=g, device=cuda_device) * 0.1).to(dtype)
+    ref = dwconv.dw7x7_bias_silu_plain(x, w, b)
+    got = dwconv.dw7x7_bias_silu(x, w, b)
+    torch.cuda.synchronize()
+    assert float((got.float() - ref.float()).abs().max()) <= _limit(ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,n,k", [(32, 8400, 300), (32, 24000, 300), (3, 40000, 300), (5, 700, 700), (4, 50, 1)])
+@pytest.mark.parametrize("canon", [True, False])
+def test_topk_kernel(cuda_device, dtype, rows, n, k, canon):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x = (torch.randn(rows, n, generator=g, device=cuda_device) * 4).round() / 4
+    x[:, ::5] = -0.0
+    x = x.to(dtype)
+    rv, ri = topk.topk_plain(x, k, canon_zero=canon)
+    gv, gi = topk.topk(x, k, canon_zero=canon)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, ri)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(gv.view(bits), rv.view(bits))
+
+
+def test_wrappers_raise_on_unsupported(cuda_device):
+    with pytest.raises(ValueError):
+        stem.fused_stem(torch.zeros(1, 48, 64, 3, dtype=torch.uint8, device=cuda_device),
+                        *[torch.zeros(s, device=cuda_device) for s in ((32, 3, 3, 3), (32,), (64, 32, 3, 3), (64,))])
+    with pytest.raises(ValueError):
+        dwconv.dw7x7_bias_silu(torch.zeros(1, 8, 8, 4, device=cuda_device).permute(0, 2, 1, 3),
+                               torch.zeros(4, 1, 7, 7, device=cuda_device), torch.zeros(4, device=cuda_device))
+    with pytest.raises(ValueError):
+        topk.topk(torch.zeros(2, 10, dtype=torch.float16, device=cuda_device), 3, canon_zero=True)
