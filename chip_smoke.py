@@ -15,7 +15,15 @@ Phases, each of which fails loudly (non-zero exit):
    small input;
 5. times from CUDA events (warm-up, median of 20+ runs): each kernel, its
    plain version and the PyTorch call that computes the same function, and
-   the serving path's images per second at batch 32.
+   the serving path's images per second at batch 32;
+6. the training path: yolov10s at full width and depth, 640 px, bf16
+   activations over fp32 parameters, trains through Trainer.train_step at
+   batch 32 (24 GT slots, 40% valid, augmentation on, clip 1.0): 3 warm-up
+   and 10 timed steps, with the launches of the SPPF max-pool backward
+   kernel counted over them, finite losses, peak memory and a profile; the
+   loss on one fixed batch falls over 20 steps; one fp32 step with the
+   kernel against the all-plain step from the same state (deterministic
+   cuDNN), and one fp32 step on the card against the CPU (yolov10n, 128 px).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.
@@ -44,6 +52,7 @@ BATCH = 32
 MAX_DET = 300
 NC = 80
 SEED = 0  # weights, images and test inputs all come from it
+SERVING_KERNELS = ("stem", "dw7x7", "topk")  # launched by the serving path; mpbwd by the training path
 
 
 def fail(msg: str) -> None:
@@ -89,16 +98,17 @@ def plain_kernels():
     device alone. This swaps the module attributes the port calls through,
     for the all-plain reference run on the card only.
     """
-    from leanyolo_tpu_torch.kernels import dwconv, stem, topk
+    from leanyolo_tpu_torch.kernels import dwconv, mpbwd, stem, topk
 
-    saved = (stem.fused_stem, dwconv.dw7x7_bias_silu, topk.topk)
+    saved = (stem.fused_stem, dwconv.dw7x7_bias_silu, topk.topk, mpbwd.mpbwd)
     stem.fused_stem = lambda *a, dtype=None, **kw: stem.fused_stem_plain(*a, dtype=dtype or a[1].dtype, **kw)
     dwconv.dw7x7_bias_silu = dwconv.dw7x7_bias_silu_plain
     topk.topk = topk.topk_plain
+    mpbwd.mpbwd = mpbwd.mpbwd_plain
     try:
         yield
     finally:
-        stem.fused_stem, dwconv.dw7x7_bias_silu, topk.topk = saved
+        stem.fused_stem, dwconv.dw7x7_bias_silu, topk.topk, mpbwd.mpbwd = saved
 
 
 def make_model(seed: int):
@@ -132,9 +142,9 @@ def make_model(seed: int):
 
 
 def phase_kernels(folded, seed: int, records: dict) -> None:
-    """Each kernel against its plain version at the serving path's shapes."""
+    """Each kernel against its plain version at its path's shapes."""
     import torch
-    from leanyolo_tpu_torch.kernels import dwconv, stem, topk
+    from leanyolo_tpu_torch.kernels import dwconv, mpbwd, stem, topk
 
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -195,6 +205,27 @@ def phase_kernels(folded, seed: int, records: dict) -> None:
                 worst = max(worst, max_err(gv, rv))
     records["topk"]["max_abs_err"] = worst
 
+    # mpbwd: bit-equal to its plain version (the same routing, the same f32
+    # summation order), at the SPPF shape of the training path and an odd one.
+    worst = 0.0
+    for shape in ((BATCH, 20, 20, 256), (3, 13, 17, 40)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for ties in (False, True):
+                x = torch.randn(shape, generator=g, device=dev)
+                if ties:
+                    x = (x * 2).round() / 2  # halves: windows hold their max twice
+                x, dy = x.to(dtype), torch.randn(shape, generator=g, device=dev).to(dtype)
+                ref = mpbwd.mpbwd_plain(x, dy)
+                got = mpbwd.mpbwd(x, dy)
+                torch.cuda.synchronize()
+                bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                same = bool(torch.equal(got.view(bits), ref.view(bits)))
+                print(f"kernel mpbwd {dtype} {list(shape)} ties={ties}: bits equal {same}", flush=True)
+                if not same:
+                    fail("mpbwd kernel disagrees with its plain version")
+                worst = max(worst, max_err(got, ref))
+    records["mpbwd"]["max_abs_err"] = worst
+
 
 def check_dets(dets, num, b: int) -> None:
     import torch
@@ -228,11 +259,11 @@ def phase_main(model, seed: int, records: dict):
     results = {b: pred.run_batch(imgs) for b, imgs in requests.items()}
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    print(f"main path launches over requests of batch {list(requests)}: {launches}", flush=True)
-    for name, n in launches.items():
-        records[name]["launches"] = n
+    print(f"serving path launches over requests of batch {list(requests)}: {launches}", flush=True)
+    for name in SERVING_KERNELS:
+        records[name]["launches"] = n = launches[name]
         if n == 0:
-            fail(f"kernel {name} was not launched on the main path")
+            fail(f"kernel {name} was not launched on the serving path")
     for b, (dets, num) in results.items():
         check_dets(dets, num, b)
         print(f"request batch {b}: dets {tuple(dets.shape)}, num above conf {num.tolist()[:8]}, "
@@ -354,7 +385,7 @@ def phase_times(folded, seed: int, records: dict, pred, x32) -> None:
         with ctx:
             step[which].append(cuda_ms(lambda: pred.run_batch(x32), warmup=3, runs=20))
     for which, ms in step.items():
-        print(f"main path yolov10s 640 bf16 batch {BATCH}, {which}: ms/batch {ms[0]:.4f} {ms[1]:.4f}, "
+        print(f"serving path yolov10s 640 bf16 batch {BATCH}, {which}: ms/batch {ms[0]:.4f} {ms[1]:.4f}, "
               f"img/s {BATCH / ms[0] * 1e3:.2f} {BATCH / ms[1] * 1e3:.2f} (uint8 batch already on the card)",
               flush=True)
 
@@ -370,6 +401,174 @@ def phase_times(folded, seed: int, records: dict, pred, x32) -> None:
     print(f"profile, 5 steps at batch {BATCH}: device time {total / 5 / 1e3:.4f} ms/step; top kernels:", flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
         print(f"  {e.self_device_time_total / 5 / 1e3:9.4f} ms/step {e.count // 5:5d} calls/step  {e.key[:90]}", flush=True)
+
+
+TRAIN_GT = 24  # GT slots per image, 40% valid: bench_train.py's draw
+
+
+def train_batch(rng, b: int, imgsz: int, device):
+    """A training batch drawn as bench_train.py draws it: uint8 images,
+    labels, xyxy boxes 8-60 px wide, 40% of the slots valid. Images, labels
+    and boxes go to `device`; the mask stays on the host, where the trainer
+    picks its GT bucket."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    x1, y1 = rng.uniform(0, imgsz - 60, (2, b, TRAIN_GT)).astype(np.float32)
+    wh = rng.uniform(8, 60, (2, b, TRAIN_GT)).astype(np.float32)
+    images = rng.randint(0, 256, (b, imgsz, imgsz, 3)).astype(np.uint8)
+    labels = rng.randint(0, NC, (b, TRAIN_GT)).astype(np.int32)
+    boxes = np.stack([x1, y1, x1 + wh[0], y1 + wh[1]], axis=-1)
+    mask = rng.uniform(size=(b, TRAIN_GT)) < 0.4
+    t = lambda a: torch.from_numpy(a).to(device)
+    return SimpleNamespace(images=t(images), gt_labels=t(labels), gt_boxes=t(boxes), gt_mask=mask)
+
+
+def phase_train(seed: int, records: dict) -> None:
+    """The training path at full size, then its checks (see the module doc)."""
+    import copy
+
+    import numpy as np
+    import torch
+    from leanyolo_tpu_torch import TrainConfig, Trainer, YOLOv10, kernels
+
+    names = [f"c{i}" for i in range(NC)]
+    rng = np.random.RandomState(seed)
+    cfg = TrainConfig(bf16=True, augment=True, grad_clip=1.0, steps_per_epoch=1000)  # bench_train.py:35
+    tr = Trainer(YOLOv10.create("yolov10s", class_names=names, seed=seed), cfg)
+    batch = train_batch(rng, BATCH, IMGSZ, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses, times = [], []
+    for i in range(13):  # 3 warm-up steps, then 10 timed
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(tr.train_step(batch, gen))
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"training path launches over 13 steps: {launches}", flush=True)
+    records["mpbwd"]["launches"] = launches["mpbwd"]
+    if launches["mpbwd"] != 3 * 13:
+        fail(f"mpbwd launched {launches['mpbwd']} times over 13 train steps, expected 3 per step")
+    totals = [float(l["total"]) for l in losses]
+    if not all(np.isfinite([float(v) for l in losses for v in l.values()])):
+        fail(f"non-finite training losses: {totals}")
+    step_ms = [s.elapsed_time(e) for s, e in times[3:]]
+    ms = statistics.median(step_ms)
+    print(f"train yolov10s 640 bf16 batch {BATCH}: ms/step median {ms:.4f} mean {statistics.mean(step_ms):.4f} "
+          f"(min {min(step_ms):.4f} max {max(step_ms):.4f}), img/s {BATCH / ms * 1e3:.2f}; peak memory {peak:.2f} GiB; "
+          f"{card_line()}", flush=True)
+    print(f"train losses (total) over the 13 steps: {[round(v, 4) for v in totals]}", flush=True)
+
+    # Where a train step's device time goes (2 steps).
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            tr.train_step(batch, gen)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 2 * 1e3
+    # Device events, without the ranges the profiler annotates on the device
+    # timeline around whole calls (e.g. "Optimizer.step#AdamW.step"), whose
+    # time overlaps the kernels inside them.
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)]
+    total = sum(e.self_device_time_total for e in events) / 2 / 1e3
+    calls = sum(e.count for e in events) // 2
+    print(f"train profile, 2 steps: device time {total:.4f} ms/step ({calls} device calls/step), "
+          f"{wall:.4f} ms wall under the profiler; against the unprofiled median step the card is busy "
+          f"{total / ms:.3f} of the step; top kernels:", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:20]:
+        print(f"  {e.self_device_time_total / 2 / 1e3:9.4f} ms/step {e.count // 2:5d} calls/step  {e.key[:90]}",
+              flush=True)
+    del tr, batch, losses
+    torch.cuda.empty_cache()
+
+    # The loss on one fixed batch falls (no augmentation).
+    tr = Trainer(YOLOv10.create("yolov10s", class_names=names, seed=seed + 1),
+                 TrainConfig(bf16=True, augment=False, grad_clip=1.0, steps_per_epoch=1000))
+    batch = train_batch(rng, BATCH, IMGSZ, "cuda")
+    fixed = [float(tr.train_step(batch)["total"]) for _ in range(20)]
+    print(f"fixed batch, 20 steps, total loss: {[round(v, 4) for v in fixed]}", flush=True)
+    if not (np.isfinite(fixed).all() and max(fixed[-5:]) < fixed[0]):
+        fail("the loss on a fixed batch did not fall over 20 steps")
+    del tr, batch
+    torch.cuda.empty_cache()
+
+    # fp32, one step from the same state: the kernel path against the plain
+    # path, cuDNN deterministic. mpbwd is bit-equal to its plain version, so
+    # the grads and the BN statistics agree to 1e-5 of their scale.
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    f32cfg = TrainConfig(bf16=False, augment=False, grad_clip=1.0)
+    model = YOLOv10.create("yolov10s", class_names=names, seed=seed + 2)
+    batch = train_batch(rng, 8, IMGSZ, "cuda")
+    tk, tp = Trainer(copy.deepcopy(model), f32cfg), Trainer(model, f32cfg)
+    n = kernels.LAUNCHES["mpbwd"]
+    lk = tk.forward_backward(batch)
+    if kernels.LAUNCHES["mpbwd"] != n + 3:
+        fail("the fp32 kernel step did not launch mpbwd three times")
+    with plain_kernels():
+        lp = tp.forward_backward(batch)
+    torch.cuda.synchronize()
+    cudnn.deterministic, cudnn.benchmark = saved
+    worst_g = worst_s = 0.0
+    for (name, a), (_, b) in zip(tk.model.named_parameters(), tp.model.named_parameters()):
+        worst_g = max(worst_g, max_err(a.grad, b.grad) / max(1e-12, float(b.grad.abs().max())))
+    for (name, a), (_, b) in zip(tk.model.named_buffers(), tp.model.named_buffers()):
+        worst_s = max(worst_s, max_err(a, b) / max(1.0, float(b.abs().max())))
+    print(f"fp32 train step yolov10s 640 batch 8, kernel vs plain path: loss {float(lk['total']):.6f} vs "
+          f"{float(lp['total']):.6f}; worst grad gap {worst_g:.3g} of the tensor's scale, worst BN statistic gap "
+          f"{worst_s:.3g}", flush=True)
+    if not (worst_g <= 1e-5 and worst_s <= 1e-5):
+        fail("fp32 train step: the kernel path disagrees with the plain path")
+    del tk, tp, model, batch
+    torch.cuda.empty_cache()
+
+    # fp32, one step on the card against the CPU: yolov10n, 128 px, batch 2.
+    model = YOLOv10.create("yolov10n", class_names=names, seed=seed + 3)
+    small = train_batch(rng, 2, 128, "cpu")
+    small.gt_mask[:, 0] = True
+    on_card = Trainer(copy.deepcopy(model), f32cfg).forward_backward(small)["total"]
+    on_cpu = Trainer(model, f32cfg, device="cpu").forward_backward(small)["total"]
+    gap = abs(float(on_card) - float(on_cpu)) / abs(float(on_cpu))
+    print(f"fp32 train step yolov10n 128 batch 2: loss card {float(on_card):.6f} CPU {float(on_cpu):.6f}, "
+          f"relative gap {gap:.3g}", flush=True)
+    if not gap <= 1e-4:
+        fail("fp32 train step: the card disagrees with the CPU")
+
+
+def phase_train_times(seed: int, records: dict) -> None:
+    """mpbwd at the training path's SPPF shape: the kernel, its plain
+    version, and aten's max-pool backward with indices from the forward."""
+    import torch
+    import torch.nn.functional as F
+    from leanyolo_tpu_torch.kernels import mpbwd
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 4)
+    x = torch.randn(BATCH, 20, 20, 256, generator=g, device="cuda").to(torch.bfloat16)
+    dy = torch.randn(BATCH, 20, 20, 256, generator=g, device="cuda").to(torch.bfloat16)
+    xc, dyc = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)  # channels_last NCHW views, as in the model
+    _, idx = F.max_pool2d(xc, 5, 1, 2, return_indices=True)
+    r = records["mpbwd"]
+    r["ms"] = cuda_ms(lambda: mpbwd.mpbwd(x, dy))
+    r["plain_ms"] = cuda_ms(lambda: mpbwd.mpbwd_plain(x, dy))
+    r["library_ms"] = cuda_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+        dyc, xc, [5, 5], [1, 1], [2, 2], [1, 1], False, idx))
+    set_bound(r, 3 * x.numel() * x.element_size(), 25 * x.numel(), "fp32")
+    print(f"mpbwd [{BATCH},20,20,256] bf16: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, "
+          f"aten max_pool2d_with_indices_backward {r['library_ms']:.4f}, bound {r['bound_ms']:.6f} ({r['bound_by']})",
+          flush=True)
 
 
 def set_bound(r: dict, nbytes: float, nops: float, kind: str) -> None:
@@ -410,6 +609,7 @@ def main() -> int:
             ("stem", "leanyolo_tpu_torch/kernels/csrc/stem.cu", "experiments/stem_pallas.py:293"),
             ("dw7x7", "leanyolo_tpu_torch/kernels/csrc/dw7x7.cu", "experiments/exp_dw_pallas.py:79"),
             ("topk", "leanyolo_tpu_torch/kernels/csrc/topk.cu", "leanyolo_tpu/ops/topk.py:69"),
+            ("mpbwd", "leanyolo_tpu_torch/kernels/csrc/mpbwd.cu", "experiments/exp_sppf_bwd.py:86"),
         )
     }
     model = make_model(SEED)
@@ -417,6 +617,11 @@ def main() -> int:
     phase_kernels(folded, SEED, records)
     pred, x32 = phase_main(model, SEED, records)
     phase_times(folded, SEED, records, pred, x32)
+    del pred, x32, folded, model
+    torch.cuda.empty_cache()
+    with torch.enable_grad():
+        phase_train(SEED, records)
+    phase_train_times(SEED, records)
 
     print(card, flush=True)
     print(json.dumps({"kernels": list(records.values())}), flush=True)

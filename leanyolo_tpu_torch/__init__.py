@@ -6,5 +6,6 @@ names. It imports torch and numpy only.
 
 from .models.yolov10.model import YOLOv10
 from .engine.predictor import Predictor
+from .engine.trainer import TrainConfig, Trainer
 
-__all__ = ["YOLOv10", "Predictor"]
+__all__ = ["YOLOv10", "Predictor", "TrainConfig", "Trainer"]

@@ -1,0 +1,271 @@
+"""Training engine: one train step = augment, forward, dual-TAL loss, backward,
+per-group clip, AdamW, BN running statistics.
+
+Counterpart of the JAX package's `leanyolo_tpu/engine/trainer.py` (reference
+`tools/train.py:135-309`, `tools/transfer_learn_aquarium.py`), numerically
+step for step:
+
+- two parameter groups, backbone+neck and head (`label_params`); the BN
+  running statistics and the input-normalization buffers are buffers, never
+  optimized;
+- each group is clipped by ITS OWN global norm (optax `multi_transform` of
+  `clip_by_global_norm`): g / norm * max_norm when norm >= max_norm, with
+  no epsilon;
+- AdamW (b1 0.9, b2 0.999, eps 1e-8), weight decay on every parameter of a
+  group; a group's lr is its warmup-cosine schedule at the step count before
+  the increment;
+- freezing sets `requires_grad=False` on the backbone+neck and clears grads
+  to None, so AdamW skips those parameters entirely (no gradient, no decay,
+  no step count), which is what the JAX step's count rewind and zeroed
+  updates amount to; the schedule advances all the same;
+- mixed precision is bf16 activations over fp32 parameters and gradients;
+  the loss runs in fp32 on head maps upcast level by level;
+- BN running statistics advance in the forward (layers.BatchNorm).
+
+It runs on the card unless the caller names another device.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from ..models.yolov10.losses import detection_loss_v10
+from ..models.yolov10.model import YOLOv10
+
+Tensor = torch.Tensor
+
+
+@dataclass
+class TrainConfig:
+    lr: float = 1e-3
+    weight_decay: float = 5e-4
+    epochs: int = 10
+    warmup_epochs: int = 1
+    bb_lr_mult: float = 0.1  # backbone+neck lr multiplier
+    freeze_backbone: bool = False
+    unfreeze_epoch: int = 5
+    grad_clip: float = 1.0
+    bf16: bool = False
+    augment: bool = False
+    p_hflip: float = 0.5
+    p_bc: float = 0.5
+    steps_per_epoch: int = 100  # for the per-epoch schedule
+    #: 'none' only; 'full' (activation checkpointing) is a later slice: under
+    #: torch.utils.checkpoint the recomputed forward would advance the BN
+    #: running statistics a second time.
+    remat: str = "none"
+    #: Device letterboxing; a later slice (with the cv2-free letterbox).
+    device_preprocess: bool = False
+
+
+def label_params(model: YOLOv10) -> Dict[str, str]:
+    """Parameter name -> 'backbone' (backbone and neck) or 'head'."""
+    return {name: ("backbone" if name.split(".")[0] in ("backbone", "neck") else "head")
+            for name, _ in model.named_parameters()}
+
+
+def warmup_cosine_schedule(lr: float, *, epochs: int, warmup_epochs: int, steps_per_epoch: int) -> Callable[[int], float]:
+    """Per-epoch warmup -> cosine, constant within an epoch, computed in fp32
+    as the JAX schedule is."""
+    e_total = max(1, epochs)
+    wu = max(0, min(warmup_epochs, e_total))
+    f32 = np.float32
+
+    def schedule(step: int) -> float:
+        epoch = step // max(1, steps_per_epoch)
+        if wu > 0 and epoch < wu:
+            factor = f32(epoch + 1.0) / f32(max(wu, 1))
+        else:
+            t = f32(epoch - wu) / f32(max(1, e_total - wu))
+            factor = f32(0.5) * (f32(1.0) + np.cos(f32(math.pi) * t))
+        return float(f32(lr) * f32(factor))
+
+    return schedule
+
+
+def make_optimizer(model: YOLOv10, cfg: TrainConfig):
+    """AdamW over the 'head' and 'backbone' groups, and each group's schedule."""
+    labels = label_params(model)
+    named = dict(model.named_parameters())
+    scheds = {
+        "head": warmup_cosine_schedule(cfg.lr, epochs=cfg.epochs, warmup_epochs=cfg.warmup_epochs,
+                                       steps_per_epoch=cfg.steps_per_epoch),
+        "backbone": warmup_cosine_schedule(cfg.lr * cfg.bb_lr_mult, epochs=cfg.epochs,
+                                           warmup_epochs=cfg.warmup_epochs, steps_per_epoch=cfg.steps_per_epoch),
+    }
+    groups = [{"params": [p for n, p in named.items() if labels[n] == g], "name": g, "lr": scheds[g](0)}
+              for g in ("head", "backbone")]
+    opt = torch.optim.AdamW(groups, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay)
+    return opt, scheds
+
+
+def augment_batch(generator: torch.Generator, images: Tensor, gt_boxes: Tensor, *, p_hflip: float, p_bc: float,
+                  dtype: Optional[torch.dtype] = None):
+    """Horizontal flip + brightness/contrast in letterbox space, per image
+    (JAX `augment_batch`: alpha in [0.8, 1.2], beta in [-16, 16], clamp to
+    [0, 255]; flipped boxes are mirrored). The flip runs before the cast to
+    `dtype`, on the uint8 pixels. Four draws of B uniforms from `generator`
+    (flip, jitter, alpha, beta), on the generator's device.
+    """
+    if dtype is None and not images.is_floating_point():
+        raise ValueError("augment_batch: integer (uint8) images need an explicit float `dtype`: the brightness "
+                         "jitter in integer arithmetic would truncate alpha to 0/1 and wrap beta")
+    b, w = images.shape[0], images.shape[2]
+    u = [torch.rand(b, generator=generator, device=generator.device).to(images.device) for _ in range(4)]
+    do_flip = u[0] < p_hflip
+    images = torch.where(do_flip[:, None, None, None], images.flip(2), images)
+    if dtype is not None:
+        images = images.to(dtype)
+    x1, y1, x2, y2 = gt_boxes.unbind(-1)
+    flipped = torch.stack([w - x2, y1, w - x1, y2], dim=-1)
+    gt_boxes = torch.where(do_flip[:, None, None], flipped, gt_boxes)
+
+    do_bc = u[1] < p_bc
+    alpha = (0.8 + 0.4 * u[2]).to(images.dtype)
+    beta = (u[3] * 32.0 - 16.0).to(images.dtype)
+    jittered = torch.clamp(images * alpha[:, None, None, None] + beta[:, None, None, None], 0.0, 255.0)
+    images = torch.where(do_bc[:, None, None, None], jittered, images)
+    return images, gt_boxes
+
+
+class Trainer:
+    """Owns the optimizer and runs train steps on `model` in place.
+
+    Args:
+        model: a YOLOv10 module with fp32 parameters; it is moved to
+            `device` (channels_last on the card) and put in training mode.
+        cfg: the TrainConfig.
+        device: where to train; None means the card ('cuda'), and raises
+            when there is none.
+    """
+
+    #: GT-count buckets: the assignment is O(B * Nmax * A); a batch is cut to
+    #: the smallest bucket that holds its fullest image.
+    NMAX_BUCKETS = (8, 16, 32, 64, 128)
+
+    def __init__(self, model: YOLOv10, cfg: TrainConfig, *, mesh=None,
+                 device: Optional[Union[str, torch.device]] = None) -> None:
+        if mesh is not None:
+            raise NotImplementedError("Trainer(mesh=...): data-parallel training (DDP) is the parallel slice, "
+                                      "ROADMAP Queue 1 item 9")
+        if cfg.device_preprocess:
+            raise NotImplementedError("TrainConfig.device_preprocess: the device letterbox comes with the "
+                                      "cv2-free letterbox slice, ROADMAP Queue 1 item 2")
+        if cfg.remat == "full":
+            raise NotImplementedError("TrainConfig.remat='full' is a later slice: under torch.utils.checkpoint "
+                                      "the recomputed forward would advance the BN running statistics twice")
+        if cfg.remat != "none":
+            raise ValueError(f"unknown remat mode {cfg.remat!r} (use 'none')")
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("Trainer: no CUDA device; pass device='cpu' to train on the CPU")
+            device = "cuda"
+        self.device = torch.device(device)
+        self.model = model.to(self.device).train()
+        if self.device.type == "cuda":
+            self.model = self.model.to(memory_format=torch.channels_last)
+        self.cfg = cfg
+        self.dtype = torch.bfloat16 if cfg.bf16 else torch.float32
+        self.opt, self.schedules = make_optimizer(self.model, cfg)
+        self.global_step = 0
+
+    @property
+    def frozen(self) -> bool:
+        epoch = self.global_step // max(1, self.cfg.steps_per_epoch)
+        return self.cfg.freeze_backbone and epoch < self.cfg.unfreeze_epoch
+
+    def _nmax_bucket(self, gt_mask) -> int:
+        nmax = gt_mask.shape[1]
+        if not nmax:
+            return nmax
+        counts = gt_mask.sum(1) if torch.is_tensor(gt_mask) else np.sum(np.asarray(gt_mask), axis=1)
+        need = int(counts.max())
+        for b in self.NMAX_BUCKETS:
+            if need <= b <= nmax:
+                return b
+        return nmax
+
+    def _tensor(self, a) -> Tensor:
+        t = a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a))
+        return t.to(self.device, non_blocking=True)
+
+    def forward_backward(self, batch, generator: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
+        """Augment, forward, loss and backward on `batch` (attributes images
+        [B,S,S,3] uint8, gt_labels [B,N], gt_boxes [B,N,4] xyxy pixels,
+        gt_mask [B,N]); leaves the gradients in `.grad` (None for frozen
+        parameters) and returns the detached losses {'total', 'cls', 'reg'}."""
+        cfg = self.cfg
+        if hasattr(batch, "canvas"):
+            raise ValueError("batch/preprocess mismatch: a DeviceBatch needs TrainConfig.device_preprocess, "
+                             "which is a later slice; build the dataset with host preprocessing")
+        frozen = self.frozen
+        for name, p in self.model.named_parameters():
+            if name.split(".")[0] in ("backbone", "neck"):
+                p.requires_grad_(not frozen)
+        self.opt.zero_grad(set_to_none=True)
+
+        nb = self._nmax_bucket(batch.gt_mask)
+        images = self._tensor(batch.images)
+        gt_labels = self._tensor(batch.gt_labels[:, :nb])
+        gt_boxes = self._tensor(batch.gt_boxes[:, :nb])
+        gt_mask = self._tensor(batch.gt_mask[:, :nb])
+        if cfg.augment:
+            if generator is None:
+                raise ValueError("train_step: augment=True needs a torch.Generator")
+            images, gt_boxes = augment_batch(generator, images, gt_boxes, p_hflip=cfg.p_hflip, p_bc=cfg.p_bc,
+                                             dtype=self.dtype)
+        else:
+            images = images.to(self.dtype)
+
+        raw = self.model(images, dtype=self.dtype, concat_head=False)
+        raw = {k: [(r.float(), c.float()) for r, c in v] for k, v in raw.items()}
+        mcfg = self.model.cfg
+        losses = detection_loss_v10(raw, gt_labels, gt_boxes, gt_mask, num_classes=self.model.nc,
+                                    reg_max=mcfg.reg_max, strides=tuple(mcfg.strides))
+        losses["total"].backward()
+        return {k: v.detach() for k, v in losses.items()}
+
+    def optimizer_step(self) -> None:
+        """Clip each group by its own global norm, set each group's lr from
+        its schedule at the current step, and step AdamW on the `.grad`s."""
+        max_norm = self.cfg.grad_clip
+        for group in self.opt.param_groups:
+            group["lr"] = self.schedules[group["name"]](self.global_step)
+            grads: List[Tensor] = [p.grad for p in group["params"] if p.grad is not None]
+            if not grads or not (max_norm and max_norm > 0):
+                continue
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            keep = norm < max_norm
+            one = torch.ones((), device=norm.device)
+            # optax: t / norm * max_norm, two roundings, only when norm >= max_norm.
+            torch._foreach_div_(grads, torch.where(keep, one, norm))
+            torch._foreach_mul_(grads, torch.where(keep, one, one * max_norm))
+        self.opt.step()
+
+    def train_step(self, batch, generator: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
+        """One optimizer step on `batch`; returns the losses as 0-d tensors
+        on the training device (reading them waits for the step)."""
+        losses = self.forward_backward(batch, generator)
+        self.optimizer_step()
+        self.global_step += 1
+        return losses
+
+    # -- resume: the optimizer, the step counter and the model in one file ---
+
+    def save_train_state(self, path: str) -> None:
+        """Model state (parameters and BN statistics), optimizer state and
+        step counter -> one torch file."""
+        torch.save({"model": self.model.state_dict(), "optimizer": self.opt.state_dict(),
+                    "global_step": self.global_step}, path)
+
+    def load_train_state(self, path: str) -> None:
+        """Strict restore into this trainer's model and optimizer."""
+        state = torch.load(path, map_location=self.device, weights_only=True)
+        self.model.load_state_dict(state["model"], strict=True)
+        self.opt.load_state_dict(state["optimizer"])
+        self.global_step = int(state["global_step"])

@@ -62,10 +62,22 @@ void topk(torch::Tensor x, int64_t k, bool canon_zero, torch::Tensor vals, torch
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void mpbwd(torch::Tensor x, torch::Tensor dy, torch::Tensor dx, int64_t k) {
+  for (auto* p : {&x, &dy, &dx}) check(*p, "mpbwd");
+  const bool bf16 = act_is_bf16(x, "mpbwd x");
+  for (auto* p : {&dy, &dx}) TORCH_CHECK(p->scalar_type() == x.scalar_type(), "mpbwd: dtype");
+  TORCH_CHECK(x.dim() == 4 && dy.sizes() == x.sizes() && dx.sizes() == x.sizes(), "mpbwd: x, dy, dx [B,H,W,C]");
+  TORCH_CHECK(k % 2 == 1 && k >= 1 && k <= 15, "mpbwd: k odd, 1 <= k <= 15");
+  C10_CUDA_CHECK(launch_mpbwd(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), x.size(0), x.size(1), x.size(2), x.size(3),
+                              static_cast<int>(k), bf16, at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("stem", &stem, "fused stem: conv3x3 s2 + bias + SiLU, twice");
   m.def("dw7x7", &dw7x7, "depthwise 7x7 + bias + SiLU");
   m.def("topk", &topk, "exact per-row top-k");
+  m.def("mpbwd", &mpbwd, "backward of the k x k stride-1 same max pool");
 }

@@ -23,3 +23,8 @@ cudaError_t launch_dw7x7(const void* x, const void* w, const void* b, void* out,
 // in x's type; idx [rows, k] int32. k <= 1024.
 cudaError_t launch_topk(const void* x, int rows, int n, int k, bool canon_zero, bool bf16, void* vals,
                         int32_t* idx, cudaStream_t stream);
+
+// Backward of the k x k stride-1 "same" max pool (mpbwd.cu). x, dy, dx
+// [B,H,W,C], all bf16 (bf16) or fp32; k odd, 1 <= k <= 15.
+cudaError_t launch_mpbwd(const void* x, const void* dy, void* dx, int B, int H, int W, int C, int k, bool bf16,
+                         cudaStream_t stream);

@@ -6,7 +6,9 @@ modules are named after it, so the conversion is a name table
 with dots, conv `w` -> `weight`, `b` -> `bias`, BN `scale`/`bias`/`mean`/`var`
 -> `weight`/`bias`/`running_mean`/`running_var`, and conv kernels go from
 HWIO to OIHW. Both the unfolded tree and a folded one (`fold_params`) load,
-into an unfolded or a folded model respectively.
+into an unfolded or a folded model respectively. `export_jax_params` is the
+inverse: the module's parameters and BN statistics as the JAX-shaped numpy
+tree.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+
+from . import layers as L
 
 _BN_LEAF_TO_TORCH = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 
@@ -89,3 +93,33 @@ def load_jax_params(module: nn.Module, params: Any) -> nn.Module:
         sd[key] = t.to(own[key].device)
     module.load_state_dict(sd, strict=True, assign=True)
     return module
+
+
+def export_jax_params(module: nn.Module) -> Any:
+    """The inverse of `load_jax_params`: `module`'s parameters and buffers as
+    a JAX-shaped tree of fp32 numpy arrays (nested dicts and lists; conv
+    kernels OIHW -> HWIO). `load_jax_params(copy, export_jax_params(m))`
+    restores m's state exactly.
+    """
+
+    def arr(t: torch.Tensor) -> np.ndarray:
+        return t.detach().float().cpu().numpy().copy()
+
+    def walk(m: nn.Module) -> Any:
+        if isinstance(m, L.Conv):
+            out = {"w": arr(m.weight).transpose(2, 3, 1, 0)}
+            if m.bias is not None:
+                out["b"] = arr(m.bias)
+            return out
+        if isinstance(m, L.BatchNorm):
+            return {"scale": arr(m.weight), "bias": arr(m.bias), "mean": arr(m.running_mean),
+                    "var": arr(m.running_var)}
+        if isinstance(m, nn.ModuleList):
+            return [walk(c) for c in m]
+        out = {name: walk(c) for name, c in m.named_children() if c is not None}
+        for name in ("input_subtract", "input_divide"):
+            if hasattr(m, name) and name in dict(m.named_buffers(recurse=False)):
+                out[name] = arr(getattr(m, name))
+        return out
+
+    return walk(module)

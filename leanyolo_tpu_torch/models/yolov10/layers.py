@@ -15,7 +15,12 @@ conv rounds its two halves separately before the add.
 
 The JAX package's conv-input `optimization_barrier` is a TPU-compiler
 workaround and numerically the identity; it has no counterpart here.
-Training-mode BatchNorm (batch statistics) belongs to the training slice.
+
+In training mode (`module.train()`) BatchNorm normalizes with the batch
+statistics and advances its running statistics in the forward, as the JAX
+train step does after its update (`merge_bn_stats`): nothing in the forward
+reads them, so the order makes no difference. The SPPF max pools backpropagate
+through the mpbwd kernel wrapper (kernels/mpbwd.py).
 """
 
 from __future__ import annotations
@@ -27,9 +32,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...kernels import dwconv
+from ...kernels import dwconv, mpbwd
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.03
 
 Tensor = torch.Tensor
 
@@ -70,11 +76,46 @@ class Conv(nn.Module):
         return y
 
 
+class _BatchMoments(torch.autograd.Function):
+    """Per-channel (mean, biased var) of y [N, C, H, W] over N, H, W in fp32,
+    from one pass of sum and sum of squares: var = max(s2/n - mean^2, 0)
+    (JAX `_bn_act`, train branch).
+
+    The backward is the chain rule of that formula, dy = ds1 + 2 y ds2 with
+    ds2 = dvar/n and ds1 = (dmean - 2 mean dvar)/n, and keeps only y (which
+    the BN affine keeps anyway), where autograd would keep an fp32 copy.
+    """
+
+    @staticmethod
+    def forward(ctx, y: Tensor):
+        n = y.numel() // y.shape[1]
+        yf = y.float()
+        s1 = yf.sum(dim=(0, 2, 3))
+        s2 = yf.square().sum(dim=(0, 2, 3))
+        mean = s1 / n
+        raw = s2 / n - mean * mean
+        ctx.n = n
+        ctx.save_for_backward(y, mean, raw > 0)
+        return mean, torch.clamp_min(raw, 0.0)
+
+    @staticmethod
+    def backward(ctx, g_mean: Tensor, g_var: Tensor):
+        y, mean, live = ctx.saved_tensors
+        g_var = torch.where(live, g_var, 0.0)
+        g_s1 = ((g_mean - 2.0 * mean * g_var) / ctx.n).view(1, -1, 1, 1)
+        g_s2 = (g_var / ctx.n).view(1, -1, 1, 1)
+        return (g_s1 + 2.0 * y.float() * g_s2).to(y.dtype)
+
+
 class BatchNorm(nn.Module):
-    """Inference BatchNorm as an affine epilogue (JAX `_bn_act`, eval branch).
+    """BatchNorm as an affine epilogue (JAX `_bn_act`).
 
     mul = rsqrt(var + eps) * scale and add = bias - mean * mul are formed in
-    fp32, then cast to the activation dtype before the multiply-add.
+    fp32, then cast to the activation dtype before the multiply-add. In
+    eval mode mean and var are the running statistics. In training mode
+    they are the batch's (`_BatchMoments`, differentiated through), and the
+    running statistics advance as (1 - 0.03) old + 0.03 new, with the
+    unbiased batch variance var * n / (n - 1) (JAX `merge_bn_stats`).
     """
 
     def __init__(self, c: int) -> None:
@@ -84,12 +125,23 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
-    def mul_add(self) -> Tuple[Tensor, Tensor]:
-        mul = torch.rsqrt(self.running_var.float() + BN_EPS) * self.weight.float()
-        return mul, self.bias.float() - self.running_mean.float() * mul
+    def mul_add(self, mean: Optional[Tensor] = None, var: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+        mean = self.running_mean.float() if mean is None else mean
+        var = self.running_var.float() if var is None else var
+        mul = torch.rsqrt(var + BN_EPS) * self.weight.float()
+        return mul, self.bias.float() - mean * mul
 
     def forward(self, y: Tensor) -> Tensor:
-        mul, add = self.mul_add()
+        if self.training:
+            mean, var = _BatchMoments.apply(y)
+            n = y.numel() // y.shape[1]
+            with torch.no_grad():
+                unbiased = var * (n / max(n - 1, 1))
+                self.running_mean.copy_((1.0 - BN_MOMENTUM) * self.running_mean + BN_MOMENTUM * mean)
+                self.running_var.copy_((1.0 - BN_MOMENTUM) * self.running_var + BN_MOMENTUM * unbiased)
+            mul, add = self.mul_add(mean, var)
+        else:
+            mul, add = self.mul_add()
         return y * mul.to(y.dtype).view(1, -1, 1, 1) + add.to(y.dtype).view(1, -1, 1, 1)
 
 
@@ -208,9 +260,32 @@ class SPPF(nn.Module):
         return self.cv2(_cat(ys))
 
 
+class _MaxPoolSame(torch.autograd.Function):
+    """k x k max pool, stride 1, same padding; the backward is the mpbwd
+    kernel wrapper on the NHWC view (no copy for a channels_last tensor)."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, k: int) -> Tensor:
+        ctx.k = k
+        ctx.save_for_backward(x)
+        return F.max_pool2d(x, k, stride=1, padding=k // 2)
+
+    @staticmethod
+    def backward(ctx, dy: Tensor):
+        (x,) = ctx.saved_tensors
+        nhwc = lambda t: t.permute(0, 2, 3, 1).contiguous()
+        return mpbwd.mpbwd(nhwc(x), nhwc(dy), ctx.k).permute(0, 3, 1, 2), None
+
+
 def maxpool2d_same(x: Tensor, k: int) -> Tensor:
-    """k x k max pool, stride 1, same padding (the pad never wins: -inf)."""
-    return F.max_pool2d(x, k, stride=1, padding=k // 2)
+    """k x k max pool, stride 1, same padding (the pad never wins: -inf).
+
+    The forward is `F.max_pool2d`, as JAX's is `reduce_window` outside
+    Pallas; the backward routes each window's gradient to the first
+    (row-major) position holding its max, as XLA's select-and-scatter and
+    the Pallas kernel do.
+    """
+    return _MaxPoolSame.apply(x, k)
 
 
 class RepVGGDW(nn.Module):

@@ -197,6 +197,12 @@ class YOLOv10(nn.Module):
         normalize: False when the normalization is folded into conv0 (fold.py).
         concat_head: False returns per-level (reg, cls) NHWC tuples.
         Returns {branch: [P3, P4, P5]} NHWC maps.
+
+        In training mode (`.train()`) every BN normalizes with its batch's
+        statistics; the trainer takes both branches as (reg, cls) tuples.
+        Neither branch is detached: the JAX `model_apply` stops no gradient
+        at the one2one head (the official YOLOv10 does), and the port
+        follows the JAX package.
         """
         if dtype is None:
             dtype = images.dtype if images.is_floating_point() else torch.float32

@@ -32,6 +32,14 @@ def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor) -> torch.Tens
     return torch.cat((anchor_points - lt, anchor_points + rb), dim=-1)
 
 
+def bbox2dist(anchor_points: torch.Tensor, bbox_xyxy: torch.Tensor, reg_max: int) -> torch.Tensor:
+    """xyxy boxes -> distances (l, t, r, b) from the anchors, clipped to
+    [0, reg_max - 0.01] (JAX `ops/anchors.py:63`)."""
+    x1y1, x2y2 = torch.chunk(bbox_xyxy, 2, dim=-1)
+    dist = torch.cat((anchor_points - x1y1, x2y2 - anchor_points), dim=-1)
+    return torch.clamp(dist, 0.0, reg_max - 0.01)
+
+
 def dfl_expectation(box_logits: torch.Tensor, reg_max: int) -> torch.Tensor:
     """[..., 4 * reg_max] DFL logits (bins contiguous per side) -> [..., 4]
     expected (l, t, r, b) distances in cell units (softmax over the bins, then

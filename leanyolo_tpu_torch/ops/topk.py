@@ -27,3 +27,24 @@ def topk_lastdim(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     n = x.shape[-1]
     canon = k == 1 or (x.dtype == torch.bfloat16 and k < n <= 32768)
     return _ktopk.topk(x, k, canon_zero=canon)
+
+
+def topk_membership(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Boolean top-k membership over the last dimension (no order): k rounds
+    of first-occurrence argmax, each masking its winner to -inf, so equal
+    values are admitted in ascending index order as lax.top_k admits them
+    (JAX `ops/topk.py:113-143`). The TAL assignment's candidate sets; a plain
+    PyTorch version, its kernel (K6) is later work.
+    """
+    n = x.shape[-1]
+    if k >= n:
+        return torch.ones(x.shape, dtype=torch.bool, device=x.device)
+    neg = float("-inf") if x.is_floating_point() else torch.iinfo(x.dtype).min
+    iota = torch.arange(n, device=x.device)
+    sel = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    xm = x
+    for _ in range(k):
+        hit = xm.argmax(dim=-1, keepdim=True) == iota
+        sel = sel | hit
+        xm = torch.where(hit, neg, xm)
+    return sel

@@ -8,7 +8,8 @@ mode). The file imports no JAX, so it runs on a machine without it:
 Tolerances as in chip_smoke.py: kernel and plain version round at the same
 points but sum in another order, so bf16 outputs may differ by a rounding
 that lands one ulp apart: limit 4 bf16 ulps (2^-8 each) of the output's
-largest magnitude; fp32 (TF32 off) to 1e-4 of it. Top-k is bit-exact.
+largest magnitude; fp32 (TF32 off) to 1e-4 of it. Top-k and the max-pool
+backward (mpbwd) are bit-exact.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import pytest
 import torch
 
 from leanyolo_tpu_torch import kernels
-from leanyolo_tpu_torch.kernels import dwconv, stem, topk
+from leanyolo_tpu_torch.kernels import dwconv, mpbwd, stem, topk
+from leanyolo_tpu_torch.models.yolov10.layers import maxpool2d_same
 from torch_parity import cuda_device  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.cuda
@@ -83,6 +85,51 @@ def test_topk_kernel(cuda_device, dtype, rows, n, k, canon):
     assert torch.equal(gv.view(bits), rv.view(bits))
 
 
+def _pool_inputs(shape, dtype, ties, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=device)
+    if ties:
+        x = (x * 2).round() / 2  # halves: many windows hold their max twice
+    return x.to(dtype), torch.randn(shape, generator=g, device=device).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(32, 20, 20, 256), (3, 13, 17, 40), (2, 40, 40, 64), (1, 5, 3, 7)])
+@pytest.mark.parametrize("ties", [False, True])
+def test_mpbwd_kernel(cuda_device, dtype, shape, ties):
+    x, dy = _pool_inputs(shape, dtype, ties, cuda_device, 3)
+    ref = mpbwd.mpbwd_plain(x, dy)
+    n = kernels.LAUNCHES["mpbwd"]
+    got = mpbwd.mpbwd(x, dy)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mpbwd"] == n + 1
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), ref.view(bits))
+
+
+@pytest.mark.parametrize("k", [3, 7])
+def test_mpbwd_kernel_other_k(cuda_device, k):
+    x, dy = _pool_inputs((2, 20, 20, 48), torch.float32, True, cuda_device, 4)
+    got = mpbwd.mpbwd(x, dy, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mpbwd.mpbwd_plain(x, dy, k))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_maxpool_autograd_uses_the_kernel(cuda_device, dtype):
+    x, dy = _pool_inputs((4, 20, 20, 64), dtype, True, cuda_device, 5)
+    xc = x.permute(0, 3, 1, 2).requires_grad_()  # channels_last NCHW view, as in the model
+    n = kernels.LAUNCHES["mpbwd"]
+    y = maxpool2d_same(xc, 5)
+    y.backward(dy.permute(0, 3, 1, 2))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mpbwd"] == n + 1
+    assert torch.equal(y, torch.nn.functional.max_pool2d(xc.detach(), 5, 1, 2))
+    ref = mpbwd.mpbwd_plain(x, dy).permute(0, 3, 1, 2)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(xc.grad.contiguous().view(bits), ref.contiguous().view(bits))
+
+
 def test_wrappers_raise_on_unsupported(cuda_device):
     with pytest.raises(ValueError):
         stem.fused_stem(torch.zeros(1, 48, 64, 3, dtype=torch.uint8, device=cuda_device),
@@ -92,3 +139,5 @@ def test_wrappers_raise_on_unsupported(cuda_device):
                                torch.zeros(4, 1, 7, 7, device=cuda_device), torch.zeros(4, device=cuda_device))
     with pytest.raises(ValueError):
         topk.topk(torch.zeros(2, 10, dtype=torch.float16, device=cuda_device), 3, canon_zero=True)
+    with pytest.raises(ValueError):
+        mpbwd.mpbwd(torch.zeros(1, 8, 8, 4, device=cuda_device), torch.zeros(1, 8, 8, 4, device=cuda_device), 4)
