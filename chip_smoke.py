@@ -6,16 +6,19 @@ Phases, each of which fails loudly (non-zero exit):
 1. the card's name and power limit (nvidia-smi);
 2. build the kernels from leanyolo_tpu_torch/kernels/csrc (build/kernels/);
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   of the serving path (yolov10s, 640 px, batch 32);
+   of the serving path (yolov10s, 640 px, batch 32): s2dconv and bmm on the
+   very inputs of one batch-32 forward (the stage-1 bottleneck's two 3x3
+   convs, the 45 dense 1x1 convs), in bf16 and fp32, plus an odd shape each;
 4. the serving path: yolov10s at full width and depth, random weights from a
    seed, folded to bf16, answers uint8 requests of batch 1, 8 and 32 through
-   Predictor.run_batch; the launches of every kernel are counted over these
-   requests. Then the kernel path is held against the all-plain path on the
-   card, and an fp32 run on the card against an fp32 run on the CPU at a
-   small input;
-5. times from CUDA events (warm-up, median of 20+ runs): each kernel, its
-   plain version and the PyTorch call that computes the same function, and
-   the serving path's images per second at batch 32;
+   Predictor.run_batch; the launches of every kernel are counted per request
+   (stem 1, dw7x7 2, top-k 2, s2dconv 2, bmm 45). Then the kernel path is
+   held against the all-plain path on the card, and an fp32 run on the card
+   against an fp32 run on the CPU at a small input;
+5. times from CUDA events (warm-up, median of 20 runs): each kernel, its
+   plain version and the PyTorch call that computes the same function, each
+   run the mean of 10 back-to-back calls, and the serving path's images per
+   second at batch 32, each run one request from an idle card;
 6. the training path: yolov10s at full width and depth, 640 px, bf16
    activations over fp32 parameters, trains through Trainer.train_step at
    batch 32 (24 GT slots, 40% valid, augmentation on, clip 1.0): 3 warm-up
@@ -52,7 +55,8 @@ BATCH = 32
 MAX_DET = 300
 NC = 80
 SEED = 0  # weights, images and test inputs all come from it
-SERVING_KERNELS = ("stem", "dw7x7", "topk")  # launched by the serving path; mpbwd by the training path
+# Launches of each serving-path kernel per request; mpbwd runs on the training path.
+PER_REQUEST = {"stem": 1, "dw7x7": 2, "topk": 2, "s2dconv": 2, "bmm": 45}
 
 
 def fail(msg: str) -> None:
@@ -68,8 +72,12 @@ def card_line() -> str:
     return out[0]
 
 
-def cuda_ms(fn, *, warmup: int = 3, runs: int = 20) -> float:
-    """Median milliseconds of fn() over `runs` timed runs, CUDA events."""
+def cuda_ms(fn, *, warmup: int = 3, runs: int = 20, inner: int = 1) -> float:
+    """Median milliseconds of fn() over `runs` timed runs, CUDA events, each
+    run the mean of `inner` back-to-back calls. With inner=1 the card waits
+    for the host to launch fn (a request from an idle card); kernel times
+    use KERNEL_INNER, so the card runs them back to back and a short
+    kernel's time is not its launch's."""
     import torch
 
     for _ in range(warmup):
@@ -79,11 +87,15 @@ def cuda_ms(fn, *, warmup: int = 3, runs: int = 20) -> float:
     for _ in range(runs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+KERNEL_INNER = 10
 
 
 def max_err(a, b) -> float:
@@ -98,17 +110,40 @@ def plain_kernels():
     device alone. This swaps the module attributes the port calls through,
     for the all-plain reference run on the card only.
     """
-    from leanyolo_tpu_torch.kernels import dwconv, mpbwd, stem, topk
+    from leanyolo_tpu_torch.kernels import dwconv, matmul, mpbwd, s2dconv, stem, topk
 
-    saved = (stem.fused_stem, dwconv.dw7x7_bias_silu, topk.topk, mpbwd.mpbwd)
+    saved = (stem.fused_stem, dwconv.dw7x7_bias_silu, topk.topk, mpbwd.mpbwd, s2dconv.conv3x3_c32_bias_silu,
+             matmul.bmm)
     stem.fused_stem = lambda *a, dtype=None, **kw: stem.fused_stem_plain(*a, dtype=dtype or a[1].dtype, **kw)
     dwconv.dw7x7_bias_silu = dwconv.dw7x7_bias_silu_plain
     topk.topk = topk.topk_plain
     mpbwd.mpbwd = mpbwd.mpbwd_plain
+    s2dconv.conv3x3_c32_bias_silu = s2dconv.conv3x3_c32_bias_silu_plain
+    matmul.bmm = matmul.bmm_plain
     try:
         yield
     finally:
-        stem.fused_stem, dwconv.dw7x7_bias_silu, topk.topk, mpbwd.mpbwd = saved
+        (stem.fused_stem, dwconv.dw7x7_bias_silu, topk.topk, mpbwd.mpbwd, s2dconv.conv3x3_c32_bias_silu,
+         matmul.bmm) = saved
+
+
+def capture_path_calls(folded, images):
+    """The arguments of every s2dconv and bmm call of one forward of the
+    folded model on `images` (the kernels run as usual)."""
+    import torch
+    from leanyolo_tpu_torch.kernels import matmul, s2dconv
+
+    calls = {"s2dconv": [], "bmm": []}
+    conv3, bmm = s2dconv.conv3x3_c32_bias_silu, matmul.bmm
+    s2dconv.conv3x3_c32_bias_silu = lambda *a: calls["s2dconv"].append(a) or conv3(*a)
+    matmul.bmm = lambda *a: calls["bmm"].append(a) or bmm(*a)
+    try:
+        with torch.inference_mode():
+            folded(images, dtype=torch.bfloat16, branches=("one2one",), normalize=False, concat_head=False)
+    finally:
+        s2dconv.conv3x3_c32_bias_silu, matmul.bmm = conv3, bmm
+    torch.cuda.synchronize()
+    return calls
 
 
 def make_model(seed: int):
@@ -141,10 +176,11 @@ def make_model(seed: int):
     return model.cpu()
 
 
-def phase_kernels(folded, seed: int, records: dict) -> None:
-    """Each kernel against its plain version at its path's shapes."""
+def phase_kernels(folded, seed: int, records: dict) -> dict:
+    """Each kernel against its plain version at its path's shapes; returns
+    the s2dconv and bmm calls of one batch-32 forward for the timing phase."""
     import torch
-    from leanyolo_tpu_torch.kernels import dwconv, mpbwd, stem, topk
+    from leanyolo_tpu_torch.kernels import dwconv, matmul, mpbwd, s2dconv, stem, topk
 
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -226,6 +262,54 @@ def phase_kernels(folded, seed: int, records: dict) -> None:
                 worst = max(worst, max_err(got, ref))
     records["mpbwd"]["max_abs_err"] = worst
 
+    # s2dconv and bmm on the inputs of one batch-32 forward of the serving
+    # path, cast to fp32 for the fp32 check, plus an odd shape each.
+    calls = capture_path_calls(folded, images)
+    if len(calls["s2dconv"]) != PER_REQUEST["s2dconv"] or len(calls["bmm"]) != PER_REQUEST["bmm"]:
+        fail(f"one forward made {len(calls['s2dconv'])} s2dconv and {len(calls['bmm'])} bmm calls")
+    x, w, b = calls["s2dconv"][0]
+    odd = (torch.randn(3, 9, 7, 32, generator=g, device=dev), w, b)
+    # Tolerance as for the stem: three rounding points, limit 4 bf16 ulps
+    # (2^-8 each) of the output's largest magnitude, 1e-4 of it in fp32.
+    for dtype, ulps in ((torch.bfloat16, 4 * 2.0 ** -8), (torch.float32, 1e-4)):
+        for args in calls["s2dconv"] + [odd]:
+            x, w, b = (t.to(dtype) for t in args)
+            ref = s2dconv.conv3x3_c32_bias_silu_plain(x, w, b)
+            got = s2dconv.conv3x3_c32_bias_silu(x, w, b)
+            torch.cuda.synchronize()
+            err, lim = max_err(got, ref), ulps * max(1.0, float(ref.float().abs().max()))
+            print(f"kernel s2dconv {dtype} {list(x.shape)} (strides {list(x.stride())}): max_abs_err {err:.6g} "
+                  f"(limit {lim:.6g})", flush=True)
+            if not err <= lim:
+                fail("s2dconv kernel disagrees with its plain version")
+            if dtype == torch.bfloat16:
+                records["s2dconv"]["max_abs_err"] = max(records["s2dconv"].get("max_abs_err", 0.0), err)
+
+    # bmm rounds once: a flip from another summation order is one ulp, at
+    # most 2^-7 of the element: limit 2 x 2^-8 of the largest magnitude in
+    # bf16, 1e-4 of it in fp32.
+    odd = (torch.randn(2, 37, 75, generator=g, device=dev), torch.randn(75, 33, generator=g, device=dev) * 0.1)
+    for dtype, ulps in ((torch.bfloat16, 2 * 2.0 ** -8), (torch.float32, 1e-4)):
+        worst, at = 0.0, None
+        for args in calls["bmm"] + [odd]:
+            x, w = (t.to(dtype) for t in args)
+            ref = matmul.bmm_plain(x, w)
+            got = matmul.bmm(x, w)
+            torch.cuda.synchronize()
+            err, lim = max_err(got, ref), ulps * max(1.0, float(ref.float().abs().max()))
+            if not err <= lim:
+                fail(f"bmm kernel disagrees with its plain version at x {list(x.shape)} w {list(w.shape)}: "
+                     f"{err} > {lim}")
+            if err / lim >= worst:
+                worst, at = err / lim, f"x {list(x.shape)} (strides {list(x.stride())}) w {list(w.shape)}"
+            if dtype == torch.bfloat16:
+                records["bmm"]["max_abs_err"] = max(records["bmm"].get("max_abs_err", 0.0), err)
+        shapes = {(tuple(a[0].shape), tuple(a[1].shape)) for a in calls["bmm"]}
+        print(f"kernel bmm {dtype}: the {len(calls['bmm'])} calls of a batch-{BATCH} forward ({len(shapes)} "
+              f"distinct shapes) and [2,37,75]x[75,33]: all within limit; worst max_abs_err/limit {worst:.4f} at {at}",
+              flush=True)
+    return calls
+
 
 def check_dets(dets, num, b: int) -> None:
     import torch
@@ -255,15 +339,20 @@ def phase_main(model, seed: int, records: dict):
     rng = np.random.RandomState(seed)
     requests = {b: rng.randint(0, 256, (b, IMGSZ, IMGSZ, 3)).astype(np.uint8) for b in (1, 8, BATCH)}
 
-    kernels.reset_launches()
-    results = {b: pred.run_batch(imgs) for b, imgs in requests.items()}
-    torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
+    results, launches = {}, {name: 0 for name in PER_REQUEST}
+    for b, imgs in requests.items():
+        kernels.reset_launches()
+        results[b] = pred.run_batch(imgs)
+        torch.cuda.synchronize()
+        got = {name: kernels.LAUNCHES[name] for name in PER_REQUEST}
+        print(f"request batch {b}: launches {got}", flush=True)
+        if got != PER_REQUEST:
+            fail(f"request batch {b} launched {got}, expected {PER_REQUEST} a request")
+        for name, n in got.items():
+            launches[name] += n
     print(f"serving path launches over requests of batch {list(requests)}: {launches}", flush=True)
-    for name in SERVING_KERNELS:
-        records[name]["launches"] = n = launches[name]
-        if n == 0:
-            fail(f"kernel {name} was not launched on the serving path")
+    for name, n in launches.items():
+        records[name]["launches"] = n
     for b, (dets, num) in results.items():
         check_dets(dets, num, b)
         print(f"request batch {b}: dets {tuple(dets.shape)}, num above conf {num.tolist()[:8]}, "
@@ -321,10 +410,10 @@ def phase_main(model, seed: int, records: dict):
     return pred, torch.from_numpy(requests[BATCH]).cuda()
 
 
-def phase_times(folded, seed: int, records: dict, pred, x32) -> None:
+def phase_times(folded, seed: int, records: dict, pred, x32, calls: dict) -> None:
     import torch
     import torch.nn.functional as F
-    from leanyolo_tpu_torch.kernels import dwconv, stem, topk
+    from leanyolo_tpu_torch.kernels import bounds, dwconv, matmul, s2dconv, stem, topk
 
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -342,9 +431,9 @@ def phase_times(folded, seed: int, records: dict, pred, x32) -> None:
     h0, w0_ = IMGSZ // 2, IMGSZ // 2
     h1, w1_ = IMGSZ // 4, IMGSZ // 4
     r = records["stem"]
-    r["ms"] = cuda_ms(lambda: stem.fused_stem(images, w0, b0, w1, b1))
-    r["plain_ms"] = cuda_ms(lambda: stem.fused_stem_plain(images, w0, b0, w1, b1, dtype=bf))
-    r["library_ms"] = cuda_ms(stem_library)
+    r["ms"] = cuda_ms(lambda: stem.fused_stem(images, w0, b0, w1, b1), inner=KERNEL_INNER)
+    r["plain_ms"] = cuda_ms(lambda: stem.fused_stem_plain(images, w0, b0, w1, b1, dtype=bf), inner=KERNEL_INNER)
+    r["library_ms"] = cuda_ms(stem_library, inner=KERNEL_INNER)
     stem_bytes = images.numel() + BATCH * h1 * w1_ * 64 * 2 + 2 * (w0.numel() + b0.numel() + w1.numel() + b1.numel())
     stem_ops = 2 * BATCH * (h0 * w0_ * 32 * 27 + h1 * w1_ * 64 * 288)
     set_bound(r, stem_bytes, stem_ops, "bf16")
@@ -356,9 +445,9 @@ def phase_times(folded, seed: int, records: dict, pred, x32) -> None:
     xc = x.permute(0, 3, 1, 2)  # channels_last view of the NHWC tensor
     wc = w.contiguous(memory_format=torch.channels_last)
     r = records["dw7x7"]
-    r["ms"] = cuda_ms(lambda: dwconv.dw7x7_bias_silu(x, w, b))
-    r["plain_ms"] = cuda_ms(lambda: dwconv.dw7x7_bias_silu_plain(x, w, b))
-    r["library_ms"] = cuda_ms(lambda: F.silu(F.conv2d(xc, wc, b, 1, 3, 1, c)))
+    r["ms"] = cuda_ms(lambda: dwconv.dw7x7_bias_silu(x, w, b), inner=KERNEL_INNER)
+    r["plain_ms"] = cuda_ms(lambda: dwconv.dw7x7_bias_silu_plain(x, w, b), inner=KERNEL_INNER)
+    r["library_ms"] = cuda_ms(lambda: F.silu(F.conv2d(xc, wc, b, 1, 3, 1, c)), inner=KERNEL_INNER)
     set_bound(r, 2 * x.numel() * 2 + 2 * (w.numel() + b.numel()), 2 * 49 * x.numel(), "bf16")
 
     # Top-k at both decode shapes; the record sums the pair, as the main path
@@ -368,14 +457,48 @@ def phase_times(folded, seed: int, records: dict, pred, x32) -> None:
     nbytes = nops = 0
     for n in (8400, 24000):
         xs = torch.randn(BATCH, n, generator=g, device=dev).to(bf)
-        ms += cuda_ms(lambda: topk.topk(xs, MAX_DET, canon_zero=True))
-        plain += cuda_ms(lambda: topk.topk_plain(xs, MAX_DET, canon_zero=True))
-        lib += cuda_ms(lambda: torch.topk(xs, MAX_DET, dim=-1))
+        ms += cuda_ms(lambda: topk.topk(xs, MAX_DET, canon_zero=True), inner=KERNEL_INNER)
+        plain += cuda_ms(lambda: topk.topk_plain(xs, MAX_DET, canon_zero=True), inner=KERNEL_INNER)
+        lib += cuda_ms(lambda: torch.topk(xs, MAX_DET, dim=-1), inner=KERNEL_INNER)
         print(f"topk [{BATCH},{n}] k={MAX_DET}: cumulative kernel {ms:.4f} ms, plain {plain:.4f}, torch.topk {lib:.4f}")
         nbytes += xs.numel() * 2 + BATCH * MAX_DET * (2 + 4)
         nops += xs.numel()  # one key and one comparison per element per pass; passes vary with the data
     r.update(ms=ms, plain_ms=plain, library_ms=lib)
     set_bound(r, nbytes, nops, "fp32")
+
+    # s2dconv, one launch at [32,160,160,32] (the input of c2.m[0].cv1, made
+    # contiguous for all three); the library call is cuDNN's conv + bias +
+    # SiLU in channels_last on the 3x3 weights.
+    x, w_s2d, b = calls["s2dconv"][0]
+    x = x.contiguous()
+    cv1 = folded.backbone.c2.m[0].cv1
+    w3 = cv1.conv.weight.contiguous(memory_format=torch.channels_last)
+    xc = x.permute(0, 3, 1, 2)  # channels_last view of the NHWC tensor
+    r = records["s2dconv"]
+    r["ms"] = cuda_ms(lambda: s2dconv.conv3x3_c32_bias_silu(x, w_s2d, b), inner=KERNEL_INNER)
+    r["plain_ms"] = cuda_ms(lambda: s2dconv.conv3x3_c32_bias_silu_plain(x, w_s2d, b), inner=KERNEL_INNER)
+    r["library_ms"] = cuda_ms(lambda: F.silu(F.conv2d(xc, w3, b, 1, 1)), inner=KERNEL_INNER)
+    set_bound(r, *bounds.s2dconv_work(*x.shape[:3], elt=x.element_size()), "bf16")
+    print(f"s2dconv {list(x.shape)} bf16: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, cuDNN conv+bias+SiLU "
+          f"{r['library_ms']:.4f}, bound {r['bound_ms']:.6f} ({r['bound_by']})", flush=True)
+
+    # bmm, summed over the 45 calls of a batch-32 request on their own
+    # inputs; the library call is torch.matmul on the same operands. The
+    # bound is each call's bound, summed.
+    r = records["bmm"]
+    ms = plain = lib = bound_ms = t_bytes = t_ops = 0.0
+    for x, w in calls["bmm"]:
+        ms += cuda_ms(lambda: matmul.bmm(x, w), inner=KERNEL_INNER)
+        plain += cuda_ms(lambda: matmul.bmm_plain(x, w), inner=KERNEL_INNER)
+        lib += cuda_ms(lambda: torch.matmul(x, w), inner=KERNEL_INNER)
+        nbytes, nops = bounds.bmm_work(*x.shape, w.shape[1], elt=x.element_size())
+        t_bytes += nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops += nops / PEAK_OPS_PER_S["bf16"] * 1e3
+        bound_ms += max(nbytes / HBM_BYTES_PER_S, nops / PEAK_OPS_PER_S["bf16"]) * 1e3
+    r.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
+             bound_by="bytes" if t_bytes >= t_ops else "operations")
+    print(f"bmm, {len(calls['bmm'])} calls of a batch-{BATCH} request, summed: kernel {ms:.4f} ms, plain {plain:.4f}, "
+          f"torch.matmul {lib:.4f}, bound {bound_ms:.6f} ({r['bound_by']})", flush=True)
 
     # The serving step, kernels against plain versions in turns (plain,
     # kernel, kernel, plain) so drift in the card's clocks shows.
@@ -561,10 +684,10 @@ def phase_train_times(seed: int, records: dict) -> None:
     xc, dyc = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)  # channels_last NCHW views, as in the model
     _, idx = F.max_pool2d(xc, 5, 1, 2, return_indices=True)
     r = records["mpbwd"]
-    r["ms"] = cuda_ms(lambda: mpbwd.mpbwd(x, dy))
-    r["plain_ms"] = cuda_ms(lambda: mpbwd.mpbwd_plain(x, dy))
+    r["ms"] = cuda_ms(lambda: mpbwd.mpbwd(x, dy), inner=KERNEL_INNER)
+    r["plain_ms"] = cuda_ms(lambda: mpbwd.mpbwd_plain(x, dy), inner=KERNEL_INNER)
     r["library_ms"] = cuda_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
-        dyc, xc, [5, 5], [1, 1], [2, 2], [1, 1], False, idx))
+        dyc, xc, [5, 5], [1, 1], [2, 2], [1, 1], False, idx), inner=KERNEL_INNER)
     set_bound(r, 3 * x.numel() * x.element_size(), 25 * x.numel(), "fp32")
     print(f"mpbwd [{BATCH},20,20,256] bf16: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, "
           f"aten max_pool2d_with_indices_backward {r['library_ms']:.4f}, bound {r['bound_ms']:.6f} ({r['bound_by']})",
@@ -610,14 +733,16 @@ def main() -> int:
             ("dw7x7", "leanyolo_tpu_torch/kernels/csrc/dw7x7.cu", "experiments/exp_dw_pallas.py:79"),
             ("topk", "leanyolo_tpu_torch/kernels/csrc/topk.cu", "leanyolo_tpu/ops/topk.py:69"),
             ("mpbwd", "leanyolo_tpu_torch/kernels/csrc/mpbwd.cu", "experiments/exp_sppf_bwd.py:86"),
+            ("s2dconv", "leanyolo_tpu_torch/kernels/csrc/s2dconv.cu", "experiments/exp_pallas_k2.py:42"),
+            ("bmm", "leanyolo_tpu_torch/kernels/csrc/matmul.cu", "experiments/exp_pallas_mm.py:47"),
         )
     }
     model = make_model(SEED)
-    folded = fold_model(model, dtype=torch.bfloat16).cuda()
-    phase_kernels(folded, SEED, records)
+    folded = fold_model(model, dtype=torch.bfloat16).cuda().to(memory_format=torch.channels_last)  # as Predictor
+    calls = phase_kernels(folded, SEED, records)
     pred, x32 = phase_main(model, SEED, records)
-    phase_times(folded, SEED, records, pred, x32)
-    del pred, x32, folded, model
+    phase_times(folded, SEED, records, pred, x32, calls)
+    del pred, x32, folded, model, calls
     torch.cuda.empty_cache()
     with torch.enable_grad():
         phase_train(SEED, records)

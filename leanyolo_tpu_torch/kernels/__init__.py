@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
 
-Each wrapper module (stem.py, dwconv.py, topk.py, mpbwd.py) holds a kernel's wrapper
-and, beside it, a plain PyTorch version of the same function. The wrapper
+Each wrapper module (stem.py, dwconv.py, topk.py, mpbwd.py, s2dconv.py,
+matmul.py) holds a kernel's wrapper and, beside it, a plain PyTorch version
+of the same function. The wrapper
 picks by the device of the tensor it is given: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel, which is built from `csrc/` at
 first use (_build.py), or raises. Nothing falls back from one to the other.
@@ -12,7 +13,7 @@ launches its kernel and nowhere else.
 
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"stem": 0, "dw7x7": 0, "topk": 0, "mpbwd": 0}
+LAUNCHES: Dict[str, int] = {"stem": 0, "dw7x7": 0, "topk": 0, "mpbwd": 0, "s2dconv": 0, "bmm": 0}
 
 
 def reset_launches() -> None:

@@ -1,13 +1,19 @@
-"""Least times an H100 could take for the TPU kernels still to be ported, at
-the shapes their probes run (bytes over 3.35 TB/s against operations over
-989 TFLOP/s bf16; each input read once, each output written once).
+"""Least times an H100 could take for the work of the s2dconv and bmm
+kernels (bytes over 3.35 TB/s against operations over 989 TFLOP/s bf16;
+each input read once, each output written once), at the shapes of the
+serving path and at the shapes the TPU probes ran.
 
     python -m leanyolo_tpu_torch.kernels.bounds
 
-Arithmetic from shapes only: it runs anywhere and measures nothing.
+Arithmetic from shapes only: it runs anywhere and measures nothing. The
+serving path's 1x1 shapes come from one forward of the folded model at
+64 px on the CPU, scaled to the requested size (every map side is
+imgsz / stride, so M scales with (imgsz / 64)^2).
 """
 
 from __future__ import annotations
+
+from typing import List, Tuple
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12
@@ -20,8 +26,65 @@ def bound(nbytes: float, nops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def bmm_work(b: int, m: int, k: int, n: int, elt: int = 2) -> Tuple[int, int]:
+    """(bytes, operations) of [b, m, k] x [k, n] -> [b, m, n]."""
+    return elt * (b * m * k + k * n + b * m * n), 2 * b * m * k * n
+
+
+def s2dconv_work(b: int, h: int, w: int, elt: int = 2) -> Tuple[int, int]:
+    """(bytes, operations) of the 3x3 32 -> 32 conv + bias + SiLU on [b, h, w, 32]:
+    the map in, the map out, the [4, 128, 128] S2D weights and the bias; the
+    operations of the S2D form the kernel computes (4 taps of 128 x 128 on
+    each of the b * h/2 * w/2 cells; the dense conv needs 9/16 of them)."""
+    cells = b * ((h + 1) // 2) * ((w + 1) // 2)
+    return elt * (2 * b * h * w * 32 + 4 * 128 * 128 + 32), 2 * cells * 512 * 128
+
+
+def serving_1x1_shapes(variant: str = "yolov10s", imgsz: int = 640) -> List[Tuple[int, int, int]]:
+    """(M, K, N) per image of each bmm call of one folded forward of the
+    serving path (the one2one branch), in call order."""
+    import torch
+
+    from ..models.yolov10.fold import fold_model
+    from ..models.yolov10.model import YOLOv10
+    from . import matmul
+
+    if imgsz % 64:
+        raise ValueError("imgsz must be a multiple of 64")
+    model = fold_model(YOLOv10.create(variant, class_names=[f"c{i}" for i in range(80)]))
+    shapes, bmm = [], matmul.bmm
+
+    def spy(x, w):
+        shapes.append((x.shape[1] * (imgsz // 64) ** 2, x.shape[2], w.shape[1]))
+        return bmm(x, w)
+
+    matmul.bmm = spy
+    try:
+        with torch.no_grad():
+            model(torch.zeros(1, 64, 64, 3), branches=("one2one",), normalize=False, concat_head=False)
+    finally:
+        matmul.bmm = bmm
+    return shapes
+
+
+def path_bounds(batch: int = 32):
+    """Rows of (kernel, shape, MB moved, GFLOP, bound ms, bound by) on the
+    yolov10s 640 bf16 serving path: one s2dconv launch (two a request) and
+    the sum of a request's bmm launches (each bounded alone, then summed)."""
+    nbytes, nops = s2dconv_work(batch, 160, 160)
+    rows = [("s2dconv", f"[{batch},160,160,32], one launch", nbytes, nops, *bound(nbytes, nops))]
+    shapes = serving_1x1_shapes()
+    works = [bmm_work(batch, m, k, n) for m, k, n in shapes]
+    ms = sum(bound(nb, no)[0] for nb, no in works)
+    by = "bytes" if sum(nb / HBM_BYTES_PER_S for nb, _ in works) >= sum(no / BF16_OPS_PER_S for _, no in works) \
+        else "operations"
+    rows.append(("bmm", f"{len(shapes)} 1x1 convs of a request, summed", sum(w[0] for w in works),
+                 sum(w[1] for w in works), ms, by))
+    return rows
+
+
 def probe_bounds():
-    """Rows of (kernel, shape, MB moved, GFLOP, bound ms, bound by)."""
+    """Rows of (kernel, shape, MB moved, GFLOP, bound ms, bound by) at the TPU probes' shapes."""
     rows = []
     # experiments/exp_pallas_k2.py (and the k2b variants): 2x2 VALID conv on
     # the space-to-depth form, x [128,81,81,128] bf16, w [4,128,128] bf16 ->
@@ -32,12 +95,11 @@ def probe_bounds():
     rows.append(("pallas_k2 / k2b", "[128,81,81,128] x [4,128,128]", nbytes, nops, *bound(nbytes, nops)))
     # experiments/exp_pallas_mm.py: [128,M,K] x [K,N] -> [128,M,N] bf16.
     for m, k, n in ((6400, 128, 128), (6400, 512, 128), (3200, 512, 128), (1600, 512, 128), (1600, 512, 512)):
-        nbytes = 2 * (b * m * k + k * n + b * m * n)
-        nops = 2 * b * m * k * n
+        nbytes, nops = bmm_work(b, m, k, n)
         rows.append(("pallas_mm", f"M{m} K{k} N{n}", nbytes, nops, *bound(nbytes, nops)))
     return rows
 
 
 if __name__ == "__main__":
-    for name, shape, nbytes, nops, ms, by in probe_bounds():
-        print(f"{name:16s} {shape:32s} {nbytes / 1e6:9.2f} MB {nops / 1e9:9.2f} GFLOP  bound {ms:.5f} ms ({by})")
+    for name, shape, nbytes, nops, ms, by in path_bounds() + probe_bounds():
+        print(f"{name:16s} {shape:40s} {nbytes / 1e6:9.2f} MB {nops / 1e9:9.2f} GFLOP  bound {ms:.5f} ms ({by})")

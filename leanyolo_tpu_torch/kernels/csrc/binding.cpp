@@ -73,6 +73,34 @@ void mpbwd(torch::Tensor x, torch::Tensor dy, torch::Tensor dx, int64_t k) {
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void bmm(torch::Tensor x, torch::Tensor w, torch::Tensor out, int64_t rows, int64_t lda) {
+  TORCH_CHECK(x.is_cuda() && x.stride(-1) == 1, "bmm: x must be a CUDA tensor with unit stride in K");
+  for (auto* p : {&w, &out}) check(*p, "bmm");
+  const bool bf16 = act_is_bf16(x, "bmm x");
+  for (auto* p : {&w, &out}) TORCH_CHECK(p->scalar_type() == x.scalar_type(), "bmm: dtype");
+  TORCH_CHECK(w.dim() == 2 && x.size(-1) == w.size(0), "bmm: w [K, N]");
+  const int64_t K = w.size(0), N = w.size(1);
+  TORCH_CHECK(out.numel() == rows * N && lda >= K && rows < (int64_t(1) << 31), "bmm: out [rows, N], lda >= K");
+  C10_CUDA_CHECK(launch_bmm(x.data_ptr(), w.data_ptr(), out.data_ptr(), static_cast<int>(rows), static_cast<int>(K),
+                            static_cast<int>(N), lda, bf16, at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void s2dconv(torch::Tensor x, torch::Tensor w, torch::Tensor b, torch::Tensor out, int64_t taps) {
+  TORCH_CHECK(x.is_cuda() && x.dim() == 4 && x.size(3) == 32 && x.stride(3) == 1 &&
+                  x.stride(1) == x.size(2) * x.stride(2),
+              "s2dconv: x [B,H,W,32], channels contiguous, pixels of a row evenly strided");
+  for (auto* p : {&w, &b, &out}) check(*p, "s2dconv");
+  const bool bf16 = act_is_bf16(x, "s2dconv x");
+  for (auto* p : {&w, &b, &out}) TORCH_CHECK(p->scalar_type() == x.scalar_type(), "s2dconv: dtype");
+  TORCH_CHECK(w.numel() == 4 * 128 * 128 && b.numel() == 32 && out.sizes() == x.sizes(), "s2dconv: w, b, out shapes");
+  TORCH_CHECK(taps >= 0 && taps < 256, "s2dconv: taps, 8 bits");
+  C10_CUDA_CHECK(launch_s2dconv(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), x.size(0), x.size(1),
+                                x.size(2), x.stride(0), x.stride(2), static_cast<int>(taps), bf16,
+                                at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -80,4 +108,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("dw7x7", &dw7x7, "depthwise 7x7 + bias + SiLU");
   m.def("topk", &topk, "exact per-row top-k");
   m.def("mpbwd", &mpbwd, "backward of the k x k stride-1 same max pool");
+  m.def("bmm", &bmm, "matrix product with an fp32 sum");
+  m.def("s2dconv", &s2dconv, "3x3 conv 32->32 + bias + SiLU over the space-to-depth form");
 }

@@ -28,3 +28,17 @@ cudaError_t launch_topk(const void* x, int rows, int n, int k, bool canon_zero, 
 // [B,H,W,C], all bf16 (bf16) or fp32; k odd, 1 <= k <= 15.
 cudaError_t launch_mpbwd(const void* x, const void* dy, void* dx, int B, int H, int W, int C, int k, bool bf16,
                          cudaStream_t stream);
+
+// Matrix product out[rows, N] = x[rows, K] @ w[K, N] (matmul.cu): x rows lda
+// elements apart, w and out dense, all bf16 (bf16) or fp32; fp32 sum,
+// rounded once.
+cudaError_t launch_bmm(const void* x, const void* w, void* out, int rows, int K, int N, long long lda, bool bf16,
+                       cudaStream_t stream);
+
+// Dense 3x3 SAME conv 32 -> 32 + bias + SiLU as a 2x2 conv over the
+// space-to-depth form (s2dconv.cu). x [B,H,W,32] with batch stride sb and
+// pixel stride sp (elements, multiples of 16 bytes, channels contiguous);
+// w [4 taps, 128, 128] S2D weights; bias [32]; out [B,H,W,32] dense. taps:
+// bit 2t is tap t's row offset, bit 2t+1 its column offset.
+cudaError_t launch_s2dconv(const void* x, const void* w, const void* bias, void* out, int B, int H, int W,
+                           long long sb, long long sp, int taps, bool bf16, cudaStream_t stream);

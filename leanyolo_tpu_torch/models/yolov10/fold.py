@@ -12,7 +12,11 @@ All folding math runs in fp32 on the CPU before the cast, as there:
    + (b - sum(w * sub / div)), and the buffers become identity.
 
 The folded model holds `FusedRepVGGDW` modules and folded `ConvBNAct`s
-(bias, no BN), which route through the fused-stem and dw7x7 kernels.
+(bias, no BN), which route through the fused-stem and dw7x7 kernels. Then
+each dense 1x1 stride-1 conv (in a `ConvBNAct` or the head's biased `Conv`)
+becomes a `MatmulConv` (bmm kernel) and each dense 3x3 stride-1 32 -> 32
+`ConvBNAct` with SiLU an `S2DConvBNAct` (s2dconv kernel), their weights
+packed once. Unfolded and training models keep cuDNN.
 """
 
 from __future__ import annotations
@@ -65,7 +69,33 @@ def fold_module(module: nn.Module) -> nn.Module:
             m.conv.weight = nn.Parameter(w)
             m.conv.bias = nn.Parameter(b)
             m.bn = None
-    return out
+    return _route_kernels(out)
+
+
+def _dense(conv: L.Conv, k: int) -> bool:
+    return (tuple(conv.weight.shape[2:]) == (k, k) and conv.stride == 1 and conv.groups == 1
+            and conv.padding == k // 2)
+
+
+def _kernel_module(m: nn.Module) -> Optional[nn.Module]:
+    """The kernel-backed replacement of a folded module, or None."""
+    if type(m) is L.Conv and _dense(m, 1):
+        return L.MatmulConv(m)
+    if (type(m) is L.ConvBNAct and m.folded and m.act and _dense(m.conv, 3) and m.conv.bias is not None
+            and tuple(m.conv.weight.shape[:2]) == (32, 32)):
+        return L.S2DConvBNAct(m.conv)
+    return None
+
+
+def _route_kernels(root: nn.Module) -> nn.Module:
+    new = _kernel_module(root)
+    if new is not None:
+        return new  # a replacement holds no module that is replaced in turn
+    for name, m in list(root.named_modules()):
+        new = _kernel_module(m) if name else None
+        if new is not None:
+            _set_submodule(root, name, new)
+    return root
 
 
 def fold_model(model: YOLOv10, *, dtype: Optional[torch.dtype] = None) -> YOLOv10:

@@ -21,6 +21,11 @@ statistics and advances its running statistics in the forward, as the JAX
 train step does after its update (`merge_bn_stats`): nothing in the forward
 reads them, so the order makes no difference. The SPPF max pools backpropagate
 through the mpbwd kernel wrapper (kernels/mpbwd.py).
+
+Folding (fold.py) routes the serving forward through the other kernel
+wrappers: dense 1x1 convs become `MatmulConv` (kernels/matmul.py), the
+dense 3x3 32 -> 32 convs `S2DConvBNAct` (kernels/s2dconv.py), RepVGGDW
+`FusedRepVGGDW` (kernels/dwconv.py).
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...kernels import dwconv, mpbwd
+from ...kernels import dwconv, matmul, mpbwd, s2dconv
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
@@ -65,8 +70,9 @@ class Conv(nn.Module):
         else:
             self.register_parameter("bias", None)
 
-    def conv(self, x: Tensor, weight: Optional[Tensor] = None) -> Tensor:
-        w = self.weight if weight is None else weight
+    def conv(self, x: Tensor, lo: int = 0, hi: Optional[int] = None) -> Tensor:
+        """The conv without its bias, over input channels lo:hi of the weight."""
+        w = self.weight if lo == 0 and hi is None else self.weight[:, lo:hi]
         return F.conv2d(x, w.to(x.dtype), None, self.stride, self.padding, 1, self.groups)
 
     def forward(self, x: Tensor) -> Tensor:
@@ -74,6 +80,39 @@ class Conv(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(y.dtype).view(1, -1, 1, 1)
         return y
+
+
+def _repack(module: nn.Module, incompatible_keys) -> None:
+    module.pack()
+
+
+class MatmulConv(Conv):
+    """Folded dense 1x1 stride-1 conv as a matrix product on the NHWC view
+    of its input, through the bmm kernel wrapper (kernels/matmul.py).
+
+    Keeps `weight` (OIHW) and `bias` as `Conv` does; `wt` holds the weight
+    as [Cin, Cout], packed once (and again after a state-dict load), out of
+    the state dict. Input channels lo:hi are rows lo:hi of `wt`, a
+    contiguous view, so each half of an upsample-concat conv runs in place.
+    """
+
+    def __init__(self, conv: Conv) -> None:
+        nn.Module.__init__(self)
+        self.stride, self.groups, self.padding = 1, 1, 0
+        self.weight = conv.weight
+        self.register_parameter("bias", conv.bias)
+        self.register_buffer("wt", None, persistent=False)
+        self.pack()
+        self.register_load_state_dict_post_hook(_repack)
+
+    def pack(self) -> None:
+        with torch.no_grad():
+            self.wt = self.weight[:, :, 0, 0].t().contiguous()
+
+    def conv(self, x: Tensor, lo: int = 0, hi: Optional[int] = None) -> Tensor:
+        b, c, h, w = x.shape
+        y = matmul.bmm(x.permute(0, 2, 3, 1).reshape(b, h * w, c), self.wt[lo:hi])
+        return y.view(b, h, w, -1).permute(0, 3, 1, 2)
 
 
 class _BatchMoments(torch.autograd.Function):
@@ -183,8 +222,8 @@ class ConvBNAct(nn.Module):
         w = self.conv.weight
         assert w.shape[2] == 1 and w.shape[3] == 1, "upcat distribution needs a 1x1 conv"
         ca = a.shape[1]
-        ya = self.conv.conv(a, w[:, :ca])
-        yb = self.conv.conv(b, w[:, ca:])
+        ya = self.conv.conv(a, 0, ca)
+        yb = self.conv.conv(b, ca)
         return self.epilogue(F.interpolate(ya, scale_factor=2, mode="nearest") + yb)
 
 
@@ -319,6 +358,32 @@ class FusedRepVGGDW(ConvBNAct):
 
     def forward(self, x: Tensor) -> Tensor:
         y = dwconv.dw7x7_bias_silu(x.permute(0, 2, 3, 1).contiguous(), self.conv.weight, self.conv.bias)
+        return y.permute(0, 3, 1, 2)
+
+
+class S2DConvBNAct(ConvBNAct):
+    """Folded dense 3x3 stride-1 conv, 32 -> 32 channels, + bias + SiLU, as
+    the 2x2 conv over the space-to-depth form, through the s2dconv kernel
+    wrapper (kernels/s2dconv.py).
+
+    Keeps the folded `conv` (OIHW weight, bias); `w_s2d` holds the weight
+    packed once by `w_s2d_k3` (and again after a state-dict load), out of
+    the state dict.
+    """
+
+    def __init__(self, conv: Conv) -> None:
+        nn.Module.__init__(self)
+        self.conv, self.bn, self.act = conv, None, True
+        self.register_buffer("w_s2d", None, persistent=False)
+        self.pack()
+        self.register_load_state_dict_post_hook(_repack)
+
+    def pack(self) -> None:
+        with torch.no_grad():
+            self.w_s2d = s2dconv.pack_weights(self.conv.weight)
+
+    def forward(self, x: Tensor) -> Tensor:
+        y = s2dconv.conv3x3_c32_bias_silu(x.permute(0, 2, 3, 1), self.w_s2d, self.conv.bias)
         return y.permute(0, 3, 1, 2)
 
 

@@ -8,8 +8,9 @@ mode). The file imports no JAX, so it runs on a machine without it:
 Tolerances as in chip_smoke.py: kernel and plain version round at the same
 points but sum in another order, so bf16 outputs may differ by a rounding
 that lands one ulp apart: limit 4 bf16 ulps (2^-8 each) of the output's
-largest magnitude; fp32 (TF32 off) to 1e-4 of it. Top-k and the max-pool
-backward (mpbwd) are bit-exact.
+largest magnitude; fp32 (TF32 off) to 1e-4 of it. The matrix product (bmm)
+rounds once, so a flip is one ulp, at most 2^-7 of the element: limit 2
+such 2^-8 units. Top-k and the max-pool backward (mpbwd) are bit-exact.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 from leanyolo_tpu_torch import kernels
-from leanyolo_tpu_torch.kernels import dwconv, mpbwd, stem, topk
+from leanyolo_tpu_torch.kernels import dwconv, matmul, mpbwd, s2dconv, stem, topk
 from leanyolo_tpu_torch.models.yolov10.layers import maxpool2d_same
 from torch_parity import cuda_device  # noqa: F401  (fixture)
 
@@ -130,6 +131,95 @@ def test_maxpool_autograd_uses_the_kernel(cuda_device, dtype):
     assert torch.equal(xc.grad.contiguous().view(bits), ref.contiguous().view(bits))
 
 
+def _nhwc(shape, sliced, dtype, g, device):
+    """A random [B,H,W,C] map; sliced: the upper half of a map twice as wide,
+    read in place as the model's channel slices are."""
+    b, h, w, c = shape
+    x = torch.randn(b, h, w, 2 * c if sliced else c, generator=g, device=device)
+    return (x[..., c:] if sliced else x).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,sliced", [((32, 160, 160, 32), True), ((2, 14, 18, 32), False),
+                                          ((3, 9, 7, 32), False), ((1, 2, 2, 32), True)])
+def test_s2dconv_kernel(cuda_device, dtype, shape, sliced):
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    x = _nhwc(shape, sliced, dtype, g, cuda_device)
+    w = s2dconv.pack_weights(torch.randn(32, 32, 3, 3, generator=g, device=cuda_device) * 0.1).to(dtype)
+    b = (torch.randn(32, generator=g, device=cuda_device) * 0.1).to(dtype)
+    ref = s2dconv.conv3x3_c32_bias_silu_plain(x, w, b)
+    n = kernels.LAUNCHES["s2dconv"]
+    got = s2dconv.conv3x3_c32_bias_silu(x, w, b)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["s2dconv"] == n + 1
+    assert got.shape == shape and got.is_contiguous()
+    assert float((got.float() - ref.float()).abs().max()) <= _limit(ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("taps", [s2dconv.TAPS, ((0, 0),) * 4, ((1, 1), (0, 1), (1, 0), (0, 0))])
+def test_s2dconv_kernel_any_taps_and_weights(cuda_device, dtype, taps):
+    """Dense [4,128,128] weights (no zero blocks) and other tap tables, as
+    the TPU kernel bodies take them."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randn(4, 20, 24, 32, generator=g, device=cuda_device).to(dtype)
+    w = (torch.randn(4, 128, 128, generator=g, device=cuda_device) * 0.05).to(dtype)
+    b = (torch.randn(32, generator=g, device=cuda_device) * 0.1).to(dtype)
+    ref = s2dconv.conv3x3_c32_bias_silu_plain(x, w, b, taps)
+    got = s2dconv.conv3x3_c32_bias_silu(x, w, b, taps)
+    torch.cuda.synchronize()
+    assert float((got.float() - ref.float()).abs().max()) <= _limit(ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,m,k,n,sliced", [(32, 25600, 64, 64, False), (32, 6400, 192, 128, False),
+                                            (32, 400, 1024, 512, False), (32, 400, 128, 80, False),
+                                            (3, 100, 96, 40, True), (2, 37, 75, 33, False), (1, 1, 8, 8, False)])
+def test_bmm_kernel(cuda_device, dtype, b, m, k, n, sliced):
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    x = _nhwc((b, 1, m, k), sliced, dtype, g, cuda_device)[:, 0]  # [b, m, k], rows k or 2k apart
+    w = (torch.randn(k, n, generator=g, device=cuda_device) / k ** 0.5).to(dtype)
+    ref = matmul.bmm_plain(x, w)
+    n0 = kernels.LAUNCHES["bmm"]
+    got = matmul.bmm(x, w)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bmm"] == n0 + 1
+    assert got.shape == (b, m, n) and got.dtype == dtype
+    scale = max(1.0, float(ref.float().abs().max()))
+    limit = (2 * 2.0 ** -8 if dtype == torch.bfloat16 else 1e-4) * scale
+    assert float((got.float() - ref.float()).abs().max()) <= limit
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_folded_model_launches_the_new_kernels(cuda_device, dtype):
+    """The folded yolov10s forward on the card: 2 s2dconv and 45 bmm
+    launches, and head maps that match the all-plain forward."""
+    from leanyolo_tpu_torch import YOLOv10
+    from leanyolo_tpu_torch.models.yolov10.fold import fold_model
+
+    model = YOLOv10.create("yolov10s", class_names=[f"c{i}" for i in range(80)], seed=0)
+    folded = fold_model(model, dtype=dtype).to(cuda_device, memory_format=torch.channels_last).eval()
+    imgs = torch.randint(0, 256, (2, 128, 128, 3), device=cuda_device, dtype=torch.uint8)
+    kw = dict(dtype=dtype, branches=("one2one",), normalize=False, concat_head=False)
+    kernels.reset_launches()
+    with torch.no_grad():
+        got = folded(imgs, **kw)["one2one"]
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["s2dconv"] == 2 and kernels.LAUNCHES["bmm"] == 45
+        bmm, conv3 = matmul.bmm, s2dconv.conv3x3_c32_bias_silu
+        matmul.bmm, s2dconv.conv3x3_c32_bias_silu = matmul.bmm_plain, s2dconv.conv3x3_c32_bias_silu_plain
+        try:
+            ref = folded(imgs, **kw)["one2one"]
+        finally:
+            matmul.bmm, s2dconv.conv3x3_c32_bias_silu = bmm, conv3
+    for lg, lr in zip(got, ref):
+        for a, r in zip(lg, lr):
+            scale = max(1.0, float(r.float().abs().max()))
+            # bf16: a one-ulp flip in a conv travels through the rest of the
+            # net; fp32 differs in the order of sums only.
+            assert float((a.float() - r.float()).abs().max()) <= (0.1 if dtype == torch.bfloat16 else 1e-3) * scale
+
+
 def test_wrappers_raise_on_unsupported(cuda_device):
     with pytest.raises(ValueError):
         stem.fused_stem(torch.zeros(1, 48, 64, 3, dtype=torch.uint8, device=cuda_device),
@@ -141,3 +231,9 @@ def test_wrappers_raise_on_unsupported(cuda_device):
         topk.topk(torch.zeros(2, 10, dtype=torch.float16, device=cuda_device), 3, canon_zero=True)
     with pytest.raises(ValueError):
         mpbwd.mpbwd(torch.zeros(1, 8, 8, 4, device=cuda_device), torch.zeros(1, 8, 8, 4, device=cuda_device), 4)
+    with pytest.raises(ValueError):
+        s2dconv.conv3x3_c32_bias_silu(torch.zeros(1, 8, 8, 16, device=cuda_device),
+                                      torch.zeros(4, 128, 128, device=cuda_device), torch.zeros(32, device=cuda_device))
+    with pytest.raises(ValueError):
+        matmul.bmm(torch.zeros(1, 8, 4, dtype=torch.float16, device=cuda_device),
+                   torch.zeros(4, 4, dtype=torch.float16, device=cuda_device))
