@@ -6,19 +6,25 @@ Phases, each of which fails loudly (non-zero exit):
 1. the card's name and power limit (nvidia-smi);
 2. build the kernels from leanyolo_tpu_torch/kernels/csrc (build/kernels/);
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   of the serving path (yolov10s, 640 px, batch 32): s2dconv and bmm on the
-   very inputs of one batch-32 forward (the stage-1 bottleneck's two 3x3
-   convs, the 45 dense 1x1 convs), in bf16 and fp32, plus an odd shape each;
+   of the serving path (yolov10s, 640 px, batch 32): dw7x7 also at a map
+   split into bands and at an odd C; s2dconv and bmm on the very inputs of
+   one batch-32 forward (the stage-1 bottleneck's two 3x3 convs, the 45
+   dense 1x1 convs with their bias and SiLU), in bf16 and fp32, plus an odd
+   shape each; bmm's fused epilogue against the bias-free kernel followed
+   by PyTorch's bias add and SiLU (at most one bf16 ulp apart);
 4. the serving path: yolov10s at full width and depth, random weights from a
    seed, folded to bf16, answers uint8 requests of batch 1, 8 and 32 through
    Predictor.run_batch; the launches of every kernel are counted per request
-   (stem 1, dw7x7 2, top-k 2, s2dconv 2, bmm 45). Then the kernel path is
-   held against the all-plain path on the card, and an fp32 run on the card
-   against an fp32 run on the CPU at a small input;
+   (stem 1, dw7x7 2, top-k 2, s2dconv 2, bmm 45, all 45 on bmm's TMA +
+   wgmma route). Then the kernel path is held against the all-plain path on
+   the card, and an fp32 run on the card against an fp32 run on the CPU at
+   a small input;
 5. times from CUDA events (warm-up, median of 20 runs): each kernel, its
    plain version and the PyTorch call that computes the same function, each
-   run the mean of 10 back-to-back calls, and the serving path's images per
-   second at batch 32, each run one request from an idle card;
+   run the mean of 10 back-to-back calls (bmm also per distinct shape, with
+   its route and tile), and the serving path's images per second at batch
+   32, each run one request from an idle card; a profile of the serving step
+   with its count of elementwise kernels;
 6. the training path: yolov10s at full width and depth, 640 px, bf16
    activations over fp32 parameters, trains through Trainer.train_step at
    batch 32 (24 GT slots, 40% valid, augmentation on, clip 1.0): 3 warm-up
@@ -57,6 +63,7 @@ NC = 80
 SEED = 0  # weights, images and test inputs all come from it
 # Launches of each serving-path kernel per request; mpbwd runs on the training path.
 PER_REQUEST = {"stem": 1, "dw7x7": 2, "topk": 2, "s2dconv": 2, "bmm": 45}
+WGMMA_PER_REQUEST = 45  # every bf16 bmm call of the path fits the TMA + wgmma route
 
 
 def fail(msg: str) -> None:
@@ -96,6 +103,23 @@ def cuda_ms(fn, *, warmup: int = 3, runs: int = 20, inner: int = 1) -> float:
 
 
 KERNEL_INNER = 10
+
+
+def device_ms(fn, reps: int = KERNEL_INNER) -> float:
+    """Device milliseconds per call of fn(): the CUDA kernels' own time
+    under torch.profiler over `reps` calls after a warm-up, free of the
+    host's launch time (which a short kernel's CUDA-event time includes
+    when the host enqueues slower than the card runs)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages() if e.device_type.name == "CUDA") / reps / 1e3
 
 
 def max_err(a, b) -> float:
@@ -205,20 +229,26 @@ def phase_kernels(folded, seed: int, records: dict) -> dict:
         if dtype == torch.bfloat16:
             records["stem"]["max_abs_err"] = err
 
+    # dw7x7 at the path's shape (one whole map per CTA in bf16, bands of
+    # rows in fp32), a map split into bands in both types, and an odd C
+    # (scalar copies and stores).
     dw = folded.backbone.c8.m[0].cv1[2]
     c = dw.conv.weight.shape[0]
+    odd = dwconv.pack_weights(torch.randn(33, 1, 7, 7, generator=g, device=dev) * 0.1)
     for dtype, ulps in ((torch.bfloat16, 4 * 2.0 ** -8), (torch.float32, 1e-4)):
-        x = torch.randn(BATCH, 20, 20, c, generator=g, device=dev).to(dtype)
-        w, b = dw.conv.weight.to(dtype), dw.conv.bias.to(dtype)
-        ref = dwconv.dw7x7_bias_silu_plain(x, w, b)
-        got = dwconv.dw7x7_bias_silu(x, w, b)
-        torch.cuda.synchronize()
-        err, lim = max_err(got, ref), ulps * max(1.0, float(ref.float().abs().max()))
-        print(f"kernel dw7x7 {dtype} {tuple(got.shape)}: max_abs_err {err:.6g} (limit {lim:.6g})", flush=True)
-        if not err <= lim:
-            fail("dw7x7 kernel disagrees with its plain version")
-        if dtype == torch.bfloat16:
-            records["dw7x7"]["max_abs_err"] = err
+        for shape, w, b in (((BATCH, 20, 20, c), dw.w49, dw.conv.bias), ((4, 64, 64, c), dw.w49, dw.conv.bias),
+                            ((2, 20, 20, 33), odd, odd[0] * 3)):
+            x = torch.randn(shape, generator=g, device=dev).to(dtype)
+            w, b = w.to(dtype), b.to(dtype)
+            ref = dwconv.dw7x7_bias_silu_plain(x, w, b)
+            got = dwconv.dw7x7_bias_silu(x, w, b)
+            torch.cuda.synchronize()
+            err, lim = max_err(got, ref), ulps * max(1.0, float(ref.float().abs().max()))
+            print(f"kernel dw7x7 {dtype} {tuple(got.shape)}: max_abs_err {err:.6g} (limit {lim:.6g})", flush=True)
+            if not err <= lim:
+                fail("dw7x7 kernel disagrees with its plain version")
+            if dtype == torch.bfloat16:
+                records["dw7x7"]["max_abs_err"] = max(records["dw7x7"].get("max_abs_err", 0.0), err)
 
     worst = 0.0
     for n in (8400, 24000):
@@ -285,30 +315,67 @@ def phase_kernels(folded, seed: int, records: dict) -> dict:
             if dtype == torch.bfloat16:
                 records["s2dconv"]["max_abs_err"] = max(records["s2dconv"].get("max_abs_err", 0.0), err)
 
-    # bmm rounds once: a flip from another summation order is one ulp, at
-    # most 2^-7 of the element: limit 2 x 2^-8 of the largest magnitude in
-    # bf16, 1e-4 of it in fp32.
-    odd = (torch.randn(2, 37, 75, generator=g, device=dev), torch.randn(75, 33, generator=g, device=dev) * 0.1)
-    for dtype, ulps in ((torch.bfloat16, 2 * 2.0 ** -8), (torch.float32, 1e-4)):
+    # bmm with its epilogue, on each call's own bias and SiLU flag. The sum
+    # rounds once: a flip from another summation order is one ulp, at most
+    # 2^-7 of the element: limit 2 x 2^-8 of the largest magnitude in bf16
+    # for a bare product; with bias and SiLU three rounding points, as for
+    # the stem: 4 x 2^-8. fp32: 1e-4 of the largest magnitude.
+    odd = (torch.randn(2, 37, 75, generator=g, device=dev), torch.randn(75, 33, generator=g, device=dev) * 0.1,
+           torch.randn(33, generator=g, device=dev), True)
+    for dtype, ulps in ((torch.bfloat16, 2.0 ** -8), (torch.float32, 1e-4)):
         worst, at = 0.0, None
-        for args in calls["bmm"] + [odd]:
-            x, w = (t.to(dtype) for t in args)
-            ref = matmul.bmm_plain(x, w)
-            got = matmul.bmm(x, w)
+        for x, w, bias, act in calls["bmm"] + [odd]:
+            x, w = x.to(dtype), w.to(dtype)
+            bias = None if bias is None else bias.to(dtype)
+            ref = matmul.bmm_plain(x, w, bias, act)
+            got = matmul.bmm(x, w, bias, act)
             torch.cuda.synchronize()
-            err, lim = max_err(got, ref), ulps * max(1.0, float(ref.float().abs().max()))
+            units = (2 if bias is None and not act else 4) if dtype == torch.bfloat16 else 1
+            err, lim = max_err(got, ref), units * ulps * max(1.0, float(ref.float().abs().max()))
             if not err <= lim:
-                fail(f"bmm kernel disagrees with its plain version at x {list(x.shape)} w {list(w.shape)}: "
-                     f"{err} > {lim}")
+                fail(f"bmm kernel disagrees with its plain version at x {list(x.shape)} w {list(w.shape)} "
+                     f"bias {bias is not None} act {act}: {err} > {lim}")
             if err / lim >= worst:
                 worst, at = err / lim, f"x {list(x.shape)} (strides {list(x.stride())}) w {list(w.shape)}"
             if dtype == torch.bfloat16:
                 records["bmm"]["max_abs_err"] = max(records["bmm"].get("max_abs_err", 0.0), err)
         shapes = {(tuple(a[0].shape), tuple(a[1].shape)) for a in calls["bmm"]}
         print(f"kernel bmm {dtype}: the {len(calls['bmm'])} calls of a batch-{BATCH} forward ({len(shapes)} "
-              f"distinct shapes) and [2,37,75]x[75,33]: all within limit; worst max_abs_err/limit {worst:.4f} at {at}",
-              flush=True)
+              f"distinct shapes) with their bias and SiLU, and [2,37,75]x[75,33] + bias + SiLU: all within limit; "
+              f"worst max_abs_err/limit {worst:.4f} at {at}", flush=True)
+
+    # The fused epilogue against the bias-free kernel followed by PyTorch's
+    # bias add and SiLU, bf16: both round the very same fp32 sums at the same
+    # points; the bias add is bit-equal, and the kernel's SiLU (the
+    # hardware's approximate exp2 and reciprocal) parts from PyTorch's by a
+    # few fp32 ulps, which flips a bf16 rounding now and then: one bf16 ulp.
+    fused = [a for a in calls["bmm"] if a[2] is not None]
+    differ = total = worst = 0
+    for x, w, bias, act in fused:
+        got = matmul.bmm(x, w, bias, act)
+        sep = matmul.bmm(x, w) + bias
+        sep = torch.nn.functional.silu(sep) if act else sep
+        torch.cuda.synchronize()
+        gap = bf16_ulps_apart(got, sep)
+        differ += int((gap > 0).sum())
+        total += gap.numel()
+        worst = max(worst, int(gap.max()))
+    print(f"kernel bmm fused epilogue vs bias-free kernel + PyTorch bias/SiLU, {len(fused)} calls: {differ} of "
+          f"{total} bf16 outputs differ, by at most {worst} ulp", flush=True)
+    if worst > 1:
+        fail("bmm's fused epilogue is more than one bf16 ulp from the kernel + PyTorch's bias and SiLU")
     return calls
+
+
+def bf16_ulps_apart(a, b):
+    """Per element, how many bf16 steps lie between a and b (+0 == -0)."""
+    import torch
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return (ordered(a) - ordered(b)).abs()
 
 
 def check_dets(dets, num, b: int) -> None:
@@ -345,11 +412,15 @@ def phase_main(model, seed: int, records: dict):
         results[b] = pred.run_batch(imgs)
         torch.cuda.synchronize()
         got = {name: kernels.LAUNCHES[name] for name in PER_REQUEST}
-        print(f"request batch {b}: launches {got}", flush=True)
+        wgmma = kernels.LAUNCHES["bmm_wgmma"]
+        print(f"request batch {b}: launches {got}, of bmm on the wgmma route {wgmma}", flush=True)
         if got != PER_REQUEST:
             fail(f"request batch {b} launched {got}, expected {PER_REQUEST} a request")
+        if wgmma != WGMMA_PER_REQUEST:
+            fail(f"request batch {b} took bmm's wgmma route {wgmma} times, expected {WGMMA_PER_REQUEST}")
         for name, n in got.items():
             launches[name] += n
+        records["bmm"]["wgmma_launches"] = records["bmm"].get("wgmma_launches", 0) + wgmma
     print(f"serving path launches over requests of batch {list(requests)}: {launches}", flush=True)
     for name, n in launches.items():
         records[name]["launches"] = n
@@ -438,17 +509,21 @@ def phase_times(folded, seed: int, records: dict, pred, x32, calls: dict) -> Non
     stem_ops = 2 * BATCH * (h0 * w0_ * 32 * 27 + h1 * w1_ * 64 * 288)
     set_bound(r, stem_bytes, stem_ops, "bf16")
 
+    # dw7x7 with the weights the model packed once ([49, C] bf16), as the
+    # path calls it.
     dw = folded.backbone.c8.m[0].cv1[2]
     c = dw.conv.weight.shape[0]
     x = torch.randn(BATCH, 20, 20, c, generator=g, device=dev).to(bf)
-    w, b = dw.conv.weight.to(dev, bf), dw.conv.bias.to(dev, bf)
+    w49, w, b = dw.w49, dw.conv.weight, dw.conv.bias
     xc = x.permute(0, 3, 1, 2)  # channels_last view of the NHWC tensor
     wc = w.contiguous(memory_format=torch.channels_last)
     r = records["dw7x7"]
-    r["ms"] = cuda_ms(lambda: dwconv.dw7x7_bias_silu(x, w, b), inner=KERNEL_INNER)
-    r["plain_ms"] = cuda_ms(lambda: dwconv.dw7x7_bias_silu_plain(x, w, b), inner=KERNEL_INNER)
+    r["ms"] = cuda_ms(lambda: dwconv.dw7x7_bias_silu(x, w49, b), inner=KERNEL_INNER)
+    r["plain_ms"] = cuda_ms(lambda: dwconv.dw7x7_bias_silu_plain(x, w49, b), inner=KERNEL_INNER)
     r["library_ms"] = cuda_ms(lambda: F.silu(F.conv2d(xc, wc, b, 1, 3, 1, c)), inner=KERNEL_INNER)
     set_bound(r, 2 * x.numel() * 2 + 2 * (w.numel() + b.numel()), 2 * 49 * x.numel(), "bf16")
+    print(f"dw7x7 {list(x.shape)} bf16: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, cuDNN conv+bias+SiLU "
+          f"{r['library_ms']:.4f}, bound {r['bound_ms']:.6f} ({r['bound_by']})", flush=True)
 
     # Top-k at both decode shapes; the record sums the pair, as the main path
     # launches one of each per request.
@@ -483,22 +558,47 @@ def phase_times(folded, seed: int, records: dict, pred, x32, calls: dict) -> Non
           f"{r['library_ms']:.4f}, bound {r['bound_ms']:.6f} ({r['bound_by']})", flush=True)
 
     # bmm, summed over the 45 calls of a batch-32 request on their own
-    # inputs; the library call is torch.matmul on the same operands. The
-    # bound is each call's bound, summed.
+    # inputs, each with its bias and SiLU; the library call is torch.matmul
+    # on the same operands (the product alone). The bound is each call's
+    # bound, summed. Beside the CUDA-event times, the kernel's and
+    # torch.matmul's device times (profiler): the short 20x20 calls are
+    # host-bound under CUDA events. The same timings, grouped by shape, give
+    # the per-shape table.
     r = records["bmm"]
-    ms = plain = lib = bound_ms = t_bytes = t_ops = 0.0
-    for x, w in calls["bmm"]:
-        ms += cuda_ms(lambda: matmul.bmm(x, w), inner=KERNEL_INNER)
-        plain += cuda_ms(lambda: matmul.bmm_plain(x, w), inner=KERNEL_INNER)
-        lib += cuda_ms(lambda: torch.matmul(x, w), inner=KERNEL_INNER)
+    ms = plain = lib = bound_ms = t_bytes = t_ops = k_dev = l_dev = 0.0
+    per_shape = {}
+    for x, w, bias, act in calls["bmm"]:
+        k_ms = cuda_ms(lambda: matmul.bmm(x, w, bias, act), inner=KERNEL_INNER)
+        plain += cuda_ms(lambda: matmul.bmm_plain(x, w, bias, act), inner=KERNEL_INNER)
+        l_ms = cuda_ms(lambda: torch.matmul(x, w), inner=KERNEL_INNER)
+        kd_ms = device_ms(lambda: matmul.bmm(x, w, bias, act))
+        ld_ms = device_ms(lambda: torch.matmul(x, w))
+        k_dev, l_dev = k_dev + kd_ms, l_dev + ld_ms
         nbytes, nops = bounds.bmm_work(*x.shape, w.shape[1], elt=x.element_size())
+        b_ms = max(nbytes / HBM_BYTES_PER_S, nops / PEAK_OPS_PER_S["bf16"]) * 1e3
+        ms, lib, bound_ms = ms + k_ms, lib + l_ms, bound_ms + b_ms
         t_bytes += nbytes / HBM_BYTES_PER_S * 1e3
         t_ops += nops / PEAK_OPS_PER_S["bf16"] * 1e3
-        bound_ms += max(nbytes / HBM_BYTES_PER_S, nops / PEAK_OPS_PER_S["bf16"]) * 1e3
-    r.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
+        route, plan = matmul.route(x, matmul._row_stride(x) or x.shape[2], w.shape[1])
+        key = (x.shape[0] * x.shape[1], x.shape[2], w.shape[1])
+        tile = f"128x{plan[0]},{plan[1]}p" if plan else "mma.sync"
+        row = per_shape.setdefault(key, {"calls": 0, "ms": 0.0, "lib": 0.0, "kdev": 0.0, "ldev": 0.0, "bound": 0.0,
+                                         "route": route, "tile": tile})
+        row["calls"] += 1
+        for name, v in (("ms", k_ms), ("lib", l_ms), ("kdev", kd_ms), ("ldev", ld_ms), ("bound", b_ms)):
+            row[name] += v
+    r.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound_ms, device_ms=k_dev, library_device_ms=l_dev,
              bound_by="bytes" if t_bytes >= t_ops else "operations")
     print(f"bmm, {len(calls['bmm'])} calls of a batch-{BATCH} request, summed: kernel {ms:.4f} ms, plain {plain:.4f}, "
-          f"torch.matmul {lib:.4f}, bound {bound_ms:.6f} ({r['bound_by']})", flush=True)
+          f"torch.matmul {lib:.4f}, bound {bound_ms:.6f} ({r['bound_by']}); device time: kernel {k_dev:.4f} ms, "
+          f"torch.matmul {l_dev:.4f}", flush=True)
+    print("bmm per shape (rows = B*H*W, K, N; summed over the request's calls of that shape): calls route "
+          "tile,consumer-pairs kernel_ms torch.matmul_ms | device: kernel_ms torch.matmul_ms | bound_ms "
+          "device kernel/matmul kernel/bound", flush=True)
+    for (rows, k, n), row in sorted(per_shape.items(), key=lambda kv: -kv[1]["kdev"]):
+        print(f"  {rows:7d} {k:5d} {n:4d}  {row['calls']:2d} {row['route']} {row['tile']:11s} {row['ms']:.4f} "
+              f"{row['lib']:.4f} | {row['kdev']:.4f} {row['ldev']:.4f} | {row['bound']:.5f} "
+              f"{row['kdev'] / row['ldev']:.2f} {row['kdev'] / row['bound']:.2f}", flush=True)
 
     # The serving step, kernels against plain versions in turns (plain,
     # kernel, kernel, plain) so drift in the card's clocks shows.
@@ -524,6 +624,22 @@ def phase_times(folded, seed: int, records: dict, pred, x32, calls: dict) -> Non
     print(f"profile, 5 steps at batch {BATCH}: device time {total / 5 / 1e3:.4f} ms/step; top kernels:", flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
         print(f"  {e.self_device_time_total / 5 / 1e3:9.4f} ms/step {e.count // 5:5d} calls/step  {e.key[:90]}", flush=True)
+    # The port's kernels by device time (bmm: both of its routes' kernels).
+    ours = {"stem": "stem_kernel", "dw7x7": "dw7x7_kernel", "topk": "topk_kernel", "s2dconv": "S2DProblem",
+            "bmm wgmma": "sm90::gemm_kernel", "bmm mma.sync": "MatmulProblem"}
+    for name, tag in ours.items():
+        es = [e for e in events if tag in e.key]
+        print(f"profile: {name} kernels {sum(e.self_device_time_total for e in es) / 5 / 1e3:.4f} ms/step in "
+              f"{sum(e.count for e in es) // 5} calls/step", flush=True)
+    # PyTorch's elementwise kernels (bias and residual adds, SiLU, other
+    # binary ops), the passes the fused epilogue removes.
+    elem = [e for e in events if "elementwise_kernel" in e.key and "copy" not in e.key.lower()]
+    silu = [e for e in elem if "silu" in e.key.lower()]
+    per_step = lambda es: (sum(e.count for e in es) // 5, sum(e.self_device_time_total for e in es) / 5 / 1e3)
+    (n_elem, t_elem), (n_silu, t_silu) = per_step(elem), per_step(silu)
+    print(f"profile: PyTorch elementwise kernels (copies aside) {n_elem} calls/step ({t_elem:.4f} ms): SiLU "
+          f"{n_silu} ({t_silu:.4f} ms), the rest {n_elem - n_silu} ({t_elem - t_silu:.4f} ms); before the fused "
+          f"epilogue: 66 SiLU + 126 others = 192 calls/step", flush=True)
 
 
 TRAIN_GT = 24  # GT slots per image, 40% valid: bench_train.py's draw

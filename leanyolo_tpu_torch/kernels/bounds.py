@@ -54,9 +54,9 @@ def serving_1x1_shapes(variant: str = "yolov10s", imgsz: int = 640) -> List[Tupl
     model = fold_model(YOLOv10.create(variant, class_names=[f"c{i}" for i in range(80)]))
     shapes, bmm = [], matmul.bmm
 
-    def spy(x, w):
+    def spy(x, w, *rest):
         shapes.append((x.shape[1] * (imgsz // 64) ** 2, x.shape[2], w.shape[1]))
-        return bmm(x, w)
+        return bmm(x, w, *rest)
 
     matmul.bmm = spy
     try:

@@ -6,6 +6,8 @@
 #include <ATen/cuda/CUDAContext.h>
 #include <c10/cuda/CUDAException.h>
 
+#include <optional>
+
 #include "kernels.h"
 
 namespace {
@@ -73,7 +75,15 @@ void mpbwd(torch::Tensor x, torch::Tensor dy, torch::Tensor dx, int64_t k) {
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-void bmm(torch::Tensor x, torch::Tensor w, torch::Tensor out, int64_t rows, int64_t lda) {
+const void* bmm_bias(const std::optional<torch::Tensor>& bias, const torch::Tensor& x, int64_t N) {
+  if (!bias) return nullptr;
+  check(*bias, "bmm bias");
+  TORCH_CHECK(bias->scalar_type() == x.scalar_type() && bias->numel() == N, "bmm: bias [N] in x's dtype");
+  return bias->data_ptr();
+}
+
+void bmm(torch::Tensor x, torch::Tensor w, torch::Tensor out, std::optional<torch::Tensor> bias, int64_t rows,
+         int64_t lda, bool act) {
   TORCH_CHECK(x.is_cuda() && x.stride(-1) == 1, "bmm: x must be a CUDA tensor with unit stride in K");
   for (auto* p : {&w, &out}) check(*p, "bmm");
   const bool bf16 = act_is_bf16(x, "bmm x");
@@ -81,8 +91,27 @@ void bmm(torch::Tensor x, torch::Tensor w, torch::Tensor out, int64_t rows, int6
   TORCH_CHECK(w.dim() == 2 && x.size(-1) == w.size(0), "bmm: w [K, N]");
   const int64_t K = w.size(0), N = w.size(1);
   TORCH_CHECK(out.numel() == rows * N && lda >= K && rows < (int64_t(1) << 31), "bmm: out [rows, N], lda >= K");
-  C10_CUDA_CHECK(launch_bmm(x.data_ptr(), w.data_ptr(), out.data_ptr(), static_cast<int>(rows), static_cast<int>(K),
-                            static_cast<int>(N), lda, bf16, at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_CHECK(launch_bmm(x.data_ptr(), w.data_ptr(), bmm_bias(bias, x, N), out.data_ptr(), static_cast<int>(rows),
+                            static_cast<int>(K), static_cast<int>(N), lda, act, bf16,
+                            at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void bmm_wgmma(torch::Tensor x, torch::Tensor w, torch::Tensor out, std::optional<torch::Tensor> bias, int64_t rows,
+               int64_t lda, bool act, int64_t bn, int64_t pairs) {
+  TORCH_CHECK(x.is_cuda() && x.stride(-1) == 1, "bmm_wgmma: x must be a CUDA tensor with unit stride in K");
+  TORCH_CHECK(w.is_cuda() && w.dim() == 2 && w.stride(0) == 1, "bmm_wgmma: w [K, N] K-major (unit stride in K)");
+  check(out, "bmm_wgmma out");
+  TORCH_CHECK(x.scalar_type() == at::kBFloat16 && w.scalar_type() == at::kBFloat16 &&
+                  out.scalar_type() == at::kBFloat16,
+              "bmm_wgmma: bfloat16 only");
+  TORCH_CHECK(x.size(-1) == w.size(0), "bmm_wgmma: w [K, N]");
+  const int64_t K = w.size(0), N = w.size(1);
+  TORCH_CHECK(out.numel() == rows * N && lda >= K && w.stride(1) >= K && rows < (int64_t(1) << 31),
+              "bmm_wgmma: out [rows, N], lda >= K, ldb >= K");
+  C10_CUDA_CHECK(launch_bmm_wgmma(x.data_ptr(), w.data_ptr(), w.stride(1), bmm_bias(bias, x, N), out.data_ptr(),
+                                  static_cast<int>(rows), static_cast<int>(K), static_cast<int>(N), lda, act,
+                                  static_cast<int>(bn), static_cast<int>(pairs), at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -108,6 +137,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("dw7x7", &dw7x7, "depthwise 7x7 + bias + SiLU");
   m.def("topk", &topk, "exact per-row top-k");
   m.def("mpbwd", &mpbwd, "backward of the k x k stride-1 same max pool");
-  m.def("bmm", &bmm, "matrix product with an fp32 sum");
+  m.def("bmm", &bmm, "matrix product with an fp32 sum and the folded conv epilogue (mma.sync)");
+  m.def("bmm_wgmma", &bmm_wgmma, "matrix product with an fp32 sum and the folded conv epilogue (TMA + wgmma)");
   m.def("s2dconv", &s2dconv, "3x3 conv 32->32 + bias + SiLU over the space-to-depth form");
 }

@@ -1,5 +1,6 @@
-// Shared device helpers: activation-type conversions and the folded
-// conv epilogue with the JAX forward's rounding points.
+// Shared device helpers: activation-type conversions, 16-byte cp.async
+// copies and the folded conv epilogue with the JAX forward's rounding
+// points.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,3 +48,24 @@ __device__ __forceinline__ float bias_silu(float acc, float bias) {
   const float y = round_to<T>(round_to<T>(acc) + bias);
   return round_to<T>(y / (1.0f + expf(-y)));
 }
+
+// The same rounding points with the bias and the SiLU each optional (the
+// folded 1x1 convs: bias + SiLU, bias alone, or neither).
+template <typename T>
+__device__ __forceinline__ float conv_epilogue(float acc, float bias, bool has_bias, bool act) {
+  float y = round_to<T>(acc);
+  if (has_bias) y = round_to<T>(y + bias);
+  if (act) y = round_to<T>(y / (1.0f + expf(-y)));
+  return y;
+}
+
+// 16 bytes global -> shared, asynchronously; a copy of 0 source bytes
+// (valid false) zero-fills, so halos and ragged edges cost no branch.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }

@@ -8,8 +8,8 @@
 // edges cost no branch in the main loop) when the problem's rows and strides
 // are 16-byte aligned, else with plain loads. bf16 runs on the tensor cores
 // (ldmatrix + mma.sync m16n8k16, fp32 accumulate; 128x128 tiles of 8 warps,
-// or 128x64 of 4 for narrow outputs, each warp 64x32); wgmma and TMA are
-// later work. fp32 runs on the CUDA cores (64x64
+// or 128x64 of 4 for narrow outputs, each warp 64x32); the TMA + wgmma
+// GEMM is gemm_sm90.cuh. fp32 runs on the CUDA cores (64x64
 // tiles, each thread 4x8 outputs) so that fp32 stays fp32. Outputs leave
 // in runs of 8 columns through the problem's epilogue (`store8`), which
 // rounds once (or at the folded conv's rounding points) and writes them
@@ -44,15 +44,6 @@ struct Layout {
   static constexpr int SMEM = (A_STAGE + B_STAGE) * TL::STAGES * int(sizeof(T));
   static_assert(A_ITERS * TL::THREADS == TL::BM * A_CPR && B_ITERS * TL::THREADS == BK * B_CPR, "tile split");
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 // 8 consecutive outputs, rounded to T, as one 16-byte store (bf16) or two (fp32).
 __device__ __forceinline__ void store8v(__nv_bfloat16* p, const float* v) {

@@ -14,8 +14,8 @@ cudaError_t launch_stem(const void* x, bool x_u8, const void* w0, const void* b0
                         const void* b1, void* out, int B, int H, int W, int c0, int c1, bool bf16,
                         cudaStream_t stream);
 
-// Depthwise 7x7, pad 3, + bias + SiLU (dw7x7.cu). x, out [B,H,W,C];
-// w [49,C]; b [C]; all bf16 (bf16) or fp32.
+// Depthwise 7x7, pad 3, + bias + SiLU (dw7x7.cu). x, out [B,H,W,C] dense;
+// w [49,C]; b [C]; all bf16 (bf16) or fp32. Any B, H, W, C.
 cudaError_t launch_dw7x7(const void* x, const void* w, const void* b, void* out, int B, int H, int W, int C,
                          bool bf16, cudaStream_t stream);
 
@@ -29,11 +29,19 @@ cudaError_t launch_topk(const void* x, int rows, int n, int k, bool canon_zero, 
 cudaError_t launch_mpbwd(const void* x, const void* dy, void* dx, int B, int H, int W, int C, int k, bool bf16,
                          cudaStream_t stream);
 
-// Matrix product out[rows, N] = x[rows, K] @ w[K, N] (matmul.cu): x rows lda
-// elements apart, w and out dense, all bf16 (bf16) or fp32; fp32 sum,
-// rounded once.
-cudaError_t launch_bmm(const void* x, const void* w, void* out, int rows, int K, int N, long long lda, bool bf16,
-                       cudaStream_t stream);
+// Matrix product out[rows, N] = x[rows, K] @ w[K, N] (matmul.cu), fp32 sum,
+// then the folded conv's epilogue: rounded, + bias[N] rounded (bias may be
+// nullptr), SiLU rounded (act). x rows lda elements apart; out dense; all
+// bf16 (bf16) or fp32.
+// launch_bmm, the mma.sync route: w row-major [K, N].
+cudaError_t launch_bmm(const void* x, const void* w, const void* bias, void* out, int rows, int K, int N,
+                       long long lda, bool act, bool bf16, cudaStream_t stream);
+// launch_bmm_wgmma, the TMA + wgmma route (bf16 only): w K-major, element
+// (k, n) at w[n * ldb + k]; K, N, lda, ldb multiples of 8, x, w and out
+// 16-byte aligned; bn the tile width (64, 80 when N <= 80, or 128); pairs
+// the consumer pairs of a CTA (1 or 2); act needs a bias.
+cudaError_t launch_bmm_wgmma(const void* x, const void* w, long long ldb, const void* bias, void* out, int rows,
+                             int K, int N, long long lda, bool act, int bn, int pairs, cudaStream_t stream);
 
 // Dense 3x3 SAME conv 32 -> 32 + bias + SiLU as a 2x2 conv over the
 // space-to-depth form (s2dconv.cu). x [B,H,W,32] with batch stride sb and

@@ -6,6 +6,10 @@ Replaces the JAX package's Pallas kernel `experiments/exp_dw_pallas.py:75
 dw_pallas`, for any B, H, W, C. Rounding follows the folded JAX forward: the
 fp32 sum is rounded to the activation dtype, then the bias add and the SiLU
 each round again.
+
+Both versions take the weights packed once as [49, C] (`pack_weights`: a
+tap's channels contiguous, the layout the kernel reads), as
+`layers.FusedRepVGGDW` holds them.
 """
 
 from __future__ import annotations
@@ -17,24 +21,30 @@ from . import LAUNCHES
 from ._build import check_cuda, ext
 
 
-def dw7x7_bias_silu_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x [B, H, W, C] NHWC, w [C, 1, 7, 7], b [C] -> [B, H, W, C] in x's dtype."""
+def pack_weights(w: torch.Tensor) -> torch.Tensor:
+    """[C, 1, 7, 7] depthwise weights -> [49, C], contiguous."""
+    return w.reshape(w.shape[0], 49).t().contiguous()
+
+
+def dw7x7_bias_silu_plain(x: torch.Tensor, w49: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x [B, H, W, C] NHWC, w49 [49, C], b [C] -> [B, H, W, C] in x's dtype."""
     c = x.shape[-1]
+    w = w49.t().reshape(c, 1, 7, 7)
     y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), None, 1, 3, 1, c)
     return F.silu(y + b.to(y.dtype).view(1, -1, 1, 1)).permute(0, 2, 3, 1)
 
 
-def dw7x7_bias_silu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x [B, H, W, C] NHWC (contiguous on the card), w [C, 1, 7, 7], b [C]."""
+def dw7x7_bias_silu(x: torch.Tensor, w49: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x [B, H, W, C] NHWC (contiguous on the card), w49 [49, C], b [C]."""
     if x.device.type == "cpu":
-        return dw7x7_bias_silu_plain(x, w, b)
+        return dw7x7_bias_silu_plain(x, w49, b)
     check_cuda(x, "dw7x7 x")
     if x.dtype not in (torch.bfloat16, torch.float32) or x.ndim != 4:
         raise ValueError(f"dw7x7: bf16 or fp32 NHWC input, got {x.dtype} {tuple(x.shape)}")
     c = x.shape[-1]
-    if tuple(w.shape) != (c, 1, 7, 7) or tuple(b.shape) != (c,):
-        raise ValueError(f"dw7x7: need w [{c}, 1, 7, 7] and b [{c}], got {tuple(w.shape)}, {tuple(b.shape)}")
-    wk = w.to(x.dtype).reshape(c, 49).t().contiguous()  # [49, C]: a tap's channels contiguous
+    if tuple(w49.shape) != (49, c) or tuple(b.shape) != (c,):
+        raise ValueError(f"dw7x7: need w49 [49, {c}] and b [{c}], got {tuple(w49.shape)}, {tuple(b.shape)}")
+    wk = w49.to(x.dtype).contiguous()  # no copy for weights packed in x's dtype
     bk = b.to(x.dtype).contiguous()
     check_cuda(wk, "dw7x7 w")
     check_cuda(bk, "dw7x7 b")

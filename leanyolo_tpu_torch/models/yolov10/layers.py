@@ -88,12 +88,15 @@ def _repack(module: nn.Module, incompatible_keys) -> None:
 
 class MatmulConv(Conv):
     """Folded dense 1x1 stride-1 conv as a matrix product on the NHWC view
-    of its input, through the bmm kernel wrapper (kernels/matmul.py).
+    of its input, through the bmm kernel wrapper (kernels/matmul.py), with
+    the bias (and, from a folded `ConvBNAct`, the SiLU) in the product's
+    epilogue at the JAX forward's rounding points.
 
     Keeps `weight` (OIHW) and `bias` as `Conv` does; `wt` holds the weight
-    as [Cin, Cout], packed once (and again after a state-dict load), out of
-    the state dict. Input channels lo:hi are rows lo:hi of `wt`, a
-    contiguous view, so each half of an upsample-concat conv runs in place.
+    as a [Cin, Cout] view of a [Cout, Cin] copy (K-major, the layout the
+    wgmma route reads), packed once (and again after a state-dict load),
+    out of the state dict. Input channels lo:hi are rows lo:hi of `wt`, a
+    view, so each half of an upsample-concat conv runs in place.
     """
 
     def __init__(self, conv: Conv) -> None:
@@ -107,12 +110,17 @@ class MatmulConv(Conv):
 
     def pack(self) -> None:
         with torch.no_grad():
-            self.wt = self.weight[:, :, 0, 0].t().contiguous()
+            self.wt = self.weight[:, :, 0, 0].clone(memory_format=torch.contiguous_format).t()
 
-    def conv(self, x: Tensor, lo: int = 0, hi: Optional[int] = None) -> Tensor:
+    def conv(self, x: Tensor, lo: int = 0, hi: Optional[int] = None, bias: Optional[Tensor] = None,
+             act: bool = False) -> Tensor:
+        """The conv over input channels lo:hi, + `bias` and SiLU (`act`) when given."""
         b, c, h, w = x.shape
-        y = matmul.bmm(x.permute(0, 2, 3, 1).reshape(b, h * w, c), self.wt[lo:hi])
+        y = matmul.bmm(x.permute(0, 2, 3, 1).reshape(b, h * w, c), self.wt[lo:hi], bias, act)
         return y.view(b, h, w, -1).permute(0, 3, 1, 2)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return self.conv(x, bias=self.bias)
 
 
 class _BatchMoments(torch.autograd.Function):
@@ -212,6 +220,8 @@ class ConvBNAct(nn.Module):
         return F.silu(y) if self.act else y
 
     def forward(self, x: Tensor) -> Tensor:
+        if self.bn is None and isinstance(self.conv, MatmulConv):
+            return self.conv.conv(x, bias=self.conv.bias, act=self.act)  # bias and SiLU in the bmm epilogue
         return self.epilogue(self.conv.conv(x))
 
     def forward_upcat(self, a: Tensor, b: Tensor) -> Tensor:
@@ -347,7 +357,9 @@ class FusedRepVGGDW(ConvBNAct):
 
     Runs through the dw7x7 kernel wrapper (kernels/dwconv.py): the
     hand-written CUDA kernel for a tensor on the card, its plain PyTorch
-    version for a tensor on the CPU.
+    version for a tensor on the CPU. `w49` holds the weight as [49, C]
+    (`dwconv.pack_weights`), packed once (and again after a state-dict
+    load), out of the state dict.
     """
 
     def __init__(self, ch: int, weight: Tensor, bias: Tensor) -> None:
@@ -355,9 +367,16 @@ class FusedRepVGGDW(ConvBNAct):
         self.bn = None
         self.conv.weight = nn.Parameter(weight)
         self.conv.bias = nn.Parameter(bias)
+        self.register_buffer("w49", None, persistent=False)
+        self.pack()
+        self.register_load_state_dict_post_hook(_repack)
+
+    def pack(self) -> None:
+        with torch.no_grad():
+            self.w49 = dwconv.pack_weights(self.conv.weight)
 
     def forward(self, x: Tensor) -> Tensor:
-        y = dwconv.dw7x7_bias_silu(x.permute(0, 2, 3, 1).contiguous(), self.conv.weight, self.conv.bias)
+        y = dwconv.dw7x7_bias_silu(x.permute(0, 2, 3, 1).contiguous(), self.w49, self.conv.bias)
         return y.permute(0, 3, 1, 2)
 
 

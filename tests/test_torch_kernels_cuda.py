@@ -10,7 +10,13 @@ points but sum in another order, so bf16 outputs may differ by a rounding
 that lands one ulp apart: limit 4 bf16 ulps (2^-8 each) of the output's
 largest magnitude; fp32 (TF32 off) to 1e-4 of it. The matrix product (bmm)
 rounds once, so a flip is one ulp, at most 2^-7 of the element: limit 2
-such 2^-8 units. Top-k and the max-pool backward (mpbwd) are bit-exact.
+such 2^-8 units; with its fused bias and SiLU it rounds three times, as
+the folded forward does: limit 4 units. The fused epilogue against the
+bias-free kernel followed by PyTorch's bias add and SiLU is held to one
+bf16 ulp per element: both round the same fp32 sums at the same points, but
+the wgmma route's SiLU uses the hardware's approximate exp2 and reciprocal,
+a few fp32 ulps from PyTorch's, which flips a bf16 rounding now and then.
+Top-k and the max-pool backward (mpbwd) are bit-exact.
 """
 
 from __future__ import annotations
@@ -57,16 +63,22 @@ def test_stem_kernel(cuda_device, dtype, b, h, w, c0, c1, u8):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(32, 20, 20, 512), (2, 13, 9, 48), (1, 40, 40, 33)])
+@pytest.mark.parametrize("shape", [(32, 20, 20, 512), (2, 13, 9, 48), (1, 40, 40, 33),
+                                   (2, 64, 64, 64), (1, 9, 1500, 24), (3, 2, 3, 5)])
 def test_dw7x7_kernel(cuda_device, dtype, shape):
+    """The path's shape (a whole map per CTA), odd channel counts (scalar
+    copies), a map split into bands of rows, rows split into column blocks,
+    and a map smaller than a strip."""
     g = torch.Generator(device=cuda_device).manual_seed(1)
     c = shape[-1]
     x = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
-    w = (torch.randn(c, 1, 7, 7, generator=g, device=cuda_device) * 0.1).to(dtype)
+    w = dwconv.pack_weights(torch.randn(c, 1, 7, 7, generator=g, device=cuda_device) * 0.1).to(dtype)
     b = (torch.randn(c, generator=g, device=cuda_device) * 0.1).to(dtype)
     ref = dwconv.dw7x7_bias_silu_plain(x, w, b)
+    n = kernels.LAUNCHES["dw7x7"]
     got = dwconv.dw7x7_bias_silu(x, w, b)
     torch.cuda.synchronize()
+    assert kernels.LAUNCHES["dw7x7"] == n + 1
     assert float((got.float() - ref.float()).abs().max()) <= _limit(ref, dtype)
 
 
@@ -176,18 +188,86 @@ def test_s2dconv_kernel_any_taps_and_weights(cuda_device, dtype, taps):
                                             (32, 400, 1024, 512, False), (32, 400, 128, 80, False),
                                             (3, 100, 96, 40, True), (2, 37, 75, 33, False), (1, 1, 8, 8, False)])
 def test_bmm_kernel(cuda_device, dtype, b, m, k, n, sliced):
+    """bf16 with K and N multiples of 8 takes the wgmma route (K = 64: one
+    stage; N = 80: the cls conv's tile; M not a multiple of 128; a channel
+    slice read in place; K = 1024, N = 512); fp32 and the odd bf16 shape
+    [2,37,75]x[75,33] take mma.sync."""
     g = torch.Generator(device=cuda_device).manual_seed(8)
     x = _nhwc((b, 1, m, k), sliced, dtype, g, cuda_device)[:, 0]  # [b, m, k], rows k or 2k apart
     w = (torch.randn(k, n, generator=g, device=cuda_device) / k ** 0.5).to(dtype)
     ref = matmul.bmm_plain(x, w)
-    n0 = kernels.LAUNCHES["bmm"]
+    n0, nw = kernels.LAUNCHES["bmm"], kernels.LAUNCHES["bmm_wgmma"]
     got = matmul.bmm(x, w)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["bmm"] == n0 + 1
+    wgmma = dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
+    assert kernels.LAUNCHES["bmm_wgmma"] == nw + wgmma
     assert got.shape == (b, m, n) and got.dtype == dtype
     scale = max(1.0, float(ref.float().abs().max()))
     limit = (2 * 2.0 ** -8 if dtype == torch.bfloat16 else 1e-4) * scale
     assert float((got.float() - ref.float()).abs().max()) <= limit
+
+
+def _bf16_ulps_apart(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per element, how many bf16 steps lie between a and b (+0 == -0)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("act", [False, True])
+@pytest.mark.parametrize("b,m,k,n", [(8, 400, 256, 512), (4, 1600, 128, 80), (2, 37, 75, 33)])
+def test_bmm_kernel_fused_epilogue(cuda_device, dtype, act, b, m, k, n):
+    """bias (+ SiLU) in the epilogue: against the plain version with the same
+    arguments, and against the bias-free kernel + PyTorch's bias and SiLU."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    x = torch.randn(b, m, k, generator=g, device=cuda_device).to(dtype)
+    w = (torch.randn(k, n, generator=g, device=cuda_device) / k ** 0.5).to(dtype)
+    bias = torch.randn(n, generator=g, device=cuda_device).to(dtype)
+    ref = matmul.bmm_plain(x, w, bias, act)
+    got = matmul.bmm(x, w, bias, act)
+    base = matmul.bmm(x, w) + bias
+    unfused = torch.nn.functional.silu(base) if act else base
+    torch.cuda.synchronize()
+    scale = max(1.0, float(ref.float().abs().max()))
+    assert float((got.float() - ref.float()).abs().max()) <= (4 * 2.0 ** -8 if dtype == torch.bfloat16 else 1e-4) * scale
+    if dtype == torch.bfloat16:
+        assert int(_bf16_ulps_apart(got, unfused).max()) <= 1
+    else:
+        assert float((got - unfused).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("rows,n", [(200 * 128, 64), (300 * 128, 128), (100 * 128, 256)])
+def test_bmm_kernel_one_and_two_consumer_pairs(cuda_device, rows, n):
+    """Both consumer layouts of the wgmma route (two pairs where a CTA gets
+    two tiles or more), with bias and SiLU."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.randn(1, rows, 192, generator=g, device=cuda_device).to(torch.bfloat16)
+    w = (torch.randn(192, n, generator=g, device=cuda_device) / 192 ** 0.5).to(torch.bfloat16)
+    bias = torch.randn(n, generator=g, device=cuda_device).to(torch.bfloat16)
+    got = matmul.bmm(x, w, bias, True)
+    ref = matmul.bmm_plain(x, w, bias, True)
+    torch.cuda.synchronize()
+    assert float((got.float() - ref.float()).abs().max()) <= 4 * 2.0 ** -8 * max(1.0, float(ref.float().abs().max()))
+
+
+def test_bmm_kernel_upcat_half_in_place(cuda_device):
+    """Rows lo:hi of a K-major [Cin, Cout] view (an upsample-concat conv's
+    half, as MatmulConv packs it) go to the wgmma route with no copy."""
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    wt = (torch.randn(192, 384, generator=g, device=cuda_device) * 0.05).to(torch.bfloat16).t()  # [384, 192]
+    for lo, hi in ((0, 256), (256, 384)):
+        half = wt[lo:hi]
+        assert matmul._k_major(half) is half
+        x = torch.randn(2, 300, hi - lo, generator=g, device=cuda_device).to(torch.bfloat16)
+        nw = kernels.LAUNCHES["bmm_wgmma"]
+        got = matmul.bmm(x, half)
+        ref = matmul.bmm_plain(x, half)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["bmm_wgmma"] == nw + 1
+        assert float((got.float() - ref.float()).abs().max()) <= 2 * 2.0 ** -8 * max(1.0, float(ref.float().abs().max()))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -206,6 +286,7 @@ def test_folded_model_launches_the_new_kernels(cuda_device, dtype):
         got = folded(imgs, **kw)["one2one"]
         torch.cuda.synchronize()
         assert kernels.LAUNCHES["s2dconv"] == 2 and kernels.LAUNCHES["bmm"] == 45
+        assert kernels.LAUNCHES["bmm_wgmma"] == (45 if dtype == torch.bfloat16 else 0)
         bmm, conv3 = matmul.bmm, s2dconv.conv3x3_c32_bias_silu
         matmul.bmm, s2dconv.conv3x3_c32_bias_silu = matmul.bmm_plain, s2dconv.conv3x3_c32_bias_silu_plain
         try:
@@ -226,6 +307,9 @@ def test_wrappers_raise_on_unsupported(cuda_device):
                         *[torch.zeros(s, device=cuda_device) for s in ((32, 3, 3, 3), (32,), (64, 32, 3, 3), (64,))])
     with pytest.raises(ValueError):
         dwconv.dw7x7_bias_silu(torch.zeros(1, 8, 8, 4, device=cuda_device).permute(0, 2, 1, 3),
+                               torch.zeros(49, 4, device=cuda_device), torch.zeros(4, device=cuda_device))
+    with pytest.raises(ValueError):  # weights not packed as [49, C]
+        dwconv.dw7x7_bias_silu(torch.zeros(1, 8, 8, 4, device=cuda_device),
                                torch.zeros(4, 1, 7, 7, device=cuda_device), torch.zeros(4, device=cuda_device))
     with pytest.raises(ValueError):
         topk.topk(torch.zeros(2, 10, dtype=torch.float16, device=cuda_device), 3, canon_zero=True)
@@ -237,3 +321,8 @@ def test_wrappers_raise_on_unsupported(cuda_device):
     with pytest.raises(ValueError):
         matmul.bmm(torch.zeros(1, 8, 4, dtype=torch.float16, device=cuda_device),
                    torch.zeros(4, 4, dtype=torch.float16, device=cuda_device))
+    x, w = torch.zeros(1, 8, 16, device=cuda_device), torch.zeros(16, 8, device=cuda_device)
+    with pytest.raises(ValueError):  # bias not [N]
+        matmul.bmm(x, w, torch.zeros(9, device=cuda_device), True)
+    with pytest.raises(ValueError):  # bias on the CPU
+        matmul.bmm(x.bfloat16(), w.bfloat16(), torch.zeros(8), True)

@@ -104,7 +104,7 @@ def test_dw7x7_plain_matches_pallas_and_xla():
     with pltpu.force_tpu_interpret_mode():
         ref_pallas = as_f32(E.dw_pallas(xj, jnp.asarray(w), jnp.asarray(b)))
     ref_xla = as_f32(jax.jit(E.dw_xla)(xj, jnp.asarray(w), jnp.asarray(b)))
-    got = as_f32(dwconv.dw7x7_bias_silu(torch.from_numpy(x).bfloat16(), _t(w), torch.from_numpy(b)))
+    got = as_f32(dwconv.dw7x7_bias_silu(torch.from_numpy(x).bfloat16(), dwconv.pack_weights(_t(w)), torch.from_numpy(b)))
     assert got.shape == (1, 20, 20, 512)
     assert np.max(np.abs(got - ref_pallas)) <= bf16_ulps(ref_pallas, 4)
     # dw_xla is the folded JAX forward's own rounding: bias and SiLU in bf16.
@@ -115,7 +115,7 @@ def test_dw7x7_plain_fp32_matches_jax_cba():
     x, w, b = _dw_inputs(1, c=64)
     p = {"conv": {"w": jnp.asarray(w), "b": jnp.asarray(b)}}
     ref = as_f32(jax.jit(lambda v: JL.cba_apply(p, v, groups=64, padding=3))(jnp.asarray(x)))
-    got = as_f32(dwconv.dw7x7_bias_silu(torch.from_numpy(x), _t(w), torch.from_numpy(b)))
+    got = as_f32(dwconv.dw7x7_bias_silu(torch.from_numpy(x), dwconv.pack_weights(_t(w)), torch.from_numpy(b)))
     assert np.max(np.abs(got - ref)) < 5e-4 * max(1.0, np.max(np.abs(ref)))
 
 

@@ -106,3 +106,18 @@ def test_repvggdw_folds_to_fused_block():
     assert isinstance(fused, TL.FusedRepVGGDW) and tuple(fused.conv.weight.shape) == (16, 1, 7, 7)
     unfused = _run_torch(module, xs, torch.float32)
     assert np.max(np.abs(_run_torch(fused, xs, torch.float32) - unfused)) < 5e-4 * max(1.0, np.max(np.abs(unfused)))
+
+
+def test_fused_repvggdw_packs_its_weights_once():
+    """`w49` ([49, C], the dw7x7 kernel's layout) stays out of the state dict,
+    follows a cast, and is packed again after a state-dict load."""
+    from leanyolo_tpu_torch.kernels import dwconv
+
+    _, _, module, xs = _case("repvggdw")
+    fused = fold_module(module)
+    assert "w49" not in fused.state_dict()
+    assert torch.equal(fused.w49, dwconv.pack_weights(fused.conv.weight))
+    sd = {k: torch.randn_like(v) for k, v in fused.state_dict().items()}
+    fused.load_state_dict(sd)
+    assert torch.equal(fused.w49, sd["conv.weight"].reshape(16, 49).t())
+    assert fused.to(torch.bfloat16).w49.dtype == torch.bfloat16

@@ -154,3 +154,106 @@ def test_fold_model_unfolded_paths_keep_cudnn():
     x = torch.randn(1, 32, 4, 4)
     conv = model.backbone.c2.cv1.conv
     assert torch.equal(conv.conv(x), F.conv2d(x, conv.weight))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", [False, True])
+def test_plain_epilogue_matches_jax_cba(dtype, act):
+    """bmm_plain(x, w, bias, act) against the JAX folded `cba_apply` on a 1x1
+    conv (conv rounded, + bias rounded, SiLU rounded): fp32 < 5e-4 of the
+    output scale; bf16 within 1 ulp of the output's largest magnitude (the
+    sums run in another order, so a rounding may land one step apart)."""
+    from leanyolo_tpu.models.yolov10 import layers as JL
+
+    rng = np.random.RandomState(4)
+    x = (rng.randn(2, 6, 5, 96) * 0.5).astype(np.float32)
+    w = (rng.randn(1, 1, 96, 40) * 0.1).astype(np.float32)
+    b = (rng.randn(40) * 0.5).astype(np.float32)
+    xj, xt = _pair(x, dtype)
+    wj, wt = _pair(w, dtype)
+    bj, bt = _pair(b, dtype)
+    ref = np.asarray(JL.cba_apply({"conv": {"w": wj, "b": bj}}, xj, act=act).astype(jnp.float32))
+    got = matmul.bmm(xt.reshape(2, 30, 96), wt[0, 0], bt, act).reshape(2, 6, 5, 40)
+    assert got.dtype == xt.dtype
+    err = np.max(np.abs(got.float().numpy() - ref))
+    if dtype == "float32":
+        assert err < 5e-4 * max(1.0, np.max(np.abs(ref))), err
+    else:
+        assert err <= 2.0 ** (np.floor(np.log2(np.max(np.abs(ref)))) - 7), err
+
+
+def _spy_bmm_epilogues(monkeypatch):
+    kinds = {"bias+silu": 0, "bias": 0, "neither": 0}
+    bmm = matmul.bmm
+
+    def spy(x, w, bias=None, act=False):
+        assert bias is not None or not act
+        kinds["bias+silu" if act else "bias" if bias is not None else "neither"] += 1
+        return bmm(x, w, bias, act)
+
+    monkeypatch.setattr(matmul, "bmm", spy)
+    return kinds
+
+
+def test_folded_request_fuses_bias_and_silu_into_bmm(monkeypatch):
+    """Of a yolov10s request's 45 bmm calls, 32 carry bias + SiLU (ConvBNAct
+    with act), 9 the bias alone (the six one2one head convs, PSA's qkv, proj
+    and ffn.1) and 4 neither (the upsample-concat halves, whose bias follows
+    the upsample-add)."""
+    kinds = _spy_bmm_epilogues(monkeypatch)
+    model = fold_model(YOLOv10.create("yolov10s", class_names=[f"c{i}" for i in range(80)], seed=0))
+    with torch.no_grad():
+        model(torch.zeros(1, 64, 64, 3), dtype=torch.bfloat16, branches=("one2one",), normalize=False,
+              concat_head=False)
+    assert kinds == {"bias+silu": 32, "bias": 9, "neither": 4}
+
+
+def test_fused_epilogue_changes_no_numbers(monkeypatch):
+    """The folded bf16 yolov10n with bias and SiLU in bmm's epilogue gives
+    the same one2one head maps, bit for bit, as with them as separate ops
+    (the rounding points are the same); both stay within the JAX package's
+    tolerance of tests/test_torch_model.py (4 bf16 ulps of the map scale)."""
+    import jax
+
+    from leanyolo_tpu.models.yolov10.fold import fold_params
+    from leanyolo_tpu.models.yolov10.model import YOLOv10 as JYOLOv10, model_apply
+    from leanyolo_tpu_torch.models.yolov10.convert import load_jax_params
+    from torch_parity import bf16_ulps, randomize_bn
+
+    jm = JYOLOv10.create("yolov10n", class_names=[f"c{i}" for i in range(8)], seed=5)
+    params = randomize_bn(jm.params, np.random.RandomState(5))
+    model = load_jax_params(YOLOv10.create("yolov10n", class_names=jm.class_names), params).eval()
+    folded = fold_model(model, dtype=torch.bfloat16)
+    imgs = np.random.RandomState(6).randint(0, 256, (2, 64, 64, 3)).astype(np.uint8)
+    kw = dict(branches=("one2one",), normalize=False, concat_head=False)
+
+    def maps():
+        with torch.no_grad():
+            out = folded(torch.from_numpy(imgs), dtype=torch.bfloat16, **kw)["one2one"]
+        return [t.float().numpy() for level in out for t in level]
+
+    fused = maps()
+    monkeypatch.setattr(TL.ConvBNAct, "forward", lambda self, x: self.epilogue(self.conv.conv(x)))
+    monkeypatch.setattr(TL.MatmulConv, "forward", TL.Conv.forward)
+    separate = maps()
+    fn = jax.jit(lambda p, x: model_apply(p, x.astype(jnp.bfloat16), jm.cfg, train=False, **kw))
+    ref = jax.tree_util.tree_leaves(fn(fold_params(params, dtype=jnp.bfloat16), jnp.asarray(imgs))["one2one"])
+    assert len(fused) == len(separate) == len(ref) == 6
+    for f, s, r in zip(fused, separate, ref):
+        r = np.asarray(r.astype(jnp.float32))
+        assert np.array_equal(f, s)
+        assert np.max(np.abs(f - r)) <= bf16_ulps(r, 4)
+
+
+@pytest.mark.parametrize("rows,n,plan", [
+    (32 * 25600, 64, (64, 2)),    # stage 1's C2f convs: 6400 tiles
+    (32 * 6400, 80, (80, 2)),     # P3's cls conv
+    (32 * 400, 80, (80, 1)),      # P5's cls conv: 100 tiles
+    (32 * 400, 256, (128, 1)),    # 20x20, 200 tiles: one pair, the whole ring
+    (32 * 400, 512, (128, 2)),    # 20x20, 400 tiles
+    (32 * 1600, 256, (128, 2)),
+    (37, 8, (64, 1)),
+])
+def test_wgmma_plan(rows, n, plan):
+    """The wgmma route's tile width and consumer pairs per path shape (132 SMs)."""
+    assert matmul.wgmma_plan(rows, n) == plan
