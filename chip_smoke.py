@@ -16,7 +16,8 @@ Phases, each of which fails loudly (non-zero exit):
    seed, folded to bf16, answers uint8 requests of batch 1, 8 and 32 through
    Predictor.run_batch; the launches of every kernel are counted per request
    (stem 1, dw7x7 2, top-k 2, s2dconv 2, bmm 45, all 45 on bmm's TMA +
-   wgmma route). Then the kernel path is held against the all-plain path on
+   wgmma route, the stem on its tensor-core route and both s2dconv launches
+   on its wgmma route). Then the kernel path is held against the all-plain path on
    the card, and an fp32 run on the card against an fp32 run on the CPU at
    a small input;
 5. times from CUDA events (warm-up, median of 20 runs): each kernel, its
@@ -63,7 +64,9 @@ NC = 80
 SEED = 0  # weights, images and test inputs all come from it
 # Launches of each serving-path kernel per request; mpbwd runs on the training path.
 PER_REQUEST = {"stem": 1, "dw7x7": 2, "topk": 2, "s2dconv": 2, "bmm": 45}
-WGMMA_PER_REQUEST = 45  # every bf16 bmm call of the path fits the TMA + wgmma route
+# The bf16 routes every launch of the path takes: the tensor-core stem, the
+# wgmma s2dconv, bmm's TMA + wgmma route.
+NEW_ROUTES = {"stem_tc": "stem", "s2dconv_wgmma": "s2dconv", "bmm_wgmma": "bmm"}
 
 
 def fail(msg: str) -> None:
@@ -115,11 +118,15 @@ def device_ms(fn, reps: int = KERNEL_INNER) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages() if e.device_type.name == "CUDA") / reps / 1e3
+    for _ in range(3):  # a profile now and then comes back without device events; take the next
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ms = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type.name == "CUDA") / reps / 1e3
+        if ms > 0:
+            return ms
+    fail("torch.profiler recorded no device time in three tries")
 
 
 def max_err(a, b) -> float:
@@ -138,7 +145,7 @@ def plain_kernels():
 
     saved = (stem.fused_stem, dwconv.dw7x7_bias_silu, topk.topk, mpbwd.mpbwd, s2dconv.conv3x3_c32_bias_silu,
              matmul.bmm)
-    stem.fused_stem = lambda *a, dtype=None, **kw: stem.fused_stem_plain(*a, dtype=dtype or a[1].dtype, **kw)
+    stem.fused_stem = lambda *a, dtype=None, packed=None: stem.fused_stem_plain(*a, dtype=dtype or a[1].dtype)
     dwconv.dw7x7_bias_silu = dwconv.dw7x7_bias_silu_plain
     topk.topk = topk.topk_plain
     mpbwd.mpbwd = mpbwd.mpbwd_plain
@@ -204,6 +211,7 @@ def phase_kernels(folded, seed: int, records: dict) -> dict:
     """Each kernel against its plain version at its path's shapes; returns
     the s2dconv and bmm calls of one batch-32 forward for the timing phase."""
     import torch
+    from leanyolo_tpu_torch import kernels
     from leanyolo_tpu_torch.kernels import dwconv, matmul, mpbwd, s2dconv, stem, topk
 
     dev = "cuda"
@@ -217,17 +225,26 @@ def phase_kernels(folded, seed: int, records: dict) -> dict:
     # fp32 sums differ in order, so a rounding can land one bf16 ulp apart
     # (2^-8 relative) and carry through the next layer. Limit: 4 ulps of the
     # output's largest magnitude in bf16, 1e-4 of it in fp32.
+    # The path's shape with the weights the model packed once, and maps whose
+    # W/4 is not a multiple of the tensor-core route's 16-column tile.
+    ragged = [torch.randint(0, 256, s, generator=g, device=dev, dtype=torch.uint8)
+              for s in ((2, 96, 160, 3), (1, 32, 32, 3))]
     for dtype, ulps in ((torch.bfloat16, 4 * 2.0 ** -8), (torch.float32, 1e-4)):
         ws = [t.to(dtype) for t in (w0, b0, w1, b1)]
-        ref = stem.fused_stem_plain(images, *ws, dtype=dtype)
-        got = stem.fused_stem(images, *ws, dtype=dtype)
-        torch.cuda.synchronize()
-        err, lim = max_err(got, ref), ulps * max(1.0, float(ref.float().abs().max()))
-        print(f"kernel stem {dtype} {tuple(got.shape)}: max_abs_err {err:.6g} (limit {lim:.6g})", flush=True)
-        if not err <= lim or got.shape != (BATCH, IMGSZ // 4, IMGSZ // 4, 64):
-            fail("stem kernel disagrees with its plain version")
-        if dtype == torch.bfloat16:
-            records["stem"]["max_abs_err"] = err
+        for x in [images] + ragged:
+            ref = stem.fused_stem_plain(x, *ws, dtype=dtype)
+            n = kernels.LAUNCHES["stem_tc"]
+            got = stem.fused_stem(x, *ws, dtype=dtype, packed=(bb.stem_w0p, bb.stem_w1p))
+            torch.cuda.synchronize()
+            if kernels.LAUNCHES["stem_tc"] != n + (dtype == torch.bfloat16):
+                fail(f"stem {dtype} did not take the route of its dtype")
+            err, lim = max_err(got, ref), ulps * max(1.0, float(ref.float().abs().max()))
+            print(f"kernel stem {dtype} {tuple(got.shape)}: max_abs_err {err:.6g} (limit {lim:.6g})", flush=True)
+            b, h, w, _ = x.shape
+            if not err <= lim or got.shape != (b, h // 4, w // 4, 64):
+                fail("stem kernel disagrees with its plain version")
+            if dtype == torch.bfloat16:
+                records["stem"]["max_abs_err"] = max(records["stem"].get("max_abs_err", 0.0), err)
 
     # dw7x7 at the path's shape (one whole map per CTA in bf16, bands of
     # rows in fp32), a map split into bands in both types, and an odd C
@@ -305,8 +322,11 @@ def phase_kernels(folded, seed: int, records: dict) -> dict:
         for args in calls["s2dconv"] + [odd]:
             x, w, b = (t.to(dtype) for t in args)
             ref = s2dconv.conv3x3_c32_bias_silu_plain(x, w, b)
+            n = kernels.LAUNCHES["s2dconv_wgmma"]
             got = s2dconv.conv3x3_c32_bias_silu(x, w, b)
             torch.cuda.synchronize()
+            if kernels.LAUNCHES["s2dconv_wgmma"] != n + (dtype == torch.bfloat16):
+                fail(f"s2dconv {dtype} did not take the route of its dtype")
             err, lim = max_err(got, ref), ulps * max(1.0, float(ref.float().abs().max()))
             print(f"kernel s2dconv {dtype} {list(x.shape)} (strides {list(x.stride())}): max_abs_err {err:.6g} "
                   f"(limit {lim:.6g})", flush=True)
@@ -412,15 +432,16 @@ def phase_main(model, seed: int, records: dict):
         results[b] = pred.run_batch(imgs)
         torch.cuda.synchronize()
         got = {name: kernels.LAUNCHES[name] for name in PER_REQUEST}
-        wgmma = kernels.LAUNCHES["bmm_wgmma"]
-        print(f"request batch {b}: launches {got}, of bmm on the wgmma route {wgmma}", flush=True)
+        routes = {name: kernels.LAUNCHES[name] for name in NEW_ROUTES}
+        print(f"request batch {b}: launches {got}, on the bf16 routes {routes}", flush=True)
         if got != PER_REQUEST:
             fail(f"request batch {b} launched {got}, expected {PER_REQUEST} a request")
-        if wgmma != WGMMA_PER_REQUEST:
-            fail(f"request batch {b} took bmm's wgmma route {wgmma} times, expected {WGMMA_PER_REQUEST}")
+        for name, of in NEW_ROUTES.items():
+            if routes[name] != PER_REQUEST[of]:
+                fail(f"request batch {b}: {routes[name]} of {PER_REQUEST[of]} {of} launches on the {name} route")
+            records[of][f"{name}_launches"] = records[of].get(f"{name}_launches", 0) + routes[name]
         for name, n in got.items():
             launches[name] += n
-        records["bmm"]["wgmma_launches"] = records["bmm"].get("wgmma_launches", 0) + wgmma
     print(f"serving path launches over requests of batch {list(requests)}: {launches}", flush=True)
     for name, n in launches.items():
         records[name]["launches"] = n
@@ -502,12 +523,24 @@ def phase_times(folded, seed: int, records: dict, pred, x32, calls: dict) -> Non
     h0, w0_ = IMGSZ // 2, IMGSZ // 2
     h1, w1_ = IMGSZ // 4, IMGSZ // 4
     r = records["stem"]
-    r["ms"] = cuda_ms(lambda: stem.fused_stem(images, w0, b0, w1, b1), inner=KERNEL_INNER)
+    packed = (bb.stem_w0p, bb.stem_w1p)  # as the path calls it: weights packed once
+    r["ms"] = cuda_ms(lambda: stem.fused_stem(images, w0, b0, w1, b1, packed=packed), inner=KERNEL_INNER)
+    r["device_ms"] = device_ms(lambda: stem.fused_stem(images, w0, b0, w1, b1, packed=packed))
     r["plain_ms"] = cuda_ms(lambda: stem.fused_stem_plain(images, w0, b0, w1, b1, dtype=bf), inner=KERNEL_INNER)
     r["library_ms"] = cuda_ms(stem_library, inner=KERNEL_INNER)
     stem_bytes = images.numel() + BATCH * h1 * w1_ * 64 * 2 + 2 * (w0.numel() + b0.numel() + w1.numel() + b1.numel())
     stem_ops = 2 * BATCH * (h0 * w0_ * 32 * 27 + h1 * w1_ * 64 * 288)
     set_bound(r, stem_bytes, stem_ops, "bf16")
+    # The SiLU floor, printed beside the bound (a model, not a measurement,
+    # so it stays out of the kernels line): two special-function operations
+    # (ex2, rcp) per conv0 output (with the 8x16 tile's halo, 561 of every
+    # 512) and per conv1 output, 16 a clock per SM.
+    sms, clock = torch.cuda.get_device_properties(0).multi_processor_count, sm_clock_hz()
+    silus = BATCH * (h0 * w0_ * 32 * 561 / 512 + h1 * w1_ * 64)
+    silu_floor = 2 * silus / (16 * sms * clock) * 1e3
+    print(f"stem [{BATCH},{IMGSZ},{IMGSZ},3] uint8 -> bf16: kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), "
+          f"plain {r['plain_ms']:.4f}, cuDNN conv+bias+SiLU x2 {r['library_ms']:.4f}, bound {r['bound_ms']:.6f} "
+          f"({r['bound_by']}), SiLU floor {silu_floor:.6f} at {clock / 1e9:.3f} GHz", flush=True)
 
     # dw7x7 with the weights the model packed once ([49, C] bf16), as the
     # path calls it.
@@ -551,11 +584,14 @@ def phase_times(folded, seed: int, records: dict, pred, x32, calls: dict) -> Non
     xc = x.permute(0, 3, 1, 2)  # channels_last view of the NHWC tensor
     r = records["s2dconv"]
     r["ms"] = cuda_ms(lambda: s2dconv.conv3x3_c32_bias_silu(x, w_s2d, b), inner=KERNEL_INNER)
+    r["device_ms"] = device_ms(lambda: s2dconv.conv3x3_c32_bias_silu(x, w_s2d, b))
     r["plain_ms"] = cuda_ms(lambda: s2dconv.conv3x3_c32_bias_silu_plain(x, w_s2d, b), inner=KERNEL_INNER)
     r["library_ms"] = cuda_ms(lambda: F.silu(F.conv2d(xc, w3, b, 1, 1)), inner=KERNEL_INNER)
     set_bound(r, *bounds.s2dconv_work(*x.shape[:3], elt=x.element_size()), "bf16")
-    print(f"s2dconv {list(x.shape)} bf16: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, cuDNN conv+bias+SiLU "
-          f"{r['library_ms']:.4f}, bound {r['bound_ms']:.6f} ({r['bound_by']})", flush=True)
+    silu_floor = 2 * x.numel() / (16 * sms * clock) * 1e3
+    print(f"s2dconv {list(x.shape)} bf16: kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
+          f"{r['plain_ms']:.4f}, cuDNN conv+bias+SiLU {r['library_ms']:.4f}, bound {r['bound_ms']:.6f} "
+          f"({r['bound_by']}), SiLU floor {silu_floor:.6f}", flush=True)
 
     # bmm, summed over the 45 calls of a batch-32 request on their own
     # inputs, each with its bias and SiLU; the library call is torch.matmul
@@ -625,7 +661,8 @@ def phase_times(folded, seed: int, records: dict, pred, x32, calls: dict) -> Non
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
         print(f"  {e.self_device_time_total / 5 / 1e3:9.4f} ms/step {e.count // 5:5d} calls/step  {e.key[:90]}", flush=True)
     # The port's kernels by device time (bmm: both of its routes' kernels).
-    ours = {"stem": "stem_kernel", "dw7x7": "dw7x7_kernel", "topk": "topk_kernel", "s2dconv": "S2DProblem",
+    ours = {"stem tc": "stem_tc_kernel", "stem fp32": "stem_kernel<", "dw7x7": "dw7x7_kernel",
+            "topk": "topk_kernel", "s2dconv wgmma": "s2d_wgmma_kernel", "s2dconv fp32": "S2DProblem",
             "bmm wgmma": "sm90::gemm_kernel", "bmm mma.sync": "MatmulProblem"}
     for name, tag in ours.items():
         es = [e for e in events if tag in e.key]
@@ -810,6 +847,13 @@ def phase_train_times(seed: int, records: dict) -> None:
           flush=True)
 
 
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi), for the special-function floor."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.split()
+    return float(out[0]) * 1e6
+
+
 def set_bound(r: dict, nbytes: float, nops: float, kind: str) -> None:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / PEAK_OPS_PER_S[kind] * 1e3
@@ -853,6 +897,10 @@ def main() -> int:
             ("bmm", "leanyolo_tpu_torch/kernels/csrc/matmul.cu", "experiments/exp_pallas_mm.py:47"),
         )
     }
+    # Kernels rebuilt for Hopper after their first port, by the port's slice
+    # that rebuilt them.
+    for name, part in (("dw7x7", "slice 4"), ("bmm", "slice 4"), ("stem", "slice 5"), ("s2dconv", "slice 5")):
+        records[name]["redesigned"] = part
     model = make_model(SEED)
     folded = fold_model(model, dtype=torch.bfloat16).cuda().to(memory_format=torch.channels_last)  # as Predictor
     calls = phase_kernels(folded, SEED, records)

@@ -23,20 +23,43 @@ bool act_is_bf16(const torch::Tensor& t, const char* name) {
   return t.scalar_type() == at::kBFloat16;
 }
 
-void stem(torch::Tensor x, torch::Tensor w0, torch::Tensor b0, torch::Tensor w1, torch::Tensor b1,
-          torch::Tensor out) {
-  for (auto* p : {&x, &w0, &b0, &w1, &b1, &out}) check(*p, "stem");
-  const bool bf16 = act_is_bf16(out, "stem out");
-  for (auto* p : {&w0, &b0, &w1, &b1}) TORCH_CHECK(p->scalar_type() == out.scalar_type(), "stem: weight dtype");
-  const bool x_u8 = x.scalar_type() == at::kByte;
-  TORCH_CHECK(x_u8 || x.scalar_type() == out.scalar_type(), "stem: images must be uint8 or the activation dtype");
+void stem_args(const torch::Tensor& x, const torch::Tensor& out, int64_t c1, at::ScalarType act) {
+  for (auto* p : {&x, &out}) check(*p, "stem");
+  TORCH_CHECK(out.scalar_type() == act, "stem: out dtype");
+  TORCH_CHECK(x.scalar_type() == at::kByte || x.scalar_type() == act, "stem: images must be uint8 or the activation dtype");
   TORCH_CHECK(x.dim() == 4 && x.size(3) == 3, "stem: images [B,H,W,3]");
-  const int B = x.size(0), H = x.size(1), W = x.size(2);
-  const int c0 = w0.size(3), c1 = w1.size(3);
+  const int64_t H = x.size(1), W = x.size(2);
   TORCH_CHECK(H % 32 == 0 && W % 32 == 0, "stem: H, W % 32");
-  TORCH_CHECK(out.size(0) == B && out.size(1) == H / 4 && out.size(2) == W / 4 && out.size(3) == c1, "stem: out shape");
-  C10_CUDA_CHECK(launch_stem(x.data_ptr(), x_u8, w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                             out.data_ptr(), B, H, W, c0, c1, bf16, at::cuda::getCurrentCUDAStream()));
+  TORCH_CHECK(out.dim() == 4 && out.size(0) == x.size(0) && out.size(1) == H / 4 && out.size(2) == W / 4 &&
+                  out.size(3) == c1,
+              "stem: out shape");
+}
+
+void stem(torch::Tensor x, torch::Tensor w0, torch::Tensor b0, torch::Tensor w1, torch::Tensor b1, torch::Tensor out) {
+  for (auto* p : {&w0, &b0, &w1, &b1}) {
+    check(*p, "stem");
+    TORCH_CHECK(p->scalar_type() == at::kFloat, "stem: float32 weights");
+  }
+  const int c0 = w0.size(3), c1 = w1.size(3);
+  stem_args(x, out, c1, at::kFloat);
+  C10_CUDA_CHECK(launch_stem(x.data_ptr(), x.scalar_type() == at::kByte, w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
+                             b1.data_ptr(), out.data_ptr(), x.size(0), x.size(1), x.size(2), c0, c1,
+                             at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void stem_tc(torch::Tensor x, torch::Tensor w0p, torch::Tensor b0, torch::Tensor w1p, torch::Tensor b1,
+             torch::Tensor out) {
+  for (auto* p : {&w0p, &b0, &w1p, &b1}) {
+    check(*p, "stem_tc");
+    TORCH_CHECK(p->scalar_type() == at::kBFloat16, "stem_tc: bfloat16 weights");
+  }
+  const int c0 = b0.numel(), c1 = b1.numel();
+  TORCH_CHECK(w0p.numel() == 3 * 16 * c0 && w1p.numel() == 9 * c0 * c1, "stem_tc: packed weight sizes");
+  stem_args(x, out, c1, at::kBFloat16);
+  C10_CUDA_CHECK(launch_stem_tc(x.data_ptr(), x.scalar_type() == at::kByte, w0p.data_ptr(), b0.data_ptr(),
+                                w1p.data_ptr(), b1.data_ptr(), out.data_ptr(), x.size(0), x.size(1), x.size(2), c0,
+                                c1, at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -115,29 +138,48 @@ void bmm_wgmma(torch::Tensor x, torch::Tensor w, torch::Tensor out, std::optiona
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-void s2dconv(torch::Tensor x, torch::Tensor w, torch::Tensor b, torch::Tensor out, int64_t taps) {
+void s2dconv_args(const torch::Tensor& x, const torch::Tensor& b, const torch::Tensor& out, int64_t taps,
+                  at::ScalarType act) {
   TORCH_CHECK(x.is_cuda() && x.dim() == 4 && x.size(3) == 32 && x.stride(3) == 1 &&
                   x.stride(1) == x.size(2) * x.stride(2),
               "s2dconv: x [B,H,W,32], channels contiguous, pixels of a row evenly strided");
-  for (auto* p : {&w, &b, &out}) check(*p, "s2dconv");
-  const bool bf16 = act_is_bf16(x, "s2dconv x");
-  for (auto* p : {&w, &b, &out}) TORCH_CHECK(p->scalar_type() == x.scalar_type(), "s2dconv: dtype");
-  TORCH_CHECK(w.numel() == 4 * 128 * 128 && b.numel() == 32 && out.sizes() == x.sizes(), "s2dconv: w, b, out shapes");
+  for (auto* p : {&b, &out}) check(*p, "s2dconv");
+  for (auto* p : {&x, &b, &out}) TORCH_CHECK(p->scalar_type() == act, "s2dconv: dtype");
+  TORCH_CHECK(b.numel() == 32 && out.sizes() == x.sizes(), "s2dconv: b, out shapes");
   TORCH_CHECK(taps >= 0 && taps < 256, "s2dconv: taps, 8 bits");
+}
+
+void s2dconv(torch::Tensor x, torch::Tensor w, torch::Tensor b, torch::Tensor out, int64_t taps) {
+  s2dconv_args(x, b, out, taps, at::kFloat);
+  check(w, "s2dconv w");
+  TORCH_CHECK(w.scalar_type() == at::kFloat && w.numel() == 4 * 128 * 128, "s2dconv: w [4,128,128] float32");
   C10_CUDA_CHECK(launch_s2dconv(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), x.size(0), x.size(1),
-                                x.size(2), x.stride(0), x.stride(2), static_cast<int>(taps), bf16,
+                                x.size(2), x.stride(0), x.stride(2), static_cast<int>(taps),
                                 at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void s2dconv_wgmma(torch::Tensor x, torch::Tensor wk, torch::Tensor b, torch::Tensor out, int64_t taps) {
+  s2dconv_args(x, b, out, taps, at::kBFloat16);
+  check(wk, "s2dconv_wgmma wk");
+  TORCH_CHECK(wk.scalar_type() == at::kBFloat16 && wk.dim() == 2 && wk.size(0) == 128 && wk.size(1) == 512,
+              "s2dconv_wgmma: wk [128, 512] bfloat16 (K-major)");
+  C10_CUDA_CHECK(launch_s2dconv_wgmma(x.data_ptr(), wk.data_ptr(), b.data_ptr(), out.data_ptr(), x.size(0),
+                                      x.size(1), x.size(2), x.stride(0), x.stride(2), static_cast<int>(taps),
+                                      at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
-  m.def("stem", &stem, "fused stem: conv3x3 s2 + bias + SiLU, twice");
+  m.def("stem", &stem, "fused stem: conv3x3 s2 + bias + SiLU, twice (fp32)");
+  m.def("stem_tc", &stem_tc, "fused stem on the tensor cores (bf16, packed weights)");
   m.def("dw7x7", &dw7x7, "depthwise 7x7 + bias + SiLU");
   m.def("topk", &topk, "exact per-row top-k");
   m.def("mpbwd", &mpbwd, "backward of the k x k stride-1 same max pool");
   m.def("bmm", &bmm, "matrix product with an fp32 sum and the folded conv epilogue (mma.sync)");
   m.def("bmm_wgmma", &bmm_wgmma, "matrix product with an fp32 sum and the folded conv epilogue (TMA + wgmma)");
-  m.def("s2dconv", &s2dconv, "3x3 conv 32->32 + bias + SiLU over the space-to-depth form");
+  m.def("s2dconv", &s2dconv, "3x3 conv 32->32 + bias + SiLU over the space-to-depth form (fp32)");
+  m.def("s2dconv_wgmma", &s2dconv_wgmma, "3x3 conv 32->32 + bias + SiLU over the space-to-depth form (bf16, wgmma)");
 }

@@ -196,6 +196,17 @@ __device__ __forceinline__ void wgmma<128>(float (&d)[64], uint64_t da, uint64_t
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
 }
+// SMs of the current device (persistent kernels launch one CTA or two per SM).
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v;
+  }();
+  return n;
+}
+
 __device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
 
 // SiLU as y / (1 + 2^(-y log2 e)) with the hardware's approximate exp2 and
@@ -218,6 +229,16 @@ __device__ __forceinline__ float epilogue(float acc, float b) {
   if constexpr (EPI & BIAS) y = round_bf16(y + b);
   if constexpr (EPI == BIAS_SILU) y = round_bf16(silu_fast(y));
   return y;
+}
+
+// The BIAS_SILU epilogue of two neighbouring outputs, in bf16x2 where the
+// rounding points allow: the pair of sums rounded at once, the bias added
+// by a bf16 add (correctly rounded: the fp32 sum of two bf16 values,
+// rounded, as the folded forward computes it), SiLU in fp32 (silu_fast),
+// rounded as a pair. Bit-equal to epilogue<BIAS_SILU> on each element.
+__device__ __forceinline__ __nv_bfloat162 bias_silu2(float a0, float a1, __nv_bfloat162 b) {
+  const float2 y = __bfloat1622float2(__hadd2(__floats2bfloat162_rn(a0, a1), b));
+  return __floats2bfloat162_rn(silu_fast(y.x), silu_fast(y.y));
 }
 
 template <int BN, int EPI, int PAIRS>

@@ -8,11 +8,17 @@
 #include <cstdint>
 
 // Fused stem (stem.cu). x [B,H,W,3] uint8 (x_u8) or the activation type;
-// w0 [3,3,3,c0] and w1 [3,3,c0,c1] HWIO, b0 [c0], b1 [c1], out [B,H/4,W/4,c1],
-// all in the activation type (bf16 when bf16, else fp32). H, W % 32 == 0.
+// out [B,H/4,W/4,c1]; (c0, c1) in {(16, 32), (32, 64)}; H, W % 32 == 0.
+// launch_stem, the fp32 route: w0 [3,3,3,c0] and w1 [3,3,c0,c1] HWIO, b0
+// [c0], b1 [c1], out, and float x, all fp32.
 cudaError_t launch_stem(const void* x, bool x_u8, const void* w0, const void* b0, const void* w1,
-                        const void* b1, void* out, int B, int H, int W, int c0, int c1, bool bf16,
-                        cudaStream_t stream);
+                        const void* b1, void* out, int B, int H, int W, int c0, int c1, cudaStream_t stream);
+// launch_stem_tc, the bf16 tensor-core route: w0p [3, c0/16, 32, 8] and w1p
+// [9*c0/16, c1/16, 32, 8], the mma.sync B fragments of kernels/stem.py
+// pack_weights; b0, b1, out and a non-uint8 x bf16; x, w0p, w1p and out
+// 16-byte aligned.
+cudaError_t launch_stem_tc(const void* x, bool x_u8, const void* w0p, const void* b0, const void* w1p,
+                           const void* b1, void* out, int B, int H, int W, int c0, int c1, cudaStream_t stream);
 
 // Depthwise 7x7, pad 3, + bias + SiLU (dw7x7.cu). x, out [B,H,W,C] dense;
 // w [49,C]; b [C]; all bf16 (bf16) or fp32. Any B, H, W, C.
@@ -46,7 +52,13 @@ cudaError_t launch_bmm_wgmma(const void* x, const void* w, long long ldb, const 
 // Dense 3x3 SAME conv 32 -> 32 + bias + SiLU as a 2x2 conv over the
 // space-to-depth form (s2dconv.cu). x [B,H,W,32] with batch stride sb and
 // pixel stride sp (elements, multiples of 16 bytes, channels contiguous);
-// w [4 taps, 128, 128] S2D weights; bias [32]; out [B,H,W,32] dense. taps:
-// bit 2t is tap t's row offset, bit 2t+1 its column offset.
+// bias [32]; out [B,H,W,32] dense. taps: bit 2t is tap t's row offset, bit
+// 2t+1 its column offset.
+// launch_s2dconv, the fp32 route: w [4 taps, 128, 128] S2D weights, row-major.
 cudaError_t launch_s2dconv(const void* x, const void* w, const void* bias, void* out, int B, int H, int W,
-                           long long sb, long long sp, int taps, bool bf16, cudaStream_t stream);
+                           long long sb, long long sp, int taps, cudaStream_t stream);
+// launch_s2dconv_wgmma, the bf16 wgmma route: wk [128 N, 512 K], the same
+// weights K-major (element (k, n) of the [512, 128] matrix at wk[n * 512 + k]);
+// x, wk and out 16-byte aligned.
+cudaError_t launch_s2dconv_wgmma(const void* x, const void* wk, const void* bias, void* out, int B, int H, int W,
+                                 long long sb, long long sp, int taps, cudaStream_t stream);

@@ -132,16 +132,6 @@ bool make_map(CUtensorMap* map, const void* ptr, long long inner, long long oute
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, v = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v;
-  }();
-  return n;
-}
-
 template <int BN, int EPI, int PAIRS>
 cudaError_t launch_tiles(const CUtensorMap& ta, const CUtensorMap& tb, const CUtensorMap& tc, const void* bias,
                          int rows, int K, int N, cudaStream_t stream) {
@@ -150,7 +140,7 @@ cudaError_t launch_tiles(const CUtensorMap& ta, const CUtensorMap& tb, const CUt
                                                       cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
   if (set != cudaSuccess) return set;
   const int tiles = (rows + sm90::BM - 1) / sm90::BM * ((N + BN - 1) / BN);
-  const int grid = tiles < sm_count() ? tiles : sm_count();
+  const int grid = tiles < sm90::sm_count() ? tiles : sm90::sm_count();
   sm90::gemm_kernel<BN, EPI, PAIRS><<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(
       ta, tb, tc, static_cast<const __nv_bfloat16*>(bias), rows, K, N);
   return cudaSuccess;

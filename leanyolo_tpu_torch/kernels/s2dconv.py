@@ -14,6 +14,11 @@ four taps at offset (0, 0), which `taps` expresses). `s2d`, `un_s2d` and
 Rounding follows the folded JAX forward: the fp32 sum is rounded to the
 activation dtype, the bias is added and rounded, the SiLU is applied and
 rounded.
+
+Two hand-written kernels, chosen by dtype: bf16 (every call of the serving
+path) runs on a persistent wgmma kernel with the weights resident in shared
+memory, read K-major as `pack_weights` holds them; fp32 on the CUDA cores.
+A failed launch raises; no route stands in for the other.
 """
 
 from __future__ import annotations
@@ -69,8 +74,20 @@ def w_s2d_k3(w: torch.Tensor) -> torch.Tensor:
 
 
 def pack_weights(w_oihw: torch.Tensor) -> torch.Tensor:
-    """A [32, 32, 3, 3] OIHW conv weight -> the kernel's [4, 128, 128] tap-major S2D weights."""
-    return w_s2d_k3(w_oihw.permute(2, 3, 1, 0)).reshape(4, 4 * C, 4 * C).contiguous()
+    """A [32, 32, 3, 3] OIHW conv weight -> the kernel's [4, 128, 128]
+    tap-major S2D weights, held K-major: a view of a contiguous [128 N,
+    512 K] tensor (`k_major` takes it as it is), the layout the wgmma route
+    reads."""
+    w = w_s2d_k3(w_oihw.permute(2, 3, 1, 0)).reshape(4 * 4 * C, 4 * C)
+    return w.t().contiguous().t().reshape(4, 4 * C, 4 * C)
+
+
+def k_major(w_s2d: torch.Tensor) -> torch.Tensor:
+    """[4, 128, 128] S2D weights -> the [128 N, 512 K] K-major matrix the
+    wgmma route reads (no copy for weights that `pack_weights` made)."""
+    if w_s2d.stride() == (128, 1, 512):
+        return w_s2d.permute(2, 0, 1).reshape(4 * C, 16 * C)
+    return w_s2d.reshape(16 * C, 4 * C).t().contiguous()
 
 
 def s2d_conv_plain(xs: torch.Tensor, w_taps: torch.Tensor, bias: torch.Tensor,
@@ -118,7 +135,8 @@ def conv3x3_c32_bias_silu(x: torch.Tensor, w_s2d: torch.Tensor, bias: torch.Tens
                           taps: Sequence[Tuple[int, int]] = TAPS) -> torch.Tensor:
     """x [B, H, W, 32] NHWC (a channel slice of a wider map is read in
     place on the card), w_s2d [4, 128, 128] (pack_weights), bias [32] ->
-    [B, H, W, 32] contiguous, in x's dtype."""
+    [B, H, W, 32] contiguous, in x's dtype. bf16 takes the wgmma kernel,
+    fp32 the CUDA-core one."""
     if x.device.type == "cpu":
         return conv3x3_c32_bias_silu_plain(x, w_s2d, bias, taps)
     bits = _taps_bits(taps)
@@ -131,10 +149,19 @@ def conv3x3_c32_bias_silu(x: torch.Tensor, w_s2d: torch.Tensor, bias: torch.Tens
         raise ValueError(f"s2dconv: expected a CUDA tensor, got one on {x.device}")
     if not _pixel_strides_ok(x, x.element_size()):
         x = x.clone(memory_format=torch.contiguous_format)
-    wk, bk = w_s2d.to(x.dtype).contiguous(), bias.to(x.dtype).contiguous()
-    check_cuda(wk, "s2dconv w")
+    bk = bias.to(x.dtype).contiguous()
     check_cuda(bk, "s2dconv b")
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if x.dtype == torch.bfloat16:
+        wk = k_major(w_s2d.to(x.dtype))
+        check_cuda(wk, "s2dconv w")
+        if out.numel():
+            ext().s2dconv_wgmma(x, wk, bk, out, bits)
+            LAUNCHES["s2dconv_wgmma"] += 1
+            LAUNCHES["s2dconv"] += 1
+        return out
+    wk = w_s2d.to(x.dtype).contiguous()
+    check_cuda(wk, "s2dconv w")
     if out.numel():
         ext().s2dconv(x, wk, bk, out, bits)
         LAUNCHES["s2dconv"] += 1

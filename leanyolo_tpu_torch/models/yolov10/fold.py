@@ -16,7 +16,8 @@ The folded model holds `FusedRepVGGDW` modules and folded `ConvBNAct`s
 each dense 1x1 stride-1 conv (in a `ConvBNAct` or the head's biased `Conv`)
 becomes a `MatmulConv` (bmm kernel) and each dense 3x3 stride-1 32 -> 32
 `ConvBNAct` with SiLU an `S2DConvBNAct` (s2dconv kernel), their weights
-packed once. Unfolded and training models keep cuDNN.
+packed once, as are the stem's (`Backbone.pack`, after the normalization
+fold). Unfolded and training models keep cuDNN.
 """
 
 from __future__ import annotations
@@ -106,6 +107,7 @@ def fold_model(model: YOLOv10, *, dtype: Optional[torch.dtype] = None) -> YOLOv1
     """
     out = fold_module(model)
     _fold_norm_into_stem(out)
+    out.backbone.pack()
     if dtype is not None:
         out = out.to(dtype)
     return out

@@ -49,6 +49,18 @@ class Backbone(nn.Module):
         self.c8 = _c2f(cfg, "c8", ch[7], ch[8], reps.get(8, 1), c2f_shortcut=True, lk=cfg.use_lk_c8, g=g)
         self.sppf9 = L.SPPF(ch[8], ch[9], generator=g)
         self.psa10 = L.PSA(ch[9], generator=g)
+        # The folded stem's weights as the tensor-core kernel reads them
+        # (stem.pack_weights): packed by fold.py once, and again after a
+        # state-dict load, out of the state dict.
+        self.register_buffer("stem_w0p", None, persistent=False)
+        self.register_buffer("stem_w1p", None, persistent=False)
+        self.register_load_state_dict_post_hook(L._repack)
+
+    def pack(self) -> None:
+        with torch.no_grad():
+            folded = self.cv0.folded and self.cv1.folded
+            self.stem_w0p, self.stem_w1p = (stem.pack_weights(self.cv0.conv.weight, self.cv1.conv.weight)
+                                            if folded else (None, None))
 
     def stem(self, images: Tensor, dtype: torch.dtype) -> Tensor:
         """cv0 + cv1 on NHWC images -> NCHW stride-4 features.
@@ -57,8 +69,8 @@ class Backbone(nn.Module):
         reads the raw images; unfolded, as two conv->BN->SiLU blocks.
         """
         if self.cv0.folded and self.cv1.folded:
-            y = stem.fused_stem(images, self.cv0.conv.weight, self.cv0.conv.bias,
-                                self.cv1.conv.weight, self.cv1.conv.bias, dtype=dtype)
+            y = stem.fused_stem(images, self.cv0.conv.weight, self.cv0.conv.bias, self.cv1.conv.weight,
+                                self.cv1.conv.bias, dtype=dtype, packed=(self.stem_w0p, self.stem_w1p))
             return y.permute(0, 3, 1, 2)
         x = images.to(dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         return self.cv1(self.cv0(x))

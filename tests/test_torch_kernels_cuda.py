@@ -44,9 +44,12 @@ def _no_tf32():
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,h,w,c0,c1", [(2, 64, 96, 32, 64), (1, 128, 128, 16, 32), (32, 640, 640, 32, 64)])
+@pytest.mark.parametrize("b,h,w,c0,c1", [(2, 64, 96, 32, 64), (1, 128, 128, 16, 32), (32, 640, 640, 32, 64),
+                                         (2, 96, 160, 32, 64), (1, 32, 32, 32, 64), (3, 64, 160, 16, 32)])
 @pytest.mark.parametrize("u8", [True, False])
 def test_stem_kernel(cuda_device, dtype, b, h, w, c0, c1, u8):
+    """The path's shape and others, among them maps whose W/4 is not a
+    multiple of the tensor-core route's 16-column tile (ragged tiles)."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
     img = torch.randint(0, 256, (b, h, w, 3), generator=g, device=cuda_device, dtype=torch.uint8)
     if not u8:
@@ -54,10 +57,11 @@ def test_stem_kernel(cuda_device, dtype, b, h, w, c0, c1, u8):
     ws = [torch.randn(s, generator=g, device=cuda_device).mul(sc).to(dtype)
           for s, sc in (((c0, 3, 3, 3), 0.01), ((c0,), 0.1), ((c1, c0, 3, 3), 0.1), ((c1,), 0.1))]
     ref = stem.fused_stem_plain(img, *ws, dtype=dtype)
-    n = kernels.LAUNCHES["stem"]
-    got = stem.fused_stem(img, *ws)
+    n, ntc = kernels.LAUNCHES["stem"], kernels.LAUNCHES["stem_tc"]
+    got = stem.fused_stem(img, *ws, packed=stem.pack_weights(ws[0], ws[2]))
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["stem"] == n + 1
+    assert kernels.LAUNCHES["stem_tc"] == ntc + (dtype == torch.bfloat16)
     assert got.shape == (b, h // 4, w // 4, c1) and got.is_contiguous()
     assert float((got.float() - ref.float()).abs().max()) <= _limit(ref, dtype)
 
@@ -160,10 +164,11 @@ def test_s2dconv_kernel(cuda_device, dtype, shape, sliced):
     w = s2dconv.pack_weights(torch.randn(32, 32, 3, 3, generator=g, device=cuda_device) * 0.1).to(dtype)
     b = (torch.randn(32, generator=g, device=cuda_device) * 0.1).to(dtype)
     ref = s2dconv.conv3x3_c32_bias_silu_plain(x, w, b)
-    n = kernels.LAUNCHES["s2dconv"]
+    n, nw = kernels.LAUNCHES["s2dconv"], kernels.LAUNCHES["s2dconv_wgmma"]
     got = s2dconv.conv3x3_c32_bias_silu(x, w, b)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["s2dconv"] == n + 1
+    assert kernels.LAUNCHES["s2dconv_wgmma"] == nw + (dtype == torch.bfloat16)
     assert got.shape == shape and got.is_contiguous()
     assert float((got.float() - ref.float()).abs().max()) <= _limit(ref, dtype)
 
@@ -178,8 +183,10 @@ def test_s2dconv_kernel_any_taps_and_weights(cuda_device, dtype, taps):
     w = (torch.randn(4, 128, 128, generator=g, device=cuda_device) * 0.05).to(dtype)
     b = (torch.randn(32, generator=g, device=cuda_device) * 0.1).to(dtype)
     ref = s2dconv.conv3x3_c32_bias_silu_plain(x, w, b, taps)
+    nw = kernels.LAUNCHES["s2dconv_wgmma"]
     got = s2dconv.conv3x3_c32_bias_silu(x, w, b, taps)
     torch.cuda.synchronize()
+    assert kernels.LAUNCHES["s2dconv_wgmma"] == nw + (dtype == torch.bfloat16)
     assert float((got.float() - ref.float()).abs().max()) <= _limit(ref, dtype)
 
 
@@ -272,8 +279,9 @@ def test_bmm_kernel_upcat_half_in_place(cuda_device):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_folded_model_launches_the_new_kernels(cuda_device, dtype):
-    """The folded yolov10s forward on the card: 2 s2dconv and 45 bmm
-    launches, and head maps that match the all-plain forward."""
+    """The folded yolov10s forward on the card: 1 stem, 2 s2dconv and 45 bmm
+    launches (bf16 on the tensor-core and wgmma routes), and head maps that
+    match the all-plain forward."""
     from leanyolo_tpu_torch import YOLOv10
     from leanyolo_tpu_torch.models.yolov10.fold import fold_model
 
@@ -285,8 +293,11 @@ def test_folded_model_launches_the_new_kernels(cuda_device, dtype):
     with torch.no_grad():
         got = folded(imgs, **kw)["one2one"]
         torch.cuda.synchronize()
-        assert kernels.LAUNCHES["s2dconv"] == 2 and kernels.LAUNCHES["bmm"] == 45
-        assert kernels.LAUNCHES["bmm_wgmma"] == (45 if dtype == torch.bfloat16 else 0)
+        assert kernels.LAUNCHES["s2dconv"] == 2 and kernels.LAUNCHES["bmm"] == 45 and kernels.LAUNCHES["stem"] == 1
+        bf16 = dtype == torch.bfloat16
+        assert kernels.LAUNCHES["bmm_wgmma"] == (45 if bf16 else 0)
+        assert kernels.LAUNCHES["s2dconv_wgmma"] == (2 if bf16 else 0)
+        assert kernels.LAUNCHES["stem_tc"] == (1 if bf16 else 0)
         bmm, conv3 = matmul.bmm, s2dconv.conv3x3_c32_bias_silu
         matmul.bmm, s2dconv.conv3x3_c32_bias_silu = matmul.bmm_plain, s2dconv.conv3x3_c32_bias_silu_plain
         try:
@@ -302,9 +313,12 @@ def test_folded_model_launches_the_new_kernels(cuda_device, dtype):
 
 
 def test_wrappers_raise_on_unsupported(cuda_device):
+    ws = [torch.zeros(s, device=cuda_device) for s in ((32, 3, 3, 3), (32,), (64, 32, 3, 3), (64,))]
     with pytest.raises(ValueError):
-        stem.fused_stem(torch.zeros(1, 48, 64, 3, dtype=torch.uint8, device=cuda_device),
-                        *[torch.zeros(s, device=cuda_device) for s in ((32, 3, 3, 3), (32,), (64, 32, 3, 3), (64,))])
+        stem.fused_stem(torch.zeros(1, 48, 64, 3, dtype=torch.uint8, device=cuda_device), *ws)
+    with pytest.raises(ValueError):  # bf16 weights not packed
+        stem.fused_stem(torch.zeros(1, 64, 64, 3, dtype=torch.uint8, device=cuda_device),
+                        *[t.bfloat16() for t in ws])
     with pytest.raises(ValueError):
         dwconv.dw7x7_bias_silu(torch.zeros(1, 8, 8, 4, device=cuda_device).permute(0, 2, 1, 3),
                                torch.zeros(49, 4, device=cuda_device), torch.zeros(4, device=cuda_device))

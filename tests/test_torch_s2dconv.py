@@ -151,10 +151,32 @@ def test_fold_packs_the_s2d_weights():
     sd = {k: torch.randn_like(v) for k, v in folded.state_dict().items()}
     folded.load_state_dict(sd)
     assert torch.equal(folded.cv1.w_s2d, s2dconv.pack_weights(sd["cv1.conv.weight"]))
+    assert folded.cv1.w_s2d.stride() == (128, 1, 512)  # packed K-major again
     # Other 3x3 convs keep cuDNN.
     other = fold_module(load_jax_params(TL.Bottleneck(16, 16, shortcut=True),
                                         JL.bottleneck_init(jax.random.PRNGKey(6), 16, 16)))
     assert type(other.cv1) is TL.ConvBNAct
+
+
+def test_pack_weights_k_major_round_trip():
+    """pack_weights holds the S2D weights K-major ([128 N, 512 K] storage, the
+    wgmma route's layout) behind a [4, 128, 128] view; k_major takes that
+    storage with no copy and makes the same matrix from any other layout."""
+    w = torch.from_numpy(np.random.RandomState(8).randn(32, 32, 3, 3).astype(np.float32))
+    packed = s2dconv.pack_weights(w)
+    assert packed.shape == (4, 128, 128) and packed.stride() == (128, 1, 512)
+    assert torch.equal(packed, s2dconv.w_s2d_k3(w.permute(2, 3, 1, 0)).reshape(4, 128, 128))
+    wk = s2dconv.k_major(packed)
+    assert wk.shape == (128, 512) and wk.is_contiguous() and wk.data_ptr() == packed.data_ptr()
+    assert torch.equal(wk.t().reshape(4, 128, 128), packed)  # (k, n) of tap-major K at wk[n, k]
+    dense = packed.contiguous()
+    assert torch.equal(s2dconv.k_major(dense), wk)
+    # Casting and the channels_last conversion of a module keep the view K-major.
+    m = fold_module(load_jax_params(TL.Bottleneck(32, 32, shortcut=True),
+                                    JL.bottleneck_init(jax.random.PRNGKey(8), 32, 32)).eval())
+    m = m.to(torch.bfloat16).to(memory_format=torch.channels_last)
+    assert m.cv1.w_s2d.stride() == (128, 1, 512)
+    assert s2dconv.k_major(m.cv1.w_s2d).data_ptr() == m.cv1.w_s2d.data_ptr()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
