@@ -8,15 +8,16 @@ version; a CUDA tensor launches the kernel, which is built from `csrc/` at
 first use (_build.py), or raises. Nothing falls back from one to the other.
 
 `LAUNCHES` counts kernel launches per kernel; a wrapper adds one where it
-launches its kernel and nowhere else. `stem`, `s2dconv` and `bmm` count
-both routes of their kernel; `stem_tc` (the tensor-core stem),
-`s2dconv_wgmma` and `bmm_wgmma` (the wgmma routes) the bf16 route alone.
+launches its kernel and nowhere else. `stem`, `s2dconv`, `bmm` and
+`mpbwd` count both routes of their kernel; `stem_tc` (the tensor-core
+stem), `s2dconv_wgmma` and `bmm_wgmma` (the wgmma routes) the bf16 route
+alone, `mpbwd_vec` mpbwd's 16-byte route.
 """
 
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"stem": 0, "stem_tc": 0, "dw7x7": 0, "topk": 0, "mpbwd": 0, "s2dconv": 0,
-                            "s2dconv_wgmma": 0, "bmm": 0, "bmm_wgmma": 0}
+LAUNCHES: Dict[str, int] = {"stem": 0, "stem_tc": 0, "dw7x7": 0, "topk": 0, "mpbwd": 0, "mpbwd_vec": 0,
+                            "s2dconv": 0, "s2dconv_wgmma": 0, "bmm": 0, "bmm_wgmma": 0}
 
 
 def reset_launches() -> None:

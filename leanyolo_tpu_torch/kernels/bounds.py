@@ -1,7 +1,7 @@
-"""Least times an H100 could take for the work of the s2dconv and bmm
-kernels (bytes over 3.35 TB/s against operations over 989 TFLOP/s bf16;
-each input read once, each output written once), at the shapes of the
-serving path and at the shapes the TPU probes ran.
+"""Least times an H100 could take for the work of the port's kernels (bytes
+over 3.35 TB/s against operations over 989 TFLOP/s bf16 or 67 TFLOP/s
+fp32; each input read once, each output written once), at the shapes of the
+serving and training paths and at the shapes the TPU probes ran.
 
     python -m leanyolo_tpu_torch.kernels.bounds
 
@@ -17,13 +17,39 @@ from typing import List, Tuple
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12
+FP32_OPS_PER_S = 67e12
 
 
-def bound(nbytes: float, nops: float):
-    """(ms, 'bytes' or 'operations') for work moving nbytes and doing nops bf16 ops."""
+def bound(nbytes: float, nops: float, ops_per_s: float = BF16_OPS_PER_S):
+    """(ms, 'bytes' or 'operations') for work moving nbytes and doing nops
+    operations at ops_per_s (default: bf16 on the tensor cores)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / BF16_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def stem_work(b: int, h: int, w: int, c0: int, c1: int, in_elt: int = 1, elt: int = 2) -> Tuple[int, int]:
+    """(bytes, operations) of the fused stem on [b, h, w, 3] images (in_elt
+    bytes a value) -> [b, h/4, w/4, c1]: the images, both convs' weights and
+    biases and the output; the two dense 3x3 stride-2 convs' products."""
+    h0, w0, h1, w1 = h // 2, w // 2, h // 4, w // 4
+    nbytes = b * h * w * 3 * in_elt + b * h1 * w1 * c1 * elt + elt * (27 * c0 + c0 + 9 * c0 * c1 + c1)
+    return nbytes, 2 * b * (h0 * w0 * c0 * 27 + h1 * w1 * c1 * 9 * c0)
+
+
+def topk_work(rows: int, n: int, k: int, elt: int = 2) -> Tuple[int, int]:
+    """(bytes, operations) of an exact top-k over [rows, n]: the input, the
+    values and int32 indices out; one key and one comparison an element
+    (fp32 rate; the passes a row needs depend on its data)."""
+    return rows * n * elt + rows * k * (elt + 4), rows * n
+
+
+def mpbwd_work(b: int, h: int, w: int, c: int, k: int = 5, elt: int = 2) -> Tuple[int, int]:
+    """(bytes, operations) of the k x k max-pool backward on [b, h, w, c]: x
+    and dy in, dx out; one comparison per window offset per element (fp32
+    rate)."""
+    n = b * h * w * c
+    return 3 * n * elt, k * k * n
 
 
 def bmm_work(b: int, m: int, k: int, n: int, elt: int = 2) -> Tuple[int, int]:
@@ -67,6 +93,26 @@ def serving_1x1_shapes(variant: str = "yolov10s", imgsz: int = 640) -> List[Tupl
     return shapes
 
 
+def kernel_bounds(batch: int = 32):
+    """Rows of (kernel, shape, MB moved, GFLOP, bound ms, bound by) of the
+    stem at each size's widths on [batch,640,640,3] uint8, the top-k pair of
+    a request and mpbwd at the training path's SPPF shape."""
+    from ..models.yolov10.config import VARIANTS
+
+    rows = []
+    for name, cfg in VARIANTS.items():
+        nbytes, nops = stem_work(batch, 640, 640, cfg.ch[0], cfg.ch[1])
+        rows.append((f"stem {name}", f"[{batch},640,640,3] u8 -> c{cfg.ch[0]},{cfg.ch[1]}", nbytes, nops,
+                     *bound(nbytes, nops)))
+    works = [topk_work(batch, n, 300) for n in (8400, 24000)]
+    nbytes, nops = sum(w[0] for w in works), sum(w[1] for w in works)
+    rows.append(("topk", f"[{batch},8400] + [{batch},24000] bf16, k=300", nbytes, nops,
+                 *bound(nbytes, nops, FP32_OPS_PER_S)))
+    nbytes, nops = mpbwd_work(batch, 20, 20, 256)
+    rows.append(("mpbwd", f"[{batch},20,20,256] bf16, k=5", nbytes, nops, *bound(nbytes, nops, FP32_OPS_PER_S)))
+    return rows
+
+
 def path_bounds(batch: int = 32):
     """Rows of (kernel, shape, MB moved, GFLOP, bound ms, bound by) on the
     yolov10s 640 bf16 serving path: one s2dconv launch (two a request) and
@@ -101,5 +147,5 @@ def probe_bounds():
 
 
 if __name__ == "__main__":
-    for name, shape, nbytes, nops, ms, by in path_bounds() + probe_bounds():
-        print(f"{name:16s} {shape:40s} {nbytes / 1e6:9.2f} MB {nops / 1e9:9.2f} GFLOP  bound {ms:.5f} ms ({by})")
+    for name, shape, nbytes, nops, ms, by in kernel_bounds() + path_bounds() + probe_bounds():
+        print(f"{name:16s} {shape:42s} {nbytes / 1e6:9.2f} MB {nops / 1e9:9.2f} GFLOP  bound {ms:.5f} ms ({by})")

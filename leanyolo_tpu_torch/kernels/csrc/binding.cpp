@@ -7,6 +7,7 @@
 #include <c10/cuda/CUDAException.h>
 
 #include <optional>
+#include <tuple>
 
 #include "kernels.h"
 
@@ -75,26 +76,32 @@ void dw7x7(torch::Tensor x, torch::Tensor w, torch::Tensor b, torch::Tensor out)
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-void topk(torch::Tensor x, int64_t k, bool canon_zero, torch::Tensor vals, torch::Tensor idx) {
-  for (auto* p : {&x, &vals, &idx}) check(*p, "topk");
+std::tuple<torch::Tensor, torch::Tensor> topk(torch::Tensor x, int64_t k, bool canon_zero) {
+  check(x, "topk");
   const bool bf16 = act_is_bf16(x, "topk x");
-  TORCH_CHECK(x.dim() == 2 && vals.scalar_type() == x.scalar_type() && idx.scalar_type() == at::kInt, "topk: types");
+  TORCH_CHECK(x.dim() == 2, "topk: x [rows, n]");
+  TORCH_CHECK(x.size(1) < (int64_t(1) << 31) && x.size(0) < (int64_t(1) << 31), "topk: rows and n below 2^31");
   const int rows = x.size(0), n = x.size(1);
-  TORCH_CHECK(k >= 1 && k <= 1024 && k <= n, "topk: 1 <= k <= min(n, 1024)");
-  TORCH_CHECK(vals.size(0) == rows && vals.size(1) == k && idx.size(0) == rows && idx.size(1) == k, "topk: out shape");
+  TORCH_CHECK(k >= 1 && k <= n, "topk: 1 <= k <= n");
+  auto vals = torch::empty({rows, k}, x.options());
+  auto idx = torch::empty({rows, k}, x.options().dtype(at::kInt));
+  if (rows == 0) return {vals, idx};
+  auto scratch = torch::empty({static_cast<int64_t>(topk_scratch_bytes(rows, n, static_cast<int>(k), bf16))},
+                              x.options().dtype(at::kByte));
   C10_CUDA_CHECK(launch_topk(x.data_ptr(), rows, n, static_cast<int>(k), canon_zero, bf16, vals.data_ptr(),
-                             idx.data_ptr<int32_t>(), at::cuda::getCurrentCUDAStream()));
+                             idx.data_ptr<int32_t>(), scratch.data_ptr(), at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {vals, idx};
 }
 
-void mpbwd(torch::Tensor x, torch::Tensor dy, torch::Tensor dx, int64_t k) {
+void mpbwd(torch::Tensor x, torch::Tensor dy, torch::Tensor dx, int64_t k, bool vec) {
   for (auto* p : {&x, &dy, &dx}) check(*p, "mpbwd");
   const bool bf16 = act_is_bf16(x, "mpbwd x");
   for (auto* p : {&dy, &dx}) TORCH_CHECK(p->scalar_type() == x.scalar_type(), "mpbwd: dtype");
   TORCH_CHECK(x.dim() == 4 && dy.sizes() == x.sizes() && dx.sizes() == x.sizes(), "mpbwd: x, dy, dx [B,H,W,C]");
   TORCH_CHECK(k % 2 == 1 && k >= 1 && k <= 15, "mpbwd: k odd, 1 <= k <= 15");
   C10_CUDA_CHECK(launch_mpbwd(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), x.size(0), x.size(1), x.size(2), x.size(3),
-                              static_cast<int>(k), bf16, at::cuda::getCurrentCUDAStream()));
+                              static_cast<int>(k), bf16, vec, at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -176,7 +183,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("stem", &stem, "fused stem: conv3x3 s2 + bias + SiLU, twice (fp32)");
   m.def("stem_tc", &stem_tc, "fused stem on the tensor cores (bf16, packed weights)");
   m.def("dw7x7", &dw7x7, "depthwise 7x7 + bias + SiLU");
-  m.def("topk", &topk, "exact per-row top-k");
+  m.def("topk", &topk, "exact per-row top-k: (values, int32 indices), allocated here");
   m.def("mpbwd", &mpbwd, "backward of the k x k stride-1 same max pool");
   m.def("bmm", &bmm, "matrix product with an fp32 sum and the folded conv epilogue (mma.sync)");
   m.def("bmm_wgmma", &bmm_wgmma, "matrix product with an fp32 sum and the folded conv epilogue (TMA + wgmma)");

@@ -5,10 +5,16 @@
 #pragma once
 
 #include <cuda_runtime_api.h>
+#include <cstddef>
 #include <cstdint>
 
-// Fused stem (stem.cu). x [B,H,W,3] uint8 (x_u8) or the activation type;
-// out [B,H/4,W/4,c1]; (c0, c1) in {(16, 32), (32, 64)}; H, W % 32 == 0.
+// Fused stem (stem.cu, stem_tc.cu). x [B,H,W,3] uint8 (x_u8) or the
+// activation type; out [B,H/4,W/4,c1]; (c0, c1) one of STEM_WIDTHS; H, W %
+// 32 == 0.
+// The (c0, c1) the stem is compiled for: backbone cv0/cv1 of the six YOLOv10
+// sizes n, s, m, b and l, x (models/yolov10/config.py; tests/test_torch_stem.py
+// holds this list to the configs).
+#define STEM_WIDTHS(X) X(16, 32) X(32, 64) X(48, 96) X(64, 128) X(80, 160)
 // launch_stem, the fp32 route: w0 [3,3,3,c0] and w1 [3,3,c0,c1] HWIO, b0
 // [c0], b1 [c1], out, and float x, all fp32.
 cudaError_t launch_stem(const void* x, bool x_u8, const void* w0, const void* b0, const void* w1,
@@ -26,14 +32,19 @@ cudaError_t launch_dw7x7(const void* x, const void* w, const void* b, void* out,
                          bool bf16, cudaStream_t stream);
 
 // Exact per-row top-k (topk.cu). x [rows, n] bf16 or fp32; vals [rows, k]
-// in x's type; idx [rows, k] int32. k <= 1024.
+// in x's type; idx [rows, k] int32; 1 <= k <= n. scratch: at least
+// topk_scratch_bytes(rows, n, k, bf16) bytes of device memory, 16-byte
+// aligned (the winners' keys on their way to being ordered).
+size_t topk_scratch_bytes(int rows, int n, int k, bool bf16);
 cudaError_t launch_topk(const void* x, int rows, int n, int k, bool canon_zero, bool bf16, void* vals,
-                        int32_t* idx, cudaStream_t stream);
+                        int32_t* idx, void* scratch, cudaStream_t stream);
 
 // Backward of the k x k stride-1 "same" max pool (mpbwd.cu). x, dy, dx
-// [B,H,W,C], all bf16 (bf16) or fp32; k odd, 1 <= k <= 15.
+// [B,H,W,C], all bf16 (bf16) or fp32; k odd, 1 <= k <= 15. vec: the
+// 16-byte route (C a multiple of 8 bf16 or 4 fp32 values; x, dy and dx
+// 16-byte aligned), else the general route.
 cudaError_t launch_mpbwd(const void* x, const void* dy, void* dx, int B, int H, int W, int C, int k, bool bf16,
-                         cudaStream_t stream);
+                         bool vec, cudaStream_t stream);
 
 // Matrix product out[rows, N] = x[rows, K] @ w[K, N] (matmul.cu), fp32 sum,
 // then the folded conv's epilogue: rounded, + bias[N] rounded (bias may be

@@ -7,8 +7,14 @@ JAX package's Pallas kernel `experiments/exp_sppf_bwd.py:83 mpbwd_pallas`,
 for any B, H, W, C and odd k. Routing: the dy of each window goes to the
 first position of the window, in row-major order, that holds the window
 max; each dx sums its routed dy in f32, in ascending window offset, and
-rounds once. The kernel and the plain version reproduce the Pallas kernel
+rounds once. The kernels and the plain version reproduce the Pallas kernel
 bit for bit.
+
+Two hand-written kernels, chosen by shape (`route`): the 16-byte route
+(a whole map per CTA, 8 bf16 or 4 fp32 channels a thread; every pool of the
+train step) where C is a multiple of 8 bf16 or 4 fp32 values and the
+tensors are 16-byte aligned, the general route (a lane a channel) for the
+rest. A failed launch raises; no route stands in for the other.
 """
 
 from __future__ import annotations
@@ -45,6 +51,14 @@ def mpbwd_plain(x: torch.Tensor, dy: torch.Tensor, k: int = 5) -> torch.Tensor:
     return dxp[:, pad : pad + h, pad : pad + w].to(x.dtype)
 
 
+def route(x: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor) -> str:
+    """"vec" (16-byte loads and stores) where C holds whole 16-byte vectors
+    and every tensor is 16-byte aligned, else "general"."""
+    per_vec = 16 // x.element_size()
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, dy, dx))
+    return "vec" if x.shape[-1] % per_vec == 0 and aligned else "general"
+
+
 def mpbwd(x: torch.Tensor, dy: torch.Tensor, k: int = 5) -> torch.Tensor:
     """x, dy [B, H, W, C] NHWC (contiguous on the card), bf16 or fp32 -> dx."""
     if x.device.type == "cpu":
@@ -59,6 +73,8 @@ def mpbwd(x: torch.Tensor, dy: torch.Tensor, k: int = 5) -> torch.Tensor:
         raise ValueError(f"mpbwd: k must be odd in [1, 15], got {k}")
     dx = torch.empty_like(x)
     if x.numel():
-        ext().mpbwd(x, dy, dx, k)
+        vec = route(x, dy, dx) == "vec"
+        ext().mpbwd(x, dy, dx, k, vec)
+        LAUNCHES["mpbwd_vec"] += vec
         LAUNCHES["mpbwd"] += 1
     return dx

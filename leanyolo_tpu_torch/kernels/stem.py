@@ -13,8 +13,10 @@ never go to device memory.
 
 Two hand-written kernels, chosen by the activation dtype: bf16 (every call
 of the serving path) runs both convs on the tensor cores (mma.sync) with
-the weights packed once by `pack_weights`; fp32 runs on the CUDA cores with
-fp32 FMAs. A failed launch raises; no route stands in for the other.
+the weights packed once by `pack_weights` (csrc/stem_tc.cu); fp32 runs on
+the CUDA cores with fp32 FMAs (csrc/stem.cu). Both take the stem widths of
+all six YOLOv10 sizes (`WIDTHS`). A failed launch raises; no route stands
+in for the other.
 """
 
 from __future__ import annotations
@@ -24,11 +26,14 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..models.yolov10.config import VARIANTS
 from . import LAUNCHES
 from ._build import check_cuda, ext
 
-# (conv0, conv1) output widths the kernels are compiled for: yolov10n, yolov10s.
-WIDTHS = ((16, 32), (32, 64))
+# (conv0, conv1) output widths the kernels take: backbone cv0/cv1 of every
+# YOLOv10 size (the kernels are compiled for these, csrc/kernels.h
+# STEM_WIDTHS).
+WIDTHS = tuple(sorted({(cfg.ch[0], cfg.ch[1]) for cfg in VARIANTS.values()}))
 
 # Where conv0's k16 step of kernel row kh reads: k = 0..7 is the pixel pair
 # (2c, 2c+1), k = 8..15 the pair (2c+2, 2c+3), 3 channels a pixel and 2

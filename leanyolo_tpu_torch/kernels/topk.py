@@ -15,14 +15,13 @@ sort's whim:
 `canon_zero` first maps -0.0 to +0.0 so the two zeros tie (the packed bf16
 route's rule); without it -0.0 ranks below +0.0 (lax.top_k's total order).
 
-The kernel runs one CTA per row: a radix select over the keys (8 bits a
-pass, a 256-bin histogram in shared memory, stopping as soon as the k-th
-key's bin is taken whole) finds the k-th largest key, one more pass gathers
-the k keys at or above it, and a bitonic sort in shared memory orders
-them. It reads the row a few times from L2 and holds no row in shared
-memory, so the fp32 rows of 24000 keys need no blocked second stage.
-Bound: bytes (each input read once, each output written once); the work
-per row is a handful of passes over it.
+Any 1 <= k <= n. The kernel spreads each row over a cluster of CTAs:
+a radix select over the keys (8 bits a pass, the cluster's histograms
+summed through distributed shared memory, stopping as soon as the k-th
+key's bin is taken whole) finds the k-th largest key, the k keys at or
+above it are gathered, and they are ordered by rank counting (k <= 2048)
+or a bitonic sort (larger k). Details in csrc/topk.cu. Bound: bytes (each
+input read once, each output written once).
 """
 
 from __future__ import annotations
@@ -34,7 +33,6 @@ import torch
 from . import LAUNCHES
 from ._build import check_cuda, ext
 
-MAX_K = 1024
 _PACK32_MAX_N = 32768
 
 
@@ -74,8 +72,8 @@ def unpack_f32_desc(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _check_k(n: int, k: int) -> None:
-    if not 1 <= k <= min(n, MAX_K):
-        raise ValueError(f"topk: need 1 <= k <= min(n, {MAX_K}), got k={k}, n={n}")
+    if not 1 <= k <= n:
+        raise ValueError(f"topk: need 1 <= k <= n, got k={k}, n={n}")
 
 
 def topk_plain(x: torch.Tensor, k: int, *, canon_zero: bool) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -99,10 +97,11 @@ def topk(x: torch.Tensor, k: int, *, canon_zero: bool) -> Tuple[torch.Tensor, to
         raise ValueError(f"topk: bf16 or fp32 input, got {x.dtype}")
     n = x.shape[-1]
     _check_k(n, k)
-    rows = x.reshape(-1, n)
-    vals = torch.empty(rows.shape[0], k, dtype=x.dtype, device=x.device)
-    idx = torch.empty(rows.shape[0], k, dtype=torch.int32, device=x.device)
-    if rows.shape[0]:
-        ext().topk(rows, k, bool(canon_zero), vals, idx)
+    if x.ndim == 2:
+        vals, idx = ext().topk(x, k, bool(canon_zero))
+    else:
+        vals, idx = ext().topk(x.reshape(-1, n), k, bool(canon_zero))
+        vals, idx = vals.reshape(x.shape[:-1] + (k,)), idx.reshape(x.shape[:-1] + (k,))
+    if x.numel():
         LAUNCHES["topk"] += 1
-    return vals.reshape(x.shape[:-1] + (k,)), idx.reshape(x.shape[:-1] + (k,))
+    return vals, idx

@@ -8,8 +8,9 @@ depends on the route, so the port picks the same rule per call:
 - bf16, k < n <= 32768: the packed s32 keys; -0.0 ties +0.0;
 - otherwise (fp32, k == n, longer rows): lax.top_k; -0.0 ranks below +0.0.
 
-Equal values always resolve to the lower index first. The work runs in the
-top-k kernel wrapper (kernels/topk.py).
+Equal values always resolve to the lower index first. Any 1 <= k <= n, as
+in JAX (no cap on k). The work runs in the top-k kernel wrapper
+(kernels/topk.py).
 """
 
 from __future__ import annotations

@@ -56,6 +56,23 @@ def test_decode_topk_matches_jax(dtype, size, ties):
     assert np.max(np.abs(got[..., :4] - ref[..., :4])) < 1e-2
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_decode_topk_max_det_past_1024_matches_jax(dtype):
+    """max_det = 1500 at 320 px (2100 anchors): both top-k stages take k past
+    the old cap of 1024, the second over 1500 x 80 pairs (64-bit keys)."""
+    jd, td = (jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16" else (jnp.float32, torch.float32)
+    maps = _maps(320, 2, 320, True)
+    jmaps = [(jnp.asarray(r, jd), jnp.asarray(c, jd)) for r, c in maps]
+    tmaps = [(torch.from_numpy(r).to(td), torch.from_numpy(c).to(td)) for r, c in maps]
+    ref = np.asarray(jax_decode_topk(jmaps, num_classes=NC, strides=STRIDES, max_det=1500), np.float32)
+    got = decode_topk(tmaps, num_classes=NC, strides=STRIDES, max_det=1500).numpy()
+    assert got.shape == ref.shape == (2, 1500, 6)
+    np.testing.assert_array_equal(got[..., 5], ref[..., 5])  # classes, in rank order
+    np.testing.assert_array_equal(got[..., 4], ref[..., 4])  # scores: the sigmoid of the same logits
+    np.testing.assert_allclose(got[..., :4], ref[..., :4], rtol=5e-4 / 320, atol=5e-4)
+    assert np.max(np.abs(got[..., :4] - ref[..., :4])) < 1e-2
+
+
 def test_decode_topk_concat_maps_equal_split_maps():
     maps = _maps(7, 2, 128, True)
     split = [(torch.from_numpy(r), torch.from_numpy(c)) for r, c in maps]

@@ -66,6 +66,17 @@ def test_stem_kernel(cuda_device, dtype, b, h, w, c0, c1, u8):
     assert float((got.float() - ref.float()).abs().max()) <= _limit(ref, dtype)
 
 
+@pytest.mark.parametrize("c0,c1", stem.WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,w", [(8, 640, 640), (2, 96, 160)])
+@pytest.mark.parametrize("u8", [True, False])
+def test_stem_kernel_every_width(cuda_device, c0, c1, dtype, b, h, w, u8):
+    """Every YOLOv10 size's stem width on both routes (conv1's weights
+    resident for n/s/m, streamed through the ring for b/l/x), at 640 px and
+    at a ragged map, with the weights packed once."""
+    test_stem_kernel(cuda_device, dtype, b, h, w, c0, c1, u8)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(32, 20, 20, 512), (2, 13, 9, 48), (1, 40, 40, 33),
                                    (2, 64, 64, 64), (1, 9, 1500, 24), (3, 2, 3, 5)])
@@ -102,6 +113,16 @@ def test_topk_kernel(cuda_device, dtype, rows, n, k, canon):
     assert torch.equal(gv.view(bits), rv.view(bits))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [8400, 24000])
+@pytest.mark.parametrize("k", [1, 300, 1024, 1025, 1500, "n"])
+@pytest.mark.parametrize("canon", [True, False])
+def test_topk_kernel_any_k(cuda_device, dtype, n, k, canon):
+    """No cap on k: rank-counted winners up to 2048, a bitonic sort above
+    (in shared memory, or in device memory for fp32 rows of 24000)."""
+    test_topk_kernel(cuda_device, dtype, 32, n, n if k == "n" else k, canon)
+
+
 def _pool_inputs(shape, dtype, ties, device, seed):
     g = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn(shape, generator=g, device=device)
@@ -122,6 +143,28 @@ def test_mpbwd_kernel(cuda_device, dtype, shape, ties):
     assert kernels.LAUNCHES["mpbwd"] == n + 1
     bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
     assert torch.equal(got.view(bits), ref.view(bits))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,k,misaligned", [((32, 20, 20, 256), 5, False), ((2, 40, 40, 64), 5, False),
+                                                ((1, 70, 90, 16), 5, False), ((2, 20, 20, 48), 15, False),
+                                                ((2, 11, 13, 24), 3, False), ((3, 13, 17, 33), 5, False),
+                                                ((2, 20, 20, 64), 5, True)])
+def test_mpbwd_kernel_routes(cuda_device, dtype, shape, k, misaligned):
+    """Both routes, chosen by shape: the 16-byte route (whole maps and maps
+    split into tiles, several k), and the general route for a C that holds
+    no whole 16-byte vector or tensors off a 16-byte boundary."""
+    x, dy = _pool_inputs(shape, dtype, True, cuda_device, 12)
+    if misaligned:  # the same values one element into a buffer
+        x, dy = (torch.cat([t.new_zeros(1), t.flatten()])[1:].view(shape) for t in (x, dy))
+    vec = shape[-1] % (16 // x.element_size()) == 0 and not misaligned
+    assert mpbwd.route(x, dy, torch.empty_like(x)) == ("vec" if vec else "general")
+    n, nv = kernels.LAUNCHES["mpbwd"], kernels.LAUNCHES["mpbwd_vec"]
+    got = mpbwd.mpbwd(x, dy, k)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mpbwd"] == n + 1 and kernels.LAUNCHES["mpbwd_vec"] == nv + vec
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), mpbwd.mpbwd_plain(x, dy, k).view(bits))
 
 
 @pytest.mark.parametrize("k", [3, 7])
@@ -310,6 +353,37 @@ def test_folded_model_launches_the_new_kernels(cuda_device, dtype):
             # bf16: a one-ulp flip in a conv travels through the rest of the
             # net; fp32 differs in the order of sums only.
             assert float((a.float() - r.float()).abs().max()) <= (0.1 if dtype == torch.bfloat16 else 1e-3) * scale
+
+
+@pytest.mark.parametrize("variant", ["yolov10m", "yolov10b", "yolov10l", "yolov10x"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_folded_variant_serves_on_the_card(cuda_device, variant, dtype):
+    """A folded yolov10m/b/l/x serves through Predictor on the card with its
+    stem on the kernel of its dtype, and its head maps match the all-plain
+    forward (tolerances as for yolov10s above)."""
+    import numpy as np
+    from leanyolo_tpu_torch import Predictor, YOLOv10
+
+    model = YOLOv10.create(variant, class_names=[f"c{i}" for i in range(80)], seed=0)
+    pred = Predictor(model, imgsz=128, decode="topk", dtype=dtype, fuse=True)
+    imgs = np.random.RandomState(0).randint(0, 256, (2, 128, 128, 3)).astype(np.uint8)
+    kernels.reset_launches()
+    dets, num = pred.run_batch(imgs)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["stem"] == 1 and kernels.LAUNCHES["stem_tc"] == (dtype == "bfloat16")
+    assert kernels.LAUNCHES["topk"] == 2 and tuple(dets.shape) == (2, 300, 6) and bool(torch.isfinite(dets).all())
+    got = pred.raw(imgs)
+    saved = stem.fused_stem, matmul.bmm, dwconv.dw7x7_bias_silu, topk.topk
+    stem.fused_stem = lambda *a, dtype=None, packed=None: stem.fused_stem_plain(*a, dtype=dtype or a[1].dtype)
+    matmul.bmm, dwconv.dw7x7_bias_silu, topk.topk = matmul.bmm_plain, dwconv.dw7x7_bias_silu_plain, topk.topk_plain
+    try:
+        ref = pred.raw(imgs)
+    finally:
+        stem.fused_stem, matmul.bmm, dwconv.dw7x7_bias_silu, topk.topk = saved
+    for lg, lr in zip(got, ref):
+        for a, r in zip(lg, lr):
+            scale = max(1.0, float(r.float().abs().max()))
+            assert float((a.float() - r.float()).abs().max()) <= (0.1 if dtype == "bfloat16" else 1e-3) * scale
 
 
 def test_wrappers_raise_on_unsupported(cuda_device):

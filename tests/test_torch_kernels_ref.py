@@ -146,6 +146,29 @@ def test_topk_plain_bit_exact(n, dtype):
     np.testing.assert_array_equal(_bits(gvn), _bits(rv))
 
 
+@pytest.mark.parametrize("n", [2000, 8400])
+@pytest.mark.parametrize("k", [1025, "n"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_topk_plain_bit_exact_past_1024(n, k, dtype):
+    """No cap on k, as in JAX: k past the old 1024 and k == n (lax.top_k's
+    route, where -0.0 ranks below +0.0), on tie-heavy rows.
+
+    JAX runs eagerly here: under jit, XLA folds the packed bf16 route's
+    `x + 0.0` (its -0.0 -> +0.0 step) where that route sorts the row in one
+    piece (no block of n in [k, 2048], as for n = 2000, k = 1025), so the
+    jitted function ranks -0.0 below +0.0 there, against its own docstring;
+    eager JAX is the function as written, and the port follows it."""
+    k = n if k == "n" else k
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    xj, xt = _tie_heavy(np.random.RandomState(n + k), 2, n, jd)
+    rv, ri = jax_topk(xj, k)
+    gv, gi = topk_lastdim(xt, k)
+    assert tuple(gi.shape) == (2, k)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(ri))
+    gvn = gv.float().numpy().astype(np.asarray(rv).dtype) if dtype == "bfloat16" else gv.numpy()
+    np.testing.assert_array_equal(_bits(gvn), _bits(rv))
+
+
 @pytest.mark.parametrize("k", [1, 7])
 def test_topk_plain_signed_zero_routes(k):
     """k == 1 and k == n take other JAX routes with other signed-zero rules."""
@@ -169,5 +192,5 @@ def test_pack_unpack_roundtrip():
 def test_wrappers_raise_on_what_kernels_do_not_take():
     with pytest.raises(ValueError):
         ktopk.topk(torch.zeros(2, 10), 11, canon_zero=True)
-    with pytest.raises(ValueError):
-        ktopk.topk(torch.zeros(2, 2000), 1025, canon_zero=True)
+    with pytest.raises(ValueError):  # k must be at least 1 (k has no upper cap but n)
+        ktopk.topk(torch.zeros(2, 2000), 0, canon_zero=True)

@@ -91,6 +91,32 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
     assert torch.equal(got, mpbwd.mpbwd_plain(torch.from_numpy(x), torch.from_numpy(dy)))
 
 
+def test_mpbwd_and_topk_bounds():
+    """Bytes bound both: x, dy in and dx out (19.66 MB, 0.00587 ms at
+    [32,20,20,256] bf16); the top-k pair of a request, its rows in and the
+    values and int32 indices out (0.00065 ms)."""
+    from leanyolo_tpu_torch.kernels import bounds
+
+    rows = {r[0]: r for r in bounds.kernel_bounds()}
+    assert rows["mpbwd"][2] == 3 * 32 * 20 * 20 * 256 * 2 and rows["mpbwd"][-1] == "bytes"
+    assert abs(rows["mpbwd"][-2] - 0.00587) < 1e-5
+    assert rows["topk"][2] == 32 * (8400 + 24000) * 2 + 2 * 32 * 300 * 6 and abs(rows["topk"][-2] - 0.00065) < 1e-5
+
+
+@pytest.mark.parametrize("dtype,c,offset,want", [(torch.bfloat16, 256, 0, "vec"), (torch.bfloat16, 40, 0, "vec"),
+                                                  (torch.bfloat16, 36, 0, "general"), (torch.float32, 36, 0, "vec"),
+                                                  (torch.float32, 6, 0, "general"), (torch.bfloat16, 64, 1, "general")])
+def test_route_by_shape(dtype, c, offset, want):
+    """The 16-byte route takes C holding whole 16-byte vectors (8 bf16, 4
+    fp32) in 16-byte aligned tensors (the train step's [B,20,20,256]); the
+    general route the rest."""
+    shape = (2, 20, 20, c)
+    buf = torch.zeros(2 * 20 * 20 * c + 16, dtype=dtype)
+    x = buf[offset:offset + 2 * 20 * 20 * c].view(shape)  # PyTorch's buffers are 64-byte aligned
+    dy = torch.zeros(shape, dtype=dtype)
+    assert mpbwd.route(x, dy, torch.empty_like(dy)) == want
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_maxpool_autograd_function(dtype):
     """Forward is F.max_pool2d; backward is the plain mpbwd of the NHWC view."""

@@ -34,7 +34,9 @@ from torch_parity import as_f32, bf16_ulps
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "experiments"))
 
-WIDTHS = [(16, 32), (32, 64)]
+WIDTHS = list(stem.WIDTHS)
+KERNELS_H = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "leanyolo_tpu_torch", "kernels", "csrc", "kernels.h")
 
 
 def _weights(rng, c0, c1):
@@ -87,6 +89,38 @@ def stem_gemm(images, w0p, b0, w1p, b1, dtype) -> torch.Tensor:
         for cb in range(c0 // 16):
             acc = acc + a[..., 16 * cb:16 * cb + 16] @ B1[tap * (c0 // 16) + cb]
     return _epilogue(acc, b1, dtype)
+
+
+def test_every_size_has_a_stem_width():
+    """Every YOLOv10 size's backbone cv0/cv1 widths are ones the stem takes,
+    in the wrapper and in the CUDA sources' list of compiled instances."""
+    import re
+
+    from leanyolo_tpu_torch.models.yolov10.config import VARIANTS
+
+    with open(KERNELS_H) as fh:
+        line = next(ln for ln in fh if ln.startswith("#define STEM_WIDTHS(X)"))
+    compiled = {(int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", line)}
+    sizes = {(cfg.ch[0], cfg.ch[1]) for cfg in VARIANTS.values()}
+    assert len(VARIANTS) == 6 and sizes == set(stem.WIDTHS) == compiled
+    for name, cfg in VARIANTS.items():
+        model = YOLOv10.create(name, class_names=["a"], seed=0)
+        w0, w1 = model.backbone.cv0.conv.weight, model.backbone.cv1.conv.weight
+        assert (w0.shape[0], w1.shape[0]) == (cfg.ch[0], cfg.ch[1]) in stem.WIDTHS
+
+
+def test_stem_bounds():
+    """The bound chip_smoke.py prints beside the stem of each size: the
+    images, the weights and the bf16 output moved once (yolov10s: 0.0431 ms
+    at 3.35 TB/s); the wider sizes are bound by their products."""
+    from leanyolo_tpu_torch.kernels import bounds
+
+    nbytes, nops = bounds.stem_work(32, 640, 640, 32, 64)
+    assert nbytes == 32 * 640 * 640 * 3 + 32 * 160 * 160 * 64 * 2 + 2 * (27 * 32 + 32 + 9 * 32 * 64 + 64)
+    ms, by = bounds.bound(nbytes, nops)
+    assert by == "bytes" and abs(ms - 0.04305) < 1e-5
+    rows = {r[0]: r for r in bounds.kernel_bounds()}
+    assert rows["stem yolov10x"][-1] == "operations" and rows["stem yolov10b"][-2] == rows["stem yolov10l"][-2]
 
 
 @pytest.mark.parametrize("c0,c1", WIDTHS)
