@@ -8,7 +8,7 @@ Phases, each of which fails loudly (non-zero exit):
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the serving path (yolov10s, 640 px, batch 32): the stem also at
    ragged maps; dw7x7 also at a map split into bands and at an odd C; top-k
-   bit-equal at k in {1, 300, 1024, 1025, 1500, n} on both decode shapes,
+   bit-equal at k in {1, 300, 1000, 1024, 1025, 1500, n} on both decode shapes,
    bf16 and fp32, both signed-zero rules, and decode_topk(max_det=1500) at
    320 px; mpbwd bit-equal on both of its routes (16-byte and general);
    s2dconv and bmm on the very inputs of one batch-32 forward (the stage-1
@@ -30,12 +30,28 @@ Phases, each of which fails loudly (non-zero exit):
    its route and tile), and the serving path's images per second at batch
    32, each run one request from an idle card; a profile of the serving step
    with its count of elementwise kernels;
-6. every size, yolov10n/s/m/b/l/x at full width and depth, folded in bf16
+6. the NMS decode: the fused max/argmax (K4) bit-equal to its plain
+   version on bf16 and fp32 levels with signed-zero ties and repeated
+   maxima under both zero rules, the NMS (K5) bit-equal at n in {1, 63,
+   1000, 1500} and 8, 32 and 66 images a launch with valid masks, IoUs
+   exactly at the threshold, class-wise on and off; then Predictor(decode="nms") on yolov10s (bf16, folded)
+   answers requests of batch 1, 8 and 32 at the inference defaults (conf
+   0.25, IoU 0.45) and the validator's (0.001, 0.65: 1000 valid
+   candidates), and one class-wise, with its launches counted per request
+   (stem 1, dw7x7 2, s2dconv 2, bmm 45, argmax 1, top-k 1, nms 1); the
+   decode on identical head maps bit-equal to the all-plain decode at
+   batch 8 and 32; fp32 on the card against the CPU at 128 px; K5
+   bit-equal on the path's batch-32 candidates; K4 and K5 timed at the
+   path's shapes and the NMS request at batch 32 and 1, with a profile;
+   predict_images on eight images of mixed sizes (1080x1920 among them),
+   host and device letterbox, both decodes, every box inside its image,
+   host and device letterbox held together as the JAX package holds them;
+7. every size, yolov10n/s/m/b/l/x at full width and depth, folded in bf16
    and in fp32, serves a batch of 2 at 640 px through Predictor.run_batch
    with the stem on the kernel route of its dtype, held against the
    all-plain path as in 4; the stem of each size is timed at
    [32,640,640,3] uint8 against cuDNN and its bound;
-7. the training path: yolov10s at full width and depth, 640 px, bf16
+8. the training path: yolov10s at full width and depth, 640 px, bf16
    activations over fp32 parameters, trains through Trainer.train_step at
    batch 32 (24 GT slots, 40% valid, augmentation on, clip 1.0): 3 warm-up
    and 10 timed steps, with the launches of the SPPF max-pool backward
@@ -77,7 +93,12 @@ PER_REQUEST = {"stem": 1, "dw7x7": 2, "topk": 2, "s2dconv": 2, "bmm": 45}
 # wgmma s2dconv, bmm's TMA + wgmma route.
 NEW_ROUTES = {"stem_tc": "stem", "s2dconv_wgmma": "s2dconv", "bmm_wgmma": "bmm"}
 # Top-k's k checked against its plain version at the decode shapes (and n).
-TOPK_KS = (1, MAX_DET, 1024, 1025, 1500)
+TOPK_KS = (1, MAX_DET, 1000, 1024, 1025, 1500)
+# Launches a request on the NMS path (one2many head: 45 bmm, as one2one's).
+PER_REQUEST_NMS = {"stem": 1, "dw7x7": 2, "s2dconv": 2, "bmm": 45, "argmax": 1, "topk": 1, "nms": 1}
+# (conf_thresh, iou_thresh): inference defaults and the validator's (validator.py:211-212).
+NMS_SETTINGS = {"infer": (0.25, 0.45), "val": (0.001, 0.65)}
+LEVELS = ((80, 80), (40, 40), (20, 20))  # the head's maps at 640 px
 # The sizes served folded in the variants phase, at full width and depth.
 VARIANTS = ("yolov10n", "yolov10s", "yolov10m", "yolov10b", "yolov10l", "yolov10x")
 VARIANT_BATCH = 2
@@ -158,21 +179,24 @@ def plain_kernels():
     device alone. This swaps the module attributes the port calls through,
     for the all-plain reference run on the card only.
     """
-    from leanyolo_tpu_torch.kernels import dwconv, matmul, mpbwd, s2dconv, stem, topk
+    from leanyolo_tpu_torch.kernels import argmax, dwconv, matmul, mpbwd, nms, s2dconv, stem, topk
 
     saved = (stem.fused_stem, dwconv.dw7x7_bias_silu, topk.topk, mpbwd.mpbwd, s2dconv.conv3x3_c32_bias_silu,
-             matmul.bmm)
+             matmul.bmm, argmax.max_argmax_levels, nms.nms_compact, nms.nms_keep)
     stem.fused_stem = lambda *a, dtype=None, packed=None: stem.fused_stem_plain(*a, dtype=dtype or a[1].dtype)
     dwconv.dw7x7_bias_silu = dwconv.dw7x7_bias_silu_plain
     topk.topk = topk.topk_plain
     mpbwd.mpbwd = mpbwd.mpbwd_plain
     s2dconv.conv3x3_c32_bias_silu = s2dconv.conv3x3_c32_bias_silu_plain
     matmul.bmm = matmul.bmm_plain
+    argmax.max_argmax_levels = argmax.max_argmax_levels_plain
+    nms.nms_compact = nms.nms_compact_plain
+    nms.nms_keep = nms.nms_keep_plain
     try:
         yield
     finally:
         (stem.fused_stem, dwconv.dw7x7_bias_silu, topk.topk, mpbwd.mpbwd, s2dconv.conv3x3_c32_bias_silu,
-         matmul.bmm) = saved
+         matmul.bmm, argmax.max_argmax_levels, nms.nms_compact, nms.nms_keep) = saved
 
 
 def capture_path_calls(folded, images):
@@ -285,7 +309,8 @@ def phase_kernels(folded, seed: int, records: dict) -> dict:
                 records["dw7x7"]["max_abs_err"] = max(records["dw7x7"].get("max_abs_err", 0.0), err)
 
     # Top-k at the decode shapes, bit-equal at every k of TOPK_KS: the
-    # path's 300, both sides of the old cap of 1024, and k == n (rank
+    # top-k decode's 300, the NMS decode's candidate 1000 (fp32 on that
+    # path), both sides of the old cap of 1024, and k == n (rank
     # counting up to 2048, a bitonic sort above: in shared memory, or in
     # device memory for fp32 rows of 24000).
     worst = 0.0
@@ -766,6 +791,322 @@ def phase_times(folded, seed: int, records: dict, pred, x32, calls: dict) -> Non
           f"epilogue: 66 SiLU + 126 others = 192 calls/step", flush=True)
 
 
+def argmax_rows(g, shape, dtype):
+    """Coarse values (maxima repeated in a row) with rows of signed zeros:
+    all -0.0, -0.0 before +0.0, and negative rows whose max is a zero."""
+    import torch
+
+    x = (torch.randn(shape, generator=g, device="cuda") * 2).round() / 2
+    r = x.shape[-2]
+    x[..., : r // 8, :] = 0.0
+    x[..., : r // 8, ::3] = -0.0
+    x[..., r // 8: r // 4, :] = -x[..., r // 8: r // 4, :].abs() - 1.0
+    x[..., r // 8: r // 4, 7] = -0.0
+    x[..., r // 8: r // 4, 11] = 0.0
+    x[..., r // 4: r // 4 + 2, :] = -0.0
+    return x.to(dtype)
+
+
+def nms_inputs(g, b: int, n: int, grid: bool):
+    """Score-sorted NMS candidates on the card: boxes on an integer grid
+    (IoUs exactly at 0.5, 1/3, ...) or spread over a 640 px image, scores
+    descending with ties, classes 0..79."""
+    import torch
+
+    if grid:
+        xy = torch.randint(0, 8, (b, n, 2), generator=g, device="cuda").float()
+        wh = torch.randint(1, 5, (b, n, 2), generator=g, device="cuda").float()
+    else:
+        xy = torch.rand(b, n, 2, generator=g, device="cuda") * 600
+        wh = torch.rand(b, n, 2, generator=g, device="cuda") * 120 + 4
+    scores = ((torch.rand(b, n, generator=g, device="cuda") * 64).round() / 64).sort(dim=1, descending=True).values
+    cls = torch.randint(0, NC, (b, n), generator=g, device="cuda").float()
+    return torch.cat([xy, xy + wh], dim=-1).contiguous(), scores.contiguous(), cls
+
+
+def phase_nms_kernels(seed: int, records: dict) -> None:
+    """The fused max/argmax (K4) and the NMS (K5) against their plain versions
+    on the card, bit-equal."""
+    import torch
+    from leanyolo_tpu_torch import kernels
+    from leanyolo_tpu_torch.kernels import argmax, nms
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    # K4: the three levels of a batch-32 request in one launch, bf16 and
+    # fp32, both signed-zero rules; the class slice of a concatenated map
+    # (read in place) and an n that holds no 16-byte vector.
+    for dtype in (torch.bfloat16, torch.float32):
+        for canon in ((True, False) if dtype == torch.bfloat16 else (False,)):
+            for n, pad in ((NC, 0), (NC, 64), (37, 0)):
+                levels = [argmax_rows(g, (BATCH, h * w, n + pad), dtype)[..., pad:] for h, w in LEVELS]
+                c = kernels.LAUNCHES["argmax"]
+                gv, gi = argmax.max_argmax_levels(levels, canon_zero=canon)
+                rv, ri = argmax.max_argmax_levels_plain(levels, canon_zero=canon)
+                torch.cuda.synchronize()
+                bits = torch.int16 if gv.dtype == torch.bfloat16 else torch.int32
+                same_i, same_v = bool(torch.equal(gi, ri)), bool(torch.equal(gv.view(bits), rv.view(bits)))
+                print(f"kernel argmax {dtype} levels [{BATCH},{[h * w for h, w in LEVELS]},{n}] (row stride "
+                      f"{n + pad}) canon_zero={canon}: indices equal {same_i}, value bits equal {same_v}", flush=True)
+                if kernels.LAUNCHES["argmax"] != c + 1 or not (same_i and same_v):
+                    fail("argmax kernel disagrees with its plain version")
+    records["argmax"]["max_abs_err"] = 0.0
+    # K5: the keep mask and the decode's compaction at n in {1, 63, 1000,
+    # 1500} (the mask in shared memory up to 1000, in device memory at
+    # 1500), valid masks, IoUs exactly at the threshold, class-wise on and
+    # off; at 8 images a launch (clusters of 8 CTAs an image on 132 SMs),
+    # the path's 32 (clusters of 4) and 66 (clusters of 2).
+    for b in (8, BATCH, 66):
+        for n in (1, 63, 1000, 1500):
+            for grid, thresh in ((True, 0.5), (False, 0.45), (False, 0.65)):
+                boxes, scores, cls = nms_inputs(g, b, n, grid)
+                valid = torch.rand(b, n, generator=g, device="cuda") < 0.7
+                for v in (valid, None):
+                    got, ref = nms.nms_keep(boxes, thresh, v), nms.nms_keep_plain(boxes, thresh, v)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, ref):
+                        fail(f"nms keep mask disagrees with its plain version: b={b} n={n} grid={grid} "
+                             f"iou={thresh} valid={v is not None}")
+            for class_wise in (False, True):
+                for conf, iou in NMS_SETTINGS.values():
+                    boxes, scores, cls = nms_inputs(g, b, n, False)
+                    kw = dict(iou_thresh=iou, conf_thresh=conf, max_det=MAX_DET, class_wise=class_wise)
+                    gd, gn = nms.nms_compact(boxes, scores, cls, **kw)
+                    rd, rn = nms.nms_compact_plain(boxes, scores, cls, **kw)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(gd, rd) and torch.equal(gn, rn)):
+                        fail(f"nms compaction disagrees with its plain version: b={b} n={n} "
+                             f"class_wise={class_wise} conf={conf} iou={iou}")
+        print(f"kernel nms [{b}, n] at n in (1, 63, 1000, 1500): keep masks (grid IoUs at 0.5, spread at 0.45 and "
+              f"0.65, with and without valid) and dets/num (class-wise and not, both threshold settings) bit-equal "
+              f"to the plain version", flush=True)
+    records["nms"]["max_abs_err"] = 0.0
+
+
+def check_nms_dets(dets, num, b: int, conf: float) -> None:
+    import torch
+
+    if tuple(dets.shape) != (b, MAX_DET, 6) or tuple(num.shape) != (b,) or num.dtype != torch.int32:
+        fail(f"nms dets shape {tuple(dets.shape)}, num {tuple(num.shape)} {num.dtype}")
+    if not bool(torch.isfinite(dets).all()):
+        fail("non-finite NMS detections")
+    rank = torch.arange(MAX_DET, device=dets.device)[None]
+    kept = rank < num[:, None].long()
+    if bool(dets[~kept].any()):
+        fail("rows past num are not zero")
+    scores, cls = dets[..., 4], dets[..., 5]
+    if not bool(((scores > conf) | ~kept).all()) or not bool(((scores <= 1) | ~kept).all()):
+        fail("kept scores not in (conf, 1]")
+    if not bool(((scores[:, 1:] <= scores[:, :-1]) | ~kept[:, 1:]).all()):
+        fail("kept scores not in descending order")
+    if not bool(((cls >= 0) & (cls < NC) & (cls == cls.round())).all()):
+        fail("NMS classes are not integers in [0, 80)")
+
+
+def phase_nms(model, seed: int, records: dict):
+    """The NMS serving path (see the module doc); returns the batch-32
+    predictor and request for the timing phase."""
+    import numpy as np
+    import torch
+    from leanyolo_tpu_torch import Predictor, kernels
+    from leanyolo_tpu_torch.kernels import nms
+    from leanyolo_tpu_torch.models.yolov10.decode import decode_nms
+
+    rng = np.random.RandomState(seed + 3)
+    requests = {b: rng.randint(0, 256, (b, IMGSZ, IMGSZ, 3)).astype(np.uint8) for b in (1, 8, BATCH)}
+    preds = {name: Predictor(model, imgsz=IMGSZ, decode="nms", dtype="bfloat16", fuse=True, max_det=MAX_DET,
+                             conf_thresh=conf, iou_thresh=iou) for name, (conf, iou) in NMS_SETTINGS.items()}
+    preds["class-wise"] = Predictor(model, imgsz=IMGSZ, decode="nms", dtype="bfloat16", fuse=True, max_det=MAX_DET,
+                                    class_wise_nms=True)
+    launches = {name: 0 for name in PER_REQUEST_NMS}
+    candidates = {}  # valid candidates the NMS saw, by setting
+    spy, valid_seen = nms.nms_compact, []
+    nms.nms_compact = lambda b, s, c, **kw: valid_seen.append(int((s > kw["conf_thresh"]).sum(1).max())) or spy(b, s, c,
+                                                                                                              **kw)
+    try:
+        for name, pred in preds.items():
+            for b, imgs in requests.items():
+                if name == "class-wise" and b != 8:
+                    continue
+                kernels.reset_launches()
+                dets, num = pred.run_batch(imgs)
+                torch.cuda.synchronize()
+                got = {k: kernels.LAUNCHES[k] for k in PER_REQUEST_NMS}
+                print(f"nms request ({name}) batch {b}: launches {got}; num {num.tolist()[:8]}; most valid "
+                      f"candidates in an image {valid_seen[-1]}", flush=True)
+                if got != PER_REQUEST_NMS:
+                    fail(f"nms request batch {b} launched {got}, expected {PER_REQUEST_NMS}")
+                check_nms_dets(dets, num, b, pred.conf_thresh)
+                candidates[name] = max(candidates.get(name, 0), valid_seen[-1])
+                if name == "infer":
+                    for k, v in got.items():
+                        launches[k] += v
+    finally:
+        nms.nms_compact = spy
+    print(f"nms serving path launches over requests of batch {list(requests)} at the inference defaults: {launches}",
+          flush=True)
+    for k in ("argmax", "nms"):
+        records[k]["launches"] = launches[k]
+    if candidates["val"] < 1000:
+        fail(f"at the validator's thresholds the NMS saw at most {candidates['val']} valid candidates, not 1000")
+
+    # The decode on identical head maps, kernels against plain versions, at
+    # batch 8 and the path's 32.
+    for b in (8, BATCH):
+        xb = torch.from_numpy(requests[b]).cuda()
+        for name, pred in preds.items():
+            maps = pred.raw(xb)
+            kw = dict(num_classes=NC, strides=pred.model.cfg.strides, conf_thresh=pred.conf_thresh,
+                      iou_thresh=pred.iou_thresh, max_det=MAX_DET, class_wise=pred.class_wise_nms,
+                      rank_dtype=torch.float32)
+            d_k = decode_nms(maps, **kw)
+            with plain_kernels():
+                d_p = decode_nms(maps, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(d_k[0], d_p[0]) and torch.equal(d_k[1], d_p[1])):
+                fail(f"nms decode ({name}) batch {b} on identical head maps differs between the kernels and their "
+                     f"plain versions")
+        print(f"nms decode batch {b} on identical head maps (all three settings): kernels and plain versions "
+              f"bit-equal (dets, num)", flush=True)
+
+    # fp32 on the card against fp32 on the CPU at a small input.
+    small = rng.randint(0, 256, (2, 128, 128, 3)).astype(np.uint8)
+    kw = dict(imgsz=128, decode="nms", dtype="float32", fuse=True, conf_thresh=0.25)
+    gd, gn = Predictor(model, **kw).run_batch(small)
+    cd, cn = Predictor(model, device="cpu", **kw).run_batch(small)
+    gd, gn = gd.cpu(), gn.cpu()
+    err = max_err(gd[..., :4], cd[..., :4])
+    print(f"nms fp32 card vs CPU at [2,128,128,3]: num {gn.tolist()} vs {cn.tolist()}, classes equal "
+          f"{bool(torch.equal(gd[..., 5], cd[..., 5]))}, box max_abs_err {err:.6g}", flush=True)
+    if not (torch.equal(gn, cn) and torch.equal(gd[..., 5], cd[..., 5]) and err <= 1e-3 * 128):
+        fail("nms fp32 on the card disagrees with the CPU")
+    return preds["infer"], torch.from_numpy(requests[BATCH]).cuda()
+
+
+def phase_predict_images(model, seed: int) -> None:
+    """predict_images on the card: eight uint8 images of mixed sizes, host
+    and device letterbox, both decodes."""
+    import numpy as np
+    from leanyolo_tpu_torch import Predictor
+
+    rng = np.random.RandomState(seed + 4)
+    sizes = ((480, 640), (640, 480), (1080, 1920), (333, 517), (97, 1001), (640, 640), (37, 51), (1201, 799))
+    imgs = [rng.randint(0, 256, hw + (3,)).astype(np.uint8) for hw in sizes]
+    for decode in ("topk", "nms"):
+        pred = Predictor(model, imgsz=IMGSZ, decode=decode, dtype="bfloat16", fuse=True, max_det=MAX_DET)
+        for preprocess in ("host", "device"):
+            t0 = time.perf_counter()
+            out = pred.predict_images(imgs, preprocess=preprocess)
+            wall = time.perf_counter() - t0
+            for d, img in zip(out, imgs):
+                h, w = img.shape[:2]
+                if d.ndim != 2 or d.shape[1] != 6 or not np.isfinite(d).all():
+                    fail(f"predict_images ({decode}, {preprocess}): bad rows {d.shape}")
+                if len(d) and not ((d[:, :4] >= 0).all() and (d[:, [0, 2]] <= w).all() and (d[:, [1, 3]] <= h).all()):
+                    fail(f"predict_images ({decode}, {preprocess}): a box leaves its {h}x{w} image")
+            print(f"predict_images {decode} {preprocess}: boxes per image {[len(d) for d in out]}, all inside their "
+                  f"images; {wall:.3f} s for 8 images", flush=True)
+    # Host against device letterbox, held as the JAX package holds them
+    # (tests/test_device_preprocess.py): fp32, top-k, every row, equal
+    # shapes and scores within 5e-3.
+    pred = Predictor(model, imgsz=IMGSZ, decode="topk", dtype="float32", fuse=True, conf_thresh=0.0)
+    host = pred.predict_images(imgs, apply_conf_filter=False)
+    dev = pred.predict_images(imgs, apply_conf_filter=False, preprocess="device")
+    worst = max(float(np.abs(h[:, 4] - d[:, 4]).max()) for h, d in zip(host, dev))
+    print(f"predict_images fp32 top-k, host vs device letterbox: shapes equal "
+          f"{all(h.shape == d.shape for h, d in zip(host, dev))}, worst score gap {worst:.6g} (limit 5e-3)", flush=True)
+    if not (all(h.shape == d.shape for h, d in zip(host, dev)) and worst <= 5e-3):
+        fail("predict_images: host and device letterboxing disagree")
+
+
+def phase_nms_times(seed: int, records: dict, pred, x32) -> None:
+    """K4 and K5 at the path's shapes, and the NMS request's step time."""
+    import torch
+    from leanyolo_tpu_torch.kernels import argmax, bounds, nms
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 6)
+    bf = torch.bfloat16
+    # K4 on the three levels' cls maps of a batch-32 request (the one2many
+    # head's, bf16), one launch, the path's fp32 rule; torch.max per level.
+    maps = pred.raw(x32)
+    levels = [c.reshape(BATCH, -1, NC) for _, c in maps]
+    r = records["argmax"]
+    r["ms"] = cuda_ms(lambda: argmax.max_argmax_levels(levels, canon_zero=False), inner=KERNEL_INNER)
+    r["device_ms"] = device_ms(lambda: argmax.max_argmax_levels(levels, canon_zero=False))
+    r["plain_ms"] = cuda_ms(lambda: argmax.max_argmax_levels_plain(levels, canon_zero=False), inner=KERNEL_INNER)
+    r["library_ms"] = cuda_ms(lambda: [torch.max(c, dim=-1) for c in levels], inner=KERNEL_INNER)
+    set_bound(r, *bounds.argmax_work(BATCH * sum(c.shape[1] for c in levels), NC), "fp32")
+    per_level = [cuda_ms(lambda: argmax.max_argmax_levels([c], canon_zero=False), inner=KERNEL_INNER)
+                 for c in levels]
+    print(f"argmax levels {[list(c.shape) for c in levels]} bf16, one launch: kernel {r['ms']:.4f} ms (device "
+          f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f}, torch.max x3 {r['library_ms']:.4f}, bound "
+          f"{r['bound_ms']:.6f} ({r['bound_by']}); a launch per level {[round(t, 4) for t in per_level]}", flush=True)
+
+    # K5 on the candidates of a batch-32 request under each threshold setting.
+    from leanyolo_tpu_torch.models.yolov10.decode import decode_nms
+
+    for name, (conf, iou) in NMS_SETTINGS.items():
+        seen, spy = [], nms.nms_compact
+        nms.nms_compact = lambda *a, **kw: seen.append((a, kw)) or spy(*a, **kw)
+        try:
+            decode_nms(maps, num_classes=NC, conf_thresh=conf, iou_thresh=iou, max_det=MAX_DET,
+                       rank_dtype=torch.float32)
+        finally:
+            nms.nms_compact = spy
+        (boxes, scores, cls), kw = seen[0]
+        # The path's [32, 1000] candidates, kernel against plain version
+        # (keep mask, dets and num), class-wise and not.
+        valid = scores > nms.f32(conf)
+        keep = nms.nms_keep(boxes, iou, valid)
+        same = bool(torch.equal(keep, nms.nms_keep_plain(boxes, iou, valid)))
+        for class_wise in (False, True):
+            kwc = dict(kw, class_wise=class_wise)
+            gd, gn = nms.nms_compact(boxes, scores, cls, **kwc)
+            rd, rn = nms.nms_compact_plain(boxes, scores, cls, **kwc)
+            same = same and bool(torch.equal(gd, rd) and torch.equal(gn, rn))
+        print(f"kernel nms on the path's candidates [{BATCH},{boxes.shape[1]}] conf {conf} iou {iou}: keep mask and "
+              f"dets/num (class-wise and not) bit-equal to the plain version {same}", flush=True)
+        if not same:
+            fail(f"nms kernel disagrees with its plain version on the path's batch-{BATCH} candidates")
+        n = boxes.shape[1]
+        pairs = int(((n - 1 - torch.arange(n, device="cuda"))[None] * keep).sum())
+        nbytes, nops = bounds.nms_work(BATCH, n, MAX_DET, pairs)
+        t = {"ms": cuda_ms(lambda: nms.nms_compact(boxes, scores, cls, **kw), inner=KERNEL_INNER),
+             "device_ms": device_ms(lambda: nms.nms_compact(boxes, scores, cls, **kw)),
+             "plain_ms": cuda_ms(lambda: nms.nms_compact_plain(boxes, scores, cls, **kw), warmup=1, runs=3)}
+        set_bound(t, nbytes, nops, "fp32")
+        print(f"nms [{BATCH},{n}] conf {conf} iou {iou} ({int(keep.sum())} survivors, {pairs} pairs needed): kernel "
+              f"{t['ms']:.4f} ms (device {t['device_ms']:.4f}), plain {t['plain_ms']:.4f}, library none, bound "
+              f"{t['bound_ms']:.6f} ({t['bound_by']}; the serial scan's latency is outside it)", flush=True)
+        if name == "infer":
+            records["nms"].update(t, library_ms=None)
+        else:
+            records["nms"]["val_thresholds"] = t
+
+    # The NMS request: batch 32 and batch 1, one request from an idle card.
+    x1 = x32[:1].contiguous()
+    for b, x in ((BATCH, x32), (1, x1)):
+        ms = cuda_ms(lambda: pred.run_batch(x), warmup=3, runs=20)
+        print(f"nms serving path yolov10s 640 bf16 batch {b}: ms/request {ms:.4f}, img/s {b / ms * 1e3:.2f} "
+              f"(uint8 batch already on the card)", flush=True)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            pred.run_batch(x32)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    total = sum(e.self_device_time_total for e in events)
+    print(f"nms profile, 5 requests at batch {BATCH}: device time {total / 5 / 1e3:.4f} ms/request; top kernels:",
+          flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / 5 / 1e3:9.4f} ms/request {e.count // 5:5d} calls  {e.key[:90]}",
+              flush=True)
+    for name, tag in (("argmax", "argmax_kernel"), ("nms", "nms_kernel"), ("topk", "topk_kernel")):
+        es = [e for e in events if tag in e.key]
+        print(f"nms profile: {name} kernels {sum(e.self_device_time_total for e in es) / 5 / 1e3:.4f} ms/request in "
+              f"{sum(e.count for e in es) // 5} calls", flush=True)
+
+
 def phase_variants(seed: int, records: dict) -> None:
     """Every YOLOv10 size at full width and depth (BN calibrated as
     make_model does), folded in bf16 and in fp32, serves a batch through
@@ -1032,6 +1373,8 @@ def main() -> int:
             ("mpbwd", "leanyolo_tpu_torch/kernels/csrc/mpbwd.cu", "experiments/exp_sppf_bwd.py:86"),
             ("s2dconv", "leanyolo_tpu_torch/kernels/csrc/s2dconv.cu", "experiments/exp_pallas_k2.py:42"),
             ("bmm", "leanyolo_tpu_torch/kernels/csrc/matmul.cu", "experiments/exp_pallas_mm.py:47"),
+            ("argmax", "leanyolo_tpu_torch/kernels/csrc/argmax.cu", "leanyolo_tpu/ops/topk.py:90"),
+            ("nms", "leanyolo_tpu_torch/kernels/csrc/nms.cu", "leanyolo_tpu/ops/boxes.py:163"),
         )
     }
     # Kernels rebuilt for Hopper after their first port, by the port's slice
@@ -1039,17 +1382,34 @@ def main() -> int:
     for name, part in (("dw7x7", "slice 4"), ("bmm", "slice 4"), ("stem", "slice 5"), ("s2dconv", "slice 5"),
                        ("topk", "slice 6"), ("mpbwd", "slice 6")):
         records[name]["redesigned"] = part
+    t_run = time.perf_counter()
+
+    def done(phase: str) -> None:
+        print(f"phase {phase} done at {time.perf_counter() - t_run:.1f} s after the build", flush=True)
+
     model = make_model(SEED)
     folded = fold_model(model, dtype=torch.bfloat16).cuda().to(memory_format=torch.channels_last)  # as Predictor
     calls = phase_kernels(folded, SEED, records)
+    done("kernels")
     pred, x32 = phase_main(model, SEED, records)
+    done("serving")
     phase_times(folded, SEED, records, pred, x32, calls)
-    del pred, x32, folded, model, calls
+    done("times")
+    del pred, x32, folded, calls
+    torch.cuda.empty_cache()
+    phase_nms_kernels(SEED, records)
+    pred, x32 = phase_nms(model, SEED, records)
+    phase_nms_times(SEED, records, pred, x32)
+    phase_predict_images(model, SEED)
+    done("nms")
+    del pred, x32, model
     torch.cuda.empty_cache()
     phase_variants(SEED, records)
+    done("variants")
     with torch.enable_grad():
         phase_train(SEED, records)
     phase_train_times(SEED, records)
+    done("train")
 
     print(card, flush=True)
     print(json.dumps({"kernels": list(records.values())}), flush=True)

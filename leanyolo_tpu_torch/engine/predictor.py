@@ -1,9 +1,19 @@
-"""Batched inference: uint8 NHWC images -> fixed-shape detections.
+"""Batched inference: images -> fixed-shape detections, and the host
+pipeline from images of any size to boxes in their own coordinates.
 
-Counterpart of the JAX package's `Predictor` (`leanyolo_tpu/engine/predictor.py:43-104`,
-`run_batch` at `:224-227`) on its serving path: the NMS-free top-k decode
-over the one2one branch. The NMS decode and the host letterbox
-(`predict_images`) belong to later slices.
+Counterpart of the JAX package's `Predictor`
+(`leanyolo_tpu/engine/predictor.py`) without its mesh and buffer donation:
+
+- decode 'topk': the NMS-free two-stage top-k over the one2one branch;
+- decode 'nms': confidence threshold + greedy (optionally class-wise) NMS
+  over the one2many branch, fixed-shape with a count. JAX upcasts the head
+  maps to fp32 first; the port ranks the bf16 maps as fp32 instead
+  (`decode_nms(rank_dtype=torch.float32)`), which gives the same result,
+  since the upcast is exact.
+
+`predict_images` letterboxes on the host (numpy, cv2's fixed point) or on
+the device (`run_canvas`: a canvas warped by torch ops) and maps the boxes
+back to each original image.
 
 It runs on the card unless the caller names another device; with no card
 and no device named, it raises rather than run on the CPU.
@@ -11,16 +21,18 @@ and no device named, it raises rather than run on the CPU.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..models.yolov10.decode import decode_topk
+from ..models.yolov10.decode import decode_nms, decode_topk, postprocess_to_original
 from ..models.yolov10.fold import fold_model
 from ..models.yolov10.model import YOLOv10
+from ..ops.letterbox import canvas_batch, letterbox, letterbox_batch
 
 _DTYPES = {"float32": torch.float32, "fp32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
+_BRANCH = {"topk": "one2one", "nms": "one2many"}
 
 
 class Predictor:
@@ -29,22 +41,24 @@ class Predictor:
     Args:
         model: a YOLOv10 module (unfolded; fuse=True folds a copy).
         imgsz: square input size, a multiple of 32.
-        decode: 'topk' (the only decode of this slice).
+        decode: 'topk' or 'nms'.
+        conf_thresh, iou_thresh, max_det, class_wise_nms: the decode's.
         dtype: compute dtype, 'float32' or 'bfloat16'. With fuse=True and
             bfloat16 the folded weights are cast once.
         fuse: fold BN, RepVGGDW and the input normalization into the convs;
-            the folded model runs the fused-stem and dw7x7 kernels.
+            the folded model runs the port's conv kernels.
         device: where to run; None means the card ('cuda'), and raises when
             there is none.
     """
 
     def __init__(self, model: YOLOv10, *, imgsz: int = 640, decode: str = "topk", conf_thresh: float = 0.25,
-                 max_det: int = 300, dtype: str = "float32", fuse: bool = False,
+                 iou_thresh: float = 0.45, max_det: int = 300, class_wise_nms: bool = False,
+                 dtype: str = "float32", fuse: bool = False,
                  device: Optional[Union[str, torch.device]] = None) -> None:
         if imgsz % 32:
             raise ValueError("imgsz must be divisible by 32")
-        if decode != "topk":
-            raise NotImplementedError(f"decode={decode!r}: only 'topk' is ported so far")
+        if decode not in _BRANCH:
+            raise ValueError(f"unknown decode {decode!r}: 'topk' or 'nms'")
         if dtype not in _DTYPES:
             raise ValueError(f"unknown dtype {dtype!r}")
         if device is None:
@@ -53,30 +67,90 @@ class Predictor:
             device = "cuda"
         self.device = torch.device(device)
         self.dtype = _DTYPES[dtype]
+        self._fuse = fuse
         if fuse:
             model = fold_model(model, dtype=self.dtype if self.dtype == torch.bfloat16 else None)
         self.model = model.to(self.device).eval()
         if self.device.type == "cuda":
             self.model = self.model.to(memory_format=torch.channels_last)
         self.imgsz = int(imgsz)
+        self.decode = decode
         self.conf_thresh = float(conf_thresh)
+        self.iou_thresh = float(iou_thresh)
         self.max_det = int(max_det)
+        self.class_wise_nms = bool(class_wise_nms)
         # Folded, the normalization lives in conv0 and the stem reads raw pixels.
         self._normalize = not fuse
 
+    @torch.no_grad()
+    def update_params(self, state) -> None:
+        """Load new weights into this predictor: `state` is a YOLOv10 module
+        or its state dict, unfolded (folded here first when fuse=True) or
+        already folded. The packed kernel weights are packed again by the
+        modules' load hooks."""
+        if isinstance(state, torch.nn.Module):
+            state = state.state_dict()
+        if self._fuse and any(k.endswith("running_var") for k in state):
+            m = self.model
+            src = YOLOv10(m.cfg, m.class_names, in_channels=m.input_subtract.numel())
+            src.load_state_dict(state)
+            state = fold_model(src, dtype=self.dtype if self.dtype == torch.bfloat16 else None).state_dict()
+        self.model.load_state_dict(state)
+
     @torch.inference_mode()
     def raw(self, images) -> list:
-        """Head maps of the one2one branch: per level (reg, cls) NHWC tuples."""
+        """Head maps of the decode's branch: per level (reg, cls) NHWC tuples."""
         x = (images if torch.is_tensor(images) else torch.from_numpy(np.asarray(images))).to(self.device)
-        out = self.model(x, dtype=self.dtype, branches=("one2one",), normalize=self._normalize, concat_head=False)
-        return out["one2one"]
+        if x.is_floating_point():
+            x = x.to(self.dtype)
+        branch = _BRANCH[self.decode]
+        out = self.model(x, dtype=self.dtype, branches=(branch,), normalize=self._normalize, concat_head=False)
+        return out[branch]
 
     @torch.inference_mode()
     def run_batch(self, images) -> Tuple[torch.Tensor, torch.Tensor]:
         """images: [B, S, S, 3] raw pixels (uint8 preferred; float accepted),
-        a tensor or an array -> (dets [B, k, 6] fp32, num [B] int32), on the
-        predictor's device."""
-        cfg = self.model.cfg
-        dets = decode_topk(self.raw(images), num_classes=self.model.nc, strides=cfg.strides, max_det=self.max_det)
-        num = (dets[..., 4] > self.conf_thresh).sum(dim=-1).to(torch.int32)
-        return dets.float(), num
+        a tensor or an array -> (dets [B, max_det, 6] fp32, num [B] int32),
+        on the predictor's device."""
+        cfg, nc = self.model.cfg, self.model.nc
+        raw = self.raw(images)
+        if self.decode == "topk":
+            dets = decode_topk(raw, num_classes=nc, strides=cfg.strides, max_det=self.max_det)
+            num = (dets[..., 4] > self.conf_thresh).sum(dim=-1).to(torch.int32)
+            return dets.float(), num
+        return decode_nms(raw, num_classes=nc, strides=cfg.strides, conf_thresh=self.conf_thresh,
+                          iou_thresh=self.iou_thresh, max_det=self.max_det, class_wise=self.class_wise_nms,
+                          rank_dtype=torch.float32)
+
+    @torch.inference_mode()
+    def run_canvas(self, canvas, new_hw, pads, hw) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The device-preprocess path: canvas [B, Hc, Wc, 3] with image i at
+        its top-left, geometry as `canvas_batch` gives it; the letterbox warp
+        runs on the predictor's device, then `run_batch`."""
+        canvas = (canvas if torch.is_tensor(canvas) else torch.from_numpy(np.asarray(canvas))).to(self.device)
+        return self.run_batch(letterbox_batch(canvas, new_hw, pads, hw, self.imgsz))
+
+    def predict_images(self, images_rgb: Sequence[np.ndarray], *, apply_conf_filter: bool = True,
+                       preprocess: str = "host") -> List[np.ndarray]:
+        """HWC RGB images of any size -> per image an array [N, 6] of
+        [x1, y1, x2, y2, score, cls] in its own coordinates.
+
+        preprocess='host': the numpy letterbox per image (cv2's pixels).
+        'device': the images on one canvas, letterboxed on the device (a
+        bilinear warp in fp32, not cv2's fixed point: equal up to the last
+        bits of a pixel).
+        """
+        if preprocess == "device":
+            canvas, new_hw, pads, hw, metas = canvas_batch(images_rgb, self.imgsz)
+            dets, num = self.run_canvas(canvas, new_hw, pads, hw)
+        elif preprocess == "host":
+            lbs, metas = [], []
+            for img in images_rgb:
+                lb, gain, pad = letterbox(img, self.imgsz)
+                lbs.append(np.ascontiguousarray(lb, dtype=np.uint8))
+                metas.append((gain, pad, img.shape[:2]))
+            dets, num = self.run_batch(np.stack(lbs))
+        else:
+            raise ValueError(f"unknown preprocess {preprocess!r}: 'host' or 'device'")
+        return postprocess_to_original(dets, num, metas, decode=self.decode, conf_thresh=self.conf_thresh,
+                                       apply_conf_filter=apply_conf_filter)

@@ -1,11 +1,11 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
 
 Each wrapper module (stem.py, dwconv.py, topk.py, mpbwd.py, s2dconv.py,
-matmul.py) holds a kernel's wrapper and, beside it, a plain PyTorch version
-of the same function. The wrapper
-picks by the device of the tensor it is given: a CPU tensor takes the plain
-version; a CUDA tensor launches the kernel, which is built from `csrc/` at
-first use (_build.py), or raises. Nothing falls back from one to the other.
+matmul.py, argmax.py, nms.py) holds a kernel's wrapper and, beside it, a
+plain PyTorch version of the same function. The wrapper picks by the
+device of the tensor it is given: a CPU tensor takes the plain version; a
+CUDA tensor launches the kernel, which is built from `csrc/` at first use
+(_build.py), or raises. Nothing falls back from one to the other.
 
 `LAUNCHES` counts kernel launches per kernel; a wrapper adds one where it
 launches its kernel and nowhere else. `stem`, `s2dconv`, `bmm` and
@@ -17,7 +17,8 @@ alone, `mpbwd_vec` mpbwd's 16-byte route.
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"stem": 0, "stem_tc": 0, "dw7x7": 0, "topk": 0, "mpbwd": 0, "mpbwd_vec": 0,
-                            "s2dconv": 0, "s2dconv_wgmma": 0, "bmm": 0, "bmm_wgmma": 0}
+                            "s2dconv": 0, "s2dconv_wgmma": 0, "bmm": 0, "bmm_wgmma": 0,
+                            "argmax": 0, "nms": 0}
 
 
 def reset_launches() -> None:

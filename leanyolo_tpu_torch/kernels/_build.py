@@ -13,7 +13,8 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("binding.cpp", "stem.cu", "stem_tc.cu", "dw7x7.cu", "topk.cu", "mpbwd.cu", "s2dconv.cu", "matmul.cu")
+SOURCES = ("binding.cpp", "stem.cu", "stem_tc.cu", "dw7x7.cu", "topk.cu", "mpbwd.cu", "s2dconv.cu", "matmul.cu",
+           "argmax.cu", "nms.cu")
 CUDA_FLAGS = [
     "-O3",
     "-std=c++17",

@@ -44,6 +44,27 @@ def topk_work(rows: int, n: int, k: int, elt: int = 2) -> Tuple[int, int]:
     return rows * n * elt + rows * k * (elt + 4), rows * n
 
 
+def argmax_work(rows: int, n: int, elt: int = 2, out_elt: int = 4) -> Tuple[int, int]:
+    """(bytes, operations) of the per-row (max, first argmax) over [rows, n]:
+    the input, a value (out_elt bytes) and an int32 index out a row; one
+    comparison an element (fp32 rate)."""
+    return rows * n * elt + rows * (out_elt + 4), rows * n
+
+
+IOU_OPS = 14  # a pair: 4 min/max, 2 subs, 2 clamps, the product, 2 adds and a sub, the division, the compare
+
+
+def nms_work(b: int, n: int, max_det: int, pairs: int = None) -> Tuple[int, int]:
+    """(bytes, operations) of the greedy NMS with compaction on [b, n]
+    score-sorted candidates: boxes, scores and classes in (24 bytes a
+    candidate), [b, max_det, 6] fp32 and the counts out; IOU_OPS fp32
+    operations a pair. `pairs`: the pairs the data needs (rows of the
+    survivors against the ranks below them); default all b n(n-1)/2."""
+    if pairs is None:
+        pairs = b * n * (n - 1) // 2
+    return b * n * 24 + b * max_det * 24 + b * 4, pairs * IOU_OPS
+
+
 def mpbwd_work(b: int, h: int, w: int, c: int, k: int = 5, elt: int = 2) -> Tuple[int, int]:
     """(bytes, operations) of the k x k max-pool backward on [b, h, w, c]: x
     and dy in, dx out; one comparison per window offset per element (fp32
@@ -96,7 +117,8 @@ def serving_1x1_shapes(variant: str = "yolov10s", imgsz: int = 640) -> List[Tupl
 def kernel_bounds(batch: int = 32):
     """Rows of (kernel, shape, MB moved, GFLOP, bound ms, bound by) of the
     stem at each size's widths on [batch,640,640,3] uint8, the top-k pair of
-    a request and mpbwd at the training path's SPPF shape."""
+    a request, the NMS decode's argmax and NMS (every pair, the most its
+    data can need) and mpbwd at the training path's SPPF shape."""
     from ..models.yolov10.config import VARIANTS
 
     rows = []
@@ -107,6 +129,12 @@ def kernel_bounds(batch: int = 32):
     works = [topk_work(batch, n, 300) for n in (8400, 24000)]
     nbytes, nops = sum(w[0] for w in works), sum(w[1] for w in works)
     rows.append(("topk", f"[{batch},8400] + [{batch},24000] bf16, k=300", nbytes, nops,
+                 *bound(nbytes, nops, FP32_OPS_PER_S)))
+    nbytes, nops = argmax_work(batch * 8400, 80)
+    rows.append(("argmax", f"[{batch},8400,80] bf16 -> fp32 + int32", nbytes, nops,
+                 *bound(nbytes, nops, FP32_OPS_PER_S)))
+    nbytes, nops = nms_work(batch, 1000, 300)
+    rows.append(("nms", f"[{batch},1000] fp32, max_det 300, every pair", nbytes, nops,
                  *bound(nbytes, nops, FP32_OPS_PER_S)))
     nbytes, nops = mpbwd_work(batch, 20, 20, 256)
     rows.append(("mpbwd", f"[{batch},20,20,256] bf16, k=5", nbytes, nops, *bound(nbytes, nops, FP32_OPS_PER_S)))

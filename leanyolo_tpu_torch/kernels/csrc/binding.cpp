@@ -8,6 +8,7 @@
 
 #include <optional>
 #include <tuple>
+#include <vector>
 
 #include "kernels.h"
 
@@ -177,6 +178,90 @@ void s2dconv_wgmma(torch::Tensor x, torch::Tensor wk, torch::Tensor b, torch::Te
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+
+void max_argmax(std::vector<torch::Tensor> levels, torch::Tensor vals, torch::Tensor idx, bool canon_zero) {
+  TORCH_CHECK(!levels.empty() && levels.size() <= ARGMAX_MAX_LEVELS, "max_argmax: 1 to 4 levels");
+  const torch::Tensor& x0 = levels[0];
+  const bool bf16 = act_is_bf16(x0, "max_argmax x");
+  TORCH_CHECK(x0.dim() == 3, "max_argmax: levels [B, rows, n]");
+  const int64_t B = x0.size(0), n = x0.size(2);
+  ArgmaxLevels lv{};
+  lv.count = static_cast<int>(levels.size());
+  int64_t a = 0;
+  for (size_t l = 0; l < levels.size(); ++l) {
+    const torch::Tensor& x = levels[l];
+    TORCH_CHECK(x.is_cuda() && x.dim() == 3 && x.stride(2) == 1, "max_argmax: a level [B, rows, n] on the card, "
+                "unit stride in n");
+    TORCH_CHECK(x.scalar_type() == x0.scalar_type() && x.size(0) == B && x.size(2) == n,
+                "max_argmax: levels differ in dtype, batch or n");
+    lv.x[l] = x.data_ptr();
+    lv.sb[l] = x.stride(0);
+    lv.ld[l] = x.stride(1);
+    lv.start[l] = static_cast<int>(a);
+    a += x.size(1);
+  }
+  lv.start[lv.count] = static_cast<int>(a);
+  for (auto* p : {&vals, &idx}) check(*p, "max_argmax out");
+  const bool vals_bf16 = vals.scalar_type() == at::kBFloat16;
+  TORCH_CHECK(vals_bf16 ? (bf16 && canon_zero) : vals.scalar_type() == at::kFloat,
+              "max_argmax: vals bf16 (bf16 input, canon_zero) or float32");
+  TORCH_CHECK(idx.scalar_type() == at::kInt, "max_argmax: idx int32");
+  TORCH_CHECK(vals.dim() == 2 && vals.size(0) == B && vals.size(1) == a && idx.sizes() == vals.sizes(),
+              "max_argmax: vals, idx [B, sum rows]");
+  TORCH_CHECK(B * a < (int64_t(1) << 31) && n > 0 && n < (int64_t(1) << 31), "max_argmax: B * rows below 2^31, n > 0");
+  C10_CUDA_CHECK(launch_argmax(lv, static_cast<int>(B), static_cast<int>(n), bf16, canon_zero, vals.data_ptr(),
+                               vals_bf16, idx.data_ptr<int32_t>(), at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+const float* nms_f32(const std::optional<torch::Tensor>& t, const torch::Tensor& boxes, const char* name) {
+  if (!t) return nullptr;
+  check(*t, name);
+  TORCH_CHECK(t->scalar_type() == at::kFloat && t->dim() == 2 && t->size(0) == boxes.size(0) &&
+                  t->size(1) == boxes.size(1),
+              name, ": [B, n] float32");
+  return t->data_ptr<float>();
+}
+
+std::tuple<torch::Tensor, torch::Tensor, torch::Tensor> nms(torch::Tensor boxes, std::optional<torch::Tensor> scores,
+                                                            std::optional<torch::Tensor> cls,
+                                                            std::optional<torch::Tensor> valid, double iou_thresh,
+                                                            bool use_conf, double conf_thresh, bool class_wise,
+                                                            double group_offset, bool want_keep, int64_t max_det) {
+  check(boxes, "nms boxes");
+  TORCH_CHECK(boxes.scalar_type() == at::kFloat && boxes.dim() == 3 && boxes.size(2) == 4, "nms: boxes [B, n, 4] float32");
+  const int64_t B = boxes.size(0), n = boxes.size(1);
+  TORCH_CHECK(B < (int64_t(1) << 31) && n < (int64_t(1) << 31), "nms: B and n below 2^31");
+  const float* s = nms_f32(scores, boxes, "nms scores");
+  const float* c = nms_f32(cls, boxes, "nms cls");
+  const uint8_t* v = nullptr;
+  if (valid) {
+    check(*valid, "nms valid");
+    TORCH_CHECK(valid->scalar_type() == at::kByte && valid->dim() == 2 && valid->size(0) == B && valid->size(1) == n,
+                "nms: valid [B, n] uint8");
+    v = valid->data_ptr<uint8_t>();
+  }
+  TORCH_CHECK(!use_conf || s, "nms: use_conf needs scores");
+  TORCH_CHECK(!class_wise || c, "nms: class_wise needs cls");
+  TORCH_CHECK(max_det == 0 || (s && c), "nms: dets need scores and cls");
+  TORCH_CHECK(max_det >= 0 && max_det < (int64_t(1) << 31), "nms: 0 <= max_det < 2^31");
+  auto opts = boxes.options();
+  auto keep = torch::empty({want_keep ? B : 0, n}, opts.dtype(at::kByte));
+  // With no candidates the kernel does not run: zero rows and counts.
+  auto dets = n ? torch::empty({B, max_det, 6}, opts) : torch::zeros({B, max_det, 6}, opts);
+  auto num = n ? torch::empty({B}, opts.dtype(at::kInt)) : torch::zeros({B}, opts.dtype(at::kInt));
+  auto scratch = torch::empty({static_cast<int64_t>(nms_scratch_bytes(static_cast<int>(B), static_cast<int>(n)))},
+                              opts.dtype(at::kByte));
+  C10_CUDA_CHECK(launch_nms(boxes.data_ptr<float>(), s, c, v, static_cast<int>(B), static_cast<int>(n),
+                            static_cast<float>(iou_thresh), use_conf, static_cast<float>(conf_thresh), class_wise,
+                            static_cast<float>(group_offset), want_keep ? keep.data_ptr<uint8_t>() : nullptr,
+                            max_det ? dets.data_ptr<float>() : nullptr, max_det ? num.data_ptr<int32_t>() : nullptr,
+                            static_cast<int>(max_det), static_cast<int>(std::min(max_det, n)), scratch.data_ptr(),
+                            at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {keep, dets, num};
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -188,5 +273,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("bmm", &bmm, "matrix product with an fp32 sum and the folded conv epilogue (mma.sync)");
   m.def("bmm_wgmma", &bmm_wgmma, "matrix product with an fp32 sum and the folded conv epilogue (TMA + wgmma)");
   m.def("s2dconv", &s2dconv, "3x3 conv 32->32 + bias + SiLU over the space-to-depth form (fp32)");
+  m.def("max_argmax", &max_argmax, "per-row (max, first argmax) of up to four levels, into [B, sum rows] outputs");
+  m.def("nms", &nms, "exact greedy NMS over score-sorted candidates: (keep, dets, num), allocated here");
   m.def("s2dconv_wgmma", &s2dconv_wgmma, "3x3 conv 32->32 + bias + SiLU over the space-to-depth form (bf16, wgmma)");
 }

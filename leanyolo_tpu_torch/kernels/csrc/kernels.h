@@ -73,3 +73,38 @@ cudaError_t launch_s2dconv(const void* x, const void* w, const void* bias, void*
 // x, wk and out 16-byte aligned.
 cudaError_t launch_s2dconv_wgmma(const void* x, const void* wk, const void* bias, void* out, int B, int H, int W,
                                  long long sb, long long sp, int taps, cudaStream_t stream);
+
+// Per-row (max, first argmax) over the last dim (argmax.cu), for up to
+// ARGMAX_MAX_LEVELS levels in one launch. Level l: x[l] [B, rows_l, n]
+// with unit stride in n, rows ld[l] and images sb[l] elements apart; its
+// rows land at columns start[l] .. start[l + 1] of the [B, start[count]]
+// outputs. All levels bf16 (bf16) or fp32. canon_zero: -0.0 ties +0.0 (the
+// packed route); else -0.0 ranks below +0.0 in the max and the index is the
+// first equal to it as a number. vals: bf16 (vals_bf16) or fp32; idx int32.
+#define ARGMAX_MAX_LEVELS 4
+struct ArgmaxLevels {
+  const void* x[ARGMAX_MAX_LEVELS];
+  long long sb[ARGMAX_MAX_LEVELS];
+  long long ld[ARGMAX_MAX_LEVELS];
+  int start[ARGMAX_MAX_LEVELS + 1];
+  int count;
+};
+cudaError_t launch_argmax(const ArgmaxLevels& lv, int B, int n, bool bf16, bool canon_zero, void* vals,
+                          bool vals_bf16, int32_t* idx, cudaStream_t stream);
+
+// Exact greedy NMS over score-sorted candidates, one CTA an image (nms.cu).
+// boxes [B, n, 4] xyxy fp32; scores and cls [B, n] fp32 (scores needed by
+// use_conf or dets, cls by class_wise or dets; else nullptr); valid [B, n]
+// uint8 or nullptr (all valid). A candidate is valid where valid says so and,
+// with use_conf, its score > conf_thresh; invalid ones never survive and
+// never suppress. class_wise: IoUs of boxes shifted by cls * group_offset.
+// Outputs, each optional (nullptr): keep [B, n] uint8; dets [B, max_det, 6]
+// (the first min(kept, k_out) survivors' [box, score, cls] in rank order,
+// zero rows after) and num [B] int32. scratch: nms_scratch_bytes(B, n)
+// bytes of device memory, 16-byte aligned (none where the mask fits in
+// shared memory).
+size_t nms_scratch_bytes(int B, int n);
+cudaError_t launch_nms(const float* boxes, const float* scores, const float* cls, const uint8_t* valid, int B, int n,
+                       float iou_thresh, bool use_conf, float conf_thresh, bool class_wise, float group_offset,
+                       uint8_t* keep, float* dets, int32_t* num, int max_det, int k_out, void* scratch,
+                       cudaStream_t stream);

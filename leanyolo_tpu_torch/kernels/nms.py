@@ -1,0 +1,141 @@
+"""Exact greedy NMS over score-sorted candidates, with the compaction of
+the survivors: CUDA kernel (csrc/nms.cu) and plain version.
+
+Replaces the JAX package's lax program `leanyolo_tpu/ops/boxes.py:163
+_alive_blocked` (reached through `:250 nms_fixed(presorted=True, valid=)`)
+and the compaction of `leanyolo_tpu/models/yolov10/decode.py:205
+_nms_single`. Greedy NMS in rank order: a candidate survives when it is
+valid and no surviving candidate ranked above it overlaps it with
+IoU > iou_thresh; invalid candidates never survive and never suppress.
+The IoU is `ops/boxes.py::box_iou`'s sequence of fp32 operations, so the
+keep set is JAX's bit for bit, also where an IoU lies exactly at the
+threshold. Thresholds are rounded to fp32 first, as JAX's fp32 comparisons
+round them.
+
+- `nms_keep(boxes, iou_thresh, valid)`: the keep mask [B, n];
+- `nms_compact(boxes, scores, cls, ...)`: valid = score > conf_thresh;
+  class-wise, the boxes are shifted by cls * group_offset in fp32 before
+  the IoU (the JAX decode's offset trick, which at class 79 moves a box by
+  6.47e6, where fp32's spacing is 0.5 px: the IoU of the shifted boxes is
+  not that of the raw ones); the j-th survivor's unshifted [box, score,
+  cls] becomes row j of [B, max_det, 6] while j < min(max_det, n), zero
+  rows follow, and num = min(survivors, max_det, n).
+
+The plain version forms the full [B, n, n] IoU matrix and walks the ranks
+in a loop vectorised over the batch. Bound: the larger of bytes and the
+fp32 IoU operations over n(n-1)/2 pairs an image (bounds.nms_work); the
+kernel's serial scan is latency, which no bound covers.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import LAUNCHES
+from ._build import check_cuda, ext
+
+GROUP_OFFSET = 8192.0 * 10.0  # the JAX decode's class offset (decode.py:341)
+
+
+def f32(v: float) -> float:
+    """v rounded to fp32, as JAX rounds a Python float it compares with an fp32 array."""
+    return float(np.float32(v))
+
+
+def iou_matrix(boxes: torch.Tensor) -> torch.Tensor:
+    """[..., n, 4] xyxy -> [..., n, n] pairwise IoU, the operations of
+    `ops/boxes.py::box_iou` in their order."""
+    wh = torch.clamp_min(boxes[..., 2:4] - boxes[..., 0:2], 0.0)
+    area = wh[..., 0] * wh[..., 1]
+    lt = torch.maximum(boxes[..., :, None, :2], boxes[..., None, :, :2])
+    rb = torch.minimum(boxes[..., :, None, 2:4], boxes[..., None, :, 2:4])
+    wh = torch.clamp_min(rb - lt, 0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area[..., :, None] + area[..., None, :] - inter
+    return inter / (union + 1e-9)
+
+
+def nms_keep_plain(boxes: torch.Tensor, iou_thresh: float, valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of `nms_keep`: boxes [B, n, 4] in rank order -> keep [B, n] bool."""
+    b, n = boxes.shape[:2]
+    rank = torch.arange(n, device=boxes.device)
+    supp = (iou_matrix(boxes.float()) > f32(iou_thresh)) & (rank[:, None] < rank[None, :])
+    alive = torch.ones(b, n, dtype=torch.bool, device=boxes.device) if valid is None else valid.clone()
+    for i in range(n):
+        # alive[:, i] is final here: every higher rank has been applied.
+        alive &= ~(alive[:, i, None] & supp[:, i])
+    return alive
+
+
+def _shifted(boxes: torch.Tensor, cls: torch.Tensor, group_offset: float) -> torch.Tensor:
+    return boxes + (cls * group_offset)[..., None]
+
+
+def compact_plain(keep: torch.Tensor, boxes: torch.Tensor, scores: torch.Tensor, cls: torch.Tensor,
+                  max_det: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stable partition of `_nms_single`: the j-th kept row to slot j
+    while j < min(max_det, n), zero rows after; num = min(kept, that)."""
+    b, n = keep.shape
+    k_out = min(max_det, n)
+    pos = torch.cumsum(keep.to(torch.int32), dim=1) - 1
+    payload = torch.cat([boxes, scores[..., None], cls[..., None]], dim=-1).float()
+    dets = torch.zeros(b, max_det, 6, dtype=torch.float32, device=boxes.device)
+    bi, ii = (keep & (pos < k_out)).nonzero(as_tuple=True)
+    dets[bi, pos[bi, ii].long()] = payload[bi, ii]
+    return dets, keep.sum(dim=1).clamp(max=k_out).to(torch.int32)
+
+
+def nms_compact_plain(boxes: torch.Tensor, scores: torch.Tensor, cls: torch.Tensor, *, iou_thresh: float,
+                      conf_thresh: float, max_det: int, class_wise: bool,
+                      group_offset: float = GROUP_OFFSET) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `nms_compact`."""
+    boxes, scores, cls = boxes.float(), scores.float(), cls.float()
+    valid = scores > f32(conf_thresh)
+    keep = nms_keep_plain(_shifted(boxes, cls, group_offset) if class_wise else boxes, iou_thresh, valid)
+    return compact_plain(keep, boxes, scores, cls, max_det)
+
+
+def _check_boxes(boxes: torch.Tensor) -> None:
+    check_cuda(boxes, "nms boxes")
+    if boxes.dtype != torch.float32 or boxes.ndim != 3 or boxes.shape[-1] != 4:
+        raise ValueError(f"nms: boxes [B, n, 4] float32, got {boxes.dtype} {tuple(boxes.shape)}")
+
+
+def nms_keep(boxes: torch.Tensor, iou_thresh: float, valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Greedy NMS keep mask [B, n] bool over boxes [B, n, 4] xyxy fp32 in
+    descending-score order; valid [B, n] bool (None: all valid)."""
+    if boxes.device.type == "cpu":
+        return nms_keep_plain(boxes, iou_thresh, valid)
+    _check_boxes(boxes)
+    v = None
+    if valid is not None:
+        v = valid.to(torch.uint8).contiguous()
+        check_cuda(v, "nms valid")
+    keep, _, _ = ext().nms(boxes, None, None, v, f32(iou_thresh), False, 0.0, False, 0.0, True, 0)
+    if boxes.numel():
+        LAUNCHES["nms"] += 1
+    return keep.bool()
+
+
+def nms_compact(boxes: torch.Tensor, scores: torch.Tensor, cls: torch.Tensor, *, iou_thresh: float,
+                conf_thresh: float, max_det: int, class_wise: bool,
+                group_offset: float = GROUP_OFFSET) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`_nms_single` over a batch: boxes [B, n, 4], scores and cls [B, n]
+    fp32, in descending-score order -> (dets [B, max_det, 6] fp32, num [B]
+    int32)."""
+    if boxes.device.type == "cpu":
+        return nms_compact_plain(boxes, scores, cls, iou_thresh=iou_thresh, conf_thresh=conf_thresh,
+                                 max_det=max_det, class_wise=class_wise, group_offset=group_offset)
+    _check_boxes(boxes)
+    for t, name in ((scores, "nms scores"), (cls, "nms cls")):
+        check_cuda(t, name)
+        if t.dtype != torch.float32 or tuple(t.shape) != tuple(boxes.shape[:2]):
+            raise ValueError(f"{name}: [B, n] float32, got {t.dtype} {tuple(t.shape)}")
+    _, dets, num = ext().nms(boxes, scores, cls, None, f32(iou_thresh), True, f32(conf_thresh), bool(class_wise),
+                             float(group_offset), False, int(max_det))
+    if boxes.numel():
+        LAUNCHES["nms"] += 1
+    return dets, num

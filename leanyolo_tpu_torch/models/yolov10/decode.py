@@ -1,22 +1,36 @@
-"""NMS-free two-stage top-k decode of the one2one branch.
+"""Decode paths: the NMS-free two-stage top-k and the masked greedy NMS.
 
-Counterpart of the JAX package's `leanyolo_tpu/models/yolov10/decode.py:78-202`
-(`decode_topk`, `_split_levels`, `_boxes_per_level`); the NMS decode
-belongs to a later slice. Ranking runs on logits (the sigmoid is
-monotonic), per level, in the maps' dtype: stage 1 ranks the per-anchor
-class max, stage 2 the (anchor, class) pairs of the survivors. The level
-gather is a direct index gather. DFL and the box decode run in fp32 on the
-upcast reg logits.
+Counterpart of the JAX package's `leanyolo_tpu/models/yolov10/decode.py`
+(`approx=True`, `lax.approx_max_k`, is out of the port's scope):
+
+- `decode_topk` (one2one branch): ranking runs on logits (the sigmoid is
+  monotonic), per level, in the maps' dtype: stage 1 ranks the per-anchor
+  class max, stage 2 the (anchor, class) pairs of the survivors;
+- `decode_nms` (one2many branch): candidates are the best class of each
+  anchor (the fused max/argmax kernel, one launch for all levels) or, with
+  `multi_label`, the top (anchor, class) pairs; the top `pre_topk` by logit
+  go to the NMS kernel, which masks by confidence, runs greedy NMS
+  (class-wise by the JAX decode's offset trick) and compacts the survivors
+  into `(dets [B, max_det, 6], num [B])`;
+- `decode_direct_nms`: the legacy direct-offset head layout, then the same
+  NMS; fp32 maps only (JAX runs this NMS in the maps' dtype, the NMS
+  kernel in fp32).
+
+The level gather is a direct index gather. DFL and the box decode run in
+fp32 on the upcast reg logits. `detections_to_list` and
+`postprocess_to_original` are the host side, in numpy.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from ...kernels import nms as _knms
 from ...ops.anchors import dfl_expectation, dist2bbox, make_anchors
-from ...ops.topk import topk_lastdim
+from ...ops.topk import max_argmax_lastdim, topk_lastdim
 
 Tensor = torch.Tensor
 
@@ -41,6 +55,22 @@ def _split_levels(preds: Sequence, num_classes: int):
     reg_max = levels[0][0].shape[-1] // 4
     assert levels[0][0].shape[-1] == 4 * reg_max
     return levels, hw_shapes, reg_max
+
+
+def _flatten_levels(preds: Sequence, num_classes: int, strides: Sequence[int]):
+    """Concat levels -> (flat [B, A, 4R+nc], anchors [A, 2], stride [A, 1], reg_max)."""
+    assert len(preds) == len(strides)
+    levels, hw_shapes, reg_max = _split_levels(list(preds), num_classes)
+    anchors, stride_t = make_anchors(hw_shapes, strides, device=levels[0][0].device)
+    flat = torch.cat([torch.cat([reg, cls], dim=-1) for reg, cls in levels], dim=1)
+    return flat, anchors, stride_t, reg_max
+
+
+def _flatten_pyramid(preds: Sequence, num_classes: int, strides: Sequence[int]):
+    """Dense decode: (boxes [B, A, 4] pixels, cls logits [B, A, nc])."""
+    flat, anchors, stride_t, reg_max = _flatten_levels(list(preds), num_classes, strides)
+    dist = dfl_expectation(flat[..., : 4 * reg_max].float(), reg_max)
+    return dist2bbox(dist, anchors[None]) * stride_t[None], flat[..., 4 * reg_max:]
 
 
 def _gather_levels(level_arrays: Sequence[Tensor], idx: Tensor) -> Tensor:
@@ -87,3 +117,151 @@ def decode_topk(preds: Sequence, *, num_classes: int, strides: Sequence[int] = (
 
     final_boxes = _gather_levels(_boxes_per_level(levels, hw_shapes, strides, reg_max), final_anchor_idx)
     return torch.cat([final_boxes, scores[..., None], cls_idx[..., None]], dim=-1)
+
+
+GROUP_OFFSET = _knms.GROUP_OFFSET  # class offset of the class-wise NMS (JAX decode.py:341)
+
+
+def _nms_single(boxes: Tensor, scores: Tensor, cls_idx: Tensor, *, iou_thresh: float, conf_thresh: float,
+                max_det: int, class_wise: bool, group_offset: float = GROUP_OFFSET) -> Tuple[Tensor, Tensor]:
+    """Greedy NMS on fixed-size candidate sets in descending-score order,
+    boxes [..., K, 4], scores and cls_idx [..., K] -> (dets [..., max_det,
+    6], num [...] int32): valid = score > conf_thresh; row j is the j-th
+    survivor while j < min(max_det, K), zero rows follow (JAX
+    `_nms_single`, whose vmap is the leading dims here). Runs in the NMS
+    kernel's wrapper."""
+    lead = boxes.shape[:-2]
+    k = boxes.shape[-2]
+    dets, num = _knms.nms_compact(boxes.reshape(-1, k, 4).float().contiguous(),
+                                  scores.reshape(-1, k).float().contiguous(),
+                                  cls_idx.reshape(-1, k).float().contiguous(), iou_thresh=iou_thresh,
+                                  conf_thresh=conf_thresh, max_det=max_det, class_wise=class_wise,
+                                  group_offset=group_offset)
+    return dets.reshape(lead + (max_det, 6)), num.reshape(lead)
+
+
+def decode_nms(preds: Sequence, *, num_classes: int, strides: Sequence[int] = (8, 16, 32),
+               conf_thresh: float = 0.25, iou_thresh: float = 0.45, max_det: int = 300, pre_topk: int = 1000,
+               class_wise: bool = False, multi_label: bool = False,
+               rank_dtype: Optional[torch.dtype] = None) -> Tuple[Tensor, Tensor]:
+    """Confidence filter + greedy NMS with a fixed-shape contract (JAX
+    `decode_nms`) -> (dets [B, max_det, 6] fp32, invalid rows zero; num [B]
+    int32, valid rows first).
+
+    multi_label: candidates are the top (anchor, class) pairs (the export
+    wrapper's semantics); else one candidate per anchor at its best class.
+    rank_dtype: rank the class logits as if cast to it (None: the maps'
+    dtype, as JAX's benchmark ranks bf16 maps; float32 on bf16 maps: as
+    JAX's predictor ranks its upcast maps, without writing them, since the
+    upcast is exact).
+    """
+    levels, hw_shapes, reg_max = _split_levels(list(preds), num_classes)
+    b = levels[0][0].shape[0]
+    a = sum(h * w for h, w in hw_shapes)
+    nc = num_classes
+    if multi_label:
+        k_pre = min(pre_topk, a * nc)
+        merged_logits, merged_pair = [], []
+        off = 0
+        for _, cls in levels:
+            hw = cls.shape[1]
+            v, p = topk_lastdim(cls.reshape(b, hw * nc), min(k_pre, hw * nc), dtype=rank_dtype)
+            merged_logits.append(v)
+            merged_pair.append((p // nc + off) * nc + p % nc)  # global pair index
+            off += hw
+        cand_logits, pos = topk_lastdim(torch.cat(merged_logits, dim=1), k_pre)
+        pre_idx = torch.gather(torch.cat(merged_pair, dim=1), 1, pos.long())
+        anc_idx = pre_idx // nc
+        cand_cls = (pre_idx % nc).float()
+    else:
+        best_logits, best_cls = max_argmax_lastdim([cls for _, cls in levels], dtype=rank_dtype)
+        k_pre = min(pre_topk, a)
+        cand_logits, anc_idx = topk_lastdim(best_logits, k_pre)
+        cand_cls = torch.gather(best_cls, 1, anc_idx.long()).float()
+    cand_scores = torch.sigmoid(cand_logits.float())
+    cand_boxes = _gather_levels(_boxes_per_level(levels, hw_shapes, strides, reg_max), anc_idx)
+    return _nms_single(cand_boxes, cand_scores, cand_cls, iou_thresh=iou_thresh, conf_thresh=conf_thresh,
+                       max_det=max_det, class_wise=class_wise)
+
+
+def decode_direct_nms(preds: Sequence[Tensor], *, num_classes: int, strides: Sequence[int] = (8, 16, 32),
+                      conf_thresh: float = 0.25, iou_thresh: float = 0.45, max_det: int = 300,
+                      pre_topk: int = 1000) -> Tuple[Tensor, Tensor]:
+    """Legacy direct-offset layout decode ([B, H, W, 4 + nc] per level; JAX
+    `decode_direct_nms`): sigmoid centre offsets and exp width/height, the
+    best class by the max and first argmax of the sigmoid scores (not the
+    logits: saturated scores tie where logits do not), then the same NMS.
+    Takes fp32 maps: JAX runs this NMS in the maps' dtype, and the NMS
+    kernel computes its IoUs in fp32."""
+    if any(p.dtype != torch.float32 for p in preds):
+        raise ValueError("decode_direct_nms takes float32 maps")
+    b = preds[0].shape[0]
+    boxes_l, scores_l = [], []
+    for p, s in zip(preds, strides):
+        _, h, w, c = p.shape
+        assert c == 4 + num_classes
+        flat = p.reshape(b, h * w, c)
+        bbox = flat[..., :4]
+        gy, gx = torch.meshgrid(torch.arange(h, dtype=p.dtype, device=p.device),
+                                torch.arange(w, dtype=p.dtype, device=p.device), indexing="ij")
+        gx, gy = gx.reshape(1, -1), gy.reshape(1, -1)
+        cx = (torch.sigmoid(bbox[..., 0]) + gx) * s
+        cy = (torch.sigmoid(bbox[..., 1]) + gy) * s
+        bw = torch.exp(bbox[..., 2]) * s
+        bh = torch.exp(bbox[..., 3]) * s
+        boxes_l.append(torch.stack((cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2), dim=-1))
+        scores_l.append(torch.sigmoid(flat[..., 4:]))
+    boxes = torch.cat(boxes_l, dim=1)
+    best_scores, best_cls = max_argmax_lastdim(scores_l)  # fp32: jnp.max, jnp.argmax
+    k_pre = min(pre_topk, boxes.shape[1])
+    # lax.top_k; sigmoid scores hold no -0.0, so the route's zero rule is moot
+    cand_scores, anc_idx = topk_lastdim(best_scores, k_pre)
+    anc_idx = anc_idx.long()
+    cand_cls = torch.gather(best_cls.float(), 1, anc_idx)
+    cand_boxes = torch.gather(boxes, 1, anc_idx[..., None].expand(-1, -1, 4))
+    return _nms_single(cand_boxes, cand_scores, cand_cls, iou_thresh=iou_thresh, conf_thresh=conf_thresh,
+                       max_det=max_det, class_wise=False, group_offset=0.0)
+
+
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def detections_to_list(dets, num_dets=None, conf_thresh: float = 0.0) -> List[np.ndarray]:
+    """Host side: fixed [B, k, 6] -> a list of per-image numpy arrays [N_i, 6]
+    (the first num_dets[i] rows, then those above conf_thresh where > 0)."""
+    dets = _host(dets)
+    num_dets = None if num_dets is None else _host(num_dets)  # one copy to the host
+    out = []
+    for i in range(dets.shape[0]):
+        d = dets[i]
+        if num_dets is not None:
+            d = d[: int(num_dets[i])]
+        if conf_thresh > 0:
+            d = d[d[:, 4] > conf_thresh]
+        out.append(d)
+    return out
+
+
+def postprocess_to_original(dets, num, metas, *, decode: str, conf_thresh: float,
+                            apply_conf_filter: bool) -> List[np.ndarray]:
+    """Host side: fixed-shape results -> per-image arrays in original-image
+    coordinates. topk keeps the rows above conf_thresh (all rows without
+    apply_conf_filter); nms the first num. `metas`: [(gain, pad, orig_hw)]
+    from the letterbox (JAX `postprocess_to_original`, the same formulas as
+    `ops/boxes.py::unletterbox_coords`, in numpy)."""
+    selected = detections_to_list(
+        dets,
+        num_dets=None if decode == "topk" else num,
+        conf_thresh=conf_thresh if (decode == "topk" and apply_conf_filter) else 0.0,
+    )
+    out = []
+    for d, (gain, pad, orig_hw) in zip(selected, metas):
+        if len(d):
+            (gw, gh), (px, py), (h, w) = gain, pad, orig_hw
+            bx = d[:, :4].astype(np.float32, copy=True)
+            bx[:, 0::2] = ((bx[:, 0::2] - px) / gw).clip(0, w)
+            bx[:, 1::2] = ((bx[:, 1::2] - py) / gh).clip(0, h)
+            d = np.concatenate([bx, d[:, 4:6]], axis=1)
+        out.append(d)
+    return out

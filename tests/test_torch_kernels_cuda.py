@@ -16,7 +16,8 @@ bias-free kernel followed by PyTorch's bias add and SiLU is held to one
 bf16 ulp per element: both round the same fp32 sums at the same points, but
 the wgmma route's SiLU uses the hardware's approximate exp2 and reciprocal,
 a few fp32 ulps from PyTorch's, which flips a bf16 rounding now and then.
-Top-k and the max-pool backward (mpbwd) are bit-exact.
+Top-k, the max-pool backward (mpbwd), the fused max/argmax and the NMS
+are bit-exact.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import pytest
 import torch
 
 from leanyolo_tpu_torch import kernels
-from leanyolo_tpu_torch.kernels import dwconv, matmul, mpbwd, s2dconv, stem, topk
+from leanyolo_tpu_torch.kernels import argmax, dwconv, matmul, mpbwd, nms, s2dconv, stem, topk
 from leanyolo_tpu_torch.models.yolov10.layers import maxpool2d_same
 from torch_parity import cuda_device  # noqa: F401  (fixture)
 
@@ -414,3 +415,178 @@ def test_wrappers_raise_on_unsupported(cuda_device):
         matmul.bmm(x, w, torch.zeros(9, device=cuda_device), True)
     with pytest.raises(ValueError):  # bias on the CPU
         matmul.bmm(x.bfloat16(), w.bfloat16(), torch.zeros(8), True)
+
+
+def argmax_rows(g, shape, dtype, device):
+    """Coarse values (repeated maxima) with rows of signed zeros: all -0.0,
+    -0.0 before +0.0, and negative rows whose max is a zero."""
+    x = (torch.randn(shape, generator=g, device=device) * 2).round() / 2
+    r = x.shape[-2]
+    x[..., : r // 8, :] = 0.0
+    x[..., : r // 8, ::3] = -0.0
+    x[..., r // 8: r // 4, :] = -x[..., r // 8: r // 4, :].abs() - 1.0
+    x[..., r // 8: r // 4, 7] = -0.0
+    x[..., r // 8: r // 4, 11] = 0.0
+    x[..., r // 4: r // 4 + 2, :] = -0.0
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("canon", [True, False])
+@pytest.mark.parametrize("b,n,sliced", [(4, 80, False), (4, 80, True), (2, 37, False), (3, 1000, False)])
+def test_argmax_kernel(cuda_device, dtype, canon, b, n, sliced):
+    """The three levels of a 640 px map in one launch (16-byte loads), the
+    class slice of a concatenated head map read in place, an n that holds
+    no whole 16-byte vector (scalar loads), and a long row."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    levels = []
+    for hw in (6400, 1600, 400):
+        x = argmax_rows(g, (b, hw, n + (64 if sliced else 0)), dtype, cuda_device)
+        levels.append(x[..., 64:] if sliced else x)
+    n0 = kernels.LAUNCHES["argmax"]
+    gv, gi = argmax.max_argmax_levels(levels, canon_zero=canon)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["argmax"] == n0 + 1
+    rv, ri = argmax.max_argmax_levels([t.cpu() for t in levels], canon_zero=canon)
+    assert gv.dtype == rv.dtype == (dtype if canon else torch.float32)
+    assert torch.equal(gi.cpu(), ri)
+    bits = torch.int16 if gv.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(gv.cpu().view(bits), rv.view(bits))
+    pv, pi = argmax.max_argmax_plain(torch.cat(levels, dim=1), canon_zero=canon)  # the plain version on the card
+    assert torch.equal(gi, pi) and torch.equal(gv.view(bits), pv.view(bits))
+
+
+def nms_inputs(g, b, n, device, grid):
+    """Score-sorted candidates: boxes on an integer grid (IoUs exactly at
+    0.5, 1/3, ...) or spread, scores descending with ties, classes 0..79."""
+    if grid:
+        xy = torch.randint(0, 8, (b, n, 2), generator=g, device=device).float()
+        wh = torch.randint(1, 5, (b, n, 2), generator=g, device=device).float()
+    else:
+        xy = torch.rand(b, n, 2, generator=g, device=device) * 600
+        wh = torch.rand(b, n, 2, generator=g, device=device) * 120 + 4
+    boxes = torch.cat([xy, xy + wh], dim=-1).contiguous()
+    scores = ((torch.rand(b, n, generator=g, device=device) * 64).round() / 64).sort(dim=1, descending=True).values
+    cls = torch.randint(0, 80, (b, n), generator=g, device=device).float()
+    return boxes, scores.contiguous(), cls
+
+
+# Images a launch: 3 and 32 take clusters of 8 and 4 CTAs an image on 132
+# SMs (the mask rows split between them), 66 and 140 clusters of 2 and 1.
+NMS_BATCHES = [3, 32, 66, 140]
+
+
+@pytest.mark.parametrize("b", NMS_BATCHES)
+@pytest.mark.parametrize("n", [1, 63, 1000, 1500])
+@pytest.mark.parametrize("grid,thresh", [(True, 0.5), (False, 0.45), (False, 0.65)])
+@pytest.mark.parametrize("with_valid", [True, False])
+def test_nms_keep_kernel(cuda_device, b, n, grid, thresh, with_valid):
+    """The keep mask, bit-equal to the plain version: the mask in shared
+    memory (n <= 1000) and in the device-memory scratch (n = 1500), at
+    every cluster size."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    boxes, _, _ = nms_inputs(g, b, n, cuda_device, grid)
+    valid = torch.rand(b, n, generator=g, device=cuda_device) < 0.7 if with_valid else None
+    n0 = kernels.LAUNCHES["nms"]
+    got = nms.nms_keep(boxes, thresh, valid)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["nms"] == n0 + 1
+    ref = nms.nms_keep_plain(boxes, thresh, valid)
+    assert got.dtype == torch.bool and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("b", NMS_BATCHES)
+@pytest.mark.parametrize("n", [1, 63, 1000, 1500])
+@pytest.mark.parametrize("class_wise", [True, False])
+@pytest.mark.parametrize("conf,iou,max_det", [(0.25, 0.45, 300), (0.001, 0.65, 300), (0.001, 0.65, 20)])
+def test_nms_compact_kernel(cuda_device, b, n, class_wise, conf, iou, max_det):
+    """The decode's NMS with its compaction, bit-equal to the plain version
+    (dets and num), class-wise and not, at the inference and the validator's
+    thresholds, with max_det below the survivors."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    boxes, scores, cls = nms_inputs(g, b, n, cuda_device, False)
+    gd, gn = nms.nms_compact(boxes, scores, cls, iou_thresh=iou, conf_thresh=conf, max_det=max_det,
+                             class_wise=class_wise)
+    rd, rn = nms.nms_compact_plain(boxes, scores, cls, iou_thresh=iou, conf_thresh=conf, max_det=max_det,
+                                   class_wise=class_wise)
+    torch.cuda.synchronize()
+    assert gd.shape == (b, max_det, 6) and gn.dtype == torch.int32
+    assert torch.equal(gn, rn) and torch.equal(gd, rd)
+
+
+def test_new_wrappers_route_by_device(cuda_device, monkeypatch):
+    """A CPU tensor never reaches the kernels; a CUDA tensor never reaches
+    the plain versions."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    boxes, scores, cls = nms_inputs(g, 2, 100, cuda_device, False)
+    x = argmax_rows(g, (2, 64, 80), torch.bfloat16, cuda_device)
+    counts = dict(kernels.LAUNCHES)
+    argmax.max_argmax_levels([x.cpu()], canon_zero=True)
+    nms.nms_keep(boxes.cpu(), 0.5)
+    nms.nms_compact(boxes.cpu(), scores.cpu(), cls.cpu(), iou_thresh=0.5, conf_thresh=0.1, max_det=10,
+                    class_wise=True)
+    assert kernels.LAUNCHES == counts
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for mod, name in ((argmax, "max_argmax_plain"), (nms, "nms_keep_plain"), (nms, "nms_compact_plain"),
+                      (nms, "compact_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    argmax.max_argmax_levels([x], canon_zero=True)
+    nms.nms_keep(boxes, 0.5)
+    nms.nms_compact(boxes, scores, cls, iou_thresh=0.5, conf_thresh=0.1, max_det=10, class_wise=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["argmax"] == counts["argmax"] + 1 and kernels.LAUNCHES["nms"] == counts["nms"] + 2
+    with pytest.raises(ValueError):
+        nms.nms_keep(boxes.double(), 0.5)
+    with pytest.raises(ValueError):
+        argmax.max_argmax_levels([x.half()], canon_zero=False)
+
+
+@pytest.mark.parametrize("presorted", [True, False])
+def test_nms_fixed_on_the_card(cuda_device, presorted):
+    """`nms_fixed` on card tensors runs the kernel's keep mode once and
+    gives the keep set of the CPU's blocked substitution."""
+    from leanyolo_tpu_torch.ops.boxes import nms_fixed
+
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    boxes, scores, _ = nms_inputs(g, 1, 500, cuda_device, True)
+    if not presorted:
+        scores = scores[:, torch.randperm(500, generator=g, device=cuda_device)]
+    valid = torch.rand(500, generator=g, device=cuda_device) < 0.7
+    n0 = kernels.LAUNCHES["nms"]
+    got = nms_fixed(boxes[0], scores[0], 0.5, block=7, presorted=presorted, valid=valid)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["nms"] == n0 + 1
+    ref = nms_fixed(boxes[0].cpu(), scores[0].cpu(), 0.5, block=7, presorted=presorted, valid=valid.cpu())
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_predictor_nms_on_the_card(cuda_device, dtype, monkeypatch):
+    """Predictor(decode="nms") on the card: one argmax, one top-k and one NMS
+    launch a request, and the decode bit-equal to the decode with every
+    kernel replaced by its plain version, on the same head maps on the card."""
+    from leanyolo_tpu_torch import Predictor, YOLOv10
+    from leanyolo_tpu_torch.models.yolov10.decode import decode_nms
+
+    model = YOLOv10.create("yolov10n", class_names=[f"c{i}" for i in range(80)], seed=0)
+    pred = Predictor(model, imgsz=320, decode="nms", dtype=dtype, fuse=True, conf_thresh=0.001, iou_thresh=0.65)
+    imgs = torch.randint(0, 256, (2, 320, 320, 3), dtype=torch.uint8, device=cuda_device)
+    kernels.reset_launches()
+    dets, num = pred.run_batch(imgs)
+    torch.cuda.synchronize()
+    assert (kernels.LAUNCHES["argmax"], kernels.LAUNCHES["topk"], kernels.LAUNCHES["nms"]) == (1, 1, 1)
+    assert dets.shape == (2, 300, 6) and num.shape == (2,)
+    raw = pred.raw(imgs)
+    kw = dict(num_classes=80, conf_thresh=0.001, iou_thresh=0.65, rank_dtype=torch.float32)
+    got = decode_nms(raw, **kw)
+    monkeypatch.setattr(argmax, "max_argmax_levels", argmax.max_argmax_levels_plain)
+    monkeypatch.setattr(topk, "topk", topk.topk_plain)
+    monkeypatch.setattr(nms, "nms_compact", nms.nms_compact_plain)
+    n0 = dict(kernels.LAUNCHES)
+    ref = decode_nms(raw, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == n0
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
