@@ -58,7 +58,19 @@ Phases, each of which fails loudly (non-zero exit):
    kernel counted over them, finite losses, peak memory and a profile; the
    loss on one fixed batch falls over 20 steps; one fp32 step with the
    kernel against the all-plain step from the same state (deterministic
-   cuDNN), and one fp32 step on the card against the CPU (yolov10n, 128 px).
+   cuDNN), and one fp32 step on the card against the CPU (yolov10n, 128 px);
+9. official weights (run after 6): the yolov10s of 4 written as a THU-MIG
+   release file (`model.{idx}.` keys, fp16, a pickled DetectionModel whose
+   module cannot be imported, so the reader must stub it), once unfused and
+   once with the fused-RepVGGDW spelling; get_model(weights=
+   "PRETRAINED_COCO") finds each through LEANYOLO_WEIGHTS_DIR and must load
+   it at full coverage, with no random-init fallback and no missing leaf;
+   the unfused file's model serves a batch-32 request (bf16, folded, top-k;
+   launches counted) with head maps and detections bit-equal to the source
+   module's after the same fp16 rounding; the fused file's fp32 head maps
+   stay within 1e-3 of scale of the source module folded with the merged
+   RepVGGDW kernels and biases rounded as the file rounds them; a .npz save_checkpoint/get_model round trip is bit-equal;
+   the load's wall time and the request's time are printed.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.
@@ -1107,6 +1119,222 @@ def phase_nms_times(seed: int, records: dict, pred, x32) -> None:
               f"{sum(e.count for e in es) // 5} calls", flush=True)
 
 
+RELEASE_MODULE = "ultralytics.nn.tasks"  # the class module a release file names; not installed here
+
+
+def release_state_dict(model, fused: bool) -> dict:
+    """`model`'s state as a THU-MIG release file's flat state dict: the
+    port's keymap inverted (`model.{idx}.` keys), fp16 tensors, a step
+    counter beside every BN, no input norms. `fused` writes each RepVGGDW as
+    release files do: both branches BN-folded and summed into one 7x7 conv
+    (`cv1.2.conv.weight`) with an identity-like BN carrying the bias
+    (`cv1.2.bn.*`), `conv1` dropped."""
+    import torch
+    import torch.nn.functional as F
+    from leanyolo_tpu_torch.models.yolov10.keymap import BACKBONE_MAP, HEAD_MAP, NECK_MAP
+    from leanyolo_tpu_torch.models.yolov10.layers import BN_EPS
+    from leanyolo_tpu_torch.models.yolov10.remap import params_to_torch_sd
+
+    inv = {lean: idx for table in (BACKBONE_MAP, NECK_MAP, HEAD_MAP) for idx, lean in table.items()}
+    sd = {}
+    for k, v in params_to_torch_sd(model).items():
+        prefix = next((p for p in inv if k.startswith(p + ".")), None)
+        if prefix is not None:
+            key = f"model.{inv[prefix]}.{k[len(prefix) + 1:]}"
+            sd[key] = v.half()
+            if key.endswith(".bn.running_var"):
+                sd[key[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    if not fused:
+        return sd
+    for base in sorted(k[: -len(".conv.conv.weight")] for k in sd if k.endswith(".cv1.2.conv.conv.weight")):
+        w_sum = b_sum = 0.0
+        for branch, pad in (("conv", 0), ("conv1", 2)):
+            w = sd.pop(f"{base}.{branch}.conv.weight").float()
+            g, b, m, v = (sd.pop(f"{base}.{branch}.bn.{n}").float()
+                          for n in ("weight", "bias", "running_mean", "running_var"))
+            sd.pop(f"{base}.{branch}.bn.num_batches_tracked")
+            mul = g / torch.sqrt(v + BN_EPS)
+            w_sum = w_sum + F.pad(w * mul[:, None, None, None], (pad,) * 4)
+            b_sum = b_sum + (b - m * mul)  # fold.py's sums, in its order
+        c = w_sum.shape[0]
+        sd[f"{base}.conv.weight"] = w_sum.half()
+        sd.update({f"{base}.bn.weight": torch.ones(c).half(), f"{base}.bn.bias": b_sum.half(),
+                   f"{base}.bn.running_mean": torch.zeros(c).half(),
+                   f"{base}.bn.running_var": torch.full((c,), 1.0 - BN_EPS).half(),
+                   f"{base}.bn.num_batches_tracked": torch.tensor(0)})
+    return sd
+
+
+def write_release_file(sd: dict, path: str) -> None:
+    """torch.save `sd` as a release file holds it: {"model": <a pickled
+    DetectionModel of RELEASE_MODULE>, ...}, the tensors in each node's
+    `_parameters`/`_buffers`. The module is put in sys.modules for the save
+    and taken out again, so the reader has to stub it."""
+    import types
+
+    import torch
+
+    class DetectionModel:
+        pass
+
+    DetectionModel.__module__, DetectionModel.__qualname__ = RELEASE_MODULE, "YOLOv10DetectionModel"
+    names = ("ultralytics", "ultralytics.nn", RELEASE_MODULE)
+    for name in names:
+        sys.modules.setdefault(name, types.ModuleType(name))
+    setattr(sys.modules[RELEASE_MODULE], "YOLOv10DetectionModel", DetectionModel)
+
+    def node():
+        o = DetectionModel()
+        o.__dict__.update(_parameters={}, _buffers={}, _modules={})
+        return o
+
+    root = node()
+    for key, t in sd.items():
+        *parents, leaf = key.split(".")
+        cur = root
+        for p in parents:
+            if p not in cur._modules:
+                cur._modules[p] = node()
+            cur = cur._modules[p]
+        slot = cur._buffers if leaf in ("running_mean", "running_var", "num_batches_tracked") else cur._parameters
+        slot[leaf] = t
+    try:
+        torch.save({"model": root, "epoch": -1, "train_args": {"data": "coco.yaml"}}, path)
+    finally:
+        for name in names:
+            sys.modules.pop(name, None)
+
+
+def load_pretrained_or_fail(name: str):
+    """get_model(weights="PRETRAINED_COCO") with its warnings read: the
+    random-init fallback, a missing leaf or less than full coverage fail the
+    run. Returns (model, the coverage line, wall seconds)."""
+    import warnings
+
+    from leanyolo_tpu_torch import get_model
+
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        model = get_model(name, weights="PRETRAINED_COCO", class_names=[f"c{i}" for i in range(NC)])
+    wall = time.perf_counter() - t0
+    msgs = [str(w.message) for w in caught]
+    cover = [m for m in msgs if "filled model:" in m]
+    if any("Proceeding with randomly initialized" in m or "Missing leaves" in m for m in msgs):
+        fail(f"get_model(PRETRAINED_COCO) fell back or missed leaves: {msgs}")
+    if len(cover) != 1 or not cover[0].endswith("leaves (100.0%)."):
+        fail(f"get_model(PRETRAINED_COCO) did not fill the model: {msgs}")
+    return model, cover[0], wall
+
+
+def phase_weights(model, seed: int, card: str) -> None:
+    """Official-format weights loaded and served on the card (item 9 of the module doc)."""
+    import copy
+    import importlib.util
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from leanyolo_tpu_torch import Predictor, get_model, kernels
+    from leanyolo_tpu_torch.models.registry import load_checkpoint_meta, save_checkpoint
+    from leanyolo_tpu_torch.models.yolov10.fold import fold_model
+    from leanyolo_tpu_torch.models.yolov10.layers import FusedRepVGGDW
+
+    if importlib.util.find_spec("ultralytics") is not None:
+        fail("ultralytics is installed: the release file's class would not need a stub")
+    # The source module with every released tensor rounded to fp16, as the
+    # unfused file holds it: the model it loads must equal this one exactly.
+    src16 = copy.deepcopy(model)
+    src16.load_state_dict({k: v if k.startswith("input_") else v.half().float()
+                           for k, v in model.state_dict().items()})
+    with tempfile.TemporaryDirectory() as tmp, mock.patch.dict(os.environ, {"LEANYOLO_WEIGHTS_DIR": tmp}):
+        path = os.path.join(tmp, "yolov10s.pt")
+        write_release_file(release_state_dict(model, fused=False), path)
+        loaded, cover, load_s = load_pretrained_or_fail("yolov10s")
+        print(f"weights: unfused release file ({os.path.getsize(path) / 2**20:.1f} MiB, fp16) loaded by "
+              f"get_model(PRETRAINED_COCO) in {load_s:.3f} s wall: {cover}", flush=True)
+        got = loaded.state_dict()
+        if not all(torch.equal(got[k], v) for k, v in src16.state_dict().items()):
+            fail("weights: the loaded state differs from the source module's fp16-rounded state")
+        write_release_file(release_state_dict(model, fused=True), path)
+        loaded_fused, cover_fused, _ = load_pretrained_or_fail("yolov10s")
+        print(f"weights: fused-RepVGGDW release file: {cover_fused}", flush=True)
+
+        npz = os.path.join(tmp, "ckpt.npz")
+        save_checkpoint(loaded, npz, extra_meta={"epoch": 1})
+        again = get_model("yolov10s", weights=npz, class_names=[f"c{i}" for i in range(NC)], seed=seed + 6)
+        meta = load_checkpoint_meta(npz)
+    same = all(torch.equal(again.state_dict()[k], v) for k, v in loaded.state_dict().items())
+    print(f"weights: .npz save_checkpoint -> get_model(weights=file): state bit-equal {same}; meta "
+          f"{ {k: meta[k] for k in ('model_name', 'leanyolo_version', 'epoch')} }", flush=True)
+    if not same or meta["model_name"] != "yolov10s" or meta["epoch"] != 1:
+        fail("weights: the .npz round trip changed the model")
+
+    # Serve the loaded model at the path's batch against the source module,
+    # cuDNN deterministic on both sides.
+    rng = np.random.RandomState(seed + 5)
+    x32 = torch.from_numpy(rng.randint(0, 256, (BATCH, IMGSZ, IMGSZ, 3)).astype(np.uint8)).cuda()
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        pred = Predictor(loaded, imgsz=IMGSZ, decode="topk", dtype="bfloat16", fuse=True, max_det=MAX_DET)
+        ref = Predictor(src16, imgsz=IMGSZ, decode="topk", dtype="bfloat16", fuse=True, max_det=MAX_DET)
+        kernels.reset_launches()
+        dets, num = pred.run_batch(x32)
+        torch.cuda.synchronize()
+        got = {name: kernels.LAUNCHES[name] for name in PER_REQUEST}
+        routes = {name: kernels.LAUNCHES[name] for name in NEW_ROUTES}
+        print(f"weights: request batch {BATCH} through the loaded model: launches {got}, on the bf16 routes "
+              f"{routes}", flush=True)
+        if got != PER_REQUEST or any(routes[n] != PER_REQUEST[of] for n, of in NEW_ROUTES.items()):
+            fail(f"weights: the loaded model's request launched {got} ({routes}), expected {PER_REQUEST}")
+        check_dets(dets, num, BATCH)
+        want_dets, want_num = ref.run_batch(x32)
+        maps, want_maps = pred.raw(x32), ref.raw(x32)
+        torch.cuda.synchronize()
+        same_maps = all(torch.equal(a, b) for lvl, w_lvl in zip(maps, want_maps) for a, b in zip(lvl, w_lvl))
+        same_dets = torch.equal(dets, want_dets) and torch.equal(num, want_num)
+        print(f"weights: loaded vs source module, batch {BATCH} bf16 folded: detections bit-equal {same_dets}, "
+              f"head maps bit-equal {same_maps}", flush=True)
+        if not (same_maps and same_dets):
+            fail("weights: the model loaded from the unfused file does not serve as the source module does")
+        del ref, maps, want_maps
+
+        # The fused file rounds each RepVGGDW's merged kernel and bias to
+        # fp16: the source module folded, with those two rounded, is what it
+        # holds (up to its identity-like BN's fp16 variance).
+        ref = fold_model(src16)
+        state = ref.state_dict()
+        for name, m in ref.named_modules():
+            if isinstance(m, FusedRepVGGDW):
+                for k in (f"{name}.conv.weight", f"{name}.conv.bias"):
+                    state[k] = state[k].half().float()
+        ref.load_state_dict(state)  # packs the dw7x7 weights again
+        x8 = x32[:8]
+        fused32 = Predictor(loaded_fused, imgsz=IMGSZ, dtype="float32", fuse=True).raw(x8)
+        src32 = Predictor(ref, imgsz=IMGSZ, dtype="float32", fuse=True).raw(x8)
+        torch.cuda.synchronize()
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    # Timed with cuDNN's usual algorithms, as the serving phase times the path;
+    # the device time tells the card's share from the host's.
+    request_ms = cuda_ms(lambda: pred.run_batch(x32))
+    request_device_ms = device_ms(lambda: pred.run_batch(x32), reps=5)
+    del pred
+    for lvl, (f_lvl, s_lvl) in enumerate(zip(fused32, src32)):
+        for name, a, b in zip(("reg", "cls"), f_lvl, s_lvl):
+            err, scale = max_err(a, b), float(b.abs().max())
+            print(f"weights: fused file vs source module, fp32 head P{lvl + 3} {name} at batch 8: max_abs_err "
+                  f"{err:.6g} of scale {scale:.6g}", flush=True)
+            if not err <= 1e-3 * max(1.0, scale):
+                fail("weights: the model loaded from the fused file disagrees with the source module")
+    print(f"weights: load {load_s:.3f} s wall (host: read, remap, load); request batch {BATCH} through the loaded "
+          f"model {request_ms:.4f} ms (CUDA events, median of 20, one request from an idle card), device "
+          f"{request_device_ms:.4f} ms (profiler, 5 requests); {card}", flush=True)
+
+
 def phase_variants(seed: int, records: dict) -> None:
     """Every YOLOv10 size at full width and depth (BN calibrated as
     make_model does), folded in bf16 and in fp32, serves a batch through
@@ -1402,6 +1630,8 @@ def main() -> int:
     phase_nms_times(SEED, records, pred, x32)
     phase_predict_images(model, SEED)
     done("nms")
+    phase_weights(model, SEED, card)
+    done("weights")
     del pred, x32, model
     torch.cuda.empty_cache()
     phase_variants(SEED, records)

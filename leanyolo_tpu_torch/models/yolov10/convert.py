@@ -8,7 +8,8 @@ with dots, conv `w` -> `weight`, `b` -> `bias`, BN `scale`/`bias`/`mean`/`var`
 HWIO to OIHW. Both the unfolded tree and a folded one (`fold_params`) load,
 into an unfolded or a folded model respectively. `export_jax_params` is the
 inverse: the module's parameters and BN statistics as the JAX-shaped numpy
-tree.
+tree, in the JAX tree's leaf order (`jax_order`), which checkpoint remapping
+walks (remap.py).
 """
 
 from __future__ import annotations
@@ -95,31 +96,72 @@ def load_jax_params(module: nn.Module, params: Any) -> nn.Module:
     return module
 
 
+def _module_tree(module: nn.Module, leaf) -> Any:
+    """`module`'s parameters and buffers as a JAX-shaped tree (nested dicts and
+    lists, the module's own order) of `leaf(tensor)`."""
+    if isinstance(module, L.Conv):
+        out = {"w": leaf(module.weight)}
+        if module.bias is not None:
+            out["b"] = leaf(module.bias)
+        return out
+    if isinstance(module, L.BatchNorm):
+        return {"scale": leaf(module.weight), "bias": leaf(module.bias), "mean": leaf(module.running_mean),
+                "var": leaf(module.running_var)}
+    if isinstance(module, nn.ModuleList):
+        return [_module_tree(c, leaf) for c in module]
+    out = {name: _module_tree(c, leaf) for name, c in module.named_children() if c is not None}
+    for name in ("input_subtract", "input_divide"):
+        if name in dict(module.named_buffers(recurse=False)):
+            out[name] = leaf(getattr(module, name))
+    return out
+
+
+# The JAX backbone's dict order: `backbone_init` adds c6 and c8 after psa10
+# (leanyolo_tpu/models/yolov10/model.py:38-55).
+_JAX_BACKBONE_ORDER = ("cv0", "cv1", "c2", "cv3", "c4", "sc5", "sc7", "sppf9", "psa10", "c6", "c8")
+
+
+def _sorted_dicts(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _sorted_dicts(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [_sorted_dicts(v) for v in tree]
+    return tree
+
+
+def jax_order(tree: Any) -> Any:
+    """A model's JAX-shaped tree re-ordered as the JAX package orders it
+    (`model_init`): backbone, neck, head, then the input norms; the
+    backbone's nodes in `_JAX_BACKBONE_ORDER`; and every dict under the
+    one2one head branches in sorted key order, since `head_init` makes them
+    with `jax.tree_util.tree_map`, which rebuilds dicts with sorted keys.
+    Official checkpoints are remapped in this order (its shape fill and its
+    statistics follow it)."""
+    bb, head = tree["backbone"], tree["head"]
+    out = {"backbone": {k: bb[k] for k in _JAX_BACKBONE_ORDER}, "neck": tree["neck"],
+           "head": {k: _sorted_dicts(v) if k.startswith("one2one") else v for k, v in head.items()}}
+    for name in ("input_subtract", "input_divide"):
+        if name in tree:
+            out[name] = tree[name]
+    return out
+
+
+def module_leaves(module: nn.Module) -> List[Tuple[Tuple, torch.Tensor]]:
+    """(JAX tree path, the module's own tensor) pairs of a YOLOv10 module, in
+    the JAX tree's leaf order; `path_to_torch_key(path)` is the tensor's
+    state-dict key."""
+    return flatten_param_paths(jax_order(_module_tree(module, lambda t: t)))
+
+
 def export_jax_params(module: nn.Module) -> Any:
-    """The inverse of `load_jax_params`: `module`'s parameters and buffers as
-    a JAX-shaped tree of fp32 numpy arrays (nested dicts and lists; conv
-    kernels OIHW -> HWIO). `load_jax_params(copy, export_jax_params(m))`
-    restores m's state exactly.
+    """The inverse of `load_jax_params`: a YOLOv10 module's parameters and
+    buffers as a JAX-shaped tree of fp32 numpy arrays (nested dicts and
+    lists, in the JAX tree's order; conv kernels OIHW -> HWIO).
+    `load_jax_params(copy, export_jax_params(m))` restores m's state exactly.
     """
 
     def arr(t: torch.Tensor) -> np.ndarray:
-        return t.detach().float().cpu().numpy().copy()
+        a = t.detach().float().cpu().numpy().copy()
+        return a.transpose(2, 3, 1, 0) if a.ndim == 4 else a
 
-    def walk(m: nn.Module) -> Any:
-        if isinstance(m, L.Conv):
-            out = {"w": arr(m.weight).transpose(2, 3, 1, 0)}
-            if m.bias is not None:
-                out["b"] = arr(m.bias)
-            return out
-        if isinstance(m, L.BatchNorm):
-            return {"scale": arr(m.weight), "bias": arr(m.bias), "mean": arr(m.running_mean),
-                    "var": arr(m.running_var)}
-        if isinstance(m, nn.ModuleList):
-            return [walk(c) for c in m]
-        out = {name: walk(c) for name, c in m.named_children() if c is not None}
-        for name in ("input_subtract", "input_divide"):
-            if hasattr(m, name) and name in dict(m.named_buffers(recurse=False)):
-                out[name] = arr(getattr(m, name))
-        return out
-
-    return walk(module)
+    return jax_order(_module_tree(module, arr))
