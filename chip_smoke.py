@@ -70,7 +70,27 @@ Phases, each of which fails loudly (non-zero exit):
    module's after the same fp16 rounding; the fused file's fp32 head maps
    stay within 1e-3 of scale of the source module folded with the merged
    RepVGGDW kernels and biases rounded as the file rounds them; a .npz save_checkpoint/get_model round trip is bit-equal;
-   the load's wall time and the request's time are printed.
+   the load's wall time and the request's time are printed;
+10. COCO validation (run after 9): 64 JPEG images of noise and filled
+   rectangles at COCO-like sizes and one small size (some labels under
+   32^2 px) and 80 COCO categories are written, and labelled by the fp32
+   folded predictor's own detections (predict_images, host letterbox; see
+   self_label); the model (make_model's, calibrated
+   again on these images) goes through save_checkpoint and get_model as a
+   user loads one; validate_coco at batch 32 in fp32 (top-k, host
+   letterbox: mAP at least 0.99 on its own labels) and bf16 folded, the
+   main path (top-k with host and with device letterbox, whose mAPs agree
+   within 2e-2; NMS at the validator's thresholds), and the bf16 top-k
+   run again with every kernel swapped for its plain version, whose mAP
+   the kernel run's may be no further from than it is from fp32's. Each
+   run scores 64
+   images, launches the path's kernels per batch, saves detections
+   bit-equal to run_batch's (run_canvas's) on the same batches, and
+   re-scored in a fresh evaluator they give the same stats. Printed: each
+   run's stats, wall time and images per second, the host's and the
+   device's share of a run (the evaluator with and without the crowd
+   regions), measure_fps at batch 1, and the validation CLI
+   driven once in a subprocess (mAP line, a 27-column CSV row).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.
@@ -155,28 +175,35 @@ def cuda_ms(fn, *, warmup: int = 3, runs: int = 20, inner: int = 1) -> float:
 KERNEL_INNER = 10
 
 
-def device_ms(fn, reps: int = KERNEL_INNER) -> float:
-    """Device milliseconds per call of fn(): the CUDA kernels' own time
-    under torch.profiler over `reps` calls after a warm-up, free of the
-    host's launch time (which a short kernel's CUDA-event time includes
-    when the host enqueues slower than the card runs)."""
+def profiled(fn):
+    """(fn()'s result, the device milliseconds of that call): the CUDA
+    kernels' own time under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     # A profile now and then comes back without device events, at times
     # three in a row; take the next, after a pause.
     for _ in range(8):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
+            out = fn()
             torch.cuda.synchronize()
-        ms = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type.name == "CUDA") / reps / 1e3
+        ms = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type.name == "CUDA") / 1e3
         if ms > 0:
-            return ms
+            return out, ms
         time.sleep(0.2)
     fail("torch.profiler recorded no device time in eight tries")
+
+
+def device_ms(fn, reps: int = KERNEL_INNER) -> float:
+    """Device milliseconds per call of fn() over `reps` calls after a
+    warm-up (`profiled`), free of the host's launch time (which a short
+    kernel's CUDA-event time includes when the host enqueues slower than the
+    card runs)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    return profiled(lambda: [fn() for _ in range(reps)])[1] / reps
 
 
 def max_err(a, b) -> float:
@@ -230,6 +257,35 @@ def capture_path_calls(folded, images):
     return calls
 
 
+def calibrate(model, images, logits=None, var_scale: float = 1.0):
+    """`model` (on the card) with each BN's running mean and variance set
+    from what it sees in one forward of `images` (uint8 NHWC, on the card),
+    the variance times `var_scale`; with logits=(mean, std), each final
+    class conv is also rescaled so that its logits there have that mean and
+    std per class. Returns the model on the CPU."""
+    import torch
+    from leanyolo_tpu_torch.models.yolov10.layers import BatchNorm
+
+    def set_stats(bn, args):
+        y = args[0].float()
+        bn.running_mean.copy_(y.mean(dim=(0, 2, 3)))
+        bn.running_var.copy_(y.var(dim=(0, 2, 3)) * var_scale)
+
+    def spread(conv, args, out):
+        mean, std = out.float().mean(dim=(0, 2, 3)), out.float().std(dim=(0, 2, 3))
+        conv.weight.mul_((logits[1] / std).view(-1, 1, 1, 1))
+        conv.bias.copy_((conv.bias - mean) * logits[1] / std + logits[0])
+
+    hooks = [m.register_forward_pre_hook(set_stats) for m in model.modules() if isinstance(m, BatchNorm)]
+    if logits is not None:
+        hooks += [seq[-1].register_forward_hook(spread) for seq in (*model.head.cv3, *model.head.one2one_cv3)]
+    with torch.no_grad():
+        model(images)
+    for h in hooks:
+        h.remove()
+    return model.cpu()
+
+
 def make_model(seed: int, variant: str = "yolov10s"):
     """`variant` at full width and depth, random weights from `seed`, BN
     statistics calibrated on one batch of random images.
@@ -242,22 +298,11 @@ def make_model(seed: int, variant: str = "yolov10s"):
     """
     import torch
     from leanyolo_tpu_torch import YOLOv10
-    from leanyolo_tpu_torch.models.yolov10.layers import BatchNorm
 
     model = YOLOv10.create(variant, class_names=[f"c{i}" for i in range(NC)], seed=seed).cuda().eval()
-
-    def set_stats(bn, args):
-        y = args[0].float()
-        bn.running_mean.copy_(y.mean(dim=(0, 2, 3)))
-        bn.running_var.copy_(y.var(dim=(0, 2, 3)))
-
-    hooks = [m.register_forward_pre_hook(set_stats) for m in model.modules() if isinstance(m, BatchNorm)]
     g = torch.Generator(device="cuda").manual_seed(seed + 2)
     images = torch.randint(0, 256, (4, IMGSZ, IMGSZ, 3), generator=g, device="cuda", dtype=torch.uint8)
-    model(images)
-    for h in hooks:
-        h.remove()
-    return model.cpu()
+    return calibrate(model, images)
 
 
 def phase_kernels(folded, seed: int, records: dict) -> dict:
@@ -1335,6 +1380,307 @@ def phase_weights(model, seed: int, card: str) -> None:
           f"{request_device_ms:.4f} ms (profiler, 5 requests); {card}", flush=True)
 
 
+# COCO 2017's 80 category ids (1..90 without ten), class i being the i-th.
+COCO_CAT_IDS = tuple(i for i in range(1, 91) if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83))
+VAL_IMAGES = 64
+# (w, h): COCO-like sizes, and a small one, letterboxed at gain 4, whose
+# labels fall under 32^2 px in the image's own pixels, so COCO's small area
+# range is scored.
+VAL_SIZES = ((640, 480), (480, 640), (640, 427), (500, 375), (160, 120))
+VAL_BATCH = 32
+# The validation model is make_model's calibrated again on the set's
+# images: each BN's variance taken 8x what it sees, so activations shrink
+# by 2.8x a BN and bf16 rounding noise does not grow layer by layer as it
+# does at unit scale (where bf16 loses most of the fp32 labels); and the
+# class logits spread to mean -4, std 1, so that scores separate the
+# detections (random weights alone put the top scores at 1.0 in fp32).
+VAL_VAR_SCALE = 8.0
+VAL_LOGITS = (-4.0, 1.0)
+VAL_LABELS = 10  # labels an image
+
+
+def write_val_set(root: str, seed: int):
+    """VAL_IMAGES JPEGs (PIL) of noise with 2-6 filled rectangles at the
+    VAL_SIZES in turn, under root/images; returns (images dir, COCO image entries),
+    with ids that are neither contiguous nor 1-based."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    images_dir = os.path.join(root, "images")
+    os.makedirs(images_dir)
+    entries = []
+    for i in range(VAL_IMAGES):
+        w, h = VAL_SIZES[i % len(VAL_SIZES)]
+        img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        for _ in range(rng.randint(2, 7)):
+            x0, y0 = rng.randint(0, w - 32), rng.randint(0, h - 32)
+            x1, y1 = rng.randint(x0 + 16, w + 1), rng.randint(y0 + 16, h + 1)
+            img[y0:y1, x0:x1] = rng.randint(0, 256, 3)
+        image_id = 139 + 53 * i
+        name = f"{image_id:012d}.jpg"
+        Image.fromarray(img).save(os.path.join(images_dir, name), quality=90)
+        entries.append({"id": image_id, "file_name": name, "width": w, "height": h})
+    return images_dir, entries
+
+
+def self_label(dets: list, entries: list):
+    """COCO annotations from per-image detections ([N, 6] xyxy, score, class
+    in original pixels, all that the top-k decode keeps, in rank order): in
+    each image its VAL_LABELS best-ranked detections at least 2 px wide and
+    high (its threshold: the last one's score). The random net's score level
+    differs from image to image by more than the spread within one (the
+    thresholds printed span most of (0, 1]), so one threshold for all would
+    put nearly every label on a few images, and an image's unlabelled
+    detections can outscore other images' labels: where
+    one scores at least the lowest label of its category, a crowd region
+    over the whole image for that category makes it ignored, not a false
+    positive. A predictor that finds its own labels scores an mAP of 1; a
+    wrong box, class, image id or unletterbox loses labels. Returns
+    (annotations, per-image thresholds)."""
+    import numpy as np
+
+    picked = []
+    for d in dets:
+        big = np.flatnonzero(((d[:, 2] - d[:, 0]) >= 2) & ((d[:, 3] - d[:, 1]) >= 2))
+        p = np.zeros(len(d), bool)
+        p[big[np.argsort(-d[big, 4], kind="stable")[:VAL_LABELS]]] = True
+        picked.append(p)
+    lowest = {}
+    for d, p in zip(dets, picked):
+        for score, cls in d[p][:, 4:6].tolist():
+            lowest[int(cls)] = min(score, lowest.get(int(cls), np.inf))
+    anns = []
+
+    def add(image_id, cls, bbox, iscrowd):
+        anns.append({"id": len(anns) + 1, "image_id": image_id, "category_id": COCO_CAT_IDS[cls], "bbox": bbox,
+                     "area": bbox[2] * bbox[3], "iscrowd": iscrowd})
+
+    for d, p, e in zip(dets, picked, entries):
+        for x1, y1, x2, y2, _, cls in d[p].tolist():
+            add(e["id"], int(cls), [x1, y1, x2 - x1, y2 - y1], 0)
+        for cls in sorted({int(c) for score, c in d[~p][:, 4:6].tolist() if score >= lowest.get(int(c), np.inf)}):
+            add(e["id"], cls, [0.0, 0.0, float(e["width"]), float(e["height"])], 1)
+    return anns, [float(d[p, 4].min()) for d, p in zip(dets, picked)]
+
+
+def val_reference(pred, ds, preprocess: str):
+    """The detections of `pred` on the set's batches, as validate_coco batches
+    them (host: the loader's letterboxed batches through run_batch; device:
+    the canvases through run_canvas), in COCO columns."""
+    import numpy as np
+    from leanyolo_tpu_torch.data.dataset import DataLoader
+    from leanyolo_tpu_torch.engine.validator import detections_to_coco_arrays
+    from leanyolo_tpu_torch.ops.letterbox import canvas_batch, dataset_canvas_size
+
+    keys = ("image_id", "gain", "pad", "orig_hw")
+    outs = []
+    if preprocess == "host":
+        for batch in DataLoader(ds, batch_size=VAL_BATCH, workers=8, max_boxes=1):
+            metas = [None if m is None else {k: m[k] for k in keys} for m in batch.meta]
+            outs.append((*pred.run_batch(batch.images), metas))
+    else:
+        size = dataset_canvas_size(ds.images, IMGSZ)
+        for s in range(0, len(ds), VAL_BATCH):
+            canvas, new_hw, pads, hw, cm = canvas_batch([ds.load_image(i) for i in range(s, s + VAL_BATCH)], IMGSZ,
+                                                        canvas_size=size)
+            metas = [dict(zip(keys, (ds.images[s + i]["id"], *cm[i]))) for i in range(VAL_BATCH)]
+            outs.append((*pred.run_canvas(canvas, new_hw, pads, hw), metas))
+    cols = [detections_to_coco_arrays(d.cpu().numpy(), n.cpu().numpy(), m, ds.cat_ids, decode=pred.decode)
+            for d, n, m in outs]
+    return [np.concatenate([c[k] for c in cols]) for k in range(4)]
+
+
+def phase_validation(model, seed: int, card: str) -> None:
+    """COCO validation on the card (item 10 of the module doc)."""
+    import copy
+    import csv
+    import tempfile
+
+    import numpy as np
+    import torch
+    from leanyolo_tpu_torch import Predictor, get_model, kernels
+    from leanyolo_tpu_torch.data.coco import coco80_class_names
+    from leanyolo_tpu_torch.data.dataset import CocoDetection, DataLoader
+    from leanyolo_tpu_torch.engine.validator import measure_fps, validate_coco
+    from leanyolo_tpu_torch.models.registry import save_checkpoint
+    from leanyolo_tpu_torch.ops.letterbox import letterbox
+    from leanyolo_tpu_torch.utils.coco_eval import CocoEvaluator
+
+    n_batches = VAL_IMAGES // VAL_BATCH  # whole batches: val_reference pads none
+    with tempfile.TemporaryDirectory() as tmp:
+        images_dir, entries = write_val_set(tmp, seed + 7)
+        cats = [{"id": c, "name": n} for c, n in zip(COCO_CAT_IDS, coco80_class_names())]
+        blank = os.path.join(tmp, "blank.json")
+        with open(blank, "w") as f:
+            json.dump({"images": entries, "annotations": [], "categories": cats}, f)
+        ds = CocoDetection(images_dir, blank, img_size=IMGSZ)
+        raw = [ds.load_image(i) for i in range(len(ds))]
+
+        # The model: make_model's, calibrated again on the set's letterboxed
+        # images (VAL_VAR_SCALE, VAL_LOGITS), saved and loaded back.
+        lb = torch.from_numpy(np.stack([letterbox(im, IMGSZ)[0] for im in raw])).cuda()
+        vmodel = calibrate(copy.deepcopy(model).cuda(), lb, logits=VAL_LOGITS, var_scale=VAL_VAR_SCALE)
+        del lb
+        npz = os.path.join(tmp, "yolov10s_val.npz")
+        save_checkpoint(vmodel, npz)
+        loaded = get_model("yolov10s", weights=npz, class_names=coco80_class_names())
+
+        # Self-labelling: the fp32 folded predictor's detections (host letterbox).
+        pred32 = Predictor(loaded, imgsz=IMGSZ, decode="topk", dtype="float32", fuse=True, max_det=MAX_DET)
+        dets = []
+        for s in range(0, VAL_IMAGES, VAL_BATCH):
+            dets += pred32.predict_images(raw[s:s + VAL_BATCH], apply_conf_filter=False)
+        anns, thrs = self_label(dets, entries)
+        labels = [a for a in anns if not a["iscrowd"]]
+        n_small = sum(a["area"] < 32**2 for a in labels)
+        if not n_small:
+            fail("validation: no label falls in COCO's small area range")
+        ann, ann_plain = os.path.join(tmp, "annotations.json"), os.path.join(tmp, "labels_only.json")
+        for path, a in ((ann, anns), (ann_plain, labels)):
+            with open(path, "w") as f:
+                json.dump({"images": entries, "annotations": a, "categories": cats}, f)
+        print(f"validation set: {VAL_IMAGES} JPEG images ({', '.join(f'{w}x{h}' for w, h in VAL_SIZES)}), "
+              f"80 COCO categories; labelled by the fp32 folded predictor (predict_images, host letterbox): "
+              f"{len(labels)} labels in {len({a['category_id'] for a in labels})} categories, each image its "
+              f"{VAL_LABELS} best-ranked detections of 2 px or more (thresholds {min(thrs)!r} to "
+              f"{max(thrs)!r}, median {float(np.median(thrs))!r}), {n_small} of them under 32^2 px, plus "
+              f"{len(anns) - len(labels)} crowd regions", flush=True)
+
+        predb = Predictor(loaded, imgsz=IMGSZ, decode="topk", dtype="bfloat16", fuse=True, max_det=MAX_DET)
+        predn = Predictor(loaded, imgsz=IMGSZ, decode="nms", conf_thresh=NMS_SETTINGS["val"][0],
+                          iou_thresh=NMS_SETTINGS["val"][1], dtype="bfloat16", fuse=True, max_det=MAX_DET)
+        ds = CocoDetection(images_dir, ann, img_size=IMGSZ)
+        runs = (("fp32 top-k host", pred32, "host", PER_REQUEST), ("bf16 top-k host", predb, "host", PER_REQUEST),
+                ("bf16 top-k device", predb, "device", PER_REQUEST),
+                ("bf16 nms host", predn, "host", PER_REQUEST_NMS))
+        stats, saved_at = {}, {}
+        for label, pred, preprocess, per_batch in runs:
+            path = saved_at[label] = os.path.join(tmp, f"dets_{len(saved_at)}.json")
+            kernels.reset_launches()
+            st = validate_coco(loaded, images_dir=images_dir, ann_json=ann, imgsz=IMGSZ, batch_size=VAL_BATCH,
+                               decode=pred.decode, workers=8, save_detections=path, predictor=pred,
+                               preprocess=preprocess)
+            torch.cuda.synchronize()
+            got = {name: kernels.LAUNCHES[name] for name in per_batch}
+            routes = {name: kernels.LAUNCHES[name] for name in NEW_ROUTES}
+            want = {name: n * n_batches for name, n in per_batch.items()}
+            if st["n_images"] != VAL_IMAGES:
+                fail(f"validation {label}: {st['n_images']} images scored, not {VAL_IMAGES}")
+            if got != want:
+                fail(f"validation {label}: launched {got}, expected {want} ({n_batches} batches)")
+            if pred.dtype == torch.bfloat16 and any(routes[r] != want[of] for r, of in NEW_ROUTES.items()):
+                fail(f"validation {label}: bf16 routes launched {routes}")
+            # The validator adds no error: its saved detections are what
+            # run_batch (run_canvas) gives on the same batches.
+            with open(path) as f:
+                saved = json.load(f)
+            ref = val_reference(pred, ds, preprocess)
+            cols = (np.asarray([r["image_id"] for r in saved], np.int64),
+                    np.asarray([r["category_id"] for r in saved], np.int64),
+                    np.asarray([r["bbox"] for r in saved], np.float64).reshape(-1, 4),
+                    np.asarray([r["score"] for r in saved], np.float64))
+            same = all(a.shape == b.shape and np.array_equal(a, b.astype(a.dtype)) for a, b in zip(cols, ref))
+            if not same:
+                gap = max(float(np.abs(a - b).max()) if a.shape == b.shape else float("inf")
+                          for a, b in zip(cols[2:], ref[2:]))
+                fail(f"validation {label}: saved detections differ from run_batch's on the same batches "
+                     f"(largest box/score gap {gap})")
+            # Scoring the saved file in a fresh evaluator gives the same stats.
+            t0 = time.perf_counter()
+            ev = CocoEvaluator(ann)
+            ev.add_detections(saved)
+            again = ev.evaluate()
+            eval_s = time.perf_counter() - t0
+            if any(again[k] != st[k] for k in again):
+                fail(f"validation {label}: the saved detections score {again}, the run {st}")
+            stats[label] = dict(st, eval_s=eval_s)
+            print(f"validation {label}: {json.dumps({k: st[k] for k in again})}; {st['wall_s']:.4f} s wall, "
+                  f"{st['throughput_ips']:.2f} img/s (host clock, {VAL_IMAGES} images, batch {VAL_BATCH}); "
+                  f"launches {got}; {len(saved)} detections bit-equal to run_batch's, re-scored equal; {card}",
+                  flush=True)
+
+        # At least 0.99 rather than 1.0: the labels' boxes are unletterboxed by
+        # predict_images and written as xywh in the JSON's doubles, the
+        # detections' by the validator in fp32 columns, so their last bits
+        # may differ (1.0 where they do not).
+        fp32 = stats["fp32 top-k host"]["map_50_95"]
+        print(f"validation fp32 top-k on its own labels: map_50_95 {fp32!r} (at least 0.99)", flush=True)
+        if not fp32 >= 0.99:
+            fail("validation: the fp32 folded predictor does not find its own labels")
+        host, dev = stats["bf16 top-k host"]["map_50_95"], stats["bf16 top-k device"]["map_50_95"]
+        print(f"validation bf16 top-k, host vs device letterbox: map_50_95 {host!r} vs {dev!r} (limit 2e-2)",
+              flush=True)
+        if not abs(host - dev) <= 2e-2:
+            fail("validation: host and device letterboxing disagree on the mAP")
+        # Where the bf16 loss against the fp32 labels comes from: the same bf16
+        # folded predictor with every kernel swapped for its plain version.
+        # The kernels may move the mAP no further from the plain bf16 run's
+        # than bf16 rounding itself moves it from the fp32 run's (check_paths'
+        # rule for the head maps, read at the end of the pipeline).
+        kernels.reset_launches()
+        with plain_kernels():
+            plain = validate_coco(loaded, images_dir=images_dir, ann_json=ann, imgsz=IMGSZ, batch_size=VAL_BATCH,
+                                  workers=8, predictor=predb)
+        torch.cuda.synchronize()
+        if any(kernels.LAUNCHES.values()) or plain["n_images"] != VAL_IMAGES:
+            fail(f"validation plain bf16: launches {dict(kernels.LAUNCHES)}, {plain['n_images']} images")
+        gap, rounding = abs(host - plain["map_50_95"]), abs(fp32 - plain["map_50_95"])
+        print(f"validation bf16 top-k host, plain (every kernel swapped for its plain version): "
+              f"{json.dumps({k: plain[k] for k in again})}; map_50_95 kernels {host!r} vs plain "
+              f"{plain['map_50_95']!r}, gap {gap!r} (limit: plain bf16's own loss from fp32, {rounding!r})",
+              flush=True)
+        if not gap <= rounding:
+            fail("validation: the bf16 kernels move the mAP further than bf16 rounding does")
+
+        # Where a run's wall time goes (the main path's configuration): the
+        # host's loader (decode + letterbox, 8 threads) and evaluator alone,
+        # and the device's busy time in a profiled run.
+        t0 = time.perf_counter()
+        for _ in DataLoader(ds, batch_size=VAL_BATCH, workers=8, max_boxes=1):
+            pass
+        load_s = time.perf_counter() - t0
+        prof_st, busy_ms = profiled(lambda: validate_coco(loaded, images_dir=images_dir, ann_json=ann, imgsz=IMGSZ,
+                                                          batch_size=VAL_BATCH, workers=8, predictor=predb))
+        busy_s = busy_ms / 1e3
+        main = stats["bf16 top-k host"]
+        with open(saved_at["bf16 top-k host"]) as f:
+            saved = json.load(f)
+        t0 = time.perf_counter()
+        ev = CocoEvaluator(ann_plain)
+        ev.add_detections(saved)
+        ev.evaluate()
+        eval_plain_s = time.perf_counter() - t0
+        print(f"validation bf16 top-k host, where the wall time goes: run {main['wall_s']:.4f} s wall; host alone: "
+              f"loader (PIL decode + letterbox, 8 threads) {load_s:.4f} s, evaluator (all {VAL_IMAGES} images) "
+              f"{main['eval_s']:.4f} s with the crowd regions, {eval_plain_s:.4f} s on the labels alone; device busy {busy_s:.4f} s in a profiled run of {prof_st['wall_s']:.4f} s "
+              f"wall (idle share {1 - busy_s / prof_st['wall_s']:.4f}); {card}", flush=True)
+        fps = measure_fps(predb, batch_size=1)
+        print(f"validation measure_fps (bf16 top-k folded, batch 1, 30 iterations): {fps:.2f} img/s; {card}",
+              flush=True)
+
+        # The CLI, as a user runs it.
+        log = os.path.join(tmp, "val_log.csv")
+        cmd = [sys.executable, "-m", "leanyolo_tpu_torch.tools.val", "--model", "yolov10s", "--weights", npz,
+               "--images-dir", images_dir, "--ann-json", ann, "--max-images", "16", "--log-csv", log]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        line = [ln for ln in r.stdout.splitlines() if ln.startswith("mAP50-95=")]
+        if r.returncode != 0 or len(line) != 1:
+            fail(f"validation CLI: rc {r.returncode}\nstdout {r.stdout[-2000:]}\nstderr {r.stderr[-4000:]}")
+        with open(log, newline="") as f:
+            rows = list(csv.reader(f))
+        if len(rows) != 2 or any(len(row) != 27 for row in rows):
+            fail(f"validation CLI: the log has {len(rows)} lines of {[len(row) for row in rows]} columns")
+        row = dict(zip(rows[0], rows[1]))
+        if (row["runtime"], row["device"], row["n_images"]) != ("torch", "cuda", "16"):
+            fail(f"validation CLI: row {row}")
+        print(f"validation CLI (python -m leanyolo_tpu_torch.tools.val, fp32 unfolded, 16 images) in {cli_s:.1f} s: "
+              f"{line[0]}; CSV row of 27 columns, runtime {row['runtime']}, device {row['device']} "
+              f"({row['device_name']})", flush=True)
+
+
 def phase_variants(seed: int, records: dict) -> None:
     """Every YOLOv10 size at full width and depth (BN calibrated as
     make_model does), folded in bf16 and in fp32, serves a batch through
@@ -1632,6 +1978,8 @@ def main() -> int:
     done("nms")
     phase_weights(model, SEED, card)
     done("weights")
+    phase_validation(model, SEED, card)
+    done("validation")
     del pred, x32, model
     torch.cuda.empty_cache()
     phase_variants(SEED, records)

@@ -21,6 +21,7 @@ and no device named, it raises rather than run on the CPU.
 
 from __future__ import annotations
 
+import copy
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -68,8 +69,12 @@ class Predictor:
         self.device = torch.device(device)
         self.dtype = _DTYPES[dtype]
         self._fuse = fuse
+        # The predictor's own copy (folding makes one): moving it to the device
+        # and update_params leave the caller's module as it was.
         if fuse:
             model = fold_model(model, dtype=self.dtype if self.dtype == torch.bfloat16 else None)
+        else:
+            model = copy.deepcopy(model)
         self.model = model.to(self.device).eval()
         if self.device.type == "cuda":
             self.model = self.model.to(memory_format=torch.channels_last)
