@@ -90,7 +90,25 @@ Phases, each of which fails loudly (non-zero exit):
    run's stats, wall time and images per second, the host's and the
    device's share of a run (the evaluator with and without the crowd
    regions), measure_fps at batch 1, and the validation CLI
-   driven once in a subprocess (mAP line, a 27-column CSV row).
+   driven once in a subprocess (mAP line, a 27-column CSV row);
+11. training from a folder: a COCO-format set of shapes of fixed class on
+   noise (64 train and 32 val JPEGs at COCO-like sizes) feeds
+   DataLoader(shuffle=True) and Trainer (yolov10s 640 bf16, batch 32,
+   augment, clip 1.0) with the host and with the device letterbox: finite
+   losses, mpbwd 3 launches a step, ms a step (also in turns, host,
+   device, device, host) and peak memory for each; the
+   CLIs' validation (fp32 unfolded top-k) launches top-k; remat="full"
+   against "none" on one fp32 step from one state (deterministic cuDNN:
+   gradients and parameters within 1e-5 of scale, BN statistics advanced
+   once and equal) and the peak memory and step time of both in bf16 at
+   batch 32 (full must be lower); then the train CLI in a subprocess (3
+   epochs, bf16, augment, device letterbox: a history row with finite
+   losses and mAP each epoch, the last epoch's mean loss below the first's,
+   its checkpoints), a run of 2 epochs resumed to 3 whose last.npz equals
+   the uninterrupted run's bit for bit (cuDNN and PyTorch deterministic),
+   and the transfer CLI from the train CLI's 3-class ckpt.npz onto 2
+   classes (the head leaves skipped, UNFREEZE at epoch 2, a VAL line each
+   epoch, best.npz), each CLI's wall time printed.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.
@@ -1899,6 +1917,287 @@ def phase_train_times(seed: int, records: dict) -> None:
     print(f"mpbwd [{BATCH},20,20,255] bf16 ({mpbwd.route(xg, dyg, xg)} route): kernel {t_g:.4f} ms", flush=True)
 
 
+# Phase 11: training from a folder, as a user trains.
+FOLDER_TRAIN, FOLDER_VAL = 64, 32  # images of the train and val sets
+SHAPES = ("rect", "circle", "triangle")  # class i is shape i in colour i
+SHAPE_RGB = ((200, 40, 40), (40, 200, 40), (40, 40, 200))
+FOLDER_STEPS = 4  # timed steps a preprocess mode, after an epoch's warm-up
+CLI_EPOCHS = 3
+# The CLIs in a subprocess, with cuDNN and PyTorch on deterministic
+# algorithms, so a resumed run can be held to the uninterrupted one bit for bit.
+DETERMINISTIC_CLI = ("import sys, torch; torch.backends.cudnn.deterministic = True; "
+                     "torch.backends.cudnn.benchmark = False; torch.use_deterministic_algorithms(True, warn_only=True); "
+                     "torch.utils.deterministic.fill_uninitialized_memory = False; "
+                     "from leanyolo_tpu_torch.tools.{module} import main; main(sys.argv[1:])")
+
+
+def write_shape_set(root: str, n: int, seed: int):
+    """n JPEGs (PIL) at the VAL_SIZES in turn: 1-3 filled shapes of fixed
+    class and colour (tests/synth_coco.py::make_learnable_coco's set:
+    rectangle, circle, triangle) on grey noise, and their COCO json.
+    Returns (images dir, annotations path)."""
+    import numpy as np
+    from PIL import Image, ImageDraw
+
+    rng = np.random.RandomState(seed)
+    images_dir = os.path.join(root, "images")
+    os.makedirs(images_dir)
+    images, anns = [], []
+    for i in range(n):
+        w, h = VAL_SIZES[i % len(VAL_SIZES)]
+        im = Image.fromarray(rng.randint(90, 130, (h, w, 3)).astype(np.uint8))
+        draw = ImageDraw.Draw(im)
+        for _ in range(rng.randint(1, 4)):
+            cls = int(rng.randint(0, 3))
+            s = int(rng.uniform(0.18, 0.4) * min(h, w))
+            x, y = int(rng.uniform(0, w - s - 1)), int(rng.uniform(0, h - s - 1))
+            color = tuple(int(v) for v in np.clip(np.asarray(SHAPE_RGB[cls]) + rng.randint(-25, 26, 3), 0, 255))
+            if cls == 0:
+                draw.rectangle((x, y, x + s, y + s), fill=color)
+            elif cls == 1:
+                draw.ellipse((x, y, x + s, y + s), fill=color)
+            else:
+                draw.polygon([(x + s // 2, y), (x, y + s), (x + s, y + s)], fill=color)
+            anns.append({"id": len(anns) + 1, "image_id": i + 1, "category_id": cls + 1,
+                         "bbox": [float(x), float(y), float(s + 1), float(s + 1)], "area": float((s + 1) ** 2),
+                         "iscrowd": 0})
+        name = f"{i:06d}.jpg"
+        im.save(os.path.join(images_dir, name), quality=90)
+        images.append({"id": i + 1, "file_name": name, "width": w, "height": h})
+    ann = os.path.join(root, "annotations.json")
+    with open(ann, "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": k + 1, "name": s} for k, s in enumerate(SHAPES)]}, f)
+    return images_dir, ann
+
+
+def run_cli(module: str, args) -> tuple:
+    """`python -c` running the CLI's main on `args` (DETERMINISTIC_CLI):
+    (stdout + stderr, wall seconds); fails on a non-zero exit."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", DETERMINISTIC_CLI.format(module=module), *args], cwd=HERE, env=env,
+                       capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"{module} CLI {args}: rc {r.returncode}\nstdout {r.stdout[-3000:]}\nstderr {r.stderr[-4000:]}")
+    return r.stdout + r.stderr, wall
+
+
+def timed_steps(tr, batches, gen, n: int):
+    """Run the trainer on `batches` in turn for n steps, each timed with CUDA
+    events: (per-step ms, losses)."""
+    import torch
+
+    times, losses = [], []
+    for i in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(tr.train_step(batches[i % len(batches)], gen))
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in times], losses
+
+
+def phase_train_folder(seed: int, records: dict, card: str) -> None:
+    """Training from a COCO-format folder (item 11 of the module doc)."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+    from leanyolo_tpu_torch import Predictor, TrainConfig, Trainer, YOLOv10, kernels
+    from leanyolo_tpu_torch.data.dataset import CocoDetection, DataLoader
+    from leanyolo_tpu_torch.engine.validator import validate_coco
+
+    names = list(SHAPES)
+    with tempfile.TemporaryDirectory() as tmp:
+        tr_dir, tr_ann = write_shape_set(os.path.join(tmp, "train"), FOLDER_TRAIN, seed + 11)
+        va_dir, va_ann = write_shape_set(os.path.join(tmp, "val"), FOLDER_VAL, seed + 12)
+
+        # Loader and trainer in process, host and device letterbox, bf16 at
+        # batch 32. Peak memory is the mode's own: above what was allocated
+        # before its trainer was made (the other mode's trainer, earlier phases).
+        runs = {}
+        for mode in ("host", "device"):
+            loader = DataLoader(CocoDetection(tr_dir, tr_ann, img_size=IMGSZ, preprocess=mode), batch_size=BATCH,
+                                shuffle=True, seed=seed)
+            cfg = TrainConfig(bf16=True, augment=True, grad_clip=1.0, steps_per_epoch=len(loader),
+                              device_preprocess=mode == "device", imgsz=IMGSZ)
+            base = torch.cuda.memory_allocated()
+            tr = Trainer(YOLOv10.create("yolov10s", class_names=names, seed=seed), cfg)
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            t0 = time.perf_counter()
+            warm = list(loader)  # epoch 0: the batches of the warm-up
+            load_s = time.perf_counter() - t0
+            for b in warm:
+                tr.train_step(b, gen)
+            batches = list(loader)  # epoch 1's batches, another order
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            step_ms, losses = timed_steps(tr, batches, gen, FOLDER_STEPS)
+            launches = dict(kernels.LAUNCHES)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            totals = [float(l["total"]) for l in losses]
+            if not np.isfinite([float(v) for l in losses for v in l.values()]).all():
+                fail(f"train from a folder ({mode} letterbox): non-finite losses {totals}")
+            if launches["mpbwd"] != 3 * FOLDER_STEPS:
+                fail(f"train from a folder ({mode}): mpbwd launched {launches['mpbwd']} times over "
+                     f"{FOLDER_STEPS} steps, expected 3 a step")
+            records["mpbwd"][f"launches_folder_{mode}"] = launches["mpbwd"]
+            print(f"train from a folder, {mode} letterbox, yolov10s 640 bf16 batch {BATCH} ({FOLDER_TRAIN} images, "
+                  f"augment, clip 1.0): ms/step median {statistics.median(step_ms):.4f} (CUDA events, "
+                  f"{[round(v, 4) for v in step_ms]}), peak memory {peak:.4f} GiB, loader {load_s:.4f} s for an "
+                  f"epoch of {len(warm)} batches; mpbwd launches {launches['mpbwd']} over {FOLDER_STEPS} steps; "
+                  f"losses {[round(v, 4) for v in totals]}; {card}", flush=True)
+            runs[mode] = (tr, batches, gen)
+            if mode == "device":
+                # The per-epoch validation of the CLIs: fp32, unfolded, top-k.
+                pred = Predictor(tr.model, imgsz=IMGSZ, decode="topk", conf_thresh=0.001, iou_thresh=0.65)
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                st = validate_coco(tr.model, images_dir=va_dir, ann_json=va_ann, imgsz=IMGSZ, batch_size=BATCH,
+                                   predictor=pred)
+                val_s = time.perf_counter() - t0
+                n_topk = kernels.LAUNCHES["topk"]
+                if n_topk != 2 * (FOLDER_VAL // BATCH) or not np.isfinite(st["map_50_95"]):
+                    fail(f"the CLIs' validation: top-k launched {n_topk} times, mAP {st['map_50_95']}")
+                records["topk"]["launches_folder_val"] = n_topk
+                print(f"the CLIs' validation (fp32 unfolded top-k, {FOLDER_VAL} images) after "
+                      f"{len(warm) + FOLDER_STEPS} steps: mAP50-95 {st['map_50_95']:.5f}, {val_s:.4f} s wall, top-k "
+                      f"launches {n_topk}; {card}", flush=True)
+                del pred
+        # Step time of the two modes in turns (host, device, device, host),
+        # so the drift of a host-bound step falls on both.
+        turns = {"host": [], "device": []}
+        for order in (("host", "device"), ("device", "host")):
+            for mode in order:
+                turns[mode] += timed_steps(*runs[mode], FOLDER_STEPS)[0]
+        print(f"train from a folder, ms/step in turns (host, device, device, host; {FOLDER_STEPS} steps a turn, CUDA "
+              f"events): host median {statistics.median(turns['host']):.4f} "
+              f"({[round(v, 4) for v in turns['host']]}), device median {statistics.median(turns['device']):.4f} "
+              f"({[round(v, 4) for v in turns['device']]}); {card}", flush=True)
+        device_batches = runs["device"][1]
+        del runs, tr
+        torch.cuda.empty_cache()
+
+        # remat="full" against "none": one fp32 step from one state and batch
+        # (device letterbox, batch 8, deterministic cuDNN), then peak memory
+        # and step time of both in bf16 at batch 32.
+        cudnn = torch.backends.cudnn
+        saved = (cudnn.deterministic, cudnn.benchmark)
+        cudnn.deterministic, cudnn.benchmark = True, False
+        small = next(iter(DataLoader(CocoDetection(tr_dir, tr_ann, img_size=IMGSZ, preprocess="device"),
+                                     batch_size=8)))
+        model = YOLOv10.create("yolov10s", class_names=names, seed=seed + 13)
+        f32 = {r: Trainer(copy.deepcopy(model), TrainConfig(augment=False, grad_clip=1.0, remat=r,
+                                                            device_preprocess=True, imgsz=IMGSZ))
+               for r in ("none", "full")}
+        loss = {r: float(t.train_step(small)["total"]) for r, t in f32.items()}
+        torch.cuda.synchronize()
+        cudnn.deterministic, cudnn.benchmark = saved
+        mn, mf = f32["none"].model, f32["full"].model
+        worst_g = worst_p = 0.0
+        for (name, a), (_, b) in zip(mf.named_parameters(), mn.named_parameters()):
+            worst_g = max(worst_g, max_err(a.grad, b.grad) / max(1e-12, float(b.grad.abs().max())))
+            worst_p = max(worst_p, max_err(a.detach(), b.detach()) / max(1e-12, float(b.detach().abs().max())))
+        stats_equal = all(torch.equal(a, b) for (k, a), (_, b) in zip(mf.state_dict().items(), mn.state_dict().items())
+                          if "running" in k)
+        moved = not torch.equal(mf.backbone.cv0.bn.running_mean, model.backbone.cv0.bn.running_mean.cuda())
+        print(f"remat full vs none, fp32 step yolov10s 640 batch 8 (device letterbox): loss {loss['full']:.6f} vs "
+              f"{loss['none']:.6f}; worst grad gap {worst_g:.3g}, worst parameter gap {worst_p:.3g} of the tensor's "
+              f"scale; BN running statistics equal: {stats_equal}", flush=True)
+        if not (worst_g <= 1e-5 and worst_p <= 1e-5 and stats_equal and moved):
+            fail("remat='full' disagrees with remat='none' (or the BN statistics did not advance once)")
+        del f32, mn, mf, small
+        torch.cuda.empty_cache()
+        peaks = {}
+        for r in ("none", "full"):
+            cfg = TrainConfig(bf16=True, augment=True, grad_clip=1.0, remat=r, device_preprocess=True, imgsz=IMGSZ)
+            base = torch.cuda.memory_allocated()
+            tr = Trainer(YOLOv10.create("yolov10s", class_names=names, seed=seed), cfg)
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            tr.train_step(device_batches[0], gen)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step_ms, _ = timed_steps(tr, device_batches, gen, FOLDER_STEPS)
+            peaks[r] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            print(f"remat={r!r}, yolov10s 640 bf16 batch {BATCH} (device letterbox): peak memory {peaks[r]:.4f} GiB, "
+                  f"ms/step median {statistics.median(step_ms):.4f} ({[round(v, 4) for v in step_ms]}); {card}",
+                  flush=True)
+            del tr
+            torch.cuda.empty_cache()
+        if not peaks["full"] < peaks["none"]:
+            fail(f"remat='full' did not lower peak memory: {peaks}")
+
+        # The train CLI: 3 epochs, device letterbox, bf16, augment; then a run
+        # of 2 epochs resumed to 3. Warmup is one epoch and the cosine starts
+        # at its top, so a 2-epoch run's schedule is the 3-epoch run's for its
+        # two epochs: stopping there is stopping the 3-epoch run.
+        common = ["--model", "yolov10s", "--train-images", tr_dir, "--train-ann", tr_ann, "--val-images", va_dir,
+                  "--val-ann", va_ann, "--imgsz", str(IMGSZ), "--batch-size", str(BATCH), "--bf16", "--augment",
+                  "--preprocess", "device", "--seed", str(seed), "--log-interval", "1"]
+        full, part = os.path.join(tmp, "train_full"), os.path.join(tmp, "train_part")
+        out, wall = run_cli("train", common + ["--epochs", str(CLI_EPOCHS), "--out-dir", full])
+        with open(os.path.join(full, "history.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        keys = {"epoch", "loss_total", "loss_cls", "loss_reg", "steps", "time_s", "img_s", "map_50_95", "map_50"}
+        if len(rows) != CLI_EPOCHS or any(set(r) != keys for r in rows) or "eval failed" in out:
+            fail(f"train CLI: history {rows}\n{out[-3000:]}")
+        if not all(np.isfinite([r[k] for k in ("loss_total", "loss_cls", "loss_reg", "map_50_95")]).all()
+                   for r in rows):
+            fail(f"train CLI: non-finite history {rows}")
+        if not rows[-1]["loss_total"] < rows[0]["loss_total"]:
+            fail(f"train CLI: the last epoch's mean loss is not below the first's: {rows}")
+        files = [f"epoch{e:03d}.npz" for e in range(1, CLI_EPOCHS + 1)] + ["last.npz", "ckpt.npz", "train_state.pt"]
+        if any(not os.path.exists(os.path.join(full, f)) for f in files):
+            fail(f"train CLI: missing checkpoints in {sorted(os.listdir(full))}")
+        print(f"train CLI (python -m leanyolo_tpu_torch.tools.train, yolov10s 640 bf16 batch {BATCH}, device "
+              f"letterbox, {CLI_EPOCHS} epochs of {FOLDER_TRAIN} images, validation on {FOLDER_VAL}) in {wall:.1f} s "
+              f"wall; per epoch loss_total {[round(r['loss_total'], 4) for r in rows]}, mAP50-95 "
+              f"{[r['map_50_95'] for r in rows]}, mAP50 {[r['map_50'] for r in rows]}, epoch s "
+              f"{[r['time_s'] for r in rows]}; {card}", flush=True)
+        _, wall2 = run_cli("train", common + ["--epochs", "2", "--out-dir", part])
+        out3, wall3 = run_cli("train", common + ["--epochs", str(CLI_EPOCHS), "--out-dir", part, "--resume"])
+        if "resumed from" not in out3:
+            fail(f"train CLI --resume did not resume:\n{out3[-3000:]}")
+        with np.load(os.path.join(full, "last.npz")) as a, np.load(os.path.join(part, "last.npz")) as b:
+            gaps = {k: float(np.abs(a[k].astype(np.float64) - b[k]).max()) for k in a.files if a[k].dtype != np.uint8}
+            same = a.files == b.files and all(np.array_equal(a[k], b[k]) for k in a.files)
+        print(f"train CLI stopped after epoch 2 ({wall2:.1f} s) and resumed to {CLI_EPOCHS} ({wall3:.1f} s): last.npz "
+              f"bit-equal to the uninterrupted run's: {same} (largest gap {max(gaps.values()):.3g}); {card}",
+              flush=True)
+        if not same:
+            fail("train CLI: the resumed run's last.npz differs from the uninterrupted run's")
+
+        # The transfer CLI from the train CLI's 3-class ckpt.npz onto a 2-class set.
+        with open(tr_ann) as f:
+            gt = json.load(f)
+        gt["categories"] = gt["categories"][:2]
+        gt["annotations"] = [a for a in gt["annotations"] if a["category_id"] <= 2]
+        two = os.path.join(tmp, "two_classes.json")
+        with open(two, "w") as f:
+            json.dump(gt, f)
+        tl = os.path.join(tmp, "transfer")
+        out, wall = run_cli("transfer_learn", [
+            "--model", "yolov10s", "--weights", os.path.join(full, "ckpt.npz"), "--train-images", tr_dir,
+            "--train-ann", two, "--val-images", tr_dir, "--val-ann", two, "--max-val-images", str(FOLDER_VAL),
+            "--imgsz", str(IMGSZ), "--batch-size", str(BATCH), "--epochs", "2", "--unfreeze-epoch", "1",
+            "--seed", str(seed), "--out-dir", tl])
+        cover = [ln for ln in out.splitlines() if "transfer init from" in ln]
+        skipped = int(cover[0].split("loaded, ")[1].split(" ")[0]) if cover else 0
+        vals = [ln.split(" ", 2)[2] for ln in out.splitlines() if " VAL epoch " in ln]
+        need = ("head reset to fresh random init", "UNFREEZE backbone at epoch 2", "RUN END best mAP50-95=")
+        if (not skipped or len(vals) != 2 or "VAL failed" in out or any(s not in out for s in need)
+                or not os.path.exists(os.path.join(tl, "best.npz"))):
+            fail(f"transfer CLI:\n{out[-3000:]}")
+        print(f"transfer CLI (python -m leanyolo_tpu_torch.tools.transfer_learn, 3-class ckpt.npz onto 2 classes, "
+              f"bf16, host letterbox, unfreeze at epoch 2 of 2) in {wall:.1f} s wall: {cover[0].split(' ', 2)[2]}; "
+              f"{vals}; best.npz written; {card}", flush=True)
+
+
 def sm_clock_hz() -> float:
     """The card's maximum SM clock (nvidia-smi), for the special-function floor."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -1988,6 +2287,9 @@ def main() -> int:
         phase_train(SEED, records)
     phase_train_times(SEED, records)
     done("train")
+    with torch.enable_grad():
+        phase_train_folder(SEED, records, card)
+    done("train from a folder")
 
     print(card, flush=True)
     print(json.dumps({"kernels": list(records.values())}), flush=True)

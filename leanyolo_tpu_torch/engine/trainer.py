@@ -20,7 +20,11 @@ step for step:
   updates amount to; the schedule advances all the same;
 - mixed precision is bf16 activations over fp32 parameters and gradients;
   the loss runs in fp32 on head maps upcast level by level;
-- BN running statistics advance in the forward (layers.BatchNorm).
+- BN running statistics advance in the forward (layers.BatchNorm), once a
+  step also under activation checkpointing (`remat="full"`);
+- with `device_preprocess` the step takes a `DeviceBatch` (raw pixels on a
+  fixed canvas) and letterboxes it on the device, mapping the GT boxes as
+  x * gain + pad, then augments or casts as the host path does.
 
 It runs on the card unless the caller names another device.
 """
@@ -36,6 +40,7 @@ import torch
 
 from ..models.yolov10.losses import detection_loss_v10
 from ..models.yolov10.model import YOLOv10
+from ..ops.letterbox import letterbox_batch
 
 Tensor = torch.Tensor
 
@@ -55,12 +60,15 @@ class TrainConfig:
     p_hflip: float = 0.5
     p_bc: float = 0.5
     steps_per_epoch: int = 100  # for the per-epoch schedule
-    #: 'none' only; 'full' (activation checkpointing) is a later slice: under
-    #: torch.utils.checkpoint the recomputed forward would advance the BN
-    #: running statistics a second time.
+    #: 'none' keeps every activation for the backward; 'full' checkpoints
+    #: the forward node by node (YOLOv10.forward(remat=True)): the backward
+    #: recomputes the activations, one extra forward for less memory.
     remat: str = "none"
-    #: Device letterboxing; a later slice (with the cv2-free letterbox).
+    #: The step takes a DeviceBatch and letterboxes it on the device.
     device_preprocess: bool = False
+    #: Square letterbox size (device_preprocess: a DeviceBatch made for
+    #: another size raises; the host path takes its size from the dataset).
+    imgsz: int = 640
 
 
 def label_params(model: YOLOv10) -> Dict[str, str]:
@@ -152,20 +160,12 @@ class Trainer:
                  device: Optional[Union[str, torch.device]] = None) -> None:
         if mesh is not None:
             raise NotImplementedError("Trainer(mesh=...): data-parallel training (DDP) is the parallel slice, "
-                                      "ROADMAP Queue 1 item 9")
-        if cfg.device_preprocess:
-            raise NotImplementedError("TrainConfig.device_preprocess: the device letterbox comes with the "
-                                      "cv2-free letterbox slice, ROADMAP Queue 1 item 2")
-        if cfg.remat == "full":
-            raise NotImplementedError("TrainConfig.remat='full' is a later slice: under torch.utils.checkpoint "
-                                      "the recomputed forward would advance the BN running statistics twice")
-        if cfg.remat != "none":
-            raise ValueError(f"unknown remat mode {cfg.remat!r} (use 'none')")
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError("Trainer: no CUDA device; pass device='cpu' to train on the CPU")
-            device = "cuda"
-        self.device = torch.device(device)
+                                      "ROADMAP Queue 1 item 5")
+        if cfg.remat not in ("none", "full"):
+            raise ValueError(f"unknown remat mode {cfg.remat!r} (use 'none' or 'full')")
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Trainer: no CUDA device; pass device='cpu' to train on the CPU")
         self.model = model.to(self.device).train()
         if self.device.type == "cuda":
             self.model = self.model.to(memory_format=torch.channels_last)
@@ -197,12 +197,19 @@ class Trainer:
     def forward_backward(self, batch, generator: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
         """Augment, forward, loss and backward on `batch` (attributes images
         [B,S,S,3] uint8, gt_labels [B,N], gt_boxes [B,N,4] xyxy pixels,
-        gt_mask [B,N]); leaves the gradients in `.grad` (None for frozen
-        parameters) and returns the detached losses {'total', 'cls', 'reg'}."""
+        gt_mask [B,N]; or a DeviceBatch with device_preprocess); leaves the
+        gradients in `.grad` (None for frozen parameters) and returns the
+        detached losses {'total', 'cls', 'reg'}."""
         cfg = self.cfg
-        if hasattr(batch, "canvas"):
-            raise ValueError("batch/preprocess mismatch: a DeviceBatch needs TrainConfig.device_preprocess, "
-                             "which is a later slice; build the dataset with host preprocessing")
+        is_device_batch = hasattr(batch, "canvas")
+        if is_device_batch != cfg.device_preprocess:
+            raise ValueError(
+                f"batch/preprocess mismatch: TrainConfig.device_preprocess={cfg.device_preprocess} but the loader "
+                f"produced a {'DeviceBatch' if is_device_batch else 'host Batch'}; build the dataset with the "
+                "matching preprocess= mode")
+        if is_device_batch and batch.img_size != cfg.imgsz:
+            raise ValueError(f"batch/preprocess mismatch: the DeviceBatch's geometry is for a {batch.img_size} px "
+                             f"letterbox but TrainConfig.imgsz={cfg.imgsz}; build the dataset with img_size=imgsz")
         frozen = self.frozen
         for name, p in self.model.named_parameters():
             if name.split(".")[0] in ("backbone", "neck"):
@@ -210,10 +217,17 @@ class Trainer:
         self.opt.zero_grad(set_to_none=True)
 
         nb = self._nmax_bucket(batch.gt_mask)
-        images = self._tensor(batch.images)
         gt_labels = self._tensor(batch.gt_labels[:, :nb])
         gt_boxes = self._tensor(batch.gt_boxes[:, :nb])
         gt_mask = self._tensor(batch.gt_mask[:, :nb])
+        if is_device_batch:
+            # Warp the raw canvas to the letterbox square (fp32) and map the
+            # boxes from original pixels: x' = x * gain + pad.
+            images = letterbox_batch(self._tensor(batch.canvas), batch.new_hw, batch.pads, batch.hw, cfg.imgsz)
+            gainpad = self._tensor(batch.gainpad)
+            gt_boxes = gt_boxes * gainpad[:, None, [0, 1, 0, 1]] + gainpad[:, None, [2, 3, 2, 3]]
+        else:
+            images = self._tensor(batch.images)
         if cfg.augment:
             if generator is None:
                 raise ValueError("train_step: augment=True needs a torch.Generator")
@@ -222,7 +236,7 @@ class Trainer:
         else:
             images = images.to(self.dtype)
 
-        raw = self.model(images, dtype=self.dtype, concat_head=False)
+        raw = self.model(images, dtype=self.dtype, concat_head=False, remat=cfg.remat == "full")
         raw = {k: [(r.float(), c.float()) for r, c in v] for k, v in raw.items()}
         mcfg = self.model.cfg
         losses = detection_loss_v10(raw, gt_labels, gt_boxes, gt_mask, num_classes=self.model.nc,

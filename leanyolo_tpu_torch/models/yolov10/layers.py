@@ -22,6 +22,13 @@ train step does after its update (`merge_bn_stats`): nothing in the forward
 reads them, so the order makes no difference. The SPPF max pools backpropagate
 through the mpbwd kernel wrapper (kernels/mpbwd.py).
 
+Activation checkpointing (`YOLOv10.forward(remat=True)`, the trainer's
+`remat="full"`): the model's nodes run through `segment`, which wraps each in
+a non-reentrant `torch.utils.checkpoint`; the backward recomputes a node's
+activations from its input. The recomputed forward leaves the BN running statistics alone
+(`_recomputing`), so they advance once a step, as JAX's do where they are an
+output of the checkpointed forward.
+
 Folding (fold.py) routes the serving forward through the other kernel
 wrappers: dense 1x1 convs become `MatmulConv` (kernels/matmul.py), the
 dense 3x3 32 -> 32 convs `S2DConvBNAct` (kernels/s2dconv.py), RepVGGDW
@@ -30,7 +37,9 @@ dense 3x3 32 -> 32 convs `S2DConvBNAct` (kernels/s2dconv.py), RepVGGDW
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -43,6 +52,34 @@ BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
 
 Tensor = torch.Tensor
+
+_remat = threading.local()  # .recomputing: inside a checkpoint's recompute
+
+
+@contextlib.contextmanager
+def _recomputing():
+    before = getattr(_remat, "recomputing", False)
+    _remat.recomputing = True
+    try:
+        yield
+    finally:
+        _remat.recomputing = before
+
+
+def _checkpoint_contexts():
+    return contextlib.nullcontext(), _recomputing()
+
+
+def segment(on: bool, fn, *args, **kwargs):
+    """fn(*args, **kwargs), checkpointed when `on` and autograd records: the
+    backward recomputes fn's activations from its inputs (the forward draws
+    no random numbers, so no RNG state is kept)."""
+    if not (on and torch.is_grad_enabled()):
+        return fn(*args, **kwargs)
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=_checkpoint_contexts, **kwargs)
 
 
 def _uniform(shape, bound: float, generator: Optional[torch.Generator]) -> nn.Parameter:
@@ -162,7 +199,8 @@ class BatchNorm(nn.Module):
     eval mode mean and var are the running statistics. In training mode
     they are the batch's (`_BatchMoments`, differentiated through), and the
     running statistics advance as (1 - 0.03) old + 0.03 new, with the
-    unbiased batch variance var * n / (n - 1) (JAX `merge_bn_stats`).
+    unbiased batch variance var * n / (n - 1) (JAX `merge_bn_stats`), except
+    in a checkpoint's recompute, which already advanced them.
     """
 
     def __init__(self, c: int) -> None:
@@ -182,14 +220,18 @@ class BatchNorm(nn.Module):
         if self.training:
             mean, var = _BatchMoments.apply(y)
             n = y.numel() // y.shape[1]
-            with torch.no_grad():
-                unbiased = var * (n / max(n - 1, 1))
-                self.running_mean.copy_((1.0 - BN_MOMENTUM) * self.running_mean + BN_MOMENTUM * mean)
-                self.running_var.copy_((1.0 - BN_MOMENTUM) * self.running_var + BN_MOMENTUM * unbiased)
+            if not getattr(_remat, "recomputing", False):
+                self._advance(mean, var, n)
             mul, add = self.mul_add(mean, var)
         else:
             mul, add = self.mul_add()
         return y * mul.to(y.dtype).view(1, -1, 1, 1) + add.to(y.dtype).view(1, -1, 1, 1)
+
+    @torch.no_grad()
+    def _advance(self, mean: Tensor, var: Tensor, n: int) -> None:
+        unbiased = var * (n / max(n - 1, 1))
+        self.running_mean.copy_((1.0 - BN_MOMENTUM) * self.running_mean + BN_MOMENTUM * mean)
+        self.running_var.copy_((1.0 - BN_MOMENTUM) * self.running_var + BN_MOMENTUM * unbiased)
 
 
 class ConvBNAct(nn.Module):

@@ -13,6 +13,7 @@ numbers.
 from __future__ import annotations
 
 import copy
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -75,12 +76,13 @@ class Backbone(nn.Module):
         x = images.to(dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         return self.cv1(self.cv0(x))
 
-    def forward(self, images: Tensor, dtype: torch.dtype) -> Tuple[Tensor, Tensor, Tensor]:
-        x = self.c2(self.stem(images, dtype))
-        c3 = self.c4(self.cv3(x))
-        c4 = self.c6(self.sc5(c3))
-        x = self.c8(self.sc7(c4))
-        c5 = self.psa10(self.sppf9(x))
+    def forward(self, images: Tensor, dtype: torch.dtype, remat: bool = False) -> Tuple[Tensor, Tensor, Tensor]:
+        seg = functools.partial(L.segment, remat)  # each node a checkpoint segment when remat
+        x = seg(self.c2, seg(self.stem, images, dtype))
+        c3 = seg(self.c4, seg(self.cv3, x))
+        c4 = seg(self.c6, seg(self.sc5, c3))
+        x = seg(self.c8, seg(self.sc7, c4))
+        c5 = seg(self.psa10, seg(self.sppf9, x))
         return c3, c4, c5
 
 
@@ -102,11 +104,12 @@ class Neck(nn.Module):
         self.p4_p5_c2f = L.C2f(hch[19] + c5, hch[22], reps.get(22, 1), shortcut=True, lk=cfg.use_lk_p4_p5,
                                generator=g)
 
-    def forward(self, c3: Tensor, c4: Tensor, c5: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
-        p4 = self.p5_p4_c2f((c5, c4))
-        p3 = self.p4_p3_c2f((p4, c3))
-        p4 = self.p3_p4_c2f(L._cat((self.p3_down(p3), p4)))
-        p5 = self.p4_p5_c2f(L._cat((self.p4_down(p4), c5)))
+    def forward(self, c3: Tensor, c4: Tensor, c5: Tensor, remat: bool = False) -> Tuple[Tensor, Tensor, Tensor]:
+        seg = functools.partial(L.segment, remat)
+        p4 = seg(self.p5_p4_c2f, (c5, c4))
+        p3 = seg(self.p4_p3_c2f, (p4, c3))
+        p4 = seg(self.p3_p4_c2f, L._cat((seg(self.p3_down, p3), p4)))
+        p5 = seg(self.p4_p5_c2f, L._cat((seg(self.p4_down, p4), c5)))
         return p3, p4, p5
 
 
@@ -165,6 +168,17 @@ class Head(nn.Module):
         return out
 
 
+def reset_head(model: "YOLOv10", seed: int) -> None:
+    """Replace `model.head`, in place and on the model's device, by a fresh
+    head (JAX `head_init`, the training CLIs' --head-reset): every leaf drawn
+    anew from a CPU generator seeded with `seed + 1`, the one2one branches
+    exact copies of the one2many ones. The draws are the port's init, not
+    JAX's PRNG stream."""
+    p = next(model.parameters())
+    head = Head(model.nc, model.cfg.neck_out, model.cfg.reg_max, generator=torch.Generator().manual_seed(seed + 1))
+    model.head = head.to(p.device).train(model.training)
+
+
 class YOLOv10(nn.Module):
     """Normalize -> backbone -> neck -> head.
 
@@ -202,12 +216,15 @@ class YOLOv10(nn.Module):
         branches: Tuple[str, ...] = ("one2many", "one2one"),
         normalize: bool = True,
         concat_head: bool = True,
+        remat: bool = False,
     ) -> Dict[str, List]:
         """images: [B, H, W, C] NHWC, raw pixels (uint8 or float).
 
         dtype: compute dtype (default: the images' float dtype, else fp32).
         normalize: False when the normalization is folded into conv0 (fold.py).
         concat_head: False returns per-level (reg, cls) NHWC tuples.
+        remat: activation checkpointing (the trainer's remat="full"): each
+        backbone and neck node and each head branch is a checkpoint segment.
         Returns {branch: [P3, P4, P5]} NHWC maps.
 
         In training mode (`.train()`) every BN normalizes with its batch's
@@ -221,6 +238,6 @@ class YOLOv10(nn.Module):
         x = images
         if normalize:
             x = (x.to(dtype) - self.input_subtract.to(dtype)) / self.input_divide.to(dtype)
-        c3, c4, c5 = self.backbone(x, dtype)
-        p3, p4, p5 = self.neck(c3, c4, c5)
-        return {b: self.head((p3, p4, p5), branch=b, concat=concat_head) for b in branches}
+        c3, c4, c5 = self.backbone(x, dtype, remat)
+        p3, p4, p5 = self.neck(c3, c4, c5, remat)
+        return {b: L.segment(remat, self.head, (p3, p4, p5), branch=b, concat=concat_head) for b in branches}

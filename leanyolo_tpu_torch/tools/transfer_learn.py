@@ -1,0 +1,179 @@
+"""Transfer-learning CLI: pretrained weights, head reset, backbone+neck frozen
+then unfrozen, bf16, augmentation, a COCO evaluation each epoch.
+
+Counterpart of the JAX package's `tools/transfer_learn.py` without its
+training snapshots (--viz-interval, --viz-conf) and its data-parallel and
+distributed options: a backbone lr multiplier (0.1), warmup then cosine,
+grad clip 1.0, bf16 activations unless --no-amp, hflip and brightness/
+contrast unless --no-augment, the backbone and neck frozen until
+--unfreeze-epoch, `best.npz` by mAP50-95, `epochNNN.npz` and `ckpt.npz`,
+and `train.log` beside the stream log with the JAX CLI's lines. A local
+weights file loads leniently (`load_checkpoint_transfer`: a pretraining
+run's class count need not match); anything else goes through `get_model`.
+Runs on the card unless --device names another.
+
+Example:
+    python -m leanyolo_tpu_torch.tools.transfer_learn --weights pretrain/ckpt.npz \\
+        --train-images d/train --train-ann d/train/ann.json --val-images d/valid --val-ann d/valid/ann.json
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import time
+from pathlib import Path
+from typing import Optional, Sequence
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description="leanyolo_tpu_torch transfer learning")
+    p.add_argument("--model", default="yolov10s")
+    p.add_argument("--weights", default="PRETRAINED_COCO")
+    p.add_argument("--train-images", required=True)
+    p.add_argument("--train-ann", required=True)
+    p.add_argument("--val-images", required=True)
+    p.add_argument("--val-ann", required=True)
+    p.add_argument("--imgsz", type=int, default=640)
+    p.add_argument("--epochs", type=int, default=50)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--bb-lr-mult", type=float, default=0.1)
+    p.add_argument("--weight-decay", type=float, default=5e-4)
+    p.add_argument("--warmup-epochs", type=int, default=2)
+    p.add_argument("--grad-clip", type=float, default=1.0)
+    p.add_argument("--unfreeze-epoch", type=int, default=5)
+    p.add_argument("--no-freeze-backbone", action="store_true")
+    p.add_argument("--no-head-reset", action="store_true")
+    p.add_argument("--no-amp", action="store_true", help="disable bf16 compute")
+    p.add_argument("--no-augment", action="store_true")
+    p.add_argument("--max-boxes", type=int, default=128)
+    p.add_argument(
+        "--preprocess", choices=["host", "device"], default="host",
+        help="'device' runs the letterbox warp and the GT-box map in the train step (the host only decodes "
+        "and copies)",
+    )
+    p.add_argument("--max-images", type=int, default=None, help="train on the first N images")
+    p.add_argument("--max-val-images", type=int, default=None, help="evaluate on the first N images")
+    p.add_argument("--eval-every", type=int, default=1, help="evaluate every N epochs")
+    p.add_argument("--workers", type=int, default=8)
+    p.add_argument("--eval-conf", type=float, default=0.001, help="per-epoch eval score threshold")
+    p.add_argument("--eval-iou", type=float, default=0.65, help="per-epoch eval NMS IoU")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--out-dir", default="runs/transfer")
+    p.add_argument("--device", default="cuda", help="where to train: 'cuda' (default) or 'cpu'")
+    return p.parse_args(argv)
+
+
+def setup_logger(out_dir: Path) -> logging.Logger:
+    """`train.log` in out_dir plus the stream, one format for both."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    logger = logging.getLogger("transfer")
+    logger.setLevel(logging.INFO)
+    for h in list(logger.handlers):
+        logger.removeHandler(h)
+        h.close()
+    fmt = logging.Formatter("%(asctime)s %(message)s")
+    for h in (logging.FileHandler(out_dir / "train.log"), logging.StreamHandler()):
+        h.setFormatter(fmt)
+        logger.addHandler(h)
+    return logger
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    args = parse_args(argv)
+
+    import torch
+
+    from ..data.dataset import CocoDetection, DataLoader
+    from ..engine.predictor import Predictor
+    from ..engine.trainer import TrainConfig, Trainer
+    from ..engine.validator import validate_coco
+    from ..models.registry import get_model, load_checkpoint_transfer, save_checkpoint
+    from ..models.yolov10.model import reset_head
+
+    out_dir = Path(args.out_dir)
+    log = setup_logger(out_dir)
+    log.info(f"RUN START args={vars(args)}")
+
+    with open(args.train_ann, "r", encoding="utf-8") as f:
+        cats = json.load(f)["categories"]
+    class_names = [c["name"] for c in sorted(cats, key=lambda c: c["id"])]
+    log.info(f"classes: {class_names}")
+
+    weights = None if args.weights in (None, "none", "None", "") else args.weights
+    if weights is not None and Path(weights).is_file():
+        # Lenient: the class-dependent head leaves of another class count
+        # keep their fresh init (and the head is reset below anyway).
+        model = get_model(args.model, weights=None, class_names=class_names, seed=args.seed)
+        stats = load_checkpoint_transfer(model, weights)
+        log.info(f"transfer init from {weights}: {stats['loaded']}/{stats['total']} leaves loaded, "
+                 f"{len(stats['skipped'])} shape-mismatched kept fresh")
+    else:
+        model = get_model(args.model, weights=weights, class_names=class_names, seed=args.seed)
+    if not args.no_head_reset:
+        reset_head(model, args.seed)
+        log.info("head reset to fresh random init")
+
+    ds = CocoDetection(args.train_images, args.train_ann, img_size=args.imgsz, max_images=args.max_images,
+                       preprocess=args.preprocess)
+    loader = DataLoader(ds, batch_size=args.batch_size, shuffle=True, max_boxes=args.max_boxes,
+                        workers=args.workers, seed=args.seed)
+    steps_per_epoch = max(1, len(loader))
+
+    cfg = TrainConfig(
+        lr=args.lr,
+        weight_decay=args.weight_decay,
+        epochs=args.epochs,
+        warmup_epochs=args.warmup_epochs,
+        bb_lr_mult=args.bb_lr_mult,
+        freeze_backbone=not args.no_freeze_backbone,
+        unfreeze_epoch=args.unfreeze_epoch,
+        grad_clip=args.grad_clip,
+        bf16=not args.no_amp,
+        augment=not args.no_augment,
+        steps_per_epoch=steps_per_epoch,
+        device_preprocess=args.preprocess == "device",
+        imgsz=args.imgsz,
+    )
+    trainer = Trainer(model, cfg, device=args.device)
+    gen = torch.Generator(device=trainer.device).manual_seed(args.seed)
+    eval_predictor = Predictor(model, imgsz=args.imgsz, decode="topk", conf_thresh=args.eval_conf,
+                               iou_thresh=args.eval_iou, device=trainer.device)
+
+    best_map = -1.0
+    for epoch in range(args.epochs):
+        if cfg.freeze_backbone and epoch == args.unfreeze_epoch:
+            log.info(f"UNFREEZE backbone at epoch {epoch + 1}")
+        t0 = time.perf_counter()
+        last = None
+        for batch in loader:
+            last = trainer.train_step(batch, gen)
+        running = {k: (float(last[k]) if last is not None else 0.0) for k in ("total", "cls", "reg")}
+        dt = time.perf_counter() - t0
+        log.info(f"EPOCH {epoch + 1}/{args.epochs} loss={running['total']:.4f} "
+                 f"cls={running['cls']:.4f} reg={running['reg']:.4f} time={dt:.1f}s")
+
+        if (epoch + 1) % max(1, args.eval_every) == 0:
+            try:
+                stats = validate_coco(model, images_dir=args.val_images, ann_json=args.val_ann, imgsz=args.imgsz,
+                                      batch_size=args.batch_size, decode="topk", conf_thresh=args.eval_conf,
+                                      iou_thresh=args.eval_iou, max_images=args.max_val_images,
+                                      workers=args.workers, predictor=eval_predictor)
+                log.info(f"VAL epoch {epoch + 1} mAP50-95={stats['map_50_95']:.5f} mAP50={stats['map_50']:.5f}")
+                if stats["map_50_95"] > best_map:
+                    best_map = stats["map_50_95"]
+                    save_checkpoint(model, str(out_dir / "best.npz"),
+                                    extra_meta={"epoch": epoch + 1, "map_50_95": best_map})
+            except Exception as e:  # a failed evaluation does not stop training, as in the JAX CLI
+                log.info(f"VAL failed: {e}")
+
+        save_checkpoint(model, str(out_dir / f"epoch{epoch + 1:03d}.npz"), extra_meta={"epoch": epoch + 1})
+
+    save_checkpoint(model, str(out_dir / "ckpt.npz"))
+    log.info(f"RUN END best mAP50-95={best_map:.5f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -41,6 +41,7 @@ from leanyolo_tpu.models.yolov10.layers import BNStats, merge_bn_stats
 from leanyolo_tpu.models.yolov10.losses import detection_loss_v10 as jax_loss
 from leanyolo_tpu.models.yolov10.model import YOLOv10 as JYOLOv10, model_apply
 from leanyolo_tpu_torch import TrainConfig, Trainer, YOLOv10
+from leanyolo_tpu_torch.data.dataset import DeviceBatch
 from leanyolo_tpu_torch.engine import trainer as TTr
 from leanyolo_tpu_torch.models.yolov10.convert import (
     export_jax_params,
@@ -335,20 +336,33 @@ def test_nmax_bucket_slices_the_gt_arrays():
 
 
 def test_trainer_device_and_unported_options():
+    """Without a card the trainer raises unless asked for the CPU; device
+    letterboxing and activation checkpointing construct and step on the CPU
+    (their parity with JAX: test_torch_train_device.py); `mesh=` (the
+    parallel slice) and unknown remat modes raise; augmentation needs a
+    Generator."""
     model = YOLOv10.create("yolov10n", class_names=["a"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Trainer(model, TrainConfig())
-    for kw, match in ((dict(device_preprocess=True), "letterbox"), (dict(remat="full"), "BN running")):
-        with pytest.raises(NotImplementedError, match=match):
-            Trainer(model, TrainConfig(**kw), device="cpu")
+    host = _batch(0, s=32)
+    host.gt_labels[:] = 0  # one class
+    rng = np.random.RandomState(1)
+    device = DeviceBatch(rng.randint(0, 256, (B, 64, 64, 3)).astype(np.uint8), np.asarray([[24, 32]] * B, np.int32),
+                         np.asarray([[0, 4]] * B, np.int32), np.asarray([[48, 64]] * B, np.int32),
+                         np.asarray([[0.5, 0.5, 0, 4]] * B, np.float32), host.gt_labels, host.gt_boxes * 2,
+                         host.gt_mask, [None] * B, 32)
+    for kw, batch in ((dict(device_preprocess=True, imgsz=32), device), (dict(remat="full"), host)):
+        tr = Trainer(model, TrainConfig(augment=False, **kw), device="cpu")
+        losses = tr.train_step(batch)
+        assert tr.global_step == 1 and all(np.isfinite(float(v)) for v in losses.values()), kw
     with pytest.raises(NotImplementedError, match="DDP"):
         Trainer(model, TrainConfig(), mesh=object(), device="cpu")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="remat"):
         Trainer(model, TrainConfig(remat="some"), device="cpu")
     tr = Trainer(model, TrainConfig(augment=True), device="cpu")
     with pytest.raises(ValueError, match="Generator"):
-        tr.train_step(_batch(0, s=32))
+        tr.train_step(host)
 
 
 def test_export_inverts_load(setup):

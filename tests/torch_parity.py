@@ -56,3 +56,57 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
     return torch.device("cuda")
+
+
+MIXED_SIZES = ((72, 96), (96, 64), (100, 100), (48, 80), (120, 90))
+
+
+def make_mixed_coco(root, *, n_images: int = 10, sizes=MIXED_SIZES, seed: int = 0, noise=(90, 130)):
+    """A learnable COCO-format set at mixed image sizes (`make_learnable_coco`'s
+    classes: a red rectangle, a green circle and a blue triangle on uniform
+    noise in [noise[0], noise[1])), written as JPEGs with cv2, so a device
+    letterbox really resizes. Category ids are 1-3; every entry carries its
+    height and width. Returns (images_dir, annotations.json path).
+
+    Train-step parity against JAX wants full-range noise, (0, 256): on the
+    default low-contrast background the deepest batch-stat BNs of a random
+    yolov10n at 96 px see near-zero variances, and the two packages' fp32
+    train-mode head maps differ by about 1% of scale from identical float
+    input (fp32 summation order through the one-pass variance), though the
+    losses on identical maps agree to 1e-6."""
+    import json
+    import os
+
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir, exist_ok=True)
+    images, anns = [], []
+    for i in range(n_images):
+        h, w = sizes[i % len(sizes)]
+        img = rng.randint(noise[0], noise[1], (h, w, 3)).astype(np.uint8)
+        for _ in range(int(rng.randint(1, 4))):
+            cls = int(rng.randint(0, 3))
+            s = int(rng.uniform(0.2, 0.45) * min(h, w))
+            x, y = int(rng.uniform(0, w - s - 1)), int(rng.uniform(0, h - s - 1))
+            color = tuple(int(c) for c in np.clip(np.asarray([(40, 40, 200), (40, 200, 40), (200, 40, 40)][cls])
+                                                   + rng.randint(-25, 26, 3), 0, 255))
+            if cls == 0:
+                cv2.rectangle(img, (x, y), (x + s, y + s), color, -1)
+            elif cls == 1:
+                cv2.circle(img, (x + s // 2, y + s // 2), s // 2, color, -1)
+            else:
+                cv2.fillPoly(img, [np.asarray([[x + s // 2, y], [x, y + s], [x + s, y + s]], np.int32)], color)
+            anns.append({"id": len(anns) + 1, "image_id": i + 1, "category_id": cls + 1,
+                         "bbox": [float(x), float(y), float(s + 1), float(s + 1)], "area": float((s + 1) ** 2),
+                         "iscrowd": 0})
+        name = f"img_{i:04d}.jpg"
+        cv2.imwrite(os.path.join(img_dir, name), img)
+        images.append({"id": i + 1, "file_name": name, "width": w, "height": h})
+    ann_path = os.path.join(root, "annotations.json")
+    with open(ann_path, "w", encoding="utf-8") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": k + 1, "name": n} for k, n in enumerate(("rect", "circle", "triangle"))]},
+                  f)
+    return img_dir, ann_path
