@@ -86,11 +86,15 @@ Phases, each of which fails loudly (non-zero exit):
    run scores 64
    images, launches the path's kernels per batch, saves detections
    bit-equal to run_batch's (run_canvas's) on the same batches, and
-   re-scored in a fresh evaluator they give the same stats. Printed: each
+   re-scored in a fresh evaluator they give the same stats. With viz_dir
+   (host letterbox named by file, device letterbox by id) it draws one image
+   an image, at the letterbox's or the original's size, its stats unchanged.
+   Printed: each
    run's stats, wall time and images per second, the host's and the
    device's share of a run (the evaluator with and without the crowd
    regions), measure_fps at batch 1, and the validation CLI
-   driven once in a subprocess (mAP line, a 27-column CSV row);
+   driven once in a subprocess (mAP line, a 27-column CSV row, 16 images
+   drawn by --viz-dir, the row's viz_dir column);
 11. training from a folder: a COCO-format set of shapes of fixed class on
    noise (64 train and 32 val JPEGs at COCO-like sizes) feeds
    DataLoader(shuffle=True) and Trainer (yolov10s 640 bf16, batch 32,
@@ -108,7 +112,28 @@ Phases, each of which fails loudly (non-zero exit):
    the uninterrupted run's bit for bit (cuDNN and PyTorch deterministic),
    and the transfer CLI from the train CLI's 3-class ckpt.npz onto 2
    classes (the head leaves skipped, UNFREEZE at epoch 2, a VAL line each
-   epoch, best.npz), each CLI's wall time printed.
+   epoch, best.npz, --viz-interval 2 snapshots named by step), each CLI's
+   wall time printed;
+12. drawing and export (run last): K5's bf16 arithmetic mode bit-equal
+   to its plain version (keep masks at IoU 0.45, 0.451 and 0.65 with valid
+   masks, and the compaction, class-wise and not) at 8, 32 and 66 images a
+   launch and n in {63, 1000, 1500}, and decode_direct_nms on bf16 maps at
+   batch 8 and 32 bit-equal to its plain versions; the host cost of a
+   kernel call through its torch.library operator against its CUDA
+   implementation called directly and the binding's call alone (dw7x7,
+   in turns), with Predictor.run_batch's wall at batch 1 and 32 and the
+   operators' share of it; yolov10s 640 bf16 folded serving artifacts of
+   both decodes (top-k; class-wise NMS at 0.25 / 0.45) exported with a
+   symbolic batch, saved and loaded (each timed), run at batch 1, 8 and 32
+   bit-equal to the live build_serving_fn with every kernel's launches
+   counted per call (stem 1, dw7x7 2, s2dconv 2, bmm 45 on their bf16
+   routes, top-k 1, and argmax 1 or nms 1) and request times against the
+   live module and Predictor.run_batch; an fp32 artifact against the CPU
+   port's live module at 128 px; a bucketed (320, 640) export serving five
+   mixed-size images equal to the live module of each bucket; the inference
+   CLI in a subprocess (bf16 NMS, three JPEGs and an unreadable file: its
+   box lines equal to predict_images in process, drawn images at their own
+   sizes) and update_demo_viz.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.
@@ -1677,10 +1702,33 @@ def phase_validation(model, seed: int, card: str) -> None:
         print(f"validation measure_fps (bf16 top-k folded, batch 1, 30 iterations): {fps:.2f} img/s; {card}",
               flush=True)
 
+        # Drawing: validate_coco(viz_dir=) writes one image an image scored,
+        # named by the mode, in the consumer behind the card; the stats are
+        # those of the run without it.
+        for mode, preprocess in (("file", "host"), ("id", "device")):
+            vdir = os.path.join(tmp, f"viz_{mode}")
+            st = validate_coco(loaded, images_dir=images_dir, ann_json=ann, imgsz=IMGSZ, batch_size=VAL_BATCH,
+                               workers=8, predictor=predb, preprocess=preprocess, viz_dir=vdir, viz_name_mode=mode)
+            names = sorted(os.listdir(vdir))
+            want = sorted(e["file_name"] if mode == "file" else f"{e['id']}.jpg" for e in entries)
+            from PIL import Image
+
+            sizes = {Image.open(os.path.join(vdir, n)).size for n in names}
+            ref = stats[f"bf16 top-k {preprocess}"]
+            print(f"validation bf16 top-k {preprocess} with viz_dir (names by {mode}): {len(names)} images drawn, "
+                  f"sizes {sorted(sizes)}; {st['wall_s']:.4f} s wall against {ref['wall_s']:.4f} s without; "
+                  f"stats unchanged {all(st[k] == ref[k] for k in again)}; {card}", flush=True)
+            if names != want or any(st[k] != ref[k] for k in again):
+                fail(f"validation viz ({mode}, {preprocess}): files {names[:4]}..., expected {want[:4]}...")
+            if (preprocess == "host") != (sizes == {(IMGSZ, IMGSZ)}):
+                fail(f"validation viz ({mode}, {preprocess}): drawn image sizes {sorted(sizes)}")
+
         # The CLI, as a user runs it.
         log = os.path.join(tmp, "val_log.csv")
+        cli_viz = os.path.join(tmp, "cli_viz")
         cmd = [sys.executable, "-m", "leanyolo_tpu_torch.tools.val", "--model", "yolov10s", "--weights", npz,
-               "--images-dir", images_dir, "--ann-json", ann, "--max-images", "16", "--log-csv", log]
+               "--images-dir", images_dir, "--ann-json", ann, "--max-images", "16", "--log-csv", log,
+               "--viz-dir", cli_viz, "--viz-name-mode", "index"]
         t0 = time.perf_counter()
         r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600)
         cli_s = time.perf_counter() - t0
@@ -1692,9 +1740,12 @@ def phase_validation(model, seed: int, card: str) -> None:
         if len(rows) != 2 or any(len(row) != 27 for row in rows):
             fail(f"validation CLI: the log has {len(rows)} lines of {[len(row) for row in rows]} columns")
         row = dict(zip(rows[0], rows[1]))
-        if (row["runtime"], row["device"], row["n_images"]) != ("torch", "cuda", "16"):
+        if (row["runtime"], row["device"], row["n_images"], row["viz_dir"]) != ("torch", "cuda", "16", cli_viz):
             fail(f"validation CLI: row {row}")
-        print(f"validation CLI (python -m leanyolo_tpu_torch.tools.val, fp32 unfolded, 16 images) in {cli_s:.1f} s: "
+        if sorted(os.listdir(cli_viz)) != [f"{i:06d}.jpg" for i in range(16)]:
+            fail(f"validation CLI: --viz-dir holds {sorted(os.listdir(cli_viz))[:4]}...")
+        print(f"validation CLI (python -m leanyolo_tpu_torch.tools.val, fp32 unfolded, 16 images, 16 drawn by "
+              f"index) in {cli_s:.1f} s: "
               f"{line[0]}; CSV row of 27 columns, runtime {row['runtime']}, device {row['device']} "
               f"({row['device_name']})", flush=True)
 
@@ -2185,7 +2236,7 @@ def phase_train_folder(seed: int, records: dict, card: str) -> None:
             "--model", "yolov10s", "--weights", os.path.join(full, "ckpt.npz"), "--train-images", tr_dir,
             "--train-ann", two, "--val-images", tr_dir, "--val-ann", two, "--max-val-images", str(FOLDER_VAL),
             "--imgsz", str(IMGSZ), "--batch-size", str(BATCH), "--epochs", "2", "--unfreeze-epoch", "1",
-            "--seed", str(seed), "--out-dir", tl])
+            "--seed", str(seed), "--viz-interval", "2", "--out-dir", tl])
         cover = [ln for ln in out.splitlines() if "transfer init from" in ln]
         skipped = int(cover[0].split("loaded, ")[1].split(" ")[0]) if cover else 0
         vals = [ln.split(" ", 2)[2] for ln in out.splitlines() if " VAL epoch " in ln]
@@ -2193,9 +2244,373 @@ def phase_train_folder(seed: int, records: dict, card: str) -> None:
         if (not skipped or len(vals) != 2 or "VAL failed" in out or any(s not in out for s in need)
                 or not os.path.exists(os.path.join(tl, "best.npz"))):
             fail(f"transfer CLI:\n{out[-3000:]}")
+        snaps = sorted(os.listdir(os.path.join(tl, "viz")))
+        if not snaps or snaps[0] != "step000002.jpg" or out.count("[viz] saved:") != len(snaps):
+            fail(f"transfer CLI --viz-interval 2: snapshots {snaps}")
         print(f"transfer CLI (python -m leanyolo_tpu_torch.tools.transfer_learn, 3-class ckpt.npz onto 2 classes, "
               f"bf16, host letterbox, unfreeze at epoch 2 of 2) in {wall:.1f} s wall: {cover[0].split(' ', 2)[2]}; "
-              f"{vals}; best.npz written; {card}", flush=True)
+              f"{vals}; best.npz written; --viz-interval 2 snapshots {snaps}; {card}", flush=True)
+
+
+
+# Drawing and export.
+EXPORT_PER_CALL = {"stem": 1, "dw7x7": 2, "s2dconv": 2, "bmm": 45, "topk": 1, "argmax": 1, "nms": 0}
+EXPORT_PER_CALL_NMS = {"stem": 1, "dw7x7": 2, "s2dconv": 2, "bmm": 45, "topk": 1, "argmax": 0, "nms": 1}
+BUCKETS = (320, 640)
+BF16_NMS_THRESHOLDS = (0.45, 0.451, 0.65)  # 0.451 rounds up in bf16
+DIRECT_LEVELS = ((80, 80), (40, 40), (20, 20))
+
+
+def host_us(fn, n: int = 2000) -> float:
+    """Host microseconds a call of fn() over n back-to-back calls after a
+    warm-up: the host's own cost where the card keeps up."""
+    import torch
+
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def wall_ms(fn, runs: int = 20) -> float:
+    """Median host milliseconds of fn() from an idle card to its finish."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+        return bool(torch.equal(a.view(view), b.view(view)))
+    return bool(torch.equal(a, b))
+
+
+def phase_dispatch(model, card: str) -> None:
+    """The host cost of a kernel call through its operator (the dispatcher,
+    then the wrapper's CUDA implementation) against the implementation
+    called directly and against the binding's ext() call alone, in turns;
+    then Predictor.run_batch wall times at batches 1 and 32."""
+    import numpy as np
+    import torch
+    from leanyolo_tpu_torch import Predictor
+    from leanyolo_tpu_torch.kernels import _build, dwconv
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    x = torch.randn(1, 20, 20, 512, generator=g, device="cuda").bfloat16()
+    w49 = dwconv.pack_weights(torch.randn(512, 1, 7, 7, generator=g, device="cuda")).bfloat16()
+    b = torch.randn(512, generator=g, device="cuda").bfloat16()
+    out, ext = torch.empty_like(x), _build.ext()
+    calls = {"operator": lambda: dwconv.dw7x7_bias_silu(x, w49, b),
+             "implementation": lambda: dwconv._dw7x7_cuda(x, w49, b),
+             "ext": lambda: ext.dw7x7(x, w49, b, out)}
+    us = {k: [] for k in calls}
+    for k in ("operator", "implementation", "ext", "ext", "implementation", "operator"):
+        us[k].append(host_us(calls[k]))
+    us = {k: statistics.mean(v) for k, v in us.items()}
+    pred = Predictor(model, imgsz=IMGSZ, decode="topk", dtype="bfloat16", fuse=True, max_det=MAX_DET)
+    rng = np.random.RandomState(SEED + 14)
+    reqs = {n: torch.from_numpy(rng.randint(0, 256, (n, IMGSZ, IMGSZ, 3)).astype(np.uint8)).cuda() for n in (1, BATCH)}
+    walls = {n: wall_ms(lambda n=n: pred.run_batch(reqs[n])) for n in (1, BATCH)}
+    calls_per_request = sum(PER_REQUEST.values())
+    added_ms = calls_per_request * (us["operator"] - us["implementation"]) / 1e3
+    share = added_ms / walls[1]
+    print(f"dispatch cost (dw7x7 at [1,20,20,512] bf16, host us a call, mean of 2 runs of 2000 in turns): through "
+          f"the operator {us['operator']:.2f}, its CUDA implementation called directly {us['implementation']:.2f}, "
+          f"ext().dw7x7 alone {us['ext']:.2f}; the dispatcher adds {us['operator'] - us['implementation']:.2f} us a "
+          f"call, the wrapper body {us['implementation'] - us['ext']:.2f}; {card}", flush=True)
+    print(f"Predictor.run_batch wall (bf16 top-k folded, uint8 on the card, median of 20, host clock to the card's "
+          f"finish): batch 1 {walls[1]:.4f} ms, batch 32 {walls[BATCH]:.4f} ms; {calls_per_request} operator calls "
+          f"a request add {added_ms:.4f} ms, {share * 100:.2f}% of the batch-1 wall; {card}", flush=True)
+
+
+def phase_nms_bf16(seed: int, records: dict) -> None:
+    """K5's bf16 arithmetic mode against its plain version (keep masks and
+    compaction bit-equal) at 8, 32 and 66 images a launch, and
+    decode_direct_nms on bf16 maps, kernels against plain versions."""
+    import torch
+    from leanyolo_tpu_torch import kernels
+    from leanyolo_tpu_torch.kernels import nms
+    from leanyolo_tpu_torch.models.yolov10.decode import decode_direct_nms
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 12)
+    flips = 0
+    for b in (8, BATCH, 66):
+        for n in (63, 1000, 1500):
+            for grid in (True, False):
+                boxes, scores, cls = (t.bfloat16() for t in nms_inputs(g, b, n, grid))
+                valid = torch.rand(b, n, generator=g, device="cuda") < 0.7
+                for thresh in BF16_NMS_THRESHOLDS:
+                    got, ref = nms.nms_keep(boxes, thresh, valid), nms.nms_keep_plain(boxes, thresh, valid)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, ref):
+                        fail(f"nms bf16 keep mask disagrees with its plain version: b={b} n={n} grid={grid} "
+                             f"iou={thresh}")
+                    flips += int((got != nms.nms_keep(boxes.float(), thresh, valid)).sum())
+            for class_wise in (False, True):
+                for conf, iou in NMS_SETTINGS.values():
+                    boxes, scores, cls = (t.bfloat16() for t in nms_inputs(g, b, n, False))
+                    kw = dict(iou_thresh=iou, conf_thresh=conf, max_det=MAX_DET, class_wise=class_wise)
+                    gd, gn = nms.nms_compact(boxes, scores, cls, **kw)
+                    rd, rn = nms.nms_compact_plain(boxes, scores, cls, **kw)
+                    torch.cuda.synchronize()
+                    if not (same_bits(gd, rd) and torch.equal(gn, rn)):
+                        fail(f"nms bf16 compaction disagrees with its plain version: b={b} n={n} "
+                             f"class_wise={class_wise} conf={conf} iou={iou}")
+        print(f"kernel nms bf16 mode [{b}, n] at n in (63, 1000, 1500): keep masks (grid and spread boxes, IoU "
+              f"{BF16_NMS_THRESHOLDS}, valid masks) and dets/num (class-wise and not, both threshold settings) "
+              f"bit-equal to the plain version", flush=True)
+    print(f"kernel nms bf16 mode vs fp32 mode on the same bf16 candidates: {flips} keep decisions differ "
+          f"(bf16 arithmetic is its own, not an upcast)", flush=True)
+    # decode_direct_nms on bf16 maps (the legacy direct-offset layout).
+    for b in (8, BATCH):
+        maps = []
+        for h, w in DIRECT_LEVELS:
+            box = torch.randn(b, h, w, 4, generator=g, device="cuda") * 0.5
+            logit = (torch.randn(b, h, w, NC, generator=g, device="cuda") * 3 - 4).mul(4).round().div(4)
+            maps.append(torch.cat([box, logit], -1).bfloat16())
+        kw = dict(num_classes=NC, strides=(8, 16, 32), conf_thresh=0.25, iou_thresh=0.45, max_det=MAX_DET)
+        kernels.reset_launches()
+        gd, gn = decode_direct_nms(maps, **kw)
+        torch.cuda.synchronize()
+        got = {k: kernels.LAUNCHES[k] for k in ("argmax", "topk", "nms")}
+        with plain_kernels():
+            rd, rn = decode_direct_nms(maps, **kw)
+        torch.cuda.synchronize()
+        if got != {"argmax": 1, "topk": 1, "nms": 1} or not (same_bits(gd, rd) and torch.equal(gn, rn)):
+            fail(f"decode_direct_nms bf16 batch {b}: launches {got}, kernels and plain versions equal "
+                 f"{same_bits(gd, rd) and torch.equal(gn, rn)}")
+        print(f"decode_direct_nms on bf16 maps batch {b}: launches {got}, dets and num bit-equal to the plain "
+              f"versions' (num {gn.tolist()[:8]})", flush=True)
+    boxes, scores, cls = nms_inputs(g, BATCH, 1000, False)
+    kw = dict(iou_thresh=0.45, conf_thresh=0.25, max_det=MAX_DET, class_wise=True)
+    b16 = [t.bfloat16() for t in (boxes, scores, cls)]
+    records["nms"]["bf16_mode"] = "decode_direct_nms on bf16 maps: bit-equal to its plain version"
+    modes = {"bf16": lambda: nms.nms_compact(*b16, **kw), "fp32": lambda: nms.nms_compact(boxes, scores, cls, **kw)}
+    ms = {k: [] for k in modes}
+    for k in ("bf16", "fp32", "fp32", "bf16"):
+        ms[k].append(cuda_ms(modes[k], inner=KERNEL_INNER))
+    records["nms"]["bf16_ms"] = statistics.mean(ms["bf16"])
+    records["nms"]["bf16_device_ms"] = device_ms(modes["bf16"])
+    records["nms"]["bf16_plain_ms"] = cuda_ms(lambda: nms.nms_compact_plain(*b16, **kw), warmup=1, runs=3)
+    print(f"kernel nms at [{BATCH},1000] class-wise, conf 0.25, IoU 0.45 (CUDA events, mean of 10 launches, median "
+          f"of 20, in turns bf16, fp32, fp32, bf16): bf16 mode {ms['bf16']}, fp32 mode {ms['fp32']} ms; bf16 "
+          f"device {records['nms']['bf16_device_ms']:.4f} ms; plain bf16 {records['nms']['bf16_plain_ms']:.3f} ms",
+          flush=True)
+
+
+def check_artifact(art, fn, xs: dict, per_call: dict, label: str) -> None:
+    """The artifact at each batch of xs: bit-equal to the live module, with
+    per_call launches of each kernel (the bf16 routes for stem, s2dconv, bmm)."""
+    import torch
+    from leanyolo_tpu_torch import kernels
+
+    for b, x in xs.items():
+        kernels.reset_launches()
+        got = art(x)
+        torch.cuda.synchronize()
+        counts = {k: kernels.LAUNCHES[k] for k in per_call}
+        routes = {r: kernels.LAUNCHES[r] for r in NEW_ROUTES}
+        with torch.no_grad():
+            ref = fn(x)
+        torch.cuda.synchronize()
+        if counts != per_call or any(routes[r] != per_call[of] for r, of in NEW_ROUTES.items()):
+            fail(f"{label} artifact batch {b}: launches {counts}, bf16 routes {routes}; expected {per_call}")
+        if not (same_bits(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+            fail(f"{label} artifact batch {b}: differs from the live build_serving_fn")
+        if tuple(got[0].shape) != (b, MAX_DET, 6) or not bool(torch.isfinite(got[0]).all()):
+            fail(f"{label} artifact batch {b}: dets {tuple(got[0].shape)}")
+        print(f"{label} artifact batch {b}: launches {counts} (bf16 routes {routes}); dets and num bit-equal to "
+              f"the live module; num {got[1].tolist()[:8]}", flush=True)
+
+
+def phase_export(model, seed: int, card: str) -> None:
+    """The serving export on the card (the module doc's item 12)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from leanyolo_tpu_torch import Predictor
+    from leanyolo_tpu_torch.export import serving as S
+    from leanyolo_tpu_torch.models.yolov10.decode import postprocess_to_original
+    from leanyolo_tpu_torch.ops.letterbox import choose_bucket, letterbox
+
+    rng = np.random.RandomState(seed + 11)
+    u8 = {b: rng.randint(0, 256, (b, IMGSZ, IMGSZ, 3)).astype(np.uint8) for b in (1, 8, BATCH)}
+    xs = {b: torch.from_numpy(a.astype(np.float32)).cuda() for b, a in u8.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        for decode, per_call in (("topk", EXPORT_PER_CALL), ("nms", EXPORT_PER_CALL_NMS)):
+            label = f"export bf16 {decode}"
+            fn, _ = S.build_serving_fn(model, imgsz=IMGSZ, decode=decode, dtype="bf16", conf=0.25, iou=0.45,
+                                       max_dets=MAX_DET)
+            t0 = time.perf_counter()
+            ep = S.export_program(fn)
+            t1 = time.perf_counter()
+            path = os.path.join(tmp, f"yolov10s_{decode}.pt2")
+            torch.export.save(ep, path)
+            t2 = time.perf_counter()
+            art = S.load_exported(path)
+            t3 = time.perf_counter()
+            packed = [k for k in ep.state_dict if k.endswith(("stem_w0p", "stem_w1p", ".wt", "w_s2d", "w49"))]
+            packed += [k for k in ep.constants if k.endswith(("stem_w0p", "stem_w1p", ".wt", "w_s2d", "w49"))]
+            print(f"{label}: export {t1 - t0:.2f} s, save {t2 - t1:.2f} s ({os.path.getsize(path) / 2**20:.1f} MiB), "
+                  f"load {t3 - t2:.2f} s; the program carries {len(packed)} packed kernel weights (stem_w0p, "
+                  f"stem_w1p, wt, w_s2d, w49)", flush=True)
+            check_artifact(art, fn, xs, per_call, label)
+            pred = Predictor(model, imgsz=IMGSZ, decode=decode, dtype="bfloat16", fuse=True, max_det=MAX_DET)
+            for b in (BATCH, 1):
+                xb = torch.from_numpy(u8[b]).cuda()
+                runs = {"artifact": lambda: art(xs[b]), "live": lambda: fn(xs[b]), "predictor": lambda: pred.run_batch(xb)}
+                ms = {k: [] for k in runs}
+                for k in ("artifact", "live", "predictor", "predictor", "live", "artifact"):
+                    ms[k].append(cuda_ms(runs[k]))
+                print(f"{label} request ms at batch {b} (CUDA events, median of 20 from an idle card, two runs in "
+                      f"turns): artifact {ms['artifact']}, live build_serving_fn {ms['live']}, Predictor.run_batch "
+                      f"{ms['predictor']}; {card}", flush=True)
+            dev = [device_ms(lambda: art(xs[BATCH]), reps=3), device_ms(lambda: fn(xs[BATCH]), reps=3),
+                   device_ms(lambda: fn(xs[BATCH]), reps=3), device_ms(lambda: art(xs[BATCH]), reps=3)]
+            print(f"{label} device ms at batch {BATCH} (profiler, 3 calls, in turns artifact, live, live, "
+                  f"artifact): {[round(v, 4) for v in dev]}; {card}", flush=True)
+            del fn, ep, art, pred
+            torch.cuda.empty_cache()
+
+        # fp32: the artifact on the card against the CPU port's live module, on
+        # a request like make_model's calibration images (at other sizes the
+        # calibrated net's scores saturate and no rank is decided).
+        path = S.export_serving(model, os.path.join(tmp, "fp32"), imgsz=IMGSZ, max_dets=MAX_DET)
+        got = S.load_exported(path)(xs[1])
+        with torch.no_grad():
+            ref = S.build_serving_fn(model, imgsz=IMGSZ, max_dets=MAX_DET, device="cpu")[0](xs[1].cpu())
+        gd, gn = got[0].cpu().numpy()[0], got[1].cpu()
+        rd, rn = ref[0].numpy()[0], ref[1]
+        # The top 300 of 8,400 scores lie closer together than fp32 noise, so
+        # rows are matched, not compared by rank: each CPU row to a distinct
+        # card row of its class within 1e-3 of score and 1e-3 of the image in
+        # box; only rows at the cut (within 1e-3 of the last score) may miss.
+        used, missed = np.zeros(len(gd), bool), []
+        for i, r in enumerate(rd):
+            near = (~used & (gd[:, 5] == r[5]) & (np.abs(gd[:, 4] - r[4]) <= 1e-3)
+                    & (np.abs(gd[:, :4] - r[:4]).max(1) <= 1e-3 * IMGSZ))
+            if near.any():
+                used[np.flatnonzero(near)[np.abs(gd[near, :4] - r[:4]).max(1).argmin()]] = True
+            else:
+                missed.append(i)
+        at_cut = all(rd[i, 4] - rd[-1, 4] <= 1e-3 for i in missed)
+        ok = torch.equal(gn, rn) and at_cut and len(missed) <= 10
+        print(f"export fp32 top-k at [1,{IMGSZ},{IMGSZ},3], card artifact vs the CPU port's live module: num "
+              f"{gn.tolist()} vs {rn.tolist()}; {len(rd) - len(missed)} of {len(rd)} CPU rows matched one to one by "
+              f"a card row of their class within 1e-3 of score and 1e-3 of {IMGSZ} px of box, the {len(missed)} "
+              f"others at the cut {at_cut}", flush=True)
+        if not ok:
+            fail("export fp32: the card's artifact disagrees with the CPU port")
+
+        # Bucketed: mixed-size images through BucketedServing against the live module per bucket.
+        t0 = time.perf_counter()
+        mpath = S.export_serving_bucketed(model, os.path.join(tmp, "buckets"), sizes=BUCKETS, dtype="bf16",
+                                          max_dets=MAX_DET)
+        t_b = time.perf_counter() - t0
+        sizes = ((300, 200), (480, 640), (1080, 1920), (250, 320), (640, 427))
+        imgs = [rng.randint(0, 256, hw + (3,)).astype(np.uint8) for hw in sizes]
+        served = S.BucketedServing(mpath).predict_images(imgs)
+        groups = {}
+        for i, img in enumerate(imgs):
+            groups.setdefault(choose_bucket(img.shape[:2], BUCKETS, max(BUCKETS)), []).append(i)
+        for size, idxs in groups.items():
+            fn = S.build_serving_fn(model, imgsz=size, dtype="bf16", max_dets=MAX_DET)[0]
+            lbs = [letterbox(imgs[i], size) for i in idxs]
+            x = torch.from_numpy(np.stack([lb.astype(np.float32) for lb, _, _ in lbs])).cuda()
+            with torch.no_grad():
+                dets, num = fn(x)
+            ref = postprocess_to_original(dets, num, [(g_, p_, imgs[i].shape[:2]) for (_, g_, p_), i in zip(lbs, idxs)],
+                                          decode="topk", conf_thresh=0.25, apply_conf_filter=True)
+            for i, r in zip(idxs, ref):
+                if not (served[i].shape == r.shape and np.array_equal(served[i], r)):
+                    fail(f"bucketed serving: image {imgs[i].shape[:2]} (bucket {size}) differs from the live module")
+        print(f"export bucketed bf16 top-k {BUCKETS}: exported in {t_b:.2f} s; {len(imgs)} images of sizes "
+              f"{list(sizes)} served in buckets {dict((s_, len(v)) for s_, v in groups.items())}, boxes per image "
+              f"{[len(d) for d in served]}, each equal to the live module of its bucket", flush=True)
+
+
+def phase_infer_cli(model, seed: int, card: str) -> None:
+    """The inference CLI in a subprocess and update_demo_viz in process, on
+    the card, from a checkpoint of `model`."""
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+    from leanyolo_tpu_torch import Predictor, get_model
+    from leanyolo_tpu_torch.data.coco import coco80_class_names
+    from leanyolo_tpu_torch.data.dataset import read_rgb
+    from leanyolo_tpu_torch.models.registry import save_checkpoint
+    from leanyolo_tpu_torch.tools import update_demo_viz
+
+    rng = np.random.RandomState(seed + 15)
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "yolov10s.npz")
+        save_checkpoint(model, npz)
+        src, out = os.path.join(tmp, "src"), os.path.join(tmp, "out")
+        os.makedirs(src)
+        shapes = ((480, 640), (640, 427), (300, 500))
+        for i, (h, w) in enumerate(shapes):
+            img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+            img[h // 4:h // 2, w // 4:w // 2] = rng.randint(0, 256, 3)
+            Image.fromarray(img).save(os.path.join(src, f"img{i}.jpg"), quality=90)
+        with open(os.path.join(src, "broken.jpg"), "wb") as f:
+            f.write(b"not an image")
+        cmd = [sys.executable, "-m", "leanyolo_tpu_torch.tools.infer", "--source", src, "--model", "yolov10s",
+               "--weights", npz, "--imgsz", str(IMGSZ), "--decode", "nms", "--dtype", "bf16", "--conf", "0.25",
+               "--save-dir", out]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"infer CLI: rc {r.returncode}\nstdout {r.stdout[-2000:]}\nstderr {r.stderr[-4000:]}")
+        lines = r.stdout.splitlines()
+        names = coco80_class_names()
+        pred = Predictor(get_model("yolov10s", weights=npz, class_names=names), imgsz=IMGSZ, decode="nms",
+                         conf_thresh=0.25, dtype="bf16")
+        want, n_boxes = [], 0
+        for i in range(len(shapes)):
+            name = f"img{i}.jpg"
+            dets = pred.predict_images([read_rgb(os.path.join(src, name))])[0]
+            n_boxes += len(dets)
+            for d in dets:
+                x1, y1, x2, y2, score, c = d[:6]
+                want.append(f"{name}: {names[int(c)]} ({int(c)}) {score:.3f} [{x1:.1f}, {y1:.1f}, {x2:.1f}, {y2:.1f}]")
+            want.append(f"saved: {os.path.join(out, name)} ({len(dets)} detections)")
+        got = [ln for ln in lines if not ln.startswith("skip unreadable")]
+        skipped = [ln for ln in lines if ln.startswith("skip unreadable")]
+        written = sorted(os.listdir(out))
+        shapes_ok = all(np.asarray(Image.open(os.path.join(out, f"img{i}.jpg"))).shape == hw + (3,)
+                        for i, hw in enumerate(shapes))
+        print(f"infer CLI (python -m leanyolo_tpu_torch.tools.infer, bf16 NMS, 3 JPEGs and an unreadable file) in "
+              f"{wall:.1f} s: {n_boxes} box lines equal to Predictor.predict_images in process {got == want}; "
+              f"skipped {len(skipped)}; drawn images {written} at their own sizes {shapes_ok}; {card}", flush=True)
+        if got != want or len(skipped) != 1 or written != [f"img{i}.jpg" for i in range(len(shapes))] or not shapes_ok:
+            fail(f"infer CLI: lines\n{chr(10).join(got[:12])}\nexpected\n{chr(10).join(want[:12])}")
+        demo = os.path.join(tmp, "demo_viz.jpg")
+        update_demo_viz.main(["--model", "yolov10s", "--weights", npz, "--out", demo])
+        if np.asarray(Image.open(demo)).shape != (480, 640, 3):
+            fail("update_demo_viz: no 480x640 image written")
+        print("update_demo_viz on the card: the synthetic scene drawn and written (480x640)", flush=True)
 
 
 def sm_clock_hz() -> float:
@@ -2279,7 +2694,7 @@ def main() -> int:
     done("weights")
     phase_validation(model, SEED, card)
     done("validation")
-    del pred, x32, model
+    del pred, x32
     torch.cuda.empty_cache()
     phase_variants(SEED, records)
     done("variants")
@@ -2290,6 +2705,12 @@ def main() -> int:
     with torch.enable_grad():
         phase_train_folder(SEED, records, card)
     done("train from a folder")
+    # Last: it exports programs and starts a CLI, and no later phase needs the profiler.
+    phase_nms_bf16(SEED, records)
+    phase_dispatch(model, card)
+    phase_export(model, SEED, card)
+    phase_infer_cli(model, SEED, card)
+    done("drawing and export")
 
     print(card, flush=True)
     print(json.dumps({"kernels": list(records.values())}), flush=True)

@@ -38,6 +38,25 @@ def _cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
     return (k - ((255 - c[..., :3]) * k >> 8)).astype(np.uint8)
 
 
+def read_rgb(path: str) -> np.ndarray:
+    """An image file as HWC RGB uint8, as cv2.imread(IMREAD_COLOR) decodes
+    it: PIL's JPEG decoder gives the same pixels and the EXIF orientation is
+    applied as cv2 applies it; 16-bit grayscale keeps its high byte and CMYK
+    JPEGs convert by OpenCV's formula, where PIL's own conversions differ.
+    Raises OSError where PIL cannot read it."""
+    from PIL import Image, ImageOps
+
+    with Image.open(path) as im:
+        fmt = im.format
+        im = ImageOps.exif_transpose(im)
+        if im.mode.startswith("I;16"):
+            hi = (np.asarray(im).astype(np.uint32) >> 8).astype(np.uint8)
+            return np.repeat(hi[..., None], 3, axis=-1)
+        if im.mode == "CMYK" and fmt == "JPEG":
+            return _cmyk_to_rgb(np.asarray(im))
+        return np.asarray(im.convert("RGB"))
+
+
 class CocoDetection:
     """COCO-format detection dataset (host side, numpy out).
 
@@ -62,6 +81,7 @@ class CocoDetection:
         if max_images:
             self.images = self.images[: int(max_images)]
         keep_ids = {im["id"] for im in self.images}
+        self._info_by_id = {im["id"]: im for im in self.images}
 
         self.cat_ids = sorted(c["id"] for c in ann.get("categories", []))
         self.cat_id_to_idx = {cid: i for i, cid in enumerate(self.cat_ids)}
@@ -81,24 +101,13 @@ class CocoDetection:
     def __len__(self) -> int:
         return len(self.images)
 
-    def load_image(self, idx: int) -> np.ndarray:
-        """The image as HWC RGB uint8, as cv2.imread(IMREAD_COLOR) decodes
-        it: PIL's JPEG decoder gives the same pixels and the EXIF
-        orientation is applied as cv2 applies it; 16-bit grayscale keeps its
-        high byte and CMYK JPEGs convert by OpenCV's formula, where PIL's
-        own conversions differ."""
-        from PIL import Image, ImageOps
+    def image_info(self, image_id: int) -> Optional[dict]:
+        """The annotations' entry of an image id (None for an unknown id)."""
+        return self._info_by_id.get(image_id)
 
-        path = os.path.join(self.images_dir, self.images[idx]["file_name"])
-        with Image.open(path) as im:
-            fmt = im.format
-            im = ImageOps.exif_transpose(im)
-            if im.mode.startswith("I;16"):
-                hi = (np.asarray(im).astype(np.uint32) >> 8).astype(np.uint8)
-                return np.repeat(hi[..., None], 3, axis=-1)
-            if im.mode == "CMYK" and fmt == "JPEG":
-                return _cmyk_to_rgb(np.asarray(im))
-            return np.asarray(im.convert("RGB"))
+    def load_image(self, idx: int) -> np.ndarray:
+        """The image as HWC RGB uint8, as cv2.imread(IMREAD_COLOR) decodes it (`read_rgb`)."""
+        return read_rgb(os.path.join(self.images_dir, self.images[idx]["file_name"]))
 
     def _boxes_labels(self, info: dict, gain=(1.0, 1.0), pad=(0, 0)) -> Tuple[np.ndarray, np.ndarray]:
         """The image's non-crowd boxes, COCO xywh mapped to xyxy as

@@ -10,9 +10,13 @@ Counterpart of the JAX package's `leanyolo_tpu/engine/validator.py`:
   only for batch i (a copy to pinned memory behind it, with an event);
 - `measure_fps` times `run_batch` on the predictor's device.
 
+- `viz_dir`: the detections drawn (utils/viz.py) and saved per image, in
+  the consumer behind the device as JAX's: on the letterboxed pixels under
+  the host letterbox, on the original images with the boxes mapped back
+  under the device letterbox, named by file, image id or index.
+
 It runs on the card unless the caller names another device, and raises
-without one. Not ported yet: the mesh and multi-process sharding, and the
-drawing of detections (`viz_*`).
+without one. Not ported yet: the mesh and multi-process sharding.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from ..data.dataset import CocoDetection, DataLoader
 from ..models.yolov10.model import YOLOv10
 from ..ops.letterbox import canvas_batch, dataset_canvas_size
 from ..utils.coco_eval import CocoEvaluator
+from ..utils.viz import draw_detections, save_image
 from .predictor import Predictor
 
 
@@ -120,6 +125,59 @@ def _readback(dets: torch.Tensor, num: torch.Tensor):
     return host[0], host[1], event
 
 
+def _viz_name(ds: CocoDetection, m: dict, idx: int, name_mode: str) -> str:
+    """A drawn image's file name: 'id' -> <image_id>.jpg, 'index' ->
+    <idx:06d>.jpg, 'file' -> the image's own file name (<idx:06d>.jpg where
+    the annotations have no entry for it)."""
+    if name_mode == "id":
+        return f"{m['image_id']}.jpg"
+    if name_mode == "index":
+        return f"{idx:06d}.jpg"
+    info = ds.image_info(m["image_id"])
+    return os.path.basename(info["file_name"]) if info else f"{idx:06d}.jpg"
+
+
+def _viz_rows(d: np.ndarray, n: int, decode: str, conf: float) -> np.ndarray:
+    return d[:n] if decode != "topk" else d[d[:, 4] > conf]
+
+
+def _save_viz_batch(images, dets, num, metas, ds, *, decode, viz_dir, conf, name_mode, start_index) -> int:
+    """Draw on the letterboxed batch images (the host letterbox); returns the next index."""
+    os.makedirs(viz_dir, exist_ok=True)
+    idx = start_index
+    for i, m in enumerate(metas):
+        if m is None:
+            continue
+        d = _viz_rows(dets[i], int(num[i]), decode, conf)
+        out = draw_detections(np.asarray(images[i], np.uint8), d, ds.class_names)
+        save_image(os.path.join(viz_dir, _viz_name(ds, m, idx, name_mode)), out)
+        idx += 1
+    return idx
+
+
+def _save_viz_original(raw_imgs, dets, num, metas, ds, *, decode, viz_dir, conf, name_mode, start_index) -> int:
+    """Draw on the original images, the boxes mapped back with the letterbox
+    inverse and clipped to the image (the device letterbox, whose
+    letterboxed pixels stay on the device); returns the next index."""
+    os.makedirs(viz_dir, exist_ok=True)
+    idx = start_index
+    for i, m in enumerate(metas):
+        if m is None:
+            continue
+        d = _viz_rows(np.array(dets[i], copy=True), int(num[i]), decode, conf)
+        gw, gh = m["gain"]
+        px, py = m["pad"]
+        oh, ow = m["orig_hw"]
+        d[:, 0] = np.clip((d[:, 0] - px) / gw, 0, ow)
+        d[:, 1] = np.clip((d[:, 1] - py) / gh, 0, oh)
+        d[:, 2] = np.clip((d[:, 2] - px) / gw, 0, ow)
+        d[:, 3] = np.clip((d[:, 3] - py) / gh, 0, oh)
+        out = draw_detections(np.asarray(raw_imgs[i], np.uint8), d, ds.class_names)
+        save_image(os.path.join(viz_dir, _viz_name(ds, m, idx, name_mode)), out)
+        idx += 1
+    return idx
+
+
 def validate_coco(
     model: YOLOv10,
     *,
@@ -139,6 +197,9 @@ def validate_coco(
     measure_speed: bool = False,
     fps_warmup: int = 1,
     predictor: Optional[Predictor] = None,
+    viz_dir: Optional[str] = None,
+    viz_conf: float = 0.25,
+    viz_name_mode: str = "file",
     preprocess: str = "host",
     device: Optional[Union[str, torch.device]] = None,
 ) -> Dict[str, float]:
@@ -153,10 +214,15 @@ def validate_coco(
     an unfolded predictor in `dtype` is built on `device` (None: the card,
     raising without one). preprocess: 'host' (the loader letterboxes with
     the numpy letterbox) or 'device' (images pasted on a canvas, the
-    letterbox warped on the predictor's device).
+    letterbox warped on the predictor's device). viz_dir: draw each image's
+    detections (top-k: those above viz_conf; NMS: the first num) and save
+    them there, named by viz_name_mode: 'file' (the image's file name), 'id'
+    (<image_id>.jpg) or 'index' (sequential).
     """
     if preprocess not in ("host", "device"):
         raise ValueError(f"unknown preprocess {preprocess!r}: 'host' or 'device'")
+    if viz_name_mode not in ("file", "id", "index"):
+        raise ValueError(f"unknown viz_name_mode {viz_name_mode!r}: 'file', 'id' or 'index'")
     ds = CocoDetection(images_dir, ann_json, img_size=imgsz, max_images=max_images)
     if predictor is None:
         predictor = Predictor(model, imgsz=imgsz, decode=decode, conf_thresh=conf_thresh, iou_thresh=iou_thresh,
@@ -169,19 +235,26 @@ def validate_coco(
 
     chunks: List[tuple] = []  # columnar per-batch results, for the JSON
     n_images = 0
+    viz_index = 0
     evaluator = CocoEvaluator(_load_gt(ann_json, max_images))
     t0 = time.perf_counter()
 
-    def _consume(dets_h, num_h, event, metas) -> None:
+    def _consume(dets_h, num_h, event, metas, viz) -> None:
         """Host work for one batch (readback, conversion, incremental
-        scoring), done while the next batch runs on the device."""
-        nonlocal n_images
+        scoring, drawing), done while the next batch runs on the device."""
+        nonlocal n_images, viz_index
         if event is not None:
             event.synchronize()
-        cols = detections_to_coco_arrays(dets_h.numpy(), num_h.numpy(), metas, ds.cat_ids, decode=decode)
+        dets, num = dets_h.numpy(), num_h.numpy()
+        cols = detections_to_coco_arrays(dets, num, metas, ds.cat_ids, decode=decode)
         chunks.append(cols)
         evaluator.add_detections_arrays(*cols)
         evaluator.score_images([m["image_id"] for m in metas if m is not None])
+        if viz_dir:
+            kind, images = viz
+            save = _save_viz_batch if kind == "batch" else _save_viz_original
+            viz_index = save(images, dets, num, metas, ds, decode=decode, viz_dir=viz_dir, conf=viz_conf,
+                             name_mode=viz_name_mode, start_index=viz_index)
         n_images += sum(m is not None for m in metas)
 
     pending = None
@@ -189,8 +262,8 @@ def validate_coco(
         batches = _iter_device_preprocess(ds, predictor, batch_size, workers)
     else:
         batches = _iter_host_preprocess(ds, predictor, batch_size, workers)
-    for dets, num, metas in batches:
-        out = (*_readback(dets, num), metas)
+    for dets, num, metas, viz in batches:
+        out = (*_readback(dets, num), metas, viz)
         if pending is not None:
             _consume(*pending)
         pending = out
@@ -201,8 +274,9 @@ def validate_coco(
 
 
 def _iter_host_preprocess(ds: CocoDetection, predictor: Predictor, batch_size: int, workers: int):
-    """Yield (dets, num, metas) per batch, letterboxed on the host by the
-    loader; dets and num stay on the device (the caller reads them back)."""
+    """Yield (dets, num, metas, ("batch", letterboxed images)) per batch,
+    letterboxed on the host by the loader; dets and num stay on the device
+    (the caller reads them back)."""
     loader = DataLoader(ds, batch_size=batch_size, workers=workers, max_boxes=1)
     for batch in loader:
         dets, num = predictor.run_batch(batch.images)
@@ -211,12 +285,12 @@ def _iter_host_preprocess(ds: CocoDetection, predictor: Predictor, batch_size: i
             else {"image_id": m["image_id"], "gain": m["gain"], "pad": m["pad"], "orig_hw": m["orig_hw"]}
             for m in batch.meta
         ]
-        yield dets, num, metas
+        yield dets, num, metas, ("batch", batch.images)
 
 
 def _iter_device_preprocess(ds: CocoDetection, predictor: Predictor, batch_size: int, workers: int):
-    """Yield (dets, num, metas) per batch with the letterbox done on the
-    predictor's device.
+    """Yield (dets, num, metas, ("original", decoded images)) per batch with
+    the letterbox done on the predictor's device.
 
     Decoded images go onto a fixed canvas (a host copy only); the resize and
     pad run in `run_canvas`. The canvas size comes from the annotations'
@@ -237,7 +311,7 @@ def _iter_device_preprocess(ds: CocoDetection, predictor: Predictor, batch_size:
                 if i < n_real else None
                 for i in range(batch_size)
             ]
-            yield dets, num, metas
+            yield dets, num, metas, ("original", imgs)
 
 
 def _load_gt(ann_json: str, max_images: Optional[int]) -> dict:

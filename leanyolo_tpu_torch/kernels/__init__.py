@@ -2,10 +2,13 @@
 
 Each wrapper module (stem.py, dwconv.py, topk.py, mpbwd.py, s2dconv.py,
 matmul.py, argmax.py, nms.py) holds a kernel's wrapper and, beside it, a
-plain PyTorch version of the same function. The wrapper picks by the
-device of the tensor it is given: a CPU tensor takes the plain version; a
-CUDA tensor launches the kernel, which is built from `csrc/` at first use
-(_build.py), or raises. Nothing falls back from one to the other.
+plain PyTorch version of the same function. Each wrapper but mpbwd's is a
+PyTorch operator, `leanyolo_tpu_torch::<name>` (_build.operator), and the
+dispatcher picks by the devices of its tensors: CPU tensors take the plain
+version; CUDA tensors launch the kernel, which is built from `csrc/` at
+first use (_build.py), or raise; tracing (`torch.export`) takes a fake
+implementation that gives the output shapes. Nothing falls back from one
+to the other.
 
 `LAUNCHES` counts kernel launches per kernel; a wrapper adds one where it
 launches its kernel and nowhere else. `stem`, `s2dconv`, `bmm` and

@@ -1,15 +1,27 @@
-"""Builds the kernels in `csrc/` at first use, in one `cpp_extension.load` call.
+"""Builds the kernels in `csrc/` at first use, in one `cpp_extension.load`
+call, and registers each kernel wrapper as a PyTorch operator.
 
 The CUDA sources include no PyTorch header; `binding.cpp`, the one file
 that does, is compiled by the host compiler. Everything lands in
 `build/kernels/` at the repository root (git-ignored). A failed build
 raises.
+
+`operator` defines `leanyolo_tpu_torch::<name>` with three
+implementations: CPU (the plain version), CUDA (the wrapper body that
+launches the kernel) and fake (output shapes and dtypes, for
+`torch.export` and other tracing; it touches no data). The dispatcher picks
+by the devices of the tensor arguments, so a wrapper is one call through
+its operator, and an exported program names the operator, which loads
+once this package's kernels are imported.
 """
 
 from __future__ import annotations
 
 import time
 from pathlib import Path
+from typing import Callable
+
+import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -27,8 +39,21 @@ CUDA_FLAGS = [
     "-U__CUDA_NO_HALF2_OPERATORS__",
 ]
 
+NAMESPACE = "leanyolo_tpu_torch"
+_LIB = torch.library.Library(NAMESPACE, "DEF")
+
 _ext = None
 build_seconds = None
+
+
+def operator(name: str, schema: str, *, cpu: Callable, cuda: Callable, fake: Callable):
+    """Define `leanyolo_tpu_torch::<name><schema>` with its CPU, CUDA and
+    fake implementations; returns the operator's overload to call."""
+    _LIB.define(name + schema)
+    _LIB.impl(name, cpu, "CPU")
+    _LIB.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_LIB)
+    return getattr(getattr(torch.ops, NAMESPACE), name).default
 
 
 def ext():

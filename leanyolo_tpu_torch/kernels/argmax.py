@@ -24,17 +24,18 @@ map.
 `max_argmax_levels` reduces up to four levels' [B, HW_l, n] maps in one
 launch, writing each at its column offset in the [B, sum HW_l] outputs, so
 the decode needs no concatenation. Bound: bytes (each class logit read
-once, a value and an int32 index written a row).
+once, a value and an int32 index written a row). The wrapper is the
+operator `leanyolo_tpu_torch::max_argmax_levels` (_build.operator).
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
 from . import LAUNCHES
-from ._build import ext
+from ._build import ext, operator
 
 _MAX_LEVELS = 4
 
@@ -76,16 +77,27 @@ def _check(x: torch.Tensor, name: str) -> None:
                          f"strides {x.stride()}")
 
 
-def max_argmax_levels(levels: Sequence[torch.Tensor], *, canon_zero: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per level [B, HW_l, n] (same B, n and dtype) -> (vals [B, sum HW_l],
-    idx [B, sum HW_l] int32), level l's rows at offset sum_{k<l} HW_k. Values
-    in the input's dtype with `canon_zero`, else fp32."""
-    levels = list(levels)
+def _check_count(levels: List[torch.Tensor]) -> None:
     if not levels or len(levels) > _MAX_LEVELS:
         raise ValueError(f"max_argmax_levels: 1 to {_MAX_LEVELS} levels, got {len(levels)}")
+
+
+def _argmax_cpu(levels: List[torch.Tensor], canon_zero: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check_count(levels)
+    vals, idx = max_argmax_levels_plain(levels, canon_zero=canon_zero)
+    return vals.contiguous(), idx.contiguous()
+
+
+def _argmax_fake(levels: List[torch.Tensor], canon_zero: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     x0 = levels[0]
-    if x0.device.type == "cpu":
-        return max_argmax_levels_plain(levels, canon_zero=canon_zero)
+    shape = (x0.shape[0], sum(x.shape[1] for x in levels))
+    return (x0.new_empty(shape, dtype=x0.dtype if canon_zero else torch.float32),
+            x0.new_empty(shape, dtype=torch.int32))
+
+
+def _argmax_cuda(levels: List[torch.Tensor], canon_zero: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check_count(levels)
+    x0 = levels[0]
     for x in levels:
         _check(x, "max_argmax")
         if x.dtype != x0.dtype or x.shape[0] != x0.shape[0] or x.shape[2] != x0.shape[2]:
@@ -102,3 +114,14 @@ def max_argmax_levels(levels: Sequence[torch.Tensor], *, canon_zero: bool) -> Tu
         LAUNCHES["argmax"] += 1
     return vals, idx
 
+
+_MAX_ARGMAX = operator("max_argmax_levels", "(Tensor[] levels, bool canon_zero) -> (Tensor, Tensor)",
+                       cpu=_argmax_cpu, cuda=_argmax_cuda, fake=_argmax_fake)
+
+
+def max_argmax_levels(levels: Sequence[torch.Tensor], *, canon_zero: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per level [B, HW_l, n] (same B, n and dtype) -> (vals [B, sum HW_l],
+    idx [B, sum HW_l] int32), level l's rows at offset sum_{k<l} HW_k. Values
+    in the input's dtype with `canon_zero`, else fp32. Through the operator
+    `leanyolo_tpu_torch::max_argmax_levels`."""
+    return _MAX_ARGMAX(list(levels), canon_zero)

@@ -227,7 +227,8 @@ std::tuple<torch::Tensor, torch::Tensor, torch::Tensor> nms(torch::Tensor boxes,
                                                             std::optional<torch::Tensor> cls,
                                                             std::optional<torch::Tensor> valid, double iou_thresh,
                                                             bool use_conf, double conf_thresh, bool class_wise,
-                                                            double group_offset, bool want_keep, int64_t max_det) {
+                                                            double group_offset, bool want_keep, int64_t max_det,
+                                                            bool bf16) {
   check(boxes, "nms boxes");
   TORCH_CHECK(boxes.scalar_type() == at::kFloat && boxes.dim() == 3 && boxes.size(2) == 4, "nms: boxes [B, n, 4] float32");
   const int64_t B = boxes.size(0), n = boxes.size(1);
@@ -256,8 +257,8 @@ std::tuple<torch::Tensor, torch::Tensor, torch::Tensor> nms(torch::Tensor boxes,
                             static_cast<float>(iou_thresh), use_conf, static_cast<float>(conf_thresh), class_wise,
                             static_cast<float>(group_offset), want_keep ? keep.data_ptr<uint8_t>() : nullptr,
                             max_det ? dets.data_ptr<float>() : nullptr, max_det ? num.data_ptr<int32_t>() : nullptr,
-                            static_cast<int>(max_det), static_cast<int>(std::min(max_det, n)), scratch.data_ptr(),
-                            at::cuda::getCurrentCUDAStream()));
+                            static_cast<int>(max_det), static_cast<int>(std::min(max_det, n)), bf16,
+                            scratch.data_ptr(), at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return {keep, dets, num};
 }

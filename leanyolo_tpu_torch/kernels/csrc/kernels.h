@@ -98,6 +98,9 @@ cudaError_t launch_argmax(const ArgmaxLevels& lv, int B, int n, bool bf16, bool 
 // uint8 or nullptr (all valid). A candidate is valid where valid says so and,
 // with use_conf, its score > conf_thresh; invalid ones never survive and
 // never suppress. class_wise: IoUs of boxes shifted by cls * group_offset.
+// bf16: the inputs hold bf16 values (in fp32), and the shift, the areas and
+// the IoU round each operation to bf16 (JAX's arithmetic on bf16 arrays);
+// thresholds and the offset come rounded to bf16 by the caller.
 // Outputs, each optional (nullptr): keep [B, n] uint8; dets [B, max_det, 6]
 // (the first min(kept, k_out) survivors' [box, score, cls] in rank order,
 // zero rows after) and num [B] int32. scratch: nms_scratch_bytes(B, n)
@@ -106,5 +109,5 @@ cudaError_t launch_argmax(const ArgmaxLevels& lv, int B, int n, bool bf16, bool 
 size_t nms_scratch_bytes(int B, int n);
 cudaError_t launch_nms(const float* boxes, const float* scores, const float* cls, const uint8_t* valid, int B, int n,
                        float iou_thresh, bool use_conf, float conf_thresh, bool class_wise, float group_offset,
-                       uint8_t* keep, float* dets, int32_t* num, int max_det, int k_out, void* scratch,
-                       cudaStream_t stream);
+                       uint8_t* keep, float* dets, int32_t* num, int max_det, int k_out, bool bf16,
+                       void* scratch, cudaStream_t stream);

@@ -19,7 +19,11 @@
 //    never suppress). IoU is boxes.py:37-46's sequence in IEEE single
 //    precision with explicit roundings (__fadd_rn and friends), so no
 //    multiply and add contract into an FMA: the keep set is JAX's bit for
-//    bit, also at an IoU exactly at the threshold. The words go to the
+//    bit, also at an IoU exactly at the threshold. In the bf16 mode (the
+//    JAX decode's NMS on bf16 maps) the shift, the areas and each IoU
+//    operation are rounded to bf16 where JAX's bf16 arithmetic rounds them
+//    (__float2bfloat16_rn after each IEEE fp32 operation, which is how XLA
+//    computes a bf16 operation), eps bf16(1e-9). The words go to the
 //    leader CTA's shared memory through distributed shared memory (n =
 //    1000: 125 KB), or, where that does not fit, to a device-memory scratch
 //    that also holds the boxes and areas, so n has no cap.
@@ -39,6 +43,7 @@
 // up to 8 CTAs an image (as many as fill the SMs); the serial scan is
 // latency (tens of cycles a survivor) that no bound covers.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 
 #include <algorithm>
 
@@ -53,6 +58,17 @@ constexpr int WARPS = THREADS / 32;
 constexpr int SMEM_BUDGET = 200 * 1024;
 
 __host__ __device__ inline int words(int n) { return (n + 31) / 32; }
+
+// An fp32 result rounded as the mode's dtype rounds it: the identity in
+// fp32, round-to-nearest-even to bf16 in the bf16 mode.
+template <bool BF16>
+__device__ __forceinline__ float rnd(float x) {
+  if constexpr (BF16) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else {
+    return x;
+  }
+}
 
 // The table: an image's boxes (float4), areas, survivors' slots and
 // suppression mask, in shared memory where it fits, else an image's
@@ -73,7 +89,7 @@ struct Out {
   int max_det, k_out;
 };
 
-template <bool SMEM_MASK>
+template <bool SMEM_MASK, bool BF16>
 __global__ void __launch_bounds__(THREADS)
 nms_kernel(const float* __restrict__ boxes, const float* __restrict__ scores, const float* __restrict__ cls,
            const uint8_t* __restrict__ valid, int n, float iou_thresh, bool use_conf, float conf_thresh,
@@ -98,11 +114,13 @@ nms_kernel(const float* __restrict__ boxes, const float* __restrict__ scores, co
     for (int i = threadIdx.x; i < n; i += THREADS) {
       float4 q = make_float4(bx[4 * i], bx[4 * i + 1], bx[4 * i + 2], bx[4 * i + 3]);
       if (class_wise) {
-        const float off = __fmul_rn(cls[size_t(b) * n + i], group_offset);
-        q = make_float4(__fadd_rn(q.x, off), __fadd_rn(q.y, off), __fadd_rn(q.z, off), __fadd_rn(q.w, off));
+        const float off = rnd<BF16>(__fmul_rn(cls[size_t(b) * n + i], group_offset));
+        q = make_float4(rnd<BF16>(__fadd_rn(q.x, off)), rnd<BF16>(__fadd_rn(q.y, off)),
+                        rnd<BF16>(__fadd_rn(q.z, off)), rnd<BF16>(__fadd_rn(q.w, off)));
       }
       box[i] = q;
-      area[i] = __fmul_rn(fmaxf(__fsub_rn(q.z, q.x), 0.0f), fmaxf(__fsub_rn(q.w, q.y), 0.0f));
+      area[i] = rnd<BF16>(__fmul_rn(fmaxf(rnd<BF16>(__fsub_rn(q.z, q.x)), 0.0f),
+                                    fmaxf(rnd<BF16>(__fsub_rn(q.w, q.y)), 0.0f)));
       if (leader && out.keep) out.keep[size_t(b) * n + i] = 0;
     }
   }
@@ -125,14 +143,16 @@ nms_kernel(const float* __restrict__ boxes, const float* __restrict__ scores, co
     if (!((vbits[i / 32] >> (i % 32)) & 1u)) continue;  // an invalid row is never read
     const float4 a = box[i];
     const float ai = area[i];
+    // bf16(1e-9) in the bf16 mode, fp32(1e-9) in fp32.
+    const float eps = rnd<BF16>(1e-9f);
     auto suppresses = [&](int j) -> bool {  // boxes.py:37-46, rounded as JAX rounds it
       if (j <= i || j >= n) return false;
       const float4 c = box[j];
-      const float iw = fmaxf(__fsub_rn(fminf(a.z, c.z), fmaxf(a.x, c.x)), 0.0f);
-      const float ih = fmaxf(__fsub_rn(fminf(a.w, c.w), fmaxf(a.y, c.y)), 0.0f);
-      const float inter = __fmul_rn(iw, ih);
-      const float uni = __fsub_rn(__fadd_rn(ai, area[j]), inter);
-      return __fdiv_rn(inter, __fadd_rn(uni, 1e-9f)) > iou_thresh;
+      const float iw = fmaxf(rnd<BF16>(__fsub_rn(fminf(a.z, c.z), fmaxf(a.x, c.x))), 0.0f);
+      const float ih = fmaxf(rnd<BF16>(__fsub_rn(fminf(a.w, c.w), fmaxf(a.y, c.y))), 0.0f);
+      const float inter = rnd<BF16>(__fmul_rn(iw, ih));
+      const float uni = rnd<BF16>(__fsub_rn(rnd<BF16>(__fadd_rn(ai, area[j])), inter));
+      return rnd<BF16>(__fdiv_rn(inter, rnd<BF16>(__fadd_rn(uni, eps)))) > iou_thresh;
     };
     for (int w = i / 32; w < W; w += 2) {  // two words an iteration, for the latency
       const bool s0 = suppresses(w * 32 + lane), s1 = suppresses((w + 1) * 32 + lane);
@@ -207,15 +227,16 @@ size_t nms_scratch_bytes(int B, int n) { return mask_in_smem(n) ? 0 : size_t(B) 
 
 cudaError_t launch_nms(const float* boxes, const float* scores, const float* cls, const uint8_t* valid, int B, int n,
                        float iou_thresh, bool use_conf, float conf_thresh, bool class_wise, float group_offset,
-                       uint8_t* keep, float* dets, int32_t* num, int max_det, int k_out, void* scratch,
-                       cudaStream_t stream) {
+                       uint8_t* keep, float* dets, int32_t* num, int max_det, int k_out, bool bf16,
+                       void* scratch, cudaStream_t stream) {
   if (B == 0 || n == 0) return cudaSuccess;
   const Out out{keep, dets, num, max_det, k_out};
   unsigned char* sc = static_cast<unsigned char*>(scratch);
   const bool in_smem = mask_in_smem(n);
   const size_t bytes = smem_bytes(n, in_smem);
   if (bytes > SMEM_BUDGET) return cudaErrorInvalidValue;  // n past 6.5 million
-  auto kernel = in_smem ? &nms_kernel<true> : &nms_kernel<false>;
+  auto kernel = in_smem ? (bf16 ? &nms_kernel<true, true> : &nms_kernel<true, false>)
+                        : (bf16 ? &nms_kernel<false, true> : &nms_kernel<false, false>);
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return err;

@@ -9,7 +9,8 @@ each round again.
 
 Both versions take the weights packed once as [49, C] (`pack_weights`: a
 tap's channels contiguous, the layout the kernel reads), as
-`layers.FusedRepVGGDW` holds them.
+`layers.FusedRepVGGDW` holds them. The wrapper is the operator
+`leanyolo_tpu_torch::dw7x7_bias_silu` (_build.operator).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from . import LAUNCHES
-from ._build import check_cuda, ext
+from ._build import check_cuda, ext, operator
 
 
 def pack_weights(w: torch.Tensor) -> torch.Tensor:
@@ -34,10 +35,15 @@ def dw7x7_bias_silu_plain(x: torch.Tensor, w49: torch.Tensor, b: torch.Tensor) -
     return F.silu(y + b.to(y.dtype).view(1, -1, 1, 1)).permute(0, 2, 3, 1)
 
 
-def dw7x7_bias_silu(x: torch.Tensor, w49: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x [B, H, W, C] NHWC (contiguous on the card), w49 [49, C], b [C]."""
-    if x.device.type == "cpu":
-        return dw7x7_bias_silu_plain(x, w49, b)
+def _dw7x7_cpu(x: torch.Tensor, w49: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return dw7x7_bias_silu_plain(x, w49, b).contiguous()
+
+
+def _dw7x7_fake(x: torch.Tensor, w49: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return x.new_empty(x.shape)
+
+
+def _dw7x7_cuda(x: torch.Tensor, w49: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     check_cuda(x, "dw7x7 x")
     if x.dtype not in (torch.bfloat16, torch.float32) or x.ndim != 4:
         raise ValueError(f"dw7x7: bf16 or fp32 NHWC input, got {x.dtype} {tuple(x.shape)}")
@@ -53,3 +59,13 @@ def dw7x7_bias_silu(x: torch.Tensor, w49: torch.Tensor, b: torch.Tensor) -> torc
         ext().dw7x7(x, wk, bk, out)
         LAUNCHES["dw7x7"] += 1
     return out
+
+
+_DW7X7 = operator("dw7x7_bias_silu", "(Tensor x, Tensor w49, Tensor b) -> Tensor", cpu=_dw7x7_cpu,
+                  cuda=_dw7x7_cuda, fake=_dw7x7_fake)
+
+
+def dw7x7_bias_silu(x: torch.Tensor, w49: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x [B, H, W, C] NHWC (contiguous on the card), w49 [49, C], b [C],
+    through the operator `leanyolo_tpu_torch::dw7x7_bias_silu`."""
+    return _DW7X7(x, w49, b)

@@ -12,7 +12,9 @@ rounded and SiLU applied and rounded, each optional.
 Two hand-written kernels, chosen by shape (`route`): TMA + wgmma for bf16
 that TMA can describe (every call of the serving path), ldmatrix +
 mma.sync for fp32 and the other bf16 shapes. A failed launch raises; no
-route stands in for the other.
+route stands in for the other. The wrapper is the operator
+`leanyolo_tpu_torch::bmm` (_build.operator); the route is chosen inside its
+CUDA implementation, so a traced batch stays symbolic.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from . import LAUNCHES
-from ._build import check_cuda, ext
+from ._build import check_cuda, ext, operator
 
 H100_SMS = 132  # the plan's default where no card is asked
 
@@ -90,11 +92,15 @@ def _k_major(w: torch.Tensor) -> torch.Tensor:
     return w.t().contiguous().t()
 
 
-def bmm(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None, act: bool = False) -> torch.Tensor:
-    """x [B, M, K] (rows read in place where evenly strided), w [K, N], bias
-    [N] or None, act: SiLU -> [B, M, N] contiguous, in x's dtype."""
-    if x.device.type == "cpu":
-        return bmm_plain(x, w, bias, act)
+def _bmm_cpu(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], act: bool) -> torch.Tensor:
+    return bmm_plain(x, w, bias, act).contiguous()
+
+
+def _bmm_fake(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], act: bool) -> torch.Tensor:
+    return x.new_empty((x.shape[0], x.shape[1], w.shape[1]))
+
+
+def _bmm_cuda(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], act: bool) -> torch.Tensor:
     if x.dtype not in (torch.bfloat16, torch.float32) or x.ndim != 3 or w.ndim != 2 or w.shape[0] != x.shape[2]:
         raise ValueError(f"bmm: bf16 or fp32 x [B, M, K] and w [K, N], got {x.dtype} {tuple(x.shape)}, "
                          f"{tuple(w.shape)}")
@@ -129,3 +135,14 @@ def bmm(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None, a
             ext().bmm(x, wk, out, bk, b * m, lda, act)
         LAUNCHES["bmm"] += 1
     return out
+
+
+_BMM = operator("bmm", "(Tensor x, Tensor w, Tensor? bias, bool act) -> Tensor", cpu=_bmm_cpu, cuda=_bmm_cuda,
+                fake=_bmm_fake)
+
+
+def bmm(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None, act: bool = False) -> torch.Tensor:
+    """x [B, M, K] (rows read in place where evenly strided), w [K, N], bias
+    [N] or None, act: SiLU -> [B, M, N] contiguous, in x's dtype, through
+    the operator `leanyolo_tpu_torch::bmm`."""
+    return _BMM(x, w, bias, act)

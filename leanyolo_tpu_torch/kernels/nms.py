@@ -21,10 +21,22 @@ round them.
   cls] becomes row j of [B, max_det, 6] while j < min(max_det, n), zero
   rows follow, and num = min(survivors, max_det, n).
 
+Two arithmetic modes, by the dtype of the candidates: fp32, and bf16 as
+the JAX decode runs its NMS on bf16 maps (`decode_direct_nms`): the IoU's
+operations each rounded to bf16 in `box_iou`'s order (eps bf16(1e-9)),
+thresholds rounded to bf16 (JAX's weak-typed Python floats meet a bf16
+array in bf16), the class shift in bf16, and the payload the bf16 values
+in fp32. A bf16 IoU is not the fp32 IoU rounded: it differs in about 2% of
+pairs, so this mode is arithmetic of its own, not an upcast.
+
 The plain version forms the full [B, n, n] IoU matrix and walks the ranks
 in a loop vectorised over the batch. Bound: the larger of bytes and the
 fp32 IoU operations over n(n-1)/2 pairs an image (bounds.nms_work); the
 kernel's serial scan is latency, which no bound covers.
+
+The wrappers are the operators `leanyolo_tpu_torch::nms_keep` and
+`leanyolo_tpu_torch::nms_compact` (_build.operator); the cluster size by
+batch is chosen inside the kernel's launch.
 """
 
 from __future__ import annotations
@@ -35,7 +47,7 @@ import numpy as np
 import torch
 
 from . import LAUNCHES
-from ._build import check_cuda, ext
+from ._build import check_cuda, ext, operator
 
 GROUP_OFFSET = 8192.0 * 10.0  # the JAX decode's class offset (decode.py:341)
 
@@ -45,9 +57,20 @@ def f32(v: float) -> float:
     return float(np.float32(v))
 
 
+def rounded(v: float, dtype: torch.dtype) -> float:
+    """v rounded to fp32, then to `dtype` (bf16: as a weak-typed Python float
+    meets a bf16 array in JAX)."""
+    return float(torch.tensor(f32(v)).to(dtype))
+
+
+def arithmetic_dtype(boxes: torch.Tensor) -> torch.dtype:
+    """The NMS arithmetic for candidates of boxes' dtype: bf16, else fp32."""
+    return torch.bfloat16 if boxes.dtype == torch.bfloat16 else torch.float32
+
+
 def iou_matrix(boxes: torch.Tensor) -> torch.Tensor:
     """[..., n, 4] xyxy -> [..., n, n] pairwise IoU, the operations of
-    `ops/boxes.py::box_iou` in their order."""
+    `ops/boxes.py::box_iou` in their order, each rounded to boxes' dtype."""
     wh = torch.clamp_min(boxes[..., 2:4] - boxes[..., 0:2], 0.0)
     area = wh[..., 0] * wh[..., 1]
     lt = torch.maximum(boxes[..., :, None, :2], boxes[..., None, :, :2])
@@ -55,14 +78,15 @@ def iou_matrix(boxes: torch.Tensor) -> torch.Tensor:
     wh = torch.clamp_min(rb - lt, 0.0)
     inter = wh[..., 0] * wh[..., 1]
     union = area[..., :, None] + area[..., None, :] - inter
-    return inter / (union + 1e-9)
+    return inter / (union + rounded(1e-9, boxes.dtype))
 
 
 def nms_keep_plain(boxes: torch.Tensor, iou_thresh: float, valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of `nms_keep`: boxes [B, n, 4] in rank order -> keep [B, n] bool."""
     b, n = boxes.shape[:2]
+    dtype = arithmetic_dtype(boxes)
     rank = torch.arange(n, device=boxes.device)
-    supp = (iou_matrix(boxes.float()) > f32(iou_thresh)) & (rank[:, None] < rank[None, :])
+    supp = (iou_matrix(boxes.to(dtype)) > rounded(iou_thresh, dtype)) & (rank[:, None] < rank[None, :])
     alive = torch.ones(b, n, dtype=torch.bool, device=boxes.device) if valid is None else valid.clone()
     for i in range(n):
         # alive[:, i] is final here: every higher rank has been applied.
@@ -71,7 +95,7 @@ def nms_keep_plain(boxes: torch.Tensor, iou_thresh: float, valid: Optional[torch
 
 
 def _shifted(boxes: torch.Tensor, cls: torch.Tensor, group_offset: float) -> torch.Tensor:
-    return boxes + (cls * group_offset)[..., None]
+    return boxes + (cls * rounded(group_offset, boxes.dtype))[..., None]
 
 
 def compact_plain(keep: torch.Tensor, boxes: torch.Tensor, scores: torch.Tensor, cls: torch.Tensor,
@@ -92,50 +116,89 @@ def nms_compact_plain(boxes: torch.Tensor, scores: torch.Tensor, cls: torch.Tens
                       conf_thresh: float, max_det: int, class_wise: bool,
                       group_offset: float = GROUP_OFFSET) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of `nms_compact`."""
-    boxes, scores, cls = boxes.float(), scores.float(), cls.float()
-    valid = scores > f32(conf_thresh)
+    dtype = arithmetic_dtype(boxes)
+    boxes, scores, cls = boxes.to(dtype), scores.to(dtype), cls.to(dtype)
+    valid = scores > rounded(conf_thresh, dtype)
     keep = nms_keep_plain(_shifted(boxes, cls, group_offset) if class_wise else boxes, iou_thresh, valid)
     return compact_plain(keep, boxes, scores, cls, max_det)
 
 
 def _check_boxes(boxes: torch.Tensor) -> None:
     check_cuda(boxes, "nms boxes")
-    if boxes.dtype != torch.float32 or boxes.ndim != 3 or boxes.shape[-1] != 4:
-        raise ValueError(f"nms: boxes [B, n, 4] float32, got {boxes.dtype} {tuple(boxes.shape)}")
+    if boxes.dtype not in (torch.float32, torch.bfloat16) or boxes.ndim != 3 or boxes.shape[-1] != 4:
+        raise ValueError(f"nms: boxes [B, n, 4] float32 or bfloat16, got {boxes.dtype} {tuple(boxes.shape)}")
 
 
-def nms_keep(boxes: torch.Tensor, iou_thresh: float, valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Greedy NMS keep mask [B, n] bool over boxes [B, n, 4] xyxy fp32 in
-    descending-score order; valid [B, n] bool (None: all valid)."""
-    if boxes.device.type == "cpu":
-        return nms_keep_plain(boxes, iou_thresh, valid)
+def _keep_cpu(boxes: torch.Tensor, iou_thresh: float, valid: Optional[torch.Tensor]) -> torch.Tensor:
+    return nms_keep_plain(boxes, iou_thresh, valid)
+
+
+def _keep_fake(boxes: torch.Tensor, iou_thresh: float, valid: Optional[torch.Tensor]) -> torch.Tensor:
+    return boxes.new_empty(boxes.shape[:2], dtype=torch.bool)
+
+
+def _keep_cuda(boxes: torch.Tensor, iou_thresh: float, valid: Optional[torch.Tensor]) -> torch.Tensor:
     _check_boxes(boxes)
+    bf16 = boxes.dtype == torch.bfloat16
     v = None
     if valid is not None:
         v = valid.to(torch.uint8).contiguous()
         check_cuda(v, "nms valid")
-    keep, _, _ = ext().nms(boxes, None, None, v, f32(iou_thresh), False, 0.0, False, 0.0, True, 0)
+    keep, _, _ = ext().nms(boxes.float(), None, None, v, rounded(iou_thresh, boxes.dtype), False, 0.0, False, 0.0,
+                           True, 0, bf16)
     if boxes.numel():
         LAUNCHES["nms"] += 1
     return keep.bool()
 
 
-def nms_compact(boxes: torch.Tensor, scores: torch.Tensor, cls: torch.Tensor, *, iou_thresh: float,
-                conf_thresh: float, max_det: int, class_wise: bool,
-                group_offset: float = GROUP_OFFSET) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`_nms_single` over a batch: boxes [B, n, 4], scores and cls [B, n]
-    fp32, in descending-score order -> (dets [B, max_det, 6] fp32, num [B]
-    int32)."""
-    if boxes.device.type == "cpu":
-        return nms_compact_plain(boxes, scores, cls, iou_thresh=iou_thresh, conf_thresh=conf_thresh,
-                                 max_det=max_det, class_wise=class_wise, group_offset=group_offset)
+_NMS_KEEP = operator("nms_keep", "(Tensor boxes, float iou_thresh, Tensor? valid) -> Tensor", cpu=_keep_cpu,
+                     cuda=_keep_cuda, fake=_keep_fake)
+
+
+def nms_keep(boxes: torch.Tensor, iou_thresh: float, valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Greedy NMS keep mask [B, n] bool over boxes [B, n, 4] xyxy (fp32, or
+    bf16 for the bf16 arithmetic) in descending-score order; valid [B, n]
+    bool (None: all valid). Through the operator `leanyolo_tpu_torch::nms_keep`."""
+    return _NMS_KEEP(boxes, iou_thresh, valid)
+
+
+def _compact_cpu(boxes, scores, cls, iou_thresh, conf_thresh, max_det, class_wise, group_offset):
+    return nms_compact_plain(boxes, scores, cls, iou_thresh=iou_thresh, conf_thresh=conf_thresh, max_det=max_det,
+                             class_wise=class_wise, group_offset=group_offset)
+
+
+def _compact_fake(boxes, scores, cls, iou_thresh, conf_thresh, max_det, class_wise, group_offset):
+    b = boxes.shape[0]
+    return boxes.new_empty((b, max_det, 6), dtype=torch.float32), boxes.new_empty((b,), dtype=torch.int32)
+
+
+def _compact_cuda(boxes, scores, cls, iou_thresh, conf_thresh, max_det, class_wise, group_offset):
     _check_boxes(boxes)
     for t, name in ((scores, "nms scores"), (cls, "nms cls")):
         check_cuda(t, name)
-        if t.dtype != torch.float32 or tuple(t.shape) != tuple(boxes.shape[:2]):
-            raise ValueError(f"{name}: [B, n] float32, got {t.dtype} {tuple(t.shape)}")
-    _, dets, num = ext().nms(boxes, scores, cls, None, f32(iou_thresh), True, f32(conf_thresh), bool(class_wise),
-                             float(group_offset), False, int(max_det))
+        if t.dtype != boxes.dtype or tuple(t.shape) != tuple(boxes.shape[:2]):
+            raise ValueError(f"{name}: [B, n] in the boxes' dtype {boxes.dtype}, got {t.dtype} {tuple(t.shape)}")
+    dt = boxes.dtype
+    # bf16 values travel as fp32 (exact); the kernel rounds its arithmetic to bf16.
+    _, dets, num = ext().nms(boxes.float(), scores.float(), cls.float(), None, rounded(iou_thresh, dt), True,
+                             rounded(conf_thresh, dt), bool(class_wise), rounded(group_offset, dt), False,
+                             int(max_det), dt == torch.bfloat16)
     if boxes.numel():
         LAUNCHES["nms"] += 1
     return dets, num
+
+
+_NMS_COMPACT = operator(
+    "nms_compact", "(Tensor boxes, Tensor scores, Tensor cls, float iou_thresh, float conf_thresh, int max_det, "
+    "bool class_wise, float group_offset) -> (Tensor, Tensor)", cpu=_compact_cpu, cuda=_compact_cuda,
+    fake=_compact_fake)
+
+
+def nms_compact(boxes: torch.Tensor, scores: torch.Tensor, cls: torch.Tensor, *, iou_thresh: float,
+                conf_thresh: float, max_det: int, class_wise: bool,
+                group_offset: float = GROUP_OFFSET) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`_nms_single` over a batch: boxes [B, n, 4], scores and cls [B, n],
+    all fp32 or all bf16 (the arithmetic's mode), in descending-score order
+    -> (dets [B, max_det, 6] fp32, num [B] int32). Through the operator
+    `leanyolo_tpu_torch::nms_compact`."""
+    return _NMS_COMPACT(boxes, scores, cls, iou_thresh, conf_thresh, max_det, class_wise, group_offset)

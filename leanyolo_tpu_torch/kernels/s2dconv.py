@@ -18,7 +18,8 @@ rounded.
 Two hand-written kernels, chosen by dtype: bf16 (every call of the serving
 path) runs on a persistent wgmma kernel with the weights resident in shared
 memory, read K-major as `pack_weights` holds them; fp32 on the CUDA cores.
-A failed launch raises; no route stands in for the other.
+A failed launch raises; no route stands in for the other. The wrapper is
+the operator `leanyolo_tpu_torch::conv3x3_c32_bias_silu` (_build.operator).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from . import LAUNCHES
-from ._build import check_cuda, ext
+from ._build import check_cuda, ext, operator
 
 C = 32
 TAPS: Tuple[Tuple[int, int], ...] = ((0, 0), (0, 1), (1, 0), (1, 1))
@@ -131,15 +132,19 @@ def _pixel_strides_ok(x: torch.Tensor, elt: int) -> bool:
             and x.stride(0) % vec == 0 and x.data_ptr() % 16 == 0)
 
 
-def conv3x3_c32_bias_silu(x: torch.Tensor, w_s2d: torch.Tensor, bias: torch.Tensor,
-                          taps: Sequence[Tuple[int, int]] = TAPS) -> torch.Tensor:
-    """x [B, H, W, 32] NHWC (a channel slice of a wider map is read in
-    place on the card), w_s2d [4, 128, 128] (pack_weights), bias [32] ->
-    [B, H, W, 32] contiguous, in x's dtype. bf16 takes the wgmma kernel,
-    fp32 the CUDA-core one."""
-    if x.device.type == "cpu":
-        return conv3x3_c32_bias_silu_plain(x, w_s2d, bias, taps)
-    bits = _taps_bits(taps)
+def _taps_of(bits: int) -> Tuple[Tuple[int, int], ...]:
+    return tuple(((bits >> (2 * t)) & 1, (bits >> (2 * t + 1)) & 1) for t in range(4))
+
+
+def _s2dconv_cpu(x: torch.Tensor, w_s2d: torch.Tensor, bias: torch.Tensor, taps: int) -> torch.Tensor:
+    return conv3x3_c32_bias_silu_plain(x, w_s2d, bias, _taps_of(taps)).contiguous()
+
+
+def _s2dconv_fake(x: torch.Tensor, w_s2d: torch.Tensor, bias: torch.Tensor, taps: int) -> torch.Tensor:
+    return x.new_empty(x.shape)
+
+
+def _s2dconv_cuda(x: torch.Tensor, w_s2d: torch.Tensor, bias: torch.Tensor, taps: int) -> torch.Tensor:
     if x.dtype not in (torch.bfloat16, torch.float32) or x.ndim != 4 or x.shape[-1] != C:
         raise ValueError(f"s2dconv: bf16 or fp32 x [B, H, W, {C}], got {x.dtype} {tuple(x.shape)}")
     if tuple(w_s2d.shape) != (4, 4 * C, 4 * C) or tuple(bias.shape) != (C,):
@@ -156,13 +161,27 @@ def conv3x3_c32_bias_silu(x: torch.Tensor, w_s2d: torch.Tensor, bias: torch.Tens
         wk = k_major(w_s2d.to(x.dtype))
         check_cuda(wk, "s2dconv w")
         if out.numel():
-            ext().s2dconv_wgmma(x, wk, bk, out, bits)
+            ext().s2dconv_wgmma(x, wk, bk, out, taps)
             LAUNCHES["s2dconv_wgmma"] += 1
             LAUNCHES["s2dconv"] += 1
         return out
     wk = w_s2d.to(x.dtype).contiguous()
     check_cuda(wk, "s2dconv w")
     if out.numel():
-        ext().s2dconv(x, wk, bk, out, bits)
+        ext().s2dconv(x, wk, bk, out, taps)
         LAUNCHES["s2dconv"] += 1
     return out
+
+
+_S2DCONV = operator("conv3x3_c32_bias_silu", "(Tensor x, Tensor w_s2d, Tensor bias, int taps) -> Tensor",
+                    cpu=_s2dconv_cpu, cuda=_s2dconv_cuda, fake=_s2dconv_fake)
+
+
+def conv3x3_c32_bias_silu(x: torch.Tensor, w_s2d: torch.Tensor, bias: torch.Tensor,
+                          taps: Sequence[Tuple[int, int]] = TAPS) -> torch.Tensor:
+    """x [B, H, W, 32] NHWC (a channel slice of a wider map is read in
+    place on the card), w_s2d [4, 128, 128] (pack_weights), bias [32] ->
+    [B, H, W, 32] contiguous, in x's dtype, through the operator
+    `leanyolo_tpu_torch::conv3x3_c32_bias_silu` (taps as 8 bits). bf16
+    takes the wgmma kernel, fp32 the CUDA-core one."""
+    return _S2DCONV(x, w_s2d, bias, _taps_bits(taps))

@@ -16,7 +16,8 @@ of the serving path) runs both convs on the tensor cores (mma.sync) with
 the weights packed once by `pack_weights` (csrc/stem_tc.cu); fp32 runs on
 the CUDA cores with fp32 FMAs (csrc/stem.cu). Both take the stem widths of
 all six YOLOv10 sizes (`WIDTHS`). A failed launch raises; no route stands
-in for the other.
+in for the other. The wrapper is the operator `leanyolo_tpu_torch::fused_stem`
+(_build.operator): CPU -> the plain version, CUDA -> the kernels.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch.nn.functional as F
 
 from ..models.yolov10.config import VARIANTS
 from . import LAUNCHES
-from ._build import check_cuda, ext
+from ._build import check_cuda, ext, operator
 
 # (conv0, conv1) output widths the kernels take: backbone cv0/cv1 of every
 # YOLOv10 size (the kernels are compiled for these, csrc/kernels.h
@@ -99,16 +100,17 @@ def fused_stem_plain(images, w0, b0, w1, b1, *, dtype: torch.dtype) -> torch.Ten
     return _conv_bias_silu(_conv_bias_silu(x, w0, b0), w1, b1).permute(0, 2, 3, 1)
 
 
-def fused_stem(images, w0, b0, w1, b1, *, dtype: Optional[torch.dtype] = None,
-               packed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
-    """Folded cv0+cv1: images [B, H, W, 3] NHWC, w0 [c0, 3, 3, 3], b0 [c0],
-    w1 [c1, c0, 3, 3], b1 [c1] -> [B, H/4, W/4, c1] NHWC in `dtype`
-    (default: w0's dtype). `packed`: `pack_weights(w0, w1)`, packed once by
-    the caller; the bf16 route on the card reads only these and raises
-    without them. On the card H and W must be multiples of 32."""
-    dtype = w0.dtype if dtype is None else dtype
-    if images.device.type == "cpu":
-        return fused_stem_plain(images, w0, b0, w1, b1, dtype=dtype)
+def _stem_cpu(images, w0, b0, w1, b1, dtype, w0p, w1p):
+    return fused_stem_plain(images, w0, b0, w1, b1, dtype=dtype).contiguous()
+
+
+def _stem_fake(images, w0, b0, w1, b1, dtype, w0p, w1p):
+    b, h, w, _ = images.shape
+    h1, w1_ = (h - 1) // 2 + 1, (w - 1) // 2 + 1  # two 3x3 stride-2 pad-1 convs
+    return images.new_empty((b, (h1 - 1) // 2 + 1, (w1_ - 1) // 2 + 1, w1.shape[0]), dtype=dtype)
+
+
+def _stem_cuda(images, w0, b0, w1, b1, dtype, w0p, w1p):
     check_cuda(images, "fused_stem images")
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"fused_stem: bf16 or fp32 activations, got {dtype}")
@@ -128,10 +130,10 @@ def fused_stem(images, w0, b0, w1, b1, *, dtype: Optional[torch.dtype] = None,
     b0k, b1k = b0.to(dtype).contiguous(), b1.to(dtype).contiguous()
     out = torch.empty(b, h // 4, w // 4, c1, dtype=dtype, device=images.device)
     if dtype == torch.bfloat16:
-        if packed is None:
+        if w0p is None or w1p is None:
             raise ValueError("fused_stem: the bf16 route takes the weights packed once, "
                              "packed=pack_weights(w0, w1)")
-        w0p, w1p = (t.to(dtype).contiguous() for t in packed)
+        w0p, w1p = w0p.to(dtype).contiguous(), w1p.to(dtype).contiguous()
         for t, name in ((w0p, "w0 packed"), (w1p, "w1 packed"), (b0k, "b0"), (b1k, "b1")):
             check_cuda(t, f"fused_stem {name}")
         if b:
@@ -148,3 +150,20 @@ def fused_stem(images, w0, b0, w1, b1, *, dtype: Optional[torch.dtype] = None,
         ext().stem(images, w0k, b0k, w1k, b1k, out)
         LAUNCHES["stem"] += 1
     return out
+
+
+_FUSED_STEM = operator(
+    "fused_stem", "(Tensor images, Tensor w0, Tensor b0, Tensor w1, Tensor b1, ScalarType dtype, Tensor? w0p, "
+    "Tensor? w1p) -> Tensor", cpu=_stem_cpu, cuda=_stem_cuda, fake=_stem_fake)
+
+
+def fused_stem(images, w0, b0, w1, b1, *, dtype: Optional[torch.dtype] = None,
+               packed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """Folded cv0+cv1: images [B, H, W, 3] NHWC, w0 [c0, 3, 3, 3], b0 [c0],
+    w1 [c1, c0, 3, 3], b1 [c1] -> [B, H/4, W/4, c1] NHWC in `dtype`
+    (default: w0's dtype), through the operator `leanyolo_tpu_torch::fused_stem`.
+    `packed`: `pack_weights(w0, w1)`, packed once by the caller; the bf16
+    route on the card reads only these and raises without them. On the
+    card H and W must be multiples of 32."""
+    w0p, w1p = (None, None) if packed is None else packed
+    return _FUSED_STEM(images, w0, b0, w1, b1, w0.dtype if dtype is None else dtype, w0p, w1p)

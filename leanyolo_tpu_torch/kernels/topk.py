@@ -21,7 +21,9 @@ summed through distributed shared memory, stopping as soon as the k-th
 key's bin is taken whole) finds the k-th largest key, the k keys at or
 above it are gathered, and they are ordered by rank counting (k <= 2048)
 or a bitonic sort (larger k). Details in csrc/topk.cu. Bound: bytes (each
-input read once, each output written once).
+input read once, each output written once). The wrapper is the operator
+`leanyolo_tpu_torch::topk` (_build.operator); the key width is chosen
+inside its CUDA implementation.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from typing import Tuple
 import torch
 
 from . import LAUNCHES
-from ._build import check_cuda, ext
+from ._build import check_cuda, ext, operator
 
 _PACK32_MAX_N = 32768
 
@@ -88,10 +90,17 @@ def topk_plain(x: torch.Tensor, k: int, *, canon_zero: bool) -> Tuple[torch.Tens
     return vals.to(x.dtype), idx
 
 
-def topk(x: torch.Tensor, k: int, *, canon_zero: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k (values, int32 indices) over the last dim of a bf16/fp32 tensor."""
-    if x.device.type == "cpu":
-        return topk_plain(x, k, canon_zero=canon_zero)
+def _topk_cpu(x: torch.Tensor, k: int, canon_zero: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    vals, idx = topk_plain(x, k, canon_zero=canon_zero)
+    return vals.contiguous(), idx.contiguous()
+
+
+def _topk_fake(x: torch.Tensor, k: int, canon_zero: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    shape = tuple(x.shape[:-1]) + (k,)
+    return x.new_empty(shape), x.new_empty(shape, dtype=torch.int32)
+
+
+def _topk_cuda(x: torch.Tensor, k: int, canon_zero: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     check_cuda(x, "topk")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"topk: bf16 or fp32 input, got {x.dtype}")
@@ -105,3 +114,13 @@ def topk(x: torch.Tensor, k: int, *, canon_zero: bool) -> Tuple[torch.Tensor, to
     if x.numel():
         LAUNCHES["topk"] += 1
     return vals, idx
+
+
+_TOPK = operator("topk", "(Tensor x, int k, bool canon_zero) -> (Tensor, Tensor)", cpu=_topk_cpu, cuda=_topk_cuda,
+                 fake=_topk_fake)
+
+
+def topk(x: torch.Tensor, k: int, *, canon_zero: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k (values, int32 indices) over the last dim of a bf16/fp32
+    tensor, through the operator `leanyolo_tpu_torch::topk`."""
+    return _TOPK(x, k, canon_zero)

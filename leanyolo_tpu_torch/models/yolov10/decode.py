@@ -13,8 +13,8 @@ Counterpart of the JAX package's `leanyolo_tpu/models/yolov10/decode.py`
   (class-wise by the JAX decode's offset trick) and compacts the survivors
   into `(dets [B, max_det, 6], num [B])`;
 - `decode_direct_nms`: the legacy direct-offset head layout, then the same
-  NMS; fp32 maps only (JAX runs this NMS in the maps' dtype, the NMS
-  kernel in fp32).
+  NMS, in the maps' dtype as JAX runs it: on bf16 maps every step rounds
+  to bf16 and the NMS kernel runs its bf16 mode.
 
 The level gather is a direct index gather. DFL and the box decode run in
 fp32 on the upcast reg logits. `detections_to_list` and
@@ -129,12 +129,15 @@ def _nms_single(boxes: Tensor, scores: Tensor, cls_idx: Tensor, *, iou_thresh: f
     6], num [...] int32): valid = score > conf_thresh; row j is the j-th
     survivor while j < min(max_det, K), zero rows follow (JAX
     `_nms_single`, whose vmap is the leading dims here). Runs in the NMS
-    kernel's wrapper."""
+    kernel's wrapper, in bf16 arithmetic where the boxes are bf16 (the
+    rest is then cast to bf16, as JAX's concatenation promotes it), else
+    in fp32."""
     lead = boxes.shape[:-2]
     k = boxes.shape[-2]
-    dets, num = _knms.nms_compact(boxes.reshape(-1, k, 4).float().contiguous(),
-                                  scores.reshape(-1, k).float().contiguous(),
-                                  cls_idx.reshape(-1, k).float().contiguous(), iou_thresh=iou_thresh,
+    dt = _knms.arithmetic_dtype(boxes)
+    dets, num = _knms.nms_compact(boxes.reshape(-1, k, 4).to(dt).contiguous(),
+                                  scores.reshape(-1, k).to(dt).contiguous(),
+                                  cls_idx.reshape(-1, k).to(dt).contiguous(), iou_thresh=iou_thresh,
                                   conf_thresh=conf_thresh, max_det=max_det, class_wise=class_wise,
                                   group_offset=group_offset)
     return dets.reshape(lead + (max_det, 6)), num.reshape(lead)
@@ -184,6 +187,27 @@ def decode_nms(preds: Sequence, *, num_classes: int, strides: Sequence[int] = (8
                        max_det=max_det, class_wise=class_wise)
 
 
+def _ftz(x: Tensor) -> Tensor:
+    """Subnormal results to +0, as XLA's CPU arithmetic flushes them."""
+    return torch.where(x.abs() < torch.finfo(x.dtype).tiny, torch.zeros_like(x), x)
+
+
+def _exp(x: Tensor) -> Tensor:
+    """`jnp.exp` in the maps' dtype (bf16: subnormals flushed, as XLA's)."""
+    return torch.exp(x) if x.dtype != torch.bfloat16 else _ftz(torch.exp(x))
+
+
+def _sigmoid(x: Tensor) -> Tensor:
+    """`jax.nn.sigmoid` in the maps' dtype: fp32 as torch computes it (up to
+    3 ulp from XLA's below a logit of 6.4, equal above, where the scores
+    saturate); bf16 as XLA expands it, 1 / (1 + exp(-x)) with each
+    operation rounded to bf16 and subnormals flushed (bit-equal to JAX over
+    every finite bf16 input)."""
+    if x.dtype != torch.bfloat16:
+        return torch.sigmoid(x)
+    return _ftz(1 / (1 + _exp(-x)))
+
+
 def decode_direct_nms(preds: Sequence[Tensor], *, num_classes: int, strides: Sequence[int] = (8, 16, 32),
                       conf_thresh: float = 0.25, iou_thresh: float = 0.45, max_det: int = 300,
                       pre_topk: int = 1000) -> Tuple[Tensor, Tensor]:
@@ -191,10 +215,13 @@ def decode_direct_nms(preds: Sequence[Tensor], *, num_classes: int, strides: Seq
     `decode_direct_nms`): sigmoid centre offsets and exp width/height, the
     best class by the max and first argmax of the sigmoid scores (not the
     logits: saturated scores tie where logits do not), then the same NMS.
-    Takes fp32 maps: JAX runs this NMS in the maps' dtype, and the NMS
-    kernel computes its IoUs in fp32."""
-    if any(p.dtype != torch.float32 for p in preds):
-        raise ValueError("decode_direct_nms takes float32 maps")
+    Runs in the maps' dtype, fp32 or bf16, as JAX does: on bf16 maps the
+    box arithmetic, sigmoid, max, argmax, top-k and classes are bf16 and
+    the NMS kernel runs its bf16 mode; the dets are fp32 either way."""
+    dtype = preds[0].dtype
+    if dtype not in (torch.float32, torch.bfloat16) or any(p.dtype != dtype for p in preds):
+        raise ValueError(f"decode_direct_nms takes float32 or bfloat16 maps of one dtype, got "
+                         f"{[p.dtype for p in preds]}")
     b = preds[0].shape[0]
     boxes_l, scores_l = [], []
     for p, s in zip(preds, strides):
@@ -205,19 +232,21 @@ def decode_direct_nms(preds: Sequence[Tensor], *, num_classes: int, strides: Seq
         gy, gx = torch.meshgrid(torch.arange(h, dtype=p.dtype, device=p.device),
                                 torch.arange(w, dtype=p.dtype, device=p.device), indexing="ij")
         gx, gy = gx.reshape(1, -1), gy.reshape(1, -1)
-        cx = (torch.sigmoid(bbox[..., 0]) + gx) * s
-        cy = (torch.sigmoid(bbox[..., 1]) + gy) * s
-        bw = torch.exp(bbox[..., 2]) * s
-        bh = torch.exp(bbox[..., 3]) * s
+        cx = (_sigmoid(bbox[..., 0]) + gx) * s
+        cy = (_sigmoid(bbox[..., 1]) + gy) * s
+        bw = _exp(bbox[..., 2]) * s
+        bh = _exp(bbox[..., 3]) * s
         boxes_l.append(torch.stack((cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2), dim=-1))
-        scores_l.append(torch.sigmoid(flat[..., 4:]))
+        scores_l.append(_sigmoid(flat[..., 4:]))
     boxes = torch.cat(boxes_l, dim=1)
-    best_scores, best_cls = max_argmax_lastdim(scores_l)  # fp32: jnp.max, jnp.argmax
+    # jnp.max, jnp.argmax; bf16 scores hold no -0.0 (sigmoid), so the packed
+    # route's zero rule is moot and its values are the maxima themselves.
+    best_scores, best_cls = max_argmax_lastdim(scores_l)
     k_pre = min(pre_topk, boxes.shape[1])
     # lax.top_k; sigmoid scores hold no -0.0, so the route's zero rule is moot
     cand_scores, anc_idx = topk_lastdim(best_scores, k_pre)
     anc_idx = anc_idx.long()
-    cand_cls = torch.gather(best_cls.float(), 1, anc_idx)
+    cand_cls = torch.gather(best_cls.to(dtype), 1, anc_idx)  # JAX: argmax.astype(boxes.dtype)
     cand_boxes = torch.gather(boxes, 1, anc_idx[..., None].expand(-1, -1, 4))
     return _nms_single(cand_boxes, cand_scores, cand_cls, iou_thresh=iou_thresh, conf_thresh=conf_thresh,
                        max_det=max_det, class_wise=False, group_offset=0.0)

@@ -12,7 +12,9 @@ NMS kernel's keep mode (kernels/nms.py), which walks the ranks in order
 and takes no block; on the CPU it is JAX's blocked substitution in plain
 PyTorch, block by block. `_alive_jacobi` is plain PyTorch. All give the
 exact greedy keep set, so `schedule` and `block` change how it is
-computed, never what. The decode does not come through here: its NMS
+computed, never what. bf16 boxes take the bf16 arithmetic, as in JAX: each
+IoU operation rounded to bf16 and the threshold rounded to bf16 (the
+kernel's bf16 mode on a card). The decode does not come through here: its NMS
 (`_nms_single`) calls the kernel's compacting mode directly.
 """
 
@@ -54,7 +56,8 @@ def box_iou(boxes1: Tensor, boxes2: Tensor) -> Tensor:
     wh = torch.clamp_min(rb - lt, 0.0)
     inter = wh[..., 0] * wh[..., 1]
     union = area1[:, None] + area2[None, :] - inter
-    return inter / (union + 1e-9)
+    eps = _knms.rounded(1e-9, torch.bfloat16) if boxes1.dtype == torch.bfloat16 else 1e-9
+    return inter / (union + eps)
 
 
 def _aspect_term(b1: Tensor, b2: Tensor, iou: Tensor) -> Tensor:
@@ -116,7 +119,8 @@ def _alive_jacobi(boxes_s: Tensor, iou_thresh: float) -> Tensor:
     (JAX `_alive_jacobi`; counts of 0/1 values are exact in fp32)."""
     n = boxes_s.shape[0]
     rank = torch.arange(n, device=boxes_s.device)
-    supp = ((box_iou(boxes_s, boxes_s) > _knms.f32(iou_thresh)) & (rank[:, None] < rank[None, :])).float()
+    supp = ((box_iou(boxes_s, boxes_s) > _knms.rounded(iou_thresh, boxes_s.dtype))
+            & (rank[:, None] < rank[None, :])).float()
     alive = torch.ones(n, dtype=torch.bool, device=boxes_s.device)
     for _ in range(n):
         new = (alive.float() @ supp) == 0.0
@@ -133,13 +137,14 @@ def _alive_blocked(boxes_s: Tensor, iou_thresh: float, block: int, valid: Option
     substitution, per block of `block` ranks its IoU rows against every
     candidate, the exact greedy solve inside the block by Jacobi sweeps,
     and its survivors' kill counts added to the later ranks."""
+    dtype = _knms.arithmetic_dtype(boxes_s)
     if boxes_s.device.type != "cpu":
-        return _knms.nms_keep(boxes_s.float().contiguous()[None], iou_thresh,
+        return _knms.nms_keep(boxes_s.to(dtype).contiguous()[None], iou_thresh,
                               None if valid is None else valid[None])[0]
     n = boxes_s.shape[0]
     nb = -(-n // block)
     n_pad = nb * block
-    thr = _knms.f32(iou_thresh)
+    thr = _knms.rounded(iou_thresh, dtype)
     if n_pad > n:  # zero-area padding: IoU 0 against everything
         boxes_s = torch.cat([boxes_s, boxes_s.new_zeros(n_pad - n, 4)])
     if valid is not None and n_pad > n:

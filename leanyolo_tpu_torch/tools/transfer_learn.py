@@ -2,12 +2,13 @@
 then unfrozen, bf16, augmentation, a COCO evaluation each epoch.
 
 Counterpart of the JAX package's `tools/transfer_learn.py` without its
-training snapshots (--viz-interval, --viz-conf) and its data-parallel and
-distributed options: a backbone lr multiplier (0.1), warmup then cosine,
+data-parallel and distributed options: a backbone lr multiplier (0.1), warmup then cosine,
 grad clip 1.0, bf16 activations unless --no-amp, hflip and brightness/
 contrast unless --no-augment, the backbone and neck frozen until
 --unfreeze-epoch, `best.npz` by mAP50-95, `epochNNN.npz` and `ckpt.npz`,
-and `train.log` beside the stream log with the JAX CLI's lines. A local
+and `train.log` beside the stream log with the JAX CLI's lines;
+--viz-interval N saves every N steps the current weights' detections on the
+batch's first image to <out-dir>/viz/stepNNNNNN.jpg. A local
 weights file loads leniently (`load_checkpoint_transfer`: a pretraining
 run's class count need not match); anything else goes through `get_model`.
 Runs on the card unless --device names another.
@@ -60,6 +61,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--workers", type=int, default=8)
     p.add_argument("--eval-conf", type=float, default=0.001, help="per-epoch eval score threshold")
     p.add_argument("--eval-iou", type=float, default=0.65, help="per-epoch eval NMS IoU")
+    p.add_argument(
+        "--viz-interval", type=int, default=0,
+        help="every N steps, decode the current weights on the first train image and save an annotated snapshot "
+        "to <out-dir>/viz (0 = off)",
+    )
+    p.add_argument(
+        "--viz-conf", type=float, default=0.25,
+        help="score threshold for train-viz snapshots (the per-epoch eval's --eval-conf defaults to the mAP "
+        "convention 0.001, so viz has its own)",
+    )
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out-dir", default="runs/transfer")
     p.add_argument("--device", default="cuda", help="where to train: 'cuda' (default) or 'cpu'")
@@ -84,14 +95,16 @@ def setup_logger(out_dir: Path) -> logging.Logger:
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
 
+    import numpy as np
     import torch
 
-    from ..data.dataset import CocoDetection, DataLoader
+    from ..data.dataset import CocoDetection, DataLoader, DeviceBatch
     from ..engine.predictor import Predictor
     from ..engine.trainer import TrainConfig, Trainer
     from ..engine.validator import validate_coco
     from ..models.registry import get_model, load_checkpoint_transfer, save_checkpoint
     from ..models.yolov10.model import reset_head
+    from ..utils.viz import draw_detections, save_image
 
     out_dir = Path(args.out_dir)
     log = setup_logger(out_dir)
@@ -142,6 +155,27 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     eval_predictor = Predictor(model, imgsz=args.imgsz, decode="topk", conf_thresh=args.eval_conf,
                                iou_thresh=args.eval_iou, device=trainer.device)
 
+    def save_train_viz(batch) -> None:
+        """The current weights' detections on the batch's first image: a host
+        batch's letterboxed image through run_batch; a device batch's raw
+        image, cropped from its canvas, through predict_images (boxes in its
+        own coordinates)."""
+        eval_predictor.update_params(model)
+        if isinstance(batch, DeviceBatch):
+            h, w = (int(v) for v in batch.hw[0])
+            src = np.ascontiguousarray(batch.canvas[0, :h, :w], np.uint8)
+            d = eval_predictor.predict_images([src])[0]
+        else:
+            dets, _ = eval_predictor.run_batch(batch.images[:1])
+            d = dets[0].cpu().numpy()
+            src = np.asarray(batch.images[0], np.uint8)
+        d = d[d[:, 4] > args.viz_conf]
+        viz_dir = out_dir / "viz"
+        viz_dir.mkdir(parents=True, exist_ok=True)
+        path = str(viz_dir / f"step{trainer.global_step:06d}.jpg")
+        save_image(path, draw_detections(src, d, class_names))
+        log.info(f"[viz] saved: {path}")
+
     best_map = -1.0
     for epoch in range(args.epochs):
         if cfg.freeze_backbone and epoch == args.unfreeze_epoch:
@@ -150,6 +184,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         last = None
         for batch in loader:
             last = trainer.train_step(batch, gen)
+            if args.viz_interval and trainer.global_step % args.viz_interval == 0:
+                save_train_viz(batch)
         running = {k: (float(last[k]) if last is not None else 0.0) for k in ("total", "cls", "reg")}
         dt = time.perf_counter() - t0
         log.info(f"EPOCH {epoch + 1}/{args.epochs} loss={running['total']:.4f} "

@@ -2,7 +2,8 @@
 line and a row of the 27-column CSV run log.
 
 Counterpart of the JAX package's `tools/val.py` without its parallel
-options and drawing. Dataset resolution: --images-dir and --ann-json, else
+options; --viz-dir draws the detections (letterboxed pixels under the host
+letterbox, original images under --preprocess device). Dataset resolution: --images-dir and --ann-json, else
 <data-root>/annotations.json with <data-root>/images; COCO val2017 is not
 downloaded. Runs on the card unless --device names another.
 
@@ -38,6 +39,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--dtype", choices=["float32", "bf16"], default="float32")
     p.add_argument("--workers", type=int, default=8)
     p.add_argument("--save-detections", default=None)
+    p.add_argument(
+        "--viz-dir", default=None,
+        help="save annotated images here (letterboxed pixels under host preprocessing; original images with "
+        "unletterboxed boxes under --preprocess device)",
+    )
+    p.add_argument("--viz-conf", type=float, default=0.25)
+    p.add_argument("--viz-name-mode", choices=["file", "id", "index"], default="file")
     p.add_argument("--measure-fps", action="store_true")
     p.add_argument("--warmup-iters", type=int, default=1, help="warm-up calls before the FPS measurement")
     p.add_argument(
@@ -97,6 +105,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         save_detections=args.save_detections,
         measure_speed=args.measure_fps,
         fps_warmup=args.warmup_iters,
+        viz_dir=args.viz_dir,
+        viz_conf=args.viz_conf,
+        viz_name_mode=args.viz_name_mode,
         preprocess=args.preprocess,
         device=args.device,
     )
@@ -131,6 +142,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             "map_75": f"{stats['map_75']:.5f}",
             "fps": f"{stats['fps']:.1f}" if "fps" in stats else "",
             "detections_json": args.save_detections or "",
+            "viz_dir": args.viz_dir or "",
             "notes": args.notes,
         },
     )

@@ -135,3 +135,43 @@ def test_postprocess_to_original_matches_jax(decode, apply):
     lists = TD.detections_to_list(torch.from_numpy(dets), torch.from_numpy(num), conf_thresh=0.4)
     for g, r in zip(lists, JD.detections_to_list(dets, num, conf_thresh=0.4)):
         np.testing.assert_array_equal(g, r)
+
+
+def _direct_maps(seed: int, size: int = SIZE):
+    rng = np.random.RandomState(seed)
+    return [np.concatenate([rng.randn(2, size // s, size // s, 4) * 0.5,
+                            np.round((rng.randn(2, size // s, size // s, NC) * 3 - 4) * 4) / 4], -1).astype(np.float32)
+            for s in STRIDES]
+
+
+@pytest.mark.parametrize("seed,iou", [(6, 0.45), (7, 0.451), (8, 0.65)])
+def test_decode_direct_nms_bf16_bit_equal_to_jax(seed, iou):
+    """bf16 maps: the box arithmetic, sigmoid, max, argmax, top-k and classes
+    in bf16 and the NMS in bf16 arithmetic, as JAX's; dets and num bit-equal."""
+    maps = _direct_maps(seed)
+    kw = dict(num_classes=NC, strides=STRIDES, conf_thresh=0.05, iou_thresh=iou, max_det=100)
+    rd, rn = JD.decode_direct_nms([jnp.asarray(m, jnp.bfloat16) for m in maps], **kw)
+    gd, gn = TD.decode_direct_nms([torch.from_numpy(m).to(torch.bfloat16) for m in maps], **kw)
+    assert gd.dtype == torch.float32 and gn.dtype == torch.int32
+    np.testing.assert_array_equal(gn.numpy(), np.asarray(rn))
+    np.testing.assert_array_equal(gd.numpy().view(np.int32), np.asarray(rd, np.float32).view(np.int32))
+    assert gn.min() > 5
+
+
+def test_decode_direct_nms_rejects_mixed_dtypes():
+    maps = [torch.from_numpy(m) for m in _direct_maps(6)]
+    with pytest.raises(ValueError, match="one dtype"):
+        TD.decode_direct_nms([maps[0].bfloat16(), *maps[1:]], num_classes=NC, strides=STRIDES)
+
+
+def test_bf16_sigmoid_bit_equal_to_jax_on_every_bf16():
+    """XLA expands a bf16 sigmoid as 1 / (1 + exp(-x)), each step rounded to
+    bf16, subnormals flushed; torch.sigmoid rounds once and differs on 1116
+    of the finite bf16 inputs. The port's bf16 sigmoid equals JAX's on all."""
+    import jax
+
+    x = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    x = x[torch.isfinite(x)]
+    ref = np.asarray(jax.nn.sigmoid(jnp.asarray(x.float().numpy(), jnp.bfloat16)).astype(jnp.float32))
+    np.testing.assert_array_equal(TD._sigmoid(x).float().numpy(), ref)
+    assert (torch.sigmoid(x).float().numpy() != ref).sum() > 1000

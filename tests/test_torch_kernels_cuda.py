@@ -590,3 +590,66 @@ def test_predictor_nms_on_the_card(cuda_device, dtype, monkeypatch):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == n0
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("b", NMS_BATCHES)
+@pytest.mark.parametrize("n", [63, 1000, 1500])
+@pytest.mark.parametrize("thresh", [0.45, 0.451])
+def test_nms_bf16_mode_kernel(cuda_device, b, n, thresh):
+    """K5's bf16 arithmetic mode (bf16 candidates): keep masks and the
+    compaction bit-equal to the plain version's bf16 arithmetic."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    boxes, scores, cls = (t.bfloat16() for t in nms_inputs(g, b, n, cuda_device, False))
+    valid = torch.rand(b, n, generator=g, device=cuda_device) < 0.7
+    assert torch.equal(nms.nms_keep(boxes, thresh, valid), nms.nms_keep_plain(boxes, thresh, valid))
+    for class_wise in (False, True):
+        kw = dict(iou_thresh=thresh, conf_thresh=0.25, max_det=300, class_wise=class_wise)
+        gd, gn = nms.nms_compact(boxes, scores, cls, **kw)
+        rd, rn = nms.nms_compact_plain(boxes, scores, cls, **kw)
+        torch.cuda.synchronize()
+        assert gd.dtype == torch.float32 and torch.equal(gn, rn) and torch.equal(gd, rd)
+
+
+def test_decode_direct_nms_bf16_on_the_card(cuda_device, monkeypatch):
+    from leanyolo_tpu_torch.models.yolov10.decode import decode_direct_nms
+
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    maps = [torch.cat([torch.randn(4, h, h, 4, generator=g, device=cuda_device) * 0.5,
+                       (torch.randn(4, h, h, 80, generator=g, device=cuda_device) * 3 - 4)], -1).bfloat16()
+            for h in (16, 8, 4)]
+    kw = dict(num_classes=80, strides=(8, 16, 32), conf_thresh=0.05, iou_thresh=0.45, max_det=100)
+    before = kernels.LAUNCHES["nms"]
+    gd, gn = decode_direct_nms(maps, **kw)
+    assert kernels.LAUNCHES["nms"] == before + 1
+    monkeypatch.setattr(argmax, "max_argmax_levels", argmax.max_argmax_levels_plain)
+    monkeypatch.setattr(topk, "topk", topk.topk_plain)
+    monkeypatch.setattr(nms, "nms_compact", nms.nms_compact_plain)
+    rd, rn = decode_direct_nms(maps, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(gn, rn) and torch.equal(gd, rd) and int(gn.min()) > 0
+
+
+@pytest.mark.parametrize("decode", ["topk", "nms"])
+def test_serving_export_on_the_card(cuda_device, tmp_path, decode):
+    """A yolov10n bf16 artifact exported on the card at a symbolic batch,
+    saved and loaded: bit-equal to the live module at batches 1 and 3, with
+    each serving kernel launched per call (the packed weights travel in the
+    artifact: the bf16 stem route raises without them)."""
+    from leanyolo_tpu_torch import YOLOv10
+    from leanyolo_tpu_torch.export import serving as S
+
+    model = YOLOv10.create("yolov10n", class_names=[f"c{i}" for i in range(80)], seed=0)
+    path = S.export_serving(model, str(tmp_path / "a"), imgsz=64, decode=decode, dtype="bf16", max_dets=50)
+    art = S.load_exported(path)
+    fn, _ = S.build_serving_fn(model, imgsz=64, decode=decode, dtype="bf16", max_dets=50)
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    for b in (1, 3):
+        x = torch.rand(b, 64, 64, 3, generator=g, device=cuda_device) * 255
+        kernels.reset_launches()
+        got = art(x)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["stem_tc"] == 1 and kernels.LAUNCHES["bmm"] > 0 and kernels.LAUNCHES["topk"] == 1
+        assert kernels.LAUNCHES["nms" if decode == "nms" else "argmax"] == 1
+        with torch.no_grad():
+            ref = fn(x)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])

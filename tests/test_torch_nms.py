@@ -208,3 +208,84 @@ def test_box_format_conversions_match_jax():
     xywh = TB.box_xyxy_to_xywh(t)
     np.testing.assert_array_equal(TB.box_xywh_to_xyxy(xywh).numpy(),
                                   np.asarray(JB.box_xywh_to_xyxy(jnp.asarray(xywh.numpy()))))
+
+
+# bf16 arithmetic (the JAX decode's NMS on bf16 maps): each IoU operation
+# rounded to bf16, the threshold rounded to bf16 by JAX's weak typing.
+BF16_THRESHOLDS = (0.45, 0.451, 0.5, 1 / 3)  # 0.451 rounds up to 0.451171875 in bf16
+
+
+def _bf16_boxes(seed: int, n: int):
+    """bf16-exact xyxy boxes on a 0.25-px grid in a 60-px field, many pairs
+    overlapping, so that bf16 IoUs fall on the format's rounding edges (a
+    bf16 IoU differs from the rounded fp32 one on some of them)."""
+    rng = np.random.RandomState(seed)
+    xy = rng.randint(0, 160, (n, 2)) / 4
+    wh = rng.randint(4, 80, (n, 2)) / 4
+    b = np.concatenate([xy, xy + wh], axis=1).astype(np.float32)
+    return b, torch.from_numpy(b).to(torch.bfloat16), jnp.asarray(b, jnp.bfloat16)
+
+
+def _bits(x) -> np.ndarray:
+    return np.asarray(x, np.float32).view(np.int32)
+
+
+def test_bf16_iou_bit_equal_to_jax():
+    b, tb, jb = _bf16_boxes(21, 300)
+    ref = _bits(JB.box_iou(jb, jb).astype(jnp.float32))
+    for got in (knms.iou_matrix(tb), TB.box_iou(tb, tb)):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(_bits(got.float().numpy()), ref)
+    upcast = _bits(torch.from_numpy(np.array(JB.box_iou(jb.astype(jnp.float32), jb.astype(jnp.float32))))
+                   .to(torch.bfloat16).float().numpy())
+    assert (upcast != ref).sum() > 100  # its own arithmetic, not the fp32 IoU rounded
+
+
+@pytest.mark.parametrize("thresh", BF16_THRESHOLDS)
+@pytest.mark.parametrize("with_valid", [True, False])
+def test_bf16_keep_bit_equal_to_jax(thresh, with_valid):
+    b, tb, jb = _bf16_boxes(22, 400)
+    valid = np.random.RandomState(3).uniform(size=400) < 0.8 if with_valid else None
+    ref = np.asarray(JB.nms_fixed(jb, jnp.zeros(400, jnp.bfloat16), thresh, presorted=True,
+                                  valid=None if valid is None else jnp.asarray(valid)))
+    tv = None if valid is None else torch.from_numpy(valid)
+    got = knms.nms_keep_plain(tb[None], thresh, None if tv is None else tv[None])[0]
+    np.testing.assert_array_equal(got.numpy(), ref)
+    for schedule in ("blocked", "jacobi"):
+        np.testing.assert_array_equal(TB.nms_fixed(tb, torch.zeros(400, dtype=torch.bfloat16), thresh,
+                                                   schedule=schedule, presorted=True, valid=tv).numpy(), ref)
+
+
+def test_bf16_threshold_rounds_as_jax():
+    """An IoU of exactly bf16(0.451) = 0.451171875 is not above a threshold of
+    0.451 in bf16 (JAX rounds the threshold), though it is above 0.451 in fp32."""
+    boxes = np.array([[0, 0, 1, 1], [0, 0, 1, 0.451171875]], np.float32)
+    assert float(knms.iou_matrix(torch.from_numpy(boxes).to(torch.bfloat16))[0, 1]) == 0.451171875
+    ref = np.asarray(JB.nms_fixed(jnp.asarray(boxes, jnp.bfloat16), jnp.zeros(2, jnp.bfloat16), 0.451,
+                                  presorted=True))
+    got = knms.nms_keep_plain(torch.from_numpy(boxes).to(torch.bfloat16)[None], 0.451)[0].numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert got.tolist() == [True, True]
+    assert knms.nms_keep_plain(torch.from_numpy(boxes)[None], 0.451)[0].tolist() == [True, False]
+
+
+@pytest.mark.parametrize("class_wise", [False, True])
+@pytest.mark.parametrize("thresh", [0.45, 0.451])
+def test_nms_single_bf16_matches_jax(class_wise, thresh):
+    """`_nms_single` on bf16 candidates: the valid test, the class shift and
+    the IoUs in bf16, the payload the bf16 values in fp32, as JAX's."""
+    k = 300
+    _, tb, jb = _bf16_boxes(23, k)
+    rng = np.random.RandomState(24)
+    scores = np.sort(np.round(rng.uniform(0, 1, k) * 64) / 64).astype(np.float32)[::-1].copy()
+    cls = rng.choice([0, 1, 5, 79], k).astype(np.float32)
+    fn = jax.jit(jax.vmap(partial(jax_nms_single, iou_thresh=thresh, conf_thresh=0.25, max_det=100,
+                                  class_wise=class_wise, group_offset=81920.0)))
+    rd, rn = fn(jb[None], jnp.asarray(scores[None], jnp.bfloat16), jnp.asarray(cls[None], jnp.bfloat16))
+    gd, gn = _nms_single(tb[None], torch.from_numpy(scores[None]).to(torch.bfloat16),
+                         torch.from_numpy(cls[None]).to(torch.bfloat16), iou_thresh=thresh, conf_thresh=0.25,
+                         max_det=100, class_wise=class_wise)
+    assert gd.dtype == torch.float32
+    np.testing.assert_array_equal(gn.numpy(), np.asarray(rn))
+    np.testing.assert_array_equal(_bits(gd.numpy()), _bits(np.asarray(rd)))
+    assert int(gn[0]) > 10

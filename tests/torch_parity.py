@@ -110,3 +110,16 @@ def make_mixed_coco(root, *, n_images: int = 10, sizes=MIXED_SIZES, seed: int = 
                    "categories": [{"id": k + 1, "name": n} for k, n in enumerate(("rect", "circle", "triangle"))]},
                   f)
     return img_dir, ann_path
+
+
+def jax_and_port_models(name: str, nc: int, seed: int):
+    """(JAX YOLOv10, port YOLOv10) with the same seeded parameters and
+    randomized BN statistics (`randomize_bn`), the port's on the CPU."""
+    from leanyolo_tpu.models.yolov10.model import YOLOv10 as JYOLOv10
+    from leanyolo_tpu_torch import YOLOv10
+    from leanyolo_tpu_torch.models.yolov10.convert import load_jax_params
+
+    jm = JYOLOv10.create(name, class_names=[f"c{i}" for i in range(nc)], seed=seed)
+    jm = JYOLOv10(cfg=jm.cfg, class_names=jm.class_names, params=randomize_bn(jm.params, np.random.RandomState(seed)))
+    return jm, load_jax_params(YOLOv10.create(name, class_names=jm.class_names), jm.params)
+
