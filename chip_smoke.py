@@ -133,7 +133,32 @@ Phases, each of which fails loudly (non-zero exit):
    mixed-size images equal to the live module of each bucket; the inference
    CLI in a subprocess (bf16 NMS, three JPEGs and an unreadable file: its
    box lines equal to predict_images in process, drawn images at their own
-   sizes) and update_demo_viz.
+   sizes) and update_demo_viz;
+13. data parallelism (run last; leanyolo_tpu_torch/parallel/), in ranks this
+   script starts as processes of their own (`--rank`, one fresh port each;
+   any rank's failure or a timeout fails the run): the card count and NCCL's
+   version; one NCCL rank: Trainer(mesh=make_mesh()) on yolov10s 640 at
+   batch 32 (augment, clip 1.0) bit-equal to the plain Trainer in one fp32
+   and one bf16 step (losses, every gradient, statistic and parameter;
+   deterministic cuDNN), mpbwd 3 launches a step, both bf16 steps timed in
+   turns (median of 10 after 3 warm-ups) and the mesh step's collectives
+   from the profiler; two ranks of 16 rows (NCCL on two cards, or gloo on
+   the one card: printed): the fp32 step against the one-process step on
+   the global batch, loss within 1e-5 relative and statistics within 1e-5;
+   its gradients are printed with the SPPF max-pool windows whose argmax
+   moved (a window routes its gradient to its argmax, and a change in the
+   last bits of the pools' input moves a near-tied one), and held with that
+   backward swapped for an average pool's in both runs (box_pool_backward):
+   each within 1e-4 of its tensor's scale or the one-process step's own
+   card-vs-CPU spread (the same draws), whichever is larger, and so their
+   relative L2; the bf16 step within bf16's own gap
+   from fp32, parameters equal on both ranks, mpbwd 3 a rank, the bf16
+   step timed (two ranks on one card are no scaling number), a bf16
+   folded Predictor(mesh=) of each decode (top-k; class-wise NMS) with
+   every serving kernel launched on each rank and each rank's rows equal to
+   its own predictor's; and validate_coco(shard=) of item 10's set (fp32
+   top-k, host letterbox) against the one-process run: 64 images, the mAP
+   within 1e-3, detections matched within 1e-3 px, the slowest shard's wall.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.
@@ -1534,55 +1559,71 @@ def val_reference(pred, ds, preprocess: str):
     return [np.concatenate([c[k] for c in cols]) for k in range(4)]
 
 
+def labelled_val_set(model, seed: int, tmp: str):
+    """The validation set of item 10 under tmp (write_val_set), labelled by
+    its own fp32 folded predictor (self_label): make_model's model,
+    calibrated again on the set's letterboxed images (VAL_VAR_SCALE,
+    VAL_LOGITS), saved to a .npz and loaded back as a user loads one.
+    Returns (images dir, entries, annotations file, labels-only file,
+    annotations, per-image thresholds, .npz path, loaded model, fp32 folded
+    predictor)."""
+    import copy
+
+    import numpy as np
+    import torch
+    from leanyolo_tpu_torch import Predictor, get_model
+    from leanyolo_tpu_torch.data.coco import coco80_class_names
+    from leanyolo_tpu_torch.data.dataset import CocoDetection
+    from leanyolo_tpu_torch.models.registry import save_checkpoint
+    from leanyolo_tpu_torch.ops.letterbox import letterbox
+
+    images_dir, entries = write_val_set(tmp, seed + 7)
+    cats = [{"id": c, "name": n} for c, n in zip(COCO_CAT_IDS, coco80_class_names())]
+    blank = os.path.join(tmp, "blank.json")
+    with open(blank, "w") as f:
+        json.dump({"images": entries, "annotations": [], "categories": cats}, f)
+    ds = CocoDetection(images_dir, blank, img_size=IMGSZ)
+    raw = [ds.load_image(i) for i in range(len(ds))]
+
+    lb = torch.from_numpy(np.stack([letterbox(im, IMGSZ)[0] for im in raw])).cuda()
+    vmodel = calibrate(copy.deepcopy(model).cuda(), lb, logits=VAL_LOGITS, var_scale=VAL_VAR_SCALE)
+    del lb
+    npz = os.path.join(tmp, "yolov10s_val.npz")
+    save_checkpoint(vmodel, npz)
+    loaded = get_model("yolov10s", weights=npz, class_names=coco80_class_names())
+
+    # Self-labelling: the fp32 folded predictor's detections (host letterbox).
+    pred32 = Predictor(loaded, imgsz=IMGSZ, decode="topk", dtype="float32", fuse=True, max_det=MAX_DET)
+    dets = []
+    for s in range(0, VAL_IMAGES, VAL_BATCH):
+        dets += pred32.predict_images(raw[s:s + VAL_BATCH], apply_conf_filter=False)
+    anns, thrs = self_label(dets, entries)
+    ann, ann_plain = os.path.join(tmp, "annotations.json"), os.path.join(tmp, "labels_only.json")
+    for path, a in ((ann, anns), (ann_plain, [a for a in anns if not a["iscrowd"]])):
+        with open(path, "w") as f:
+            json.dump({"images": entries, "annotations": a, "categories": cats}, f)
+    return images_dir, entries, ann, ann_plain, anns, thrs, npz, loaded, pred32
+
+
 def phase_validation(model, seed: int, card: str) -> None:
     """COCO validation on the card (item 10 of the module doc)."""
-    import copy
     import csv
     import tempfile
 
     import numpy as np
     import torch
-    from leanyolo_tpu_torch import Predictor, get_model, kernels
-    from leanyolo_tpu_torch.data.coco import coco80_class_names
+    from leanyolo_tpu_torch import Predictor, kernels
     from leanyolo_tpu_torch.data.dataset import CocoDetection, DataLoader
     from leanyolo_tpu_torch.engine.validator import measure_fps, validate_coco
-    from leanyolo_tpu_torch.models.registry import save_checkpoint
-    from leanyolo_tpu_torch.ops.letterbox import letterbox
     from leanyolo_tpu_torch.utils.coco_eval import CocoEvaluator
 
     n_batches = VAL_IMAGES // VAL_BATCH  # whole batches: val_reference pads none
     with tempfile.TemporaryDirectory() as tmp:
-        images_dir, entries = write_val_set(tmp, seed + 7)
-        cats = [{"id": c, "name": n} for c, n in zip(COCO_CAT_IDS, coco80_class_names())]
-        blank = os.path.join(tmp, "blank.json")
-        with open(blank, "w") as f:
-            json.dump({"images": entries, "annotations": [], "categories": cats}, f)
-        ds = CocoDetection(images_dir, blank, img_size=IMGSZ)
-        raw = [ds.load_image(i) for i in range(len(ds))]
-
-        # The model: make_model's, calibrated again on the set's letterboxed
-        # images (VAL_VAR_SCALE, VAL_LOGITS), saved and loaded back.
-        lb = torch.from_numpy(np.stack([letterbox(im, IMGSZ)[0] for im in raw])).cuda()
-        vmodel = calibrate(copy.deepcopy(model).cuda(), lb, logits=VAL_LOGITS, var_scale=VAL_VAR_SCALE)
-        del lb
-        npz = os.path.join(tmp, "yolov10s_val.npz")
-        save_checkpoint(vmodel, npz)
-        loaded = get_model("yolov10s", weights=npz, class_names=coco80_class_names())
-
-        # Self-labelling: the fp32 folded predictor's detections (host letterbox).
-        pred32 = Predictor(loaded, imgsz=IMGSZ, decode="topk", dtype="float32", fuse=True, max_det=MAX_DET)
-        dets = []
-        for s in range(0, VAL_IMAGES, VAL_BATCH):
-            dets += pred32.predict_images(raw[s:s + VAL_BATCH], apply_conf_filter=False)
-        anns, thrs = self_label(dets, entries)
+        images_dir, entries, ann, ann_plain, anns, thrs, npz, loaded, pred32 = labelled_val_set(model, seed, tmp)
         labels = [a for a in anns if not a["iscrowd"]]
         n_small = sum(a["area"] < 32**2 for a in labels)
         if not n_small:
             fail("validation: no label falls in COCO's small area range")
-        ann, ann_plain = os.path.join(tmp, "annotations.json"), os.path.join(tmp, "labels_only.json")
-        for path, a in ((ann, anns), (ann_plain, labels)):
-            with open(path, "w") as f:
-                json.dump({"images": entries, "annotations": a, "categories": cats}, f)
         print(f"validation set: {VAL_IMAGES} JPEG images ({', '.join(f'{w}x{h}' for w, h in VAL_SIZES)}), "
               f"80 COCO categories; labelled by the fp32 folded predictor (predict_images, host letterbox): "
               f"{len(labels)} labels in {len({a['category_id'] for a in labels})} categories, each image its "
@@ -2613,6 +2654,480 @@ def phase_infer_cli(model, seed: int, card: str) -> None:
         print("update_demo_viz on the card: the synthetic scene drawn and written (480x640)", flush=True)
 
 
+# Phase 13: data parallelism, one process a card (leanyolo_tpu_torch/parallel/).
+DP_SEED = 13  # added to SEED: the model, the batch and the augmentation draws of the phase
+DP_WARMUP, DP_TIMED, DP_PAIR_TIMED = 3, 10, 5
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN and PyTorch on deterministic algorithms (DETERMINISTIC_CLI's
+    settings; CUBLAS_WORKSPACE_CONFIG is set by the process's parent)."""
+    import torch
+
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark, torch.are_deterministic_algorithms_enabled())
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved[0], saved[1]
+        torch.use_deterministic_algorithms(saved[2])
+
+
+def dp_step(tr, batch, seed: int, probe: bool = False) -> dict:
+    """One train step (forward_backward, then optimizer_step) with the
+    augmentation generator seeded from `seed` (on the card, whatever the
+    trainer's device, so a CPU step draws the card's numbers): the global
+    losses, the gradients before the clip and the state after the step, on
+    the host; with `probe`, also the input of SPPF's max pools."""
+    import torch
+
+    seen = []
+    hook = tr.model.backbone.sppf9.cv1.register_forward_hook(lambda m, a, o: seen.append(o.detach().cpu())) \
+        if probe else None
+    losses = tr.forward_backward(batch, torch.Generator(device="cuda").manual_seed(seed))
+    if hook is not None:
+        hook.remove()
+    grads = {n: p.grad.detach().cpu().clone() for n, p in tr.model.named_parameters() if p.grad is not None}
+    tr.optimizer_step()
+    tr.global_step += 1
+    torch.cuda.synchronize()
+    out = {"losses": {k: float(v) for k, v in losses.items()}, "grads": grads,
+           "state": {k: v.detach().cpu().clone() for k, v in tr.model.state_dict().items()}}
+    if probe:
+        out["sppf_in"] = seen[0]
+    return out
+
+
+@contextlib.contextmanager
+def box_pool_backward():
+    """SPPF's max-pool backward swapped for an average pool's (each window's
+    gradient spread evenly over it) in both runs of a comparison: the max
+    pool routes a window's gradient to its argmax, which a change in the
+    last bits of its input can move to a near-tied neighbour (pool_flips),
+    so that comparison cannot tell the data-parallel machinery from that
+    routing; with the box backward every gradient is a continuous function
+    of the inputs. For the comparison only, as plain_kernels is."""
+    import torch.nn.functional as F
+    from leanyolo_tpu_torch.kernels import mpbwd
+
+    saved = mpbwd.mpbwd
+    mpbwd.mpbwd = lambda x, dy, k=5: F.avg_pool2d(dy.permute(0, 3, 1, 2), k, 1, k // 2,
+                                                  count_include_pad=True).permute(0, 2, 3, 1).contiguous()
+    try:
+        yield
+    finally:
+        mpbwd.mpbwd = saved
+
+
+#: Parameters whose gradient reaches them through SPPF's max pools (the
+#: backbone up to SPPF's first conv): the pools' routing moves them.
+def behind_pools(name: str) -> bool:
+    return name.startswith("backbone.") and not name.startswith(("backbone.psa10.", "backbone.sppf9.cv2."))
+
+
+def pool_flips(a, b) -> list:
+    """For SPPF's three chained 5x5 max pools (stride 1, same padding), the
+    windows whose argmax differs between inputs a and b [B, C, H, W]
+    (torch's max_pool2d indices): where it differs, the backward routes the
+    window's gradient to another element."""
+    import torch.nn.functional as F
+
+    flips = []
+    for _ in range(3):
+        a, ia = F.max_pool2d(a, 5, 1, 2, return_indices=True)
+        b, ib = F.max_pool2d(b, 5, 1, 2, return_indices=True)
+        flips.append(int((ia != ib).sum()))
+    return flips
+
+
+def rel_gap(a: dict, b: dict, floor: float = 0.0) -> float:
+    """The largest max|a - b| over the tensors of two dicts, each over its
+    tensor's max|b| (at least `floor`)."""
+    return max(max_err(a[k], b[k]) / max(floor, 1e-30, float(b[k].float().abs().max())) for k in b)
+
+
+def grad_gap(got: dict, ref: dict) -> float:
+    """The largest max|got - ref| of two steps' gradients over that tensor's
+    max|ref|, as tests/test_torch_train.py holds them: a tensor whose
+    gradient is rounding noise (max|ref| under 1e-4 of the largest tensor's,
+    e.g. a BN bias feeding straight into a batch-stat BN) has no scale of its
+    own and counts only if `got` leaves that noise level (then inf)."""
+    if got.keys() != ref.keys():
+        return float("inf")
+    gmax = max(float(g.abs().max()) for g in ref.values())
+    worst = 0.0
+    for k, g in ref.items():
+        scale = float(g.abs().max())
+        if scale <= 1e-4 * gmax:
+            if float(got[k].abs().max()) > 1e-4 * gmax:
+                return float("inf")
+            continue
+        worst = max(worst, max_err(got[k], g) / scale)
+    return worst
+
+
+def grad_l2(got: dict, ref: dict) -> float:
+    """||got - ref|| / ||ref|| over every gradient element of two steps."""
+    num = sum(float(((got[k].double() - r.double()) ** 2).sum()) for k, r in ref.items())
+    return (num / sum(float((r.double() ** 2).sum()) for r in ref.values())) ** 0.5
+
+
+def grad_gap_global(got: dict, ref: dict) -> float:
+    """The largest max|got - ref| of two steps' gradients over the largest
+    tensor's max|ref| (the bf16 rule: bf16 gradients of a tensor can be all
+    rounding, so each is read against the step's scale)."""
+    gmax = max(float(g.abs().max()) for g in ref.values())
+    return max(max_err(got[k], g) for k, g in ref.items()) / gmax if got.keys() == ref.keys() else float("inf")
+
+
+def grad_report(got: dict, ref: dict, n: int = 4) -> str:
+    """The n tensors with a scale of their own (grad_gap's) furthest from
+    `ref` by max|got - ref| over their own max|ref|, each with that ratio,
+    its gap over the largest tensor's max|ref| and its scale over it."""
+    gmax = max(float(g.abs().max()) for g in ref.values())
+    rows = sorted(((max_err(got[k], g) / max(1e-30, float(g.abs().max())), max_err(got[k], g) / gmax,
+                    float(g.abs().max()) / gmax, k) for k, g in ref.items()
+                   if float(g.abs().max()) > 1e-4 * gmax), reverse=True)[:n]
+    return "; ".join(f"{k}: {r:.3g} of its scale, {a:.3g} of the largest, scale {sc:.3g} of the largest"
+                     for r, a, sc, k in rows)
+
+
+def dp_rank(argv) -> int:
+    """A rank of phase 13: python3 chip_smoke.py --rank R --world W --port P
+    --task world1|pair --root DIR. 'world1': one NCCL rank, the mesh step
+    against the plain step and both timed; 'pair': two ranks (NCCL on two
+    cards, or gloo on the one card), the data-parallel step, the predictor
+    on a mesh and the sharded validation. Saves what it saw under DIR."""
+    import argparse
+    import copy
+    from types import SimpleNamespace
+
+    p = argparse.ArgumentParser()
+    for flag in ("--rank", "--world", "--port"):
+        p.add_argument(flag, type=int, required=True)
+    p.add_argument("--task", choices=("world1", "pair"), required=True)
+    p.add_argument("--root", required=True)
+    args = p.parse_args(argv)
+    sys.path.insert(0, HERE)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from leanyolo_tpu_torch import Predictor, TrainConfig, Trainer, YOLOv10, get_model, kernels
+    from leanyolo_tpu_torch.data.coco import coco80_class_names
+    from leanyolo_tpu_torch.engine.validator import validate_coco
+    from leanyolo_tpu_torch.kernels import _build
+    from leanyolo_tpu_torch.parallel.distributed import init_distributed, process_local_slice
+    from leanyolo_tpu_torch.parallel.mesh import make_mesh
+
+    _build.ext()  # built by the parent: this loads it
+    if torch.cuda.device_count() >= args.world:
+        init_distributed(f"127.0.0.1:{args.port}", args.world, args.rank, device="cuda")
+    else:  # NCCL refuses two ranks on one card
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{args.port}", world_size=args.world,
+                                rank=args.rank)
+    mesh = make_mesh()
+    seed = SEED + DP_SEED
+    model = YOLOv10.create("yolov10s", class_names=[f"c{i}" for i in range(NC)], seed=seed)
+    batch = train_batch(np.random.RandomState(seed), BATCH, IMGSZ, "cuda")
+    cfgs = {d: TrainConfig(bf16=d == "bf16", augment=True, grad_clip=1.0, steps_per_epoch=1000)
+            for d in ("fp32", "bf16")}
+    out = {"backend": dist.get_backend(), "card": torch.cuda.current_device()}
+    say = lambda msg: print(f"{msg}; {dist.get_backend()}, rank {args.rank}/{args.world} on cuda:"
+                            f"{torch.cuda.current_device()}", flush=True)
+
+    def timed(tr, gen):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        tr.train_step(rows_batch, gen)
+        end.record()
+        return start, end
+
+    if args.task == "world1":
+        rows_batch = batch
+        for d in ("fp32", "bf16"):
+            with deterministic():
+                plain = dp_step(Trainer(copy.deepcopy(model), cfgs[d]), batch, seed, probe=d == "fp32")
+                torch.cuda.empty_cache()
+                kernels.reset_launches()
+                meshed = dp_step(Trainer(copy.deepcopy(model), cfgs[d], mesh=mesh), batch, seed)
+                mpbwd = kernels.LAUNCHES["mpbwd"]
+            torch.cuda.empty_cache()
+            same = (plain["losses"] == meshed["losses"] and plain["grads"].keys() == meshed["grads"].keys()
+                    and all(torch.equal(plain["grads"][k], meshed["grads"][k]) for k in plain["grads"])
+                    and all(torch.equal(plain["state"][k], meshed["state"][k]) for k in plain["state"]))
+            out[d] = {"plain": plain, "bit_equal": same, "mpbwd": mpbwd}
+            if d == "fp32":  # the box-backward comparison's references, on the card and on the CPU
+                on_cpu = SimpleNamespace(images=batch.images.cpu(), gt_labels=batch.gt_labels.cpu(),
+                                         gt_boxes=batch.gt_boxes.cpu(), gt_mask=batch.gt_mask)
+                with deterministic(), box_pool_backward():
+                    out[d]["box"] = dp_step(Trainer(copy.deepcopy(model), cfgs[d]), batch, seed)
+                    out[d]["box_cpu"] = dp_step(Trainer(copy.deepcopy(model), cfgs[d], device="cpu"), on_cpu, seed)
+            say(f"world-1 mesh step {d}: loss {meshed['losses']['total']!r} against the plain step's "
+                f"{plain['losses']['total']!r}; bit-equal losses, gradients, statistics and parameters: {same}; "
+                f"worst gradient gap {grad_gap(meshed['grads'], plain['grads'])!r}; mpbwd launches {mpbwd}")
+        tp, tm = Trainer(copy.deepcopy(model), cfgs["bf16"]), Trainer(copy.deepcopy(model), cfgs["bf16"], mesh=mesh)
+        gp, gm = (torch.Generator(device="cuda").manual_seed(seed) for _ in range(2))
+        for _ in range(DP_WARMUP):
+            timed(tp, gp), timed(tm, gm)
+        ev = {"plain": [], "mesh": []}
+        for i in range(DP_TIMED):  # in turns: plain, mesh, mesh, plain, ...
+            for name, tr, g in ((("plain", tp, gp), ("mesh", tm, gm)) if i % 2 == 0 else
+                                (("mesh", tm, gm), ("plain", tp, gp))):
+                ev[name].append(timed(tr, g))
+        torch.cuda.synchronize()
+        ms = {k: [s.elapsed_time(e) for s, e in v] for k, v in ev.items()}
+        out["ms"] = {k: statistics.median(v) for k, v in ms.items()}
+        # The host cost of one collective: a BN's moments (2 x 512 fp32) all-reduced 200 times.
+        t = torch.zeros(1024, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            dist.all_reduce(t)
+        host_us = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        out["allreduce_host_us"] = host_us
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                tm.train_step(batch, gm)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        host = {e.key: e.count // 2 for e in events if e.device_type.name == "CPU" and e.key.startswith("c10d::")}
+        dev = [e for e in events if e.device_type.name == "CUDA" and "nccl" in e.key.lower()]
+        out["collectives"] = {"host": host, "device_calls": sum(e.count for e in dev) // 2,
+                              "device_ms": sum(e.self_device_time_total for e in dev) / 2 / 1e3}
+        say(f"world-1 yolov10s {IMGSZ} bf16 batch {BATCH} (augment, clip 1.0): ms/step median of {DP_TIMED} in "
+            f"turns, plain {out['ms']['plain']!r} (all {[round(v, 4) for v in ms['plain']]}), mesh "
+            f"{out['ms']['mesh']!r} (all {[round(v, 4) for v in ms['mesh']]}); collectives a mesh step: host "
+            f"{host}, {out['collectives']['device_calls']} NCCL kernels, {out['collectives']['device_ms']!r} ms "
+            f"device; one all-reduce of 1,024 fp32 costs the host {host_us:.2f} us (mean of 200)")
+    else:
+        rows = process_local_slice(BATCH)
+        rows_batch = SimpleNamespace(images=batch.images[rows], gt_labels=batch.gt_labels[rows],
+                                     gt_boxes=batch.gt_boxes[rows], gt_mask=batch.gt_mask[rows])
+        for d in ("fp32", "bf16"):
+            with deterministic():
+                kernels.reset_launches()
+                out[d] = dp_step(Trainer(copy.deepcopy(model), cfgs[d], mesh=mesh), rows_batch, seed,
+                                 probe=d == "fp32")
+                out[d]["mpbwd"] = kernels.LAUNCHES["mpbwd"]
+                if d == "fp32":
+                    with box_pool_backward():
+                        out["fp32_box"] = dp_step(Trainer(copy.deepcopy(model), cfgs[d], mesh=mesh), rows_batch,
+                                                  seed)
+            torch.cuda.empty_cache()
+        tm = Trainer(copy.deepcopy(model), cfgs["bf16"], mesh=mesh)
+        gm = torch.Generator(device="cuda").manual_seed(seed)
+        for _ in range(2):
+            timed(tm, gm)
+        ev = [timed(tm, gm) for _ in range(DP_PAIR_TIMED)]
+        torch.cuda.synchronize()
+        out["ms"] = [s.elapsed_time(e) for s, e in ev]
+        del tm
+        torch.cuda.empty_cache()
+        say(f"data-parallel step bf16, {BATCH // args.world} rows of {BATCH}: ms/step "
+            f"{[round(v, 4) for v in out['ms']]} (median {statistics.median(out['ms'])!r})")
+
+        out["predict"] = {}
+        for name, kw in (("topk", {}), ("nms", dict(decode="nms", conf_thresh=NMS_SETTINGS["infer"][0],
+                                                    iou_thresh=NMS_SETTINGS["infer"][1], class_wise_nms=True))):
+            pd = Predictor(model, imgsz=IMGSZ, dtype="bfloat16", fuse=True, mesh=mesh, **kw)
+            pl = Predictor(model, imgsz=IMGSZ, dtype="bfloat16", fuse=True, **kw)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            dets, num = pd.run_batch(batch.images)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            ldets, lnum = pl.run_batch(batch.images[rows])
+            out["predict"][name] = {"launches": launches, "dets": dets.cpu(), "num": num.cpu(),
+                                    "same_as_local": torch.equal(dets[rows], ldets) and torch.equal(num[rows], lnum)}
+            del pd, pl
+        with open(os.path.join(args.root, "val.json")) as f:
+            v = json.load(f)
+        vm = get_model("yolov10s", weights=v["npz"], class_names=coco80_class_names())
+        kernels.reset_launches()
+        st = validate_coco(vm, images_dir=v["images_dir"], ann_json=v["ann"], imgsz=IMGSZ, batch_size=VAL_BATCH,
+                           decode="topk", workers=8, shard=(args.rank, args.world),
+                           save_detections=v["dets"] if args.rank == 0 else None)
+        torch.cuda.synchronize()
+        out["val"] = {"stats": st, "launches": dict(kernels.LAUNCHES)}
+    torch.save(out, os.path.join(args.root, f"{args.task}_rank{args.rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def same_detections(a: list, b: list):
+    """Saved COCO detections of one run against another's, image by image:
+    (the same images and counts a category, the largest box gap in px and
+    score gap of rows matched one to one: in score order, each row of `a` to
+    the nearest unmatched row of `b` of its category)."""
+    import numpy as np
+
+    def by_image(res):
+        out = {}
+        for r in res:
+            out.setdefault(r["image_id"], []).append([r["category_id"], r["score"], *r["bbox"]])
+        return {k: np.asarray(v, np.float64) for k, v in out.items()}
+
+    ia, ib = by_image(a), by_image(b)
+    if sorted(ia) != sorted(ib) or any(sorted(ia[k][:, 0]) != sorted(ib[k][:, 0]) for k in ia):
+        return False, float("inf"), float("inf")
+    box_gap = score_gap = 0.0
+    for k, rows in ia.items():
+        pool = ib[k]
+        free = np.ones(len(pool), bool)
+        for r in rows[np.argsort(-rows[:, 1], kind="stable")]:
+            cost = np.abs(pool[:, 2:] - r[2:]).max(axis=1) + np.abs(pool[:, 1] - r[1])
+            cost[~free | (pool[:, 0] != r[0])] = np.inf
+            j = int(np.argmin(cost))
+            free[j] = False
+            box_gap = max(box_gap, float(np.abs(pool[j, 2:] - r[2:]).max()))
+            score_gap = max(score_gap, float(abs(pool[j, 1] - r[1])))
+    return True, box_gap, score_gap
+
+
+def phase_parallel(model, seed: int, card: str) -> None:
+    """Data parallelism on the card (item 13 of the module doc)."""
+    import tempfile
+
+    import torch
+    from leanyolo_tpu_torch import kernels
+    from leanyolo_tpu_torch.engine.validator import validate_coco
+    from leanyolo_tpu_torch.parallel.distributed import free_port
+    from leanyolo_tpu_torch.parallel.dryrun import check_ranks, spawn_ranks
+
+    n_cards = torch.cuda.device_count()
+    print(f"parallel: torch.cuda.device_count() {n_cards}, torch.cuda.nccl.version() {torch.cuda.nccl.version()}",
+          flush=True)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    with tempfile.TemporaryDirectory() as tmp:
+        def launch(task: str, world: int, timeout: float):
+            port = free_port()
+            t0 = time.perf_counter()
+            results = spawn_ranks(lambda r: [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--rank", str(r),
+                                             "--world", str(world), "--port", str(port), "--task", task, "--root",
+                                             tmp], world, timeout=timeout, env=env)
+            wall = time.perf_counter() - t0
+            for r, (_, out, _) in enumerate(results):
+                for line in out.splitlines():
+                    print(f"  [{task} rank {r}] {line}", flush=True)
+            try:
+                check_ranks(results, f"parallel {task}")
+            except RuntimeError as e:
+                fail(str(e))
+            print(f"parallel {task}: {world} rank(s) done in {wall:.1f} s (start-up included)", flush=True)
+            return [torch.load(os.path.join(tmp, f"{task}_rank{r}.pt"), weights_only=True) for r in range(world)]
+
+        # One NCCL rank: the mesh step bit-equal to the plain step, both timed.
+        (w1,) = launch("world1", 1, 600)
+        for d in ("fp32", "bf16"):
+            if not w1[d]["bit_equal"] or w1[d]["mpbwd"] != 3:
+                fail(f"parallel world-1 {d}: mesh step bit-equal {w1[d]['bit_equal']}, mpbwd {w1[d]['mpbwd']}")
+        over = w1["ms"]["mesh"] / w1["ms"]["plain"] - 1
+        print(f"parallel world-1 (NCCL, one rank): bf16 step {w1['ms']['plain']!r} ms plain, {w1['ms']['mesh']!r} "
+              f"ms on the mesh ({over:+.4f}); collectives a step {w1['collectives']}; {card}", flush=True)
+
+        # The sharded validation's set, labelled as item 10 labels it.
+        images_dir, _, ann, _, _, _, npz, loaded, pred32 = labelled_val_set(model, seed, tmp)
+        del pred32
+        torch.cuda.empty_cache()
+        with open(os.path.join(tmp, "val.json"), "w") as f:
+            json.dump({"images_dir": images_dir, "ann": ann, "npz": npz, "dets": os.path.join(tmp, "dets2.json")}, f)
+
+        # Two ranks: NCCL on two cards, or gloo on the one card.
+        pair = launch("pair", 2, 900)
+        backend = pair[0]["backend"]
+        print(f"parallel two ranks: {backend} on cuda:{pair[0]['card']} and cuda:{pair[1]['card']}"
+              + ("" if pair[0]["card"] != pair[1]["card"] else
+                 " (one card shared by both ranks: correctness only, not a scaling number)"), flush=True)
+        ref = {d: w1[d]["plain"] for d in ("fp32", "bf16")}
+        for d in ("fp32", "bf16"):
+            a, b = pair[0][d], pair[1][d]
+            if a["losses"] != b["losses"] or any(not torch.equal(a["state"][k], b["state"][k]) for k in a["state"]):
+                fail(f"parallel two ranks {d}: the ranks' losses or parameters differ after the step")
+            if (a["mpbwd"], b["mpbwd"]) != (3, 3):
+                fail(f"parallel two ranks {d}: mpbwd launches {a['mpbwd']}, {b['mpbwd']} (3 a rank)")
+
+        def gaps(got, against, grad):
+            stats = [k for k in against["state"] if "running" in k]
+            return (abs(got["losses"]["total"] - against["losses"]["total"]) / abs(against["losses"]["total"]),
+                    grad(got["grads"], against["grads"]),
+                    rel_gap({k: got["state"][k] for k in stats}, {k: against["state"][k] for k in stats}, 1.0))
+
+        # fp32: the step as it runs (loss and statistics held; the gradients behind SPPF's max pools move
+        # where a window's argmax moves), then with the pools' backward as an average pool's in every run,
+        # where each gradient is held to the one-process step's own spread on the CPU (same draws).
+        card32, box, box_cpu = ref["fp32"], w1["fp32"]["box"], w1["fp32"]["box_cpu"]
+        front = lambda g: {k: v for k, v in g.items() if not behind_pools(k)}
+        f32 = gaps(pair[0]["fp32"], card32, lambda g, r: grad_gap(front(g), front(r)))
+        behind = grad_gap({k: v for k, v in pair[0]["fp32"]["grads"].items() if behind_pools(k)},
+                          {k: v for k, v in card32["grads"].items() if behind_pools(k)})
+        flips = pool_flips(torch.cat([rk["fp32"]["sppf_in"] for rk in pair]), card32["sppf_in"])
+        dp_box, cpu_box = gaps(pair[0]["fp32_box"], box, grad_gap), gaps(box_cpu, box, grad_gap)
+        l2 = (grad_l2(pair[0]["fp32_box"]["grads"], box["grads"]), grad_l2(box_cpu["grads"], box["grads"]))
+        b16, rounding = gaps(pair[0]["bf16"], ref["bf16"], grad_gap_global), gaps(ref["bf16"], card32, grad_gap_global)
+        print(f"parallel two ranks against one process on the global batch of {BATCH}, fp32 (loss relative, worst "
+              f"gradient over its tensor's max|g|, worst running statistic over max(1, scale)): {f32} (the gradient "
+              f"over every tensor in front of SPPF's max pools); behind them worst {behind!r}, where the pools' "
+              f"argmax moved in {flips} of {card32['sppf_in'].numel()} windows a pool (furthest: "
+              f"{grad_report(pair[0]['fp32']['grads'], card32['grads'], 2)}); {card}", flush=True)
+        print(f"parallel two ranks, fp32 with the pools' backward as an average pool's: {dp_box}, relative L2 of all "
+              f"gradients {l2[0]!r}; the one-process step on the CPU against the card (same draws): {cpu_box}, L2 "
+              f"{l2[1]!r}; limits: loss 1e-5, statistics 1e-5, worst gradient and L2 the larger of 1e-4 and the "
+              f"CPU's (furthest: {grad_report(pair[0]['fp32_box']['grads'], box['grads'], 2)})", flush=True)
+        print(f"parallel two ranks bf16 against one process (gradients over the largest tensor's max|g|): {b16}; "
+              f"limit: one process's bf16 against its fp32, {rounding}", flush=True)
+        if not (f32[0] <= 1e-5 and f32[2] <= 1e-5 and dp_box[0] <= 1e-5 and dp_box[2] <= 1e-5
+                and dp_box[1] <= max(1e-4, cpu_box[1]) and l2[0] <= max(1e-4, l2[1])):
+            fail("parallel two ranks: the fp32 data-parallel step disagrees with the one-process step")
+        if not all(x <= y for x, y in zip(b16, rounding)):
+            fail("parallel two ranks: the bf16 data-parallel step is further from one process than bf16 is from fp32")
+        ms = [statistics.median(rk["ms"]) for rk in pair]
+        print(f"parallel two ranks bf16 step, {BATCH // 2} rows a rank: {ms[0]!r} / {ms[1]!r} ms (median of "
+              f"{DP_PAIR_TIMED}, each rank's CUDA events){'; not a scaling number: both ranks share one card' if pair[0]['card'] == pair[1]['card'] else ''}; "
+              f"{card}", flush=True)
+        for name, per in (("topk", PER_REQUEST), ("nms", PER_REQUEST_NMS)):
+            a, b = pair[0]["predict"][name], pair[1]["predict"][name]
+            launches = [{k: rk["predict"][name]["launches"][k] for k in per} for rk in pair]
+            print(f"parallel Predictor(mesh=) bf16 folded {name}, global batch {BATCH}: launches a rank {launches}; "
+                  f"rows equal to the rank's own predictor on them {a['same_as_local']}, {b['same_as_local']}",
+                  flush=True)
+            if launches != [per, per] or not (a["same_as_local"] and b["same_as_local"]):
+                fail(f"parallel Predictor(mesh=) {name}: launches {launches}, expected {per} a rank")
+            if not (torch.equal(a["dets"], b["dets"]) and torch.equal(a["num"], b["num"])):
+                fail(f"parallel Predictor(mesh=) {name}: the ranks gathered different detections")
+
+        # Sharded validation against the one-process run.
+        sharded = [rk["val"]["stats"] for rk in pair]
+        one_path = os.path.join(tmp, "dets1.json")
+        kernels.reset_launches()
+        one = validate_coco(loaded, images_dir=images_dir, ann_json=ann, imgsz=IMGSZ, batch_size=VAL_BATCH,
+                            decode="topk", workers=8, save_detections=one_path)
+        with open(one_path) as f, open(os.path.join(tmp, "dets2.json")) as g:
+            matched, box_gap, score_gap = same_detections(json.load(f), json.load(g))
+        gap = abs(sharded[0]["map_50_95"] - one["map_50_95"])
+        vl = [rk["val"]["launches"]["topk"] for rk in pair]
+        print(f"parallel sharded validation (fp32 top-k, host letterbox, {VAL_BATCH} images a process and batch): "
+              f"{sharded[0]['n_images']} images, map_50_95 {sharded[0]['map_50_95']!r} against one process's "
+              f"{one['map_50_95']!r} (gap {gap!r}, limit 1e-3); detections matched {matched}, largest box gap "
+              f"{box_gap!r} px (limit 1e-3), score gap {score_gap!r}; top-k launches a rank {vl}; wall "
+              f"{sharded[0]['wall_s']:.4f} s (the slowest shard) against {one['wall_s']:.4f} s in one process; "
+              f"{card}", flush=True)
+        if sharded[0] != sharded[1] or sharded[0]["n_images"] != VAL_IMAGES:
+            fail("parallel sharded validation: the ranks' stats differ or miss images")
+        if not (matched and box_gap <= 1e-3 and gap <= 1e-3) or vl != [2, 2]:
+            fail("parallel sharded validation disagrees with the one-process run")
+
+
 def sm_clock_hz() -> float:
     """The card's maximum SM clock (nvidia-smi), for the special-function floor."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -2711,6 +3226,8 @@ def main() -> int:
     phase_export(model, SEED, card)
     phase_infer_cli(model, SEED, card)
     done("drawing and export")
+    phase_parallel(model, SEED, card)
+    done("parallel")
 
     print(card, flush=True)
     print(json.dumps({"kernels": list(records.values())}), flush=True)
@@ -2720,4 +3237,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(dp_rank(sys.argv[1:]) if "--rank" in sys.argv[1:] else main())

@@ -2,7 +2,8 @@
 pipeline from images of any size to boxes in their own coordinates.
 
 Counterpart of the JAX package's `Predictor`
-(`leanyolo_tpu/engine/predictor.py`) without its mesh and buffer donation:
+(`leanyolo_tpu/engine/predictor.py`) without its buffer donation and its
+`space` and `model` mesh axes (ROADMAP.md Queue 1 item 7):
 
 - decode 'topk': the NMS-free two-stage top-k over the one2one branch;
 - decode 'nms': confidence threshold + greedy (optionally class-wise) NMS
@@ -15,6 +16,11 @@ Counterpart of the JAX package's `Predictor`
 the device (`run_canvas`: a canvas warped by torch ops) and maps the boxes
 back to each original image.
 
+With a mesh (data parallel, one process a card) `run_batch` and `run_canvas`
+take the global batch on every process: each process runs its rows through
+the serving path on its own device, and an all-gather returns the global
+detections to every process, as JAX's batch-sharded outputs are.
+
 It runs on the card unless the caller names another device; with no card
 and no device named, it raises rather than run on the CPU.
 """
@@ -26,6 +32,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.yolov10.decode import decode_nms, decode_topk, postprocess_to_original
 from ..models.yolov10.fold import fold_model
@@ -48,14 +55,18 @@ class Predictor:
             bfloat16 the folded weights are cast once.
         fuse: fold BN, RepVGGDW and the input normalization into the convs;
             the folded model runs the port's conv kernels.
-        device: where to run; None means the card ('cuda'), and raises when
-            there is none.
+        device: where to run; None means the card ('cuda', this process's
+            card), and raises when there is none.
+        mesh: a DeviceMesh over the job's processes (parallel/mesh.py): the
+            weights are broadcast from its first process and batches split
+            over it (`update_params` loads on each process what it is
+            given). None, or a mesh of one process: this process alone.
     """
 
     def __init__(self, model: YOLOv10, *, imgsz: int = 640, decode: str = "topk", conf_thresh: float = 0.25,
                  iou_thresh: float = 0.45, max_det: int = 300, class_wise_nms: bool = False,
                  dtype: str = "float32", fuse: bool = False,
-                 device: Optional[Union[str, torch.device]] = None) -> None:
+                 device: Optional[Union[str, torch.device]] = None, mesh=None) -> None:
         if imgsz % 32:
             raise ValueError("imgsz must be divisible by 32")
         if decode not in _BRANCH:
@@ -69,6 +80,13 @@ class Predictor:
         self.device = torch.device(device)
         self.dtype = _DTYPES[dtype]
         self._fuse = fuse
+        self.mesh, self._group = mesh, None
+        if mesh is not None and mesh.size() > 1:
+            from ..parallel.mesh import mesh_group, shard_params
+
+            # Every process serves the first process's weights (broadcast in fp32, before folding).
+            self._group = mesh_group(mesh)
+            model = shard_params(mesh, copy.deepcopy(model).to(self.device))
         # The predictor's own copy (folding makes one): moving it to the device
         # and update_params leave the caller's module as it was.
         if fuse:
@@ -112,11 +130,34 @@ class Predictor:
         out = self.model(x, dtype=self.dtype, branches=(branch,), normalize=self._normalize, concat_head=False)
         return out[branch]
 
+    def _rows(self, a):
+        """This process's rows of a global-batch array (all of it off a mesh)."""
+        if self._group is None:
+            return a
+        from ..parallel.mesh import batch_sharded
+
+        return a[batch_sharded(self.mesh, a.shape[0])]
+
+    def _gathered(self, dets: torch.Tensor, num: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Every process's rows, in mesh order, on every process."""
+        if self._group is None:
+            return dets, num
+        out = []
+        for t in (dets, num):
+            parts = [torch.empty_like(t) for _ in range(self.mesh.size())]
+            dist.all_gather(parts, t.contiguous(), group=self._group)
+            out.append(torch.cat(parts))
+        return out[0], out[1]
+
     @torch.inference_mode()
     def run_batch(self, images) -> Tuple[torch.Tensor, torch.Tensor]:
         """images: [B, S, S, 3] raw pixels (uint8 preferred; float accepted),
         a tensor or an array -> (dets [B, max_det, 6] fp32, num [B] int32),
-        on the predictor's device."""
+        on the predictor's device. On a mesh, B (the global batch) must
+        divide by its processes."""
+        return self._gathered(*self._run(self._rows(images)))
+
+    def _run(self, images) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg, nc = self.model.cfg, self.model.nc
         raw = self.raw(images)
         if self.decode == "topk":
@@ -132,8 +173,9 @@ class Predictor:
         """The device-preprocess path: canvas [B, Hc, Wc, 3] with image i at
         its top-left, geometry as `canvas_batch` gives it; the letterbox warp
         runs on the predictor's device, then `run_batch`."""
+        canvas, new_hw, pads, hw = (self._rows(a) for a in (canvas, new_hw, pads, hw))
         canvas = (canvas if torch.is_tensor(canvas) else torch.from_numpy(np.asarray(canvas))).to(self.device)
-        return self.run_batch(letterbox_batch(canvas, new_hw, pads, hw, self.imgsz))
+        return self._gathered(*self._run(letterbox_batch(canvas, new_hw, pads, hw, self.imgsz)))
 
     def predict_images(self, images_rgb: Sequence[np.ndarray], *, apply_conf_filter: bool = True,
                        preprocess: str = "host") -> List[np.ndarray]:

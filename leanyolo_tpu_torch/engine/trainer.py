@@ -24,7 +24,16 @@ step for step:
   step also under activation checkpointing (`remat="full"`);
 - with `device_preprocess` the step takes a `DeviceBatch` (raw pixels on a
   fixed canvas) and letterboxes it on the device, mapping the GT boxes as
-  x * gain + pad, then augments or casts as the host path does.
+  x * gain + pad, then augments or casts as the host path does;
+- on a mesh (`parallel/mesh.py`, one process a card) each process steps on
+  its rows of the global batch, and the step equals the one-process step on
+  the global batch, as JAX's GSPMD step does: the augmentation draws the
+  global batch's uniforms and takes this process's rows, BatchNorm's moments
+  and the loss normalizer are summed over the mesh
+  (`layers.global_batch_stats`, `detection_loss_v10(group=)`), and DDP sums
+  the gradients (a comm hook in place of its mean), one wrapper a freeze
+  phase, so every process clips and steps alike; the losses returned are the
+  global batch's.
 
 It runs on the card unless the caller names another device.
 """
@@ -33,11 +42,13 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..models.yolov10.layers import global_batch_stats
 from ..models.yolov10.losses import detection_loss_v10
 from ..models.yolov10.model import YOLOv10
 from ..ops.letterbox import letterbox_batch
@@ -113,18 +124,24 @@ def make_optimizer(model: YOLOv10, cfg: TrainConfig):
 
 
 def augment_batch(generator: torch.Generator, images: Tensor, gt_boxes: Tensor, *, p_hflip: float, p_bc: float,
-                  dtype: Optional[torch.dtype] = None):
+                  dtype: Optional[torch.dtype] = None, shard: Tuple[int, int] = (0, 1)):
     """Horizontal flip + brightness/contrast in letterbox space, per image
     (JAX `augment_batch`: alpha in [0.8, 1.2], beta in [-16, 16], clamp to
     [0, 255]; flipped boxes are mirrored). The flip runs before the cast to
     `dtype`, on the uint8 pixels. Four draws of B uniforms from `generator`
     (flip, jitter, alpha, beta), on the generator's device.
+
+    shard=(i, k): the B images are part i of a global batch of k * B, whose
+    draws are made (k * B uniforms each) and cut to this part's rows, so k
+    processes with one seed augment as one process would.
     """
     if dtype is None and not images.is_floating_point():
         raise ValueError("augment_batch: integer (uint8) images need an explicit float `dtype`: the brightness "
                          "jitter in integer arithmetic would truncate alpha to 0/1 and wrap beta")
     b, w = images.shape[0], images.shape[2]
-    u = [torch.rand(b, generator=generator, device=generator.device).to(images.device) for _ in range(4)]
+    i, k = shard
+    u = [torch.rand(b * k, generator=generator, device=generator.device)[i * b:(i + 1) * b].to(images.device)
+         for _ in range(4)]
     do_flip = u[0] < p_hflip
     images = torch.where(do_flip[:, None, None, None], images.flip(2), images)
     if dtype is not None:
@@ -141,6 +158,14 @@ def augment_batch(generator: torch.Generator, images: Tensor, gt_boxes: Tensor, 
     return images, gt_boxes
 
 
+def _sum_hook(group, bucket):
+    """DDP comm hook: the bucket's gradients summed over the group (DDP's
+    default averages; each process's loss is already its share of the
+    global loss, so its gradients sum to the global gradient)."""
+    work = dist.all_reduce(bucket.buffer(), group=group, async_op=True)
+    return work.get_future().then(lambda fut: fut.value()[0])
+
+
 class Trainer:
     """Owns the optimizer and runs train steps on `model` in place.
 
@@ -148,8 +173,11 @@ class Trainer:
         model: a YOLOv10 module with fp32 parameters; it is moved to
             `device` (channels_last on the card) and put in training mode.
         cfg: the TrainConfig.
-        device: where to train; None means the card ('cuda'), and raises
-            when there is none.
+        mesh: a DeviceMesh over the job's processes (parallel/mesh.py) to
+            train data-parallel on, each process on its rows of the global
+            batch and its own device; None trains on this process's batch.
+        device: where to train; None means the card ('cuda', this process's
+            card), and raises when there is none.
     """
 
     #: GT-count buckets: the assignment is O(B * Nmax * A); a batch is cut to
@@ -158,9 +186,6 @@ class Trainer:
 
     def __init__(self, model: YOLOv10, cfg: TrainConfig, *, mesh=None,
                  device: Optional[Union[str, torch.device]] = None) -> None:
-        if mesh is not None:
-            raise NotImplementedError("Trainer(mesh=...): data-parallel training (DDP) is the parallel slice, "
-                                      "ROADMAP Queue 1 item 5")
         if cfg.remat not in ("none", "full"):
             raise ValueError(f"unknown remat mode {cfg.remat!r} (use 'none' or 'full')")
         self.device = torch.device("cuda" if device is None else device)
@@ -173,6 +198,16 @@ class Trainer:
         self.dtype = torch.bfloat16 if cfg.bf16 else torch.float32
         self.opt, self.schedules = make_optimizer(self.model, cfg)
         self.global_step = 0
+        self.mesh = mesh
+        self._group, self._shard = None, (0, 1)
+        if mesh is not None:
+            from ..parallel.mesh import batch_sharded, mesh_group
+
+            self._group = mesh_group(mesh)
+            if self._group is not None:
+                self._shard = (batch_sharded(mesh, mesh.size()).start, mesh.size())
+        self._ddp: Dict[bool, torch.nn.Module] = {}  # the DDP wrapper of the current freeze phase
+        self._rows_checked = 0  # the local batch size every process was found to hold
 
     @property
     def frozen(self) -> bool:
@@ -194,6 +229,32 @@ class Trainer:
         t = a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a))
         return t.to(self.device, non_blocking=True)
 
+    def _network(self, frozen: bool) -> torch.nn.Module:
+        """The module the step calls: the model, or on a mesh its DDP
+        wrapper for this freeze phase (built over the parameters that take
+        gradients in it; a new phase replaces the wrapper)."""
+        if self._group is None:
+            return self.model
+        if frozen not in self._ddp:
+            from torch.nn.parallel import DistributedDataParallel
+
+            ddp = DistributedDataParallel(self.model, process_group=self._group, broadcast_buffers=False)
+            ddp.register_comm_hook(self._group, _sum_hook)
+            self._ddp = {frozen: ddp}
+        return self._ddp[frozen]
+
+    def _check_rows(self, b: int) -> None:
+        """Every process must hold the same number of rows (the global
+        statistics count n x processes); checked when the local size changes."""
+        if b == self._rows_checked:
+            return
+        sizes = [torch.zeros(1, dtype=torch.int64, device=self.device) for _ in range(self._shard[1])]
+        dist.all_gather(sizes, torch.full((1,), b, dtype=torch.int64, device=self.device), group=self._group)
+        sizes = [int(t) for t in sizes]
+        if len(set(sizes)) != 1:
+            raise ValueError(f"data-parallel step: the processes hold {sizes} rows; each must hold the same number")
+        self._rows_checked = b
+
     def forward_backward(self, batch, generator: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
         """Augment, forward, loss and backward on `batch` (attributes images
         [B,S,S,3] uint8, gt_labels [B,N], gt_boxes [B,N,4] xyxy pixels,
@@ -214,7 +275,10 @@ class Trainer:
         for name, p in self.model.named_parameters():
             if name.split(".")[0] in ("backbone", "neck"):
                 p.requires_grad_(not frozen)
+        network = self._network(frozen)
         self.opt.zero_grad(set_to_none=True)
+        if self._group is not None:
+            self._check_rows(int(batch.gt_mask.shape[0]))
 
         nb = self._nmax_bucket(batch.gt_mask)
         gt_labels = self._tensor(batch.gt_labels[:, :nb])
@@ -232,17 +296,23 @@ class Trainer:
             if generator is None:
                 raise ValueError("train_step: augment=True needs a torch.Generator")
             images, gt_boxes = augment_batch(generator, images, gt_boxes, p_hflip=cfg.p_hflip, p_bc=cfg.p_bc,
-                                             dtype=self.dtype)
+                                             dtype=self.dtype, shard=self._shard)
         else:
             images = images.to(self.dtype)
 
-        raw = self.model(images, dtype=self.dtype, concat_head=False, remat=cfg.remat == "full")
+        with global_batch_stats(self._group):
+            raw = network(images, dtype=self.dtype, concat_head=False, remat=cfg.remat == "full")
         raw = {k: [(r.float(), c.float()) for r, c in v] for k, v in raw.items()}
         mcfg = self.model.cfg
         losses = detection_loss_v10(raw, gt_labels, gt_boxes, gt_mask, num_classes=self.model.nc,
-                                    reg_max=mcfg.reg_max, strides=tuple(mcfg.strides))
+                                    reg_max=mcfg.reg_max, strides=tuple(mcfg.strides), group=self._group)
         losses["total"].backward()
-        return {k: v.detach() for k, v in losses.items()}
+        losses = {k: v.detach() for k, v in losses.items()}
+        if self._group is not None:  # this process's share -> the global batch's losses
+            shares = torch.stack(list(losses.values()))
+            dist.all_reduce(shares, group=self._group)
+            losses = dict(zip(losses, shares.unbind()))
+        return losses
 
     def optimizer_step(self) -> None:
         """Clip each group by its own global norm, set each group's lr from
@@ -273,12 +343,15 @@ class Trainer:
 
     def save_train_state(self, path: str) -> None:
         """Model state (parameters and BN statistics), optimizer state and
-        step counter -> one torch file."""
-        torch.save({"model": self.model.state_dict(), "optimizer": self.opt.state_dict(),
-                    "global_step": self.global_step}, path)
+        step counter -> one torch file; on a mesh, process 0 writes it (the
+        state is the same on every process)."""
+        if self._shard[0] == 0:
+            torch.save({"model": self.model.state_dict(), "optimizer": self.opt.state_dict(),
+                        "global_step": self.global_step}, path)
 
     def load_train_state(self, path: str) -> None:
-        """Strict restore into this trainer's model and optimizer."""
+        """Strict restore into this trainer's model and optimizer (on a mesh,
+        every process reads the one file)."""
         state = torch.load(path, map_location=self.device, weights_only=True)
         self.model.load_state_dict(state["model"], strict=True)
         self.opt.load_state_dict(state["optimizer"])

@@ -15,8 +15,16 @@ Counterpart of the JAX package's `leanyolo_tpu/engine/validator.py`:
   the host letterbox, on the original images with the boxes mapped back
   under the device letterbox, named by file, image id or index.
 
+Data parallel, as JAX's: `mesh=` splits every batch over the mesh's
+processes (`Predictor(mesh=)`) and every process scores all of it;
+`shard=(pid, nprocs)` gives each process a stride slice of the image list (no
+image dropped), run on its own device with no collective per batch, and one
+`allgather_obj` merges the detections for process 0 to score
+(`_finish_sharded`): every process returns the same stats, with the slowest
+shard's wall time.
+
 It runs on the card unless the caller names another device, and raises
-without one. Not ported yet: the mesh and multi-process sharding.
+without one.
 """
 
 from __future__ import annotations
@@ -202,6 +210,8 @@ def validate_coco(
     viz_name_mode: str = "file",
     preprocess: str = "host",
     device: Optional[Union[str, torch.device]] = None,
+    mesh=None,
+    shard: Optional[Tuple[int, int]] = None,
 ) -> Dict[str, float]:
     """Run COCO bbox validation; returns {'map_50_95', 'map_50', 'map_75',
     'map_small', 'map_medium', 'map_large', 'n_images', 'wall_s',
@@ -217,16 +227,25 @@ def validate_coco(
     letterbox warped on the predictor's device). viz_dir: draw each image's
     detections (top-k: those above viz_conf; NMS: the first num) and save
     them there, named by viz_name_mode: 'file' (the image's file name), 'id'
-    (<image_id>.jpg) or 'index' (sequential).
+    (<image_id>.jpg) or 'index' (sequential). mesh: batches split over a
+    DeviceMesh's processes (a new predictor's). shard=(pid, nprocs): this
+    process evaluates images pid, pid + nprocs, ... and the stats are the
+    whole set's (every process must call).
     """
     if preprocess not in ("host", "device"):
         raise ValueError(f"unknown preprocess {preprocess!r}: 'host' or 'device'")
     if viz_name_mode not in ("file", "id", "index"):
         raise ValueError(f"unknown viz_name_mode {viz_name_mode!r}: 'file', 'id' or 'index'")
     ds = CocoDetection(images_dir, ann_json, img_size=imgsz, max_images=max_images)
+    sharded = shard is not None and shard[1] > 1
+    if sharded:
+        # Unequal shards are fine (no collective per batch); dropping an image would change the mAP.
+        pid, nprocs = shard
+        ds.images = ds.images[pid::nprocs]
     if predictor is None:
         predictor = Predictor(model, imgsz=imgsz, decode=decode, conf_thresh=conf_thresh, iou_thresh=iou_thresh,
-                              max_det=max_det, class_wise_nms=class_wise_nms, dtype=dtype, device=device)
+                              max_det=max_det, class_wise_nms=class_wise_nms, dtype=dtype, device=device,
+                              mesh=mesh)
     else:
         if (predictor.decode, predictor.imgsz) != (decode, imgsz):
             raise ValueError(f"predictor has decode {predictor.decode!r} and imgsz {predictor.imgsz}; this call "
@@ -236,7 +255,8 @@ def validate_coco(
     chunks: List[tuple] = []  # columnar per-batch results, for the JSON
     n_images = 0
     viz_index = 0
-    evaluator = CocoEvaluator(_load_gt(ann_json, max_images))
+    # Sharded, the chunks are merged first and process 0 scores them once.
+    evaluator = None if sharded else CocoEvaluator(_load_gt(ann_json, max_images))
     t0 = time.perf_counter()
 
     def _consume(dets_h, num_h, event, metas, viz) -> None:
@@ -248,8 +268,9 @@ def validate_coco(
         dets, num = dets_h.numpy(), num_h.numpy()
         cols = detections_to_coco_arrays(dets, num, metas, ds.cat_ids, decode=decode)
         chunks.append(cols)
-        evaluator.add_detections_arrays(*cols)
-        evaluator.score_images([m["image_id"] for m in metas if m is not None])
+        if evaluator is not None:
+            evaluator.add_detections_arrays(*cols)
+            evaluator.score_images([m["image_id"] for m in metas if m is not None])
         if viz_dir:
             kind, images = viz
             save = _save_viz_batch if kind == "batch" else _save_viz_original
@@ -270,6 +291,9 @@ def validate_coco(
     if pending is not None:
         _consume(*pending)
     wall = time.perf_counter() - t0
+    if sharded:
+        return _finish_sharded(chunks, n_images, wall, ann_json, max_images, save_detections, measure_speed,
+                               fps_warmup, predictor)
     return _finish(chunks, evaluator, n_images, wall, save_detections, measure_speed, fps_warmup, predictor)
 
 
@@ -325,6 +349,33 @@ def _load_gt(ann_json: str, max_images: Optional[int]) -> dict:
             "categories": gt["categories"],
         }
     return gt
+
+
+def _finish_sharded(chunks, n_images, wall, ann_json, max_images, save_detections, measure_speed, fps_warmup,
+                    predictor):
+    """Merge every process's columnar detections (one allgather_obj of
+    plain lists), score them once on process 0 (which alone writes
+    save_detections and measures fps), then share its stats: every process
+    returns the same numbers. The wall time is the slowest shard's."""
+    from ..parallel.distributed import allgather_obj, process_index
+
+    payload = [tuple(col.tolist() for col in c) for c in chunks]
+    merged = allgather_obj({"c": payload, "n": n_images, "w": wall})
+    chunks = [
+        (np.asarray(c[0], np.int64), np.asarray(c[1], np.int64), np.asarray(c[2], np.float32).reshape(-1, 4),
+         np.asarray(c[3], np.float32))
+        for m in merged
+        for c in m["c"]
+    ]
+    n_images = sum(m["n"] for m in merged)
+    wall = max(m["w"] for m in merged)
+    stats = None
+    if process_index() == 0:
+        evaluator = CocoEvaluator(_load_gt(ann_json, max_images))
+        for c in chunks:
+            evaluator.add_detections_arrays(*c)
+        stats = _finish(chunks, evaluator, n_images, wall, save_detections, measure_speed, fps_warmup, predictor)
+    return allgather_obj(stats)[0]
 
 
 def _finish(chunks, evaluator, n_images, wall, save_detections, measure_speed, fps_warmup, predictor):

@@ -26,8 +26,14 @@ Activation checkpointing (`YOLOv10.forward(remat=True)`, the trainer's
 `remat="full"`): the model's nodes run through `segment`, which wraps each in
 a non-reentrant `torch.utils.checkpoint`; the backward recomputes a node's
 activations from its input. The recomputed forward leaves the BN running statistics alone
-(`_recomputing`), so they advance once a step, as JAX's do where they are an
+(`_checkpoint_contexts`), so they advance once a step, as JAX's do where they are an
 output of the checkpointed forward.
+
+Data parallelism (`global_batch_stats`, entered by a Trainer on a mesh): a
+training-mode BatchNorm sums its moments over the processes of a group, as
+JAX's do over the global batch under its mesh. The recompute of a checkpoint
+sums over the same group again (it may run on another thread: the group
+rides the recompute's context).
 
 Folding (fold.py) routes the serving forward through the other kernel
 wrappers: dense 1x1 convs become `MatmulConv` (kernels/matmul.py), the
@@ -43,6 +49,7 @@ import threading
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -53,21 +60,35 @@ BN_MOMENTUM = 0.03
 
 Tensor = torch.Tensor
 
-_remat = threading.local()  # .recomputing: inside a checkpoint's recompute
+# .recomputing: inside a checkpoint's recompute; .group: the process group
+# BatchNorm sums its batch moments over (None: this process's batch alone).
+_remat = threading.local()
 
 
 @contextlib.contextmanager
-def _recomputing():
-    before = getattr(_remat, "recomputing", False)
-    _remat.recomputing = True
+def _context(**values):
+    before = {k: getattr(_remat, k, None) for k in values}
+    for k, v in values.items():
+        setattr(_remat, k, v)
     try:
         yield
     finally:
-        _remat.recomputing = before
+        for k, v in before.items():
+            setattr(_remat, k, v)
+
+
+def global_batch_stats(group):
+    """Within this context, training-mode BatchNorms take their batch
+    statistics over the global batch: the moments of every process of
+    `group` (a torch.distributed group; None: this process alone). Every
+    process must hold the same number of rows."""
+    return _context(group=group)
 
 
 def _checkpoint_contexts():
-    return contextlib.nullcontext(), _recomputing()
+    # Made in the forward; the recompute (in the backward) reduces over the
+    # forward's group and leaves the running statistics alone.
+    return contextlib.nullcontext(), _context(recomputing=True, group=getattr(_remat, "group", None))
 
 
 def segment(on: bool, fn, *args, **kwargs):
@@ -160,35 +181,51 @@ class MatmulConv(Conv):
         return self.conv(x, bias=self.bias)
 
 
+def _sum_over(group, a: Tensor, b: Tensor) -> Tuple[Tensor, Tensor]:
+    """(a, b) summed over the processes of `group`, in one all-reduce."""
+    both = torch.cat([a, b])
+    dist.all_reduce(both, group=group)
+    return both[: a.numel()], both[a.numel():]
+
+
 class _BatchMoments(torch.autograd.Function):
     """Per-channel (mean, biased var) of y [N, C, H, W] over N, H, W in fp32,
     from one pass of sum and sum of squares: var = max(s2/n - mean^2, 0)
-    (JAX `_bn_act`, train branch).
+    (JAX `_bn_act`, train branch). With a `group`, s1 and s2 are summed over
+    its processes first and n is the global count (every process holds the
+    same number of rows), so mean and var are the global batch's.
 
     The backward is the chain rule of that formula, dy = ds1 + 2 y ds2 with
     ds2 = dvar/n and ds1 = (dmean - 2 mean dvar)/n, and keeps only y (which
     the BN affine keeps anyway), where autograd would keep an fp32 copy.
+    With a group, the incoming gradients of the moments are summed over it
+    first: each process's loss reaches the moments through its own rows.
     """
 
     @staticmethod
-    def forward(ctx, y: Tensor):
+    def forward(ctx, y: Tensor, group):
         n = y.numel() // y.shape[1]
         yf = y.float()
         s1 = yf.sum(dim=(0, 2, 3))
         s2 = yf.square().sum(dim=(0, 2, 3))
+        if group is not None:
+            s1, s2 = _sum_over(group, s1, s2)
+            n *= dist.get_world_size(group)
         mean = s1 / n
         raw = s2 / n - mean * mean
-        ctx.n = n
+        ctx.n, ctx.group = n, group
         ctx.save_for_backward(y, mean, raw > 0)
         return mean, torch.clamp_min(raw, 0.0)
 
     @staticmethod
     def backward(ctx, g_mean: Tensor, g_var: Tensor):
         y, mean, live = ctx.saved_tensors
+        if ctx.group is not None:
+            g_mean, g_var = _sum_over(ctx.group, g_mean, g_var)
         g_var = torch.where(live, g_var, 0.0)
         g_s1 = ((g_mean - 2.0 * mean * g_var) / ctx.n).view(1, -1, 1, 1)
         g_s2 = (g_var / ctx.n).view(1, -1, 1, 1)
-        return (g_s1 + 2.0 * y.float() * g_s2).to(y.dtype)
+        return (g_s1 + 2.0 * y.float() * g_s2).to(y.dtype), None
 
 
 class BatchNorm(nn.Module):
@@ -200,7 +237,9 @@ class BatchNorm(nn.Module):
     they are the batch's (`_BatchMoments`, differentiated through), and the
     running statistics advance as (1 - 0.03) old + 0.03 new, with the
     unbiased batch variance var * n / (n - 1) (JAX `merge_bn_stats`), except
-    in a checkpoint's recompute, which already advanced them.
+    in a checkpoint's recompute, which already advanced them. Within
+    `global_batch_stats(group)` the batch statistics, and with them the
+    running ones, are the global batch's.
     """
 
     def __init__(self, c: int) -> None:
@@ -218,8 +257,9 @@ class BatchNorm(nn.Module):
 
     def forward(self, y: Tensor) -> Tensor:
         if self.training:
-            mean, var = _BatchMoments.apply(y)
-            n = y.numel() // y.shape[1]
+            group = getattr(_remat, "group", None)
+            mean, var = _BatchMoments.apply(y, group)
+            n = y.numel() // y.shape[1] * (1 if group is None else dist.get_world_size(group))
             if not getattr(_remat, "recomputing", False):
                 self._advance(mean, var, n)
             mul, add = self.mul_add(mean, var)

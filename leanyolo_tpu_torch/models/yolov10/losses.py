@@ -7,6 +7,11 @@ positives (lambda cls/iou/dfl = 1/1/1.5), for the one2many branch with TAL
 top-k 10 and the one2one branch with top-k 1, summed. Targets arrive padded
 to a fixed [B, Nmax] (`build_padded_targets`). The loss runs in fp32; the
 trainer upcasts the head maps level by level.
+
+Data parallel (`group`): each process holds its rows of the global batch, and
+the normalizer is the global batch's summed target scores, all-reduced before
+the clamp (JAX's sum under its mesh); a process's loss is its rows' share of
+the global loss, and the shares sum to it.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ...ops.anchors import bbox2dist, dfl_expectation, dist2bbox, make_anchors
 from ...ops.boxes import box_ciou_paired
@@ -58,6 +64,7 @@ def _branch_loss(
     lambda_cls: float = 1.0,
     lambda_iou: float = 1.0,
     lambda_dfl: float = 1.5,
+    group=None,
 ) -> Dict[str, Tensor]:
     """One head branch's loss over per-level (reg, cls) NHWC maps, or
     concatenated NHWC maps [B, H, W, 4*reg_max + nc]."""
@@ -86,7 +93,10 @@ def _branch_loss(
         num_classes=num_classes,
     )
 
-    denom = torch.clamp_min(assign.target_scores.sum(), 1.0)
+    total_scores = assign.target_scores.sum()
+    if group is not None:
+        dist.all_reduce(total_scores, group=group)
+    denom = torch.clamp_min(total_scores, 1.0)
     cls_loss = _bce_with_logits(pred_scores, assign.target_scores).sum() / denom
 
     fg = assign.fg_mask.to(pred_distri.dtype)
@@ -109,15 +119,17 @@ def detection_loss_v10(
     num_classes: int,
     reg_max: int = 16,
     strides: Tuple[int, ...] = (8, 16, 32),
+    group=None,
 ) -> Dict[str, Tensor]:
     """YOLOv10 loss: one2many (TAL top-k 10) + one2one (top-k 1).
 
     raw: {'one2many': [P3, P4, P5], 'one2one': [...]} NHWC maps (or per-level
     (reg, cls) tuples), or a plain list for a one2many-only loss.
     gt_labels [B, Nmax] int, gt_bboxes [B, Nmax, 4] xyxy input pixels,
-    mask_gt [B, Nmax] bool.
+    mask_gt [B, Nmax] bool. group: a torch.distributed group whose
+    processes hold the rest of the global batch (None: this batch alone).
     """
-    kw = dict(num_classes=num_classes, reg_max=reg_max, strides=strides)
+    kw = dict(num_classes=num_classes, reg_max=reg_max, strides=strides, group=group)
     if isinstance(raw, dict):
         l_many = _branch_loss(raw["one2many"], gt_labels, gt_bboxes, mask_gt, tal_topk=10, **kw)
         l_one = _branch_loss(raw["one2one"], gt_labels, gt_bboxes, mask_gt, tal_topk=1, **kw)

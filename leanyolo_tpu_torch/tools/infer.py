@@ -1,6 +1,7 @@
 """Inference CLI: detections per box on stdout and drawn images in --save-dir.
 
-Counterpart of the JAX package's `tools/infer.py` without --spatial-parallel:
+Counterpart of the JAX package's `tools/infer.py` (--spatial-parallel is
+accepted and raises when non-zero: not ported, ROADMAP.md Queue 1 item 7):
 `--decode topk` runs the NMS-free one2one branch, `--decode nms` the
 one2many branch with --conf and --iou; images letterbox on the host
 (--preprocess host, cv2's pixels) or on the device (--preprocess device).
@@ -40,6 +41,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--preprocess", choices=["host", "device"], default="host",
                    help="'host': the numpy letterbox per image (cv2's pixels); 'device': the letterbox warped on "
                    "the predictor's device")
+    p.add_argument(
+        "--spatial-parallel", type=int, default=0, metavar="S",
+        help="shard one image's HEIGHT over S devices (not ported: ROADMAP.md Queue 1 item 7; non-zero raises)",
+    )
     p.add_argument("--device", default="cuda", help="where the model runs: 'cuda' (default) or 'cpu'")
     return p.parse_args(argv)
 
@@ -69,6 +74,10 @@ def class_names_of(args: argparse.Namespace) -> List[str]:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
+    if args.spatial_parallel:
+        from ..parallel.mesh import NOT_PORTED
+
+        raise NotImplementedError(f"--spatial-parallel: {NOT_PORTED}")
 
     from ..data.dataset import read_rgb
     from ..engine.predictor import Predictor

@@ -1,17 +1,26 @@
 """Training CLI: COCO-format data, AdamW + warmup-cosine, a COCO evaluation
 and checkpoints each epoch.
 
-Counterpart of the JAX package's `tools/train.py` without its data-parallel
-and distributed options: the same flags (--freeze-backbone freezes the neck
-too, for the whole run; --head-reset), `history.jsonl` with one row an
-epoch, `epochNNN.npz`, `last.npz` and `ckpt.npz` with the same metadata, and
-an exact --resume: the model and optimizer state, the step counter, the
-shuffle order and the augmentation stream (a generator seeded from
-(seed, step)) all restore. Runs on the card unless --device names another.
+Counterpart of the JAX package's `tools/train.py`: the same flags
+(--freeze-backbone freezes the neck too, for the whole run; --head-reset),
+`history.jsonl` with one row an epoch, `epochNNN.npz`, `last.npz` and
+`ckpt.npz` with the same metadata, and an exact --resume: the model and
+optimizer state, the step counter, the shuffle order and the augmentation
+stream (a generator seeded from (seed, step)) all restore. Runs on the card
+unless --device names another.
+
+Data parallel, one process a card: --data-parallel over the processes of a
+torchrun launch (a world of one without it), --distributed across nodes
+(--coordinator, --num-processes, --process-id, or LEANYOLO_* / torchrun's
+environment) on a (dcn, data) mesh. --batch-size is the global batch; each
+process loads its shard of the image list (`shard_image_list`) and steps on
+its rows; evaluation, checkpoints, history.jsonl and the logs come from
+process 0, which also evaluates with a predictor of its own.
 
 Example:
     python -m leanyolo_tpu_torch.tools.train --train-images d/train --train-ann d/train/ann.json \\
         --val-images d/valid --val-ann d/valid/ann.json --epochs 10 --bf16 --augment
+    torchrun --nproc-per-node=8 -m leanyolo_tpu_torch.tools.train --data-parallel --batch-size 256 ...
 """
 
 from __future__ import annotations
@@ -24,6 +33,8 @@ from typing import List, Optional, Sequence
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    from ..parallel.distributed import add_distributed_args
+
     p = argparse.ArgumentParser(description="leanyolo_tpu_torch baseline trainer")
     p.add_argument("--model", default="yolov10s")
     p.add_argument("--weights", default=None, help="'PRETRAINED_COCO', a checkpoint path, or none")
@@ -50,6 +61,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     )
     p.add_argument("--workers", type=int, default=8)
     p.add_argument("--max-images", type=int, default=None)
+    p.add_argument("--data-parallel", action="store_true")
+    add_distributed_args(
+        p,
+        batch_semantics="--batch-size is the GLOBAL batch (divided across processes)",
+    )
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out-dir", default="runs/train")
     p.add_argument("--eval-every", type=int, default=1)
@@ -75,8 +91,43 @@ def step_generator(seed: int, step: int, device) -> "torch.Generator":
     return torch.Generator(device=device).manual_seed(state)
 
 
+def parallel_setup(args: argparse.Namespace):
+    """Join the job for --distributed or --data-parallel and return
+    (nprocs, pid, mesh): a (dcn, data) mesh for --distributed, a flat one for
+    --data-parallel, None without either."""
+    from ..parallel import distributed as D
+    from ..parallel.mesh import make_hybrid_mesh, make_mesh
+
+    if not (args.distributed or args.data_parallel):
+        return 1, 0, None
+    if args.distributed:
+        nprocs, pid = D.cli_distributed_setup(args.coordinator, args.num_processes, args.process_id,
+                                              device=args.device)
+        mesh = make_hybrid_mesh(device=args.device)
+    else:
+        nprocs, pid = D.cli_distributed_setup(device=args.device)
+        mesh = make_mesh(device=args.device)
+    return nprocs, pid, mesh
+
+
+def shard_dataset(ds, args: argparse.Namespace, nprocs: int, pid: int) -> int:
+    """This process's shard of the image list (equal lengths); returns the
+    per-process batch size. Exits where the global batch does not divide."""
+    if args.batch_size % nprocs:
+        raise SystemExit(f"--batch-size (global) must be divisible by {nprocs} processes")
+    if nprocs > 1:
+        from ..parallel.distributed import shard_image_list
+
+        try:
+            ds.images = shard_image_list(ds.images, pid, nprocs)
+        except ValueError as e:
+            raise SystemExit(str(e))
+    return args.batch_size // nprocs
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
+    nprocs, pid, mesh = parallel_setup(args)
 
     import numpy as np
 
@@ -86,6 +137,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from ..engine.validator import validate_coco
     from ..models.registry import get_model, load_checkpoint_into, save_checkpoint
     from ..models.yolov10.model import reset_head
+    from ..parallel.distributed import allgather_obj, proc0_local_eval
+
+    if mesh is not None:
+        print(f"data-parallel: process {pid}/{nprocs}, mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}, "
+              f"{args.device}", flush=True)
 
     with open(args.train_ann, "r", encoding="utf-8") as f:
         cats = json.load(f)["categories"]
@@ -98,7 +154,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     ds = CocoDetection(args.train_images, args.train_ann, img_size=args.imgsz, max_images=args.max_images,
                        preprocess=args.preprocess)
-    loader = DataLoader(ds, batch_size=args.batch_size, shuffle=True, max_boxes=args.max_boxes,
+    local_bs = shard_dataset(ds, args, nprocs, pid)
+    loader = DataLoader(ds, batch_size=local_bs, shuffle=True, max_boxes=args.max_boxes,
                         workers=args.workers, seed=args.seed)
     steps_per_epoch = max(1, len(loader))
 
@@ -116,7 +173,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         device_preprocess=args.preprocess == "device",
         imgsz=args.imgsz,
     )
-    trainer = Trainer(model, cfg, device=args.device)
+    trainer = Trainer(model, cfg, mesh=mesh, device=args.device)
 
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -124,8 +181,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     start_epoch = 0
     if args.resume:
         last_ckpt, state_ckpt = out_dir / "last.npz", out_dir / "train_state.pt"
-        if not (last_ckpt.exists() and state_ckpt.exists()):
-            raise SystemExit(f"--resume: {last_ckpt} / {state_ckpt} not found")
+        # Process 0 writes them, so every process must see them (a shared
+        # --out-dir); all agree before any exits.
+        if not all(allgather_obj(last_ckpt.exists() and state_ckpt.exists())):
+            raise SystemExit(f"--resume: {last_ckpt} / {state_ckpt} not found"
+                             + (" on every process (process 0 writes them: a shared --out-dir)" if nprocs > 1 else ""))
         load_checkpoint_into(model, str(last_ckpt))
         trainer.load_train_state(str(state_ckpt))
         start_epoch = trainer.global_step // steps_per_epoch
@@ -133,12 +193,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     # One row an epoch; a fresh run truncates, --resume appends.
     history_path = out_dir / "history.jsonl"
-    if not args.resume and history_path.exists():
+    if pid == 0 and not args.resume and history_path.exists():
         history_path.unlink()
 
     eval_predictor = None
-    if args.val_images and args.val_ann:
-        # One predictor for every epoch's evaluation (fp32, unfolded, top-k).
+    if args.val_images and args.val_ann and mesh is None:
+        # One predictor for every epoch's evaluation (fp32, unfolded, top-k);
+        # on a mesh process 0 makes its own (proc0_local_eval).
         eval_predictor = Predictor(model, imgsz=args.imgsz, decode="topk", conf_thresh=args.eval_conf,
                                    iou_thresh=args.eval_iou, device=trainer.device)
 
@@ -163,25 +224,32 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         print(f"epoch {epoch + 1} done in {dt:.1f}s ({nb * args.batch_size / dt:.1f} img/s)", flush=True)
         epoch_row.update(steps=nb, time_s=round(dt, 2), img_s=round(nb * args.batch_size / dt, 2))
 
-        if eval_predictor is not None and (epoch + 1) % args.eval_every == 0:
+        if args.val_images and args.val_ann and (epoch + 1) % args.eval_every == 0 and pid == 0:
             try:
-                stats = validate_coco(model, images_dir=args.val_images, ann_json=args.val_ann, imgsz=args.imgsz,
-                                      batch_size=args.batch_size, decode="topk", conf_thresh=args.eval_conf,
-                                      iou_thresh=args.eval_iou, workers=args.workers, predictor=eval_predictor)
+                eval_model = model
+                if mesh is not None:
+                    eval_model, eval_predictor = proc0_local_eval(model, eval_predictor, imgsz=args.imgsz,
+                                                                  conf_thresh=args.eval_conf, device=trainer.device)
+                stats = validate_coco(eval_model, images_dir=args.val_images, ann_json=args.val_ann,
+                                      imgsz=args.imgsz, batch_size=local_bs, decode="topk",
+                                      conf_thresh=args.eval_conf, iou_thresh=args.eval_iou, workers=args.workers,
+                                      predictor=eval_predictor)
                 print(f"epoch {epoch + 1} mAP50-95={stats['map_50_95']:.5f} mAP50={stats['map_50']:.5f}")
                 epoch_row["map_50_95"] = round(stats["map_50_95"], 5)
                 epoch_row["map_50"] = round(stats["map_50"], 5)
             except Exception as e:  # a failed evaluation does not stop training, as in the JAX CLI
                 print(f"eval failed: {e}")
 
-        with open(history_path, "a", encoding="utf-8") as f:
-            f.write(json.dumps(epoch_row) + "\n")
-        save_checkpoint(model, str(out_dir / f"epoch{epoch + 1:03d}.npz"), extra_meta={"epoch": epoch + 1})
-        save_checkpoint(model, str(out_dir / "last.npz"), extra_meta={"epoch": epoch + 1})
-        trainer.save_train_state(str(out_dir / "train_state.pt"))
+        if pid == 0:
+            with open(history_path, "a", encoding="utf-8") as f:
+                f.write(json.dumps(epoch_row) + "\n")
+            save_checkpoint(model, str(out_dir / f"epoch{epoch + 1:03d}.npz"), extra_meta={"epoch": epoch + 1})
+            save_checkpoint(model, str(out_dir / "last.npz"), extra_meta={"epoch": epoch + 1})
+            trainer.save_train_state(str(out_dir / "train_state.pt"))
 
-    save_checkpoint(model, str(out_dir / "ckpt.npz"))
-    print(f"saved final checkpoint: {out_dir / 'ckpt.npz'}")
+    if pid == 0:
+        save_checkpoint(model, str(out_dir / "ckpt.npz"))
+        print(f"saved final checkpoint: {out_dir / 'ckpt.npz'}")
 
 
 if __name__ == "__main__":

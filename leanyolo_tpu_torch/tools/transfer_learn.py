@@ -1,8 +1,8 @@
 """Transfer-learning CLI: pretrained weights, head reset, backbone+neck frozen
 then unfrozen, bf16, augmentation, a COCO evaluation each epoch.
 
-Counterpart of the JAX package's `tools/transfer_learn.py` without its
-data-parallel and distributed options: a backbone lr multiplier (0.1), warmup then cosine,
+Counterpart of the JAX package's `tools/transfer_learn.py`: a backbone lr
+multiplier (0.1), warmup then cosine,
 grad clip 1.0, bf16 activations unless --no-amp, hflip and brightness/
 contrast unless --no-augment, the backbone and neck frozen until
 --unfreeze-epoch, `best.npz` by mAP50-95, `epochNNN.npz` and `ckpt.npz`,
@@ -11,7 +11,10 @@ and `train.log` beside the stream log with the JAX CLI's lines;
 batch's first image to <out-dir>/viz/stepNNNNNN.jpg. A local
 weights file loads leniently (`load_checkpoint_transfer`: a pretraining
 run's class count need not match); anything else goes through `get_model`.
-Runs on the card unless --device names another.
+Runs on the card unless --device names another. --data-parallel and
+--distributed run one process a card as the train CLI does (its
+`parallel_setup`, `shard_dataset`): --batch-size is the global batch, and
+evaluation, checkpoints, viz snapshots and `train.log` come from process 0.
 
 Example:
     python -m leanyolo_tpu_torch.tools.transfer_learn --weights pretrain/ckpt.npz \\
@@ -29,6 +32,8 @@ from typing import Optional, Sequence
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    from ..parallel.distributed import add_distributed_args
+
     p = argparse.ArgumentParser(description="leanyolo_tpu_torch transfer learning")
     p.add_argument("--model", default="yolov10s")
     p.add_argument("--weights", default="PRETRAINED_COCO")
@@ -71,14 +76,18 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         help="score threshold for train-viz snapshots (the per-epoch eval's --eval-conf defaults to the mAP "
         "convention 0.001, so viz has its own)",
     )
+    p.add_argument("--data-parallel", action="store_true")
+    add_distributed_args(p, batch_semantics="--batch-size is the GLOBAL batch (divided across processes)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out-dir", default="runs/transfer")
     p.add_argument("--device", default="cuda", help="where to train: 'cuda' (default) or 'cpu'")
     return p.parse_args(argv)
 
 
-def setup_logger(out_dir: Path) -> logging.Logger:
-    """`train.log` in out_dir plus the stream, one format for both."""
+def setup_logger(out_dir: Path, *, file: bool = True) -> logging.Logger:
+    """`train.log` in out_dir (file=True) plus the stream, one format for
+    both; file=False for processes other than 0, which must not append to a
+    shared out-dir's log."""
     out_dir.mkdir(parents=True, exist_ok=True)
     logger = logging.getLogger("transfer")
     logger.setLevel(logging.INFO)
@@ -86,7 +95,7 @@ def setup_logger(out_dir: Path) -> logging.Logger:
         logger.removeHandler(h)
         h.close()
     fmt = logging.Formatter("%(asctime)s %(message)s")
-    for h in (logging.FileHandler(out_dir / "train.log"), logging.StreamHandler()):
+    for h in ((logging.FileHandler(out_dir / "train.log"),) if file else ()) + (logging.StreamHandler(),):
         h.setFormatter(fmt)
         logger.addHandler(h)
     return logger
@@ -94,6 +103,9 @@ def setup_logger(out_dir: Path) -> logging.Logger:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
+    from .train import parallel_setup, shard_dataset
+
+    nprocs, pid, mesh = parallel_setup(args)
 
     import numpy as np
     import torch
@@ -104,10 +116,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from ..engine.validator import validate_coco
     from ..models.registry import get_model, load_checkpoint_transfer, save_checkpoint
     from ..models.yolov10.model import reset_head
+    from ..parallel.distributed import proc0_local_eval
     from ..utils.viz import draw_detections, save_image
 
     out_dir = Path(args.out_dir)
-    log = setup_logger(out_dir)
+    log = setup_logger(out_dir, file=pid == 0)
     log.info(f"RUN START args={vars(args)}")
 
     with open(args.train_ann, "r", encoding="utf-8") as f:
@@ -131,9 +144,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     ds = CocoDetection(args.train_images, args.train_ann, img_size=args.imgsz, max_images=args.max_images,
                        preprocess=args.preprocess)
-    loader = DataLoader(ds, batch_size=args.batch_size, shuffle=True, max_boxes=args.max_boxes,
+    local_bs = shard_dataset(ds, args, nprocs, pid)
+    loader = DataLoader(ds, batch_size=local_bs, shuffle=True, max_boxes=args.max_boxes,
                         workers=args.workers, seed=args.seed)
     steps_per_epoch = max(1, len(loader))
+    if mesh is not None:
+        log.info(f"data-parallel over {dict(zip(mesh.mesh_dim_names, mesh.shape))} processes ({args.device})")
 
     cfg = TrainConfig(
         lr=args.lr,
@@ -150,17 +166,24 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         device_preprocess=args.preprocess == "device",
         imgsz=args.imgsz,
     )
-    trainer = Trainer(model, cfg, device=args.device)
+    trainer = Trainer(model, cfg, mesh=mesh, device=args.device)
     gen = torch.Generator(device=trainer.device).manual_seed(args.seed)
-    eval_predictor = Predictor(model, imgsz=args.imgsz, decode="topk", conf_thresh=args.eval_conf,
-                               iou_thresh=args.eval_iou, device=trainer.device)
+    eval_predictor = None
+    if mesh is None:
+        eval_predictor = Predictor(model, imgsz=args.imgsz, decode="topk", conf_thresh=args.eval_conf,
+                                   iou_thresh=args.eval_iou, device=trainer.device)
 
     def save_train_viz(batch) -> None:
         """The current weights' detections on the batch's first image: a host
         batch's letterboxed image through run_batch; a device batch's raw
         image, cropped from its canvas, through predict_images (boxes in its
         own coordinates)."""
-        eval_predictor.update_params(model)
+        nonlocal eval_predictor
+        if mesh is not None:  # process 0's own predictor, made at the first snapshot
+            _, eval_predictor = proc0_local_eval(model, eval_predictor, imgsz=args.imgsz,
+                                                 conf_thresh=args.eval_conf, device=trainer.device)
+        else:
+            eval_predictor.update_params(model)
         if isinstance(batch, DeviceBatch):
             h, w = (int(v) for v in batch.hw[0])
             src = np.ascontiguousarray(batch.canvas[0, :h, :w], np.uint8)
@@ -184,19 +207,24 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         last = None
         for batch in loader:
             last = trainer.train_step(batch, gen)
-            if args.viz_interval and trainer.global_step % args.viz_interval == 0:
+            if args.viz_interval and pid == 0 and trainer.global_step % args.viz_interval == 0:
                 save_train_viz(batch)
         running = {k: (float(last[k]) if last is not None else 0.0) for k in ("total", "cls", "reg")}
         dt = time.perf_counter() - t0
         log.info(f"EPOCH {epoch + 1}/{args.epochs} loss={running['total']:.4f} "
                  f"cls={running['cls']:.4f} reg={running['reg']:.4f} time={dt:.1f}s")
 
-        if (epoch + 1) % max(1, args.eval_every) == 0:
+        if pid == 0 and (epoch + 1) % max(1, args.eval_every) == 0:
             try:
-                stats = validate_coco(model, images_dir=args.val_images, ann_json=args.val_ann, imgsz=args.imgsz,
-                                      batch_size=args.batch_size, decode="topk", conf_thresh=args.eval_conf,
-                                      iou_thresh=args.eval_iou, max_images=args.max_val_images,
-                                      workers=args.workers, predictor=eval_predictor)
+                eval_model = model
+                if mesh is not None:
+                    eval_model, eval_predictor = proc0_local_eval(model, eval_predictor, imgsz=args.imgsz,
+                                                                  conf_thresh=args.eval_conf, device=trainer.device)
+                stats = validate_coco(eval_model, images_dir=args.val_images, ann_json=args.val_ann,
+                                      imgsz=args.imgsz, batch_size=local_bs, decode="topk",
+                                      conf_thresh=args.eval_conf, iou_thresh=args.eval_iou,
+                                      max_images=args.max_val_images, workers=args.workers,
+                                      predictor=eval_predictor)
                 log.info(f"VAL epoch {epoch + 1} mAP50-95={stats['map_50_95']:.5f} mAP50={stats['map_50']:.5f}")
                 if stats["map_50_95"] > best_map:
                     best_map = stats["map_50_95"]
@@ -205,9 +233,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             except Exception as e:  # a failed evaluation does not stop training, as in the JAX CLI
                 log.info(f"VAL failed: {e}")
 
-        save_checkpoint(model, str(out_dir / f"epoch{epoch + 1:03d}.npz"), extra_meta={"epoch": epoch + 1})
+        if pid == 0:
+            save_checkpoint(model, str(out_dir / f"epoch{epoch + 1:03d}.npz"), extra_meta={"epoch": epoch + 1})
 
-    save_checkpoint(model, str(out_dir / "ckpt.npz"))
+    if pid == 0:
+        save_checkpoint(model, str(out_dir / "ckpt.npz"))
     log.info(f"RUN END best mAP50-95={best_map:.5f}")
 
 

@@ -1,11 +1,20 @@
 """COCO validation CLI: a model from `get_model`, `validate_coco`, the mAP
 line and a row of the 27-column CSV run log.
 
-Counterpart of the JAX package's `tools/val.py` without its parallel
-options; --viz-dir draws the detections (letterboxed pixels under the host
-letterbox, original images under --preprocess device). Dataset resolution: --images-dir and --ann-json, else
-<data-root>/annotations.json with <data-root>/images; COCO val2017 is not
-downloaded. Runs on the card unless --device names another.
+Counterpart of the JAX package's `tools/val.py`; --viz-dir draws the
+detections (letterboxed pixels under the host letterbox, original images
+under --preprocess device). Dataset resolution: --images-dir and --ann-json,
+else <data-root>/annotations.json with <data-root>/images; COCO val2017 is
+not downloaded. Runs on the card unless --device names another.
+
+Data parallel, one process a card: --data-parallel N splits each batch of
+--batch-size over the N processes of a torchrun launch (every process scores
+all of it); --distributed gives each process a stride shard of the image list,
+evaluated on its own card with a per-process --batch-size, merged by one
+allgather (every process reports the global mAP). The CSV row, saved
+detections and drawings come from process 0. --spatial-parallel and
+--tensor-parallel are accepted and raise: not ported (ROADMAP.md Queue 1
+item 7).
 
 Example:
     python -m leanyolo_tpu_torch.tools.val --model yolov10s --weights PRETRAINED_COCO \\
@@ -22,6 +31,8 @@ from typing import Optional, Sequence
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    from ..parallel.distributed import add_distributed_args
+
     p = argparse.ArgumentParser(description="leanyolo_tpu_torch COCO validation")
     p.add_argument("--model", default="yolov10s")
     p.add_argument("--weights", default="PRETRAINED_COCO")
@@ -52,6 +63,26 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         "--preprocess", choices=["host", "device"], default="host",
         help="'device' letterboxes on the predictor's device (fixed canvas + bilinear warp)",
     )
+    p.add_argument(
+        "--data-parallel", type=int, default=0, metavar="N",
+        help="shard eval batches over N processes, one card each (torchrun --nproc-per-node=N; 0 = one process)",
+    )
+    p.add_argument(
+        "--spatial-parallel", type=int, default=0, metavar="S",
+        help="shard image HEIGHT over S devices (not ported: ROADMAP.md Queue 1 item 7; non-zero raises)",
+    )
+    p.add_argument(
+        "--tensor-parallel", type=int, default=0, metavar="M",
+        help="shard conv filters (output channels) over M devices (not ported: ROADMAP.md Queue 1 item 7; "
+        "non-zero raises)",
+    )
+    add_distributed_args(
+        p,
+        batch_semantics="NOTE: --batch-size is PER-PROCESS here (sharded "
+        "eval has no cross-host step), unlike the trainer CLIs where it is "
+        "the global batch; detections merge via one allgather and every "
+        "process reports the global mAP",
+    )
     p.add_argument("--device", default="cuda", help="where the model runs: 'cuda' (default) or 'cpu'")
     p.add_argument("--log-csv", default="runs/val_log.csv")
     p.add_argument("--notes", default="")
@@ -75,6 +106,16 @@ def resolve_dataset(args: argparse.Namespace):
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
+    from ..parallel.mesh import NOT_PORTED, make_mesh
+
+    if args.spatial_parallel or args.tensor_parallel:
+        raise NotImplementedError(f"--spatial-parallel / --tensor-parallel: {NOT_PORTED}")
+    nprocs, pid = 1, 0
+    if args.distributed or args.data_parallel:
+        from ..parallel.distributed import cli_distributed_setup
+
+        nprocs, pid = cli_distributed_setup(args.coordinator, args.num_processes, args.process_id,
+                                            device=args.device)
     images_dir, ann_json = resolve_dataset(args)
 
     from ..engine.validator import validate_coco
@@ -87,6 +128,17 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     weights = None if args.weights in ("none", "None", "") else args.weights
     model = get_model(args.model, weights=weights, class_names=class_names)
+
+    sharded = args.distributed and nprocs > 1
+    mesh = None
+    if args.data_parallel:
+        if args.data_parallel != nprocs:
+            raise SystemExit(f"--data-parallel {args.data_parallel} needs as many processes, one a card "
+                             f"(torchrun --nproc-per-node={args.data_parallel}); the job has {nprocs}")
+        # Under --distributed each process evaluates its shard alone: a mesh of this process.
+        mesh = make_mesh(local=sharded, device=args.device)
+        if not sharded and args.batch_size % args.data_parallel:
+            raise SystemExit("--batch-size must be divisible by --data-parallel")
 
     stats = validate_coco(
         model,
@@ -102,14 +154,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         dtype=args.dtype,
         workers=args.workers,
         class_wise_nms=args.class_wise_nms,
-        save_detections=args.save_detections,
+        save_detections=args.save_detections if pid == 0 else None,
         measure_speed=args.measure_fps,
         fps_warmup=args.warmup_iters,
-        viz_dir=args.viz_dir,
+        viz_dir=args.viz_dir if pid == 0 else None,
         viz_conf=args.viz_conf,
         viz_name_mode=args.viz_name_mode,
         preprocess=args.preprocess,
         device=args.device,
+        mesh=mesh,
+        shard=(pid, nprocs) if sharded else None,
     )
     print(
         f"mAP50-95={stats['map_50_95']:.5f} mAP50={stats['map_50']:.5f} "
@@ -118,6 +172,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         + (f" fps={stats['fps']:.1f}" if "fps" in stats else "")
     )
 
+    if pid != 0:
+        return  # the CSV row is process 0's
     append_row(
         Path(args.log_csv),
         {

@@ -28,6 +28,7 @@ Tolerances, each against the JAX package:
 from __future__ import annotations
 
 import copy
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -338,9 +339,10 @@ def test_nmax_bucket_slices_the_gt_arrays():
 def test_trainer_device_and_unported_options():
     """Without a card the trainer raises unless asked for the CPU; device
     letterboxing and activation checkpointing construct and step on the CPU
-    (their parity with JAX: test_torch_train_device.py); `mesh=` (the
-    parallel slice) and unknown remat modes raise; augmentation needs a
-    Generator."""
+    (their parity with JAX: test_torch_train_device.py); `mesh=` of one
+    process with no process group steps as the plain trainer (data
+    parallelism: test_torch_parallel.py); unknown remat modes raise;
+    augmentation needs a Generator."""
     model = YOLOv10.create("yolov10n", class_names=["a"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -356,8 +358,10 @@ def test_trainer_device_and_unported_options():
         tr = Trainer(model, TrainConfig(augment=False, **kw), device="cpu")
         losses = tr.train_step(batch)
         assert tr.global_step == 1 and all(np.isfinite(float(v)) for v in losses.values()), kw
-    with pytest.raises(NotImplementedError, match="DDP"):
-        Trainer(model, TrainConfig(), mesh=object(), device="cpu")
+    one = SimpleNamespace(size=lambda: 1, ndim=1)
+    plain = Trainer(copy.deepcopy(model), TrainConfig(augment=False), device="cpu").train_step(host)
+    meshed = Trainer(copy.deepcopy(model), TrainConfig(augment=False), mesh=one, device="cpu").train_step(host)
+    assert all(torch.equal(plain[k], meshed[k]) for k in plain)
     with pytest.raises(ValueError, match="remat"):
         Trainer(model, TrainConfig(remat="some"), device="cpu")
     tr = Trainer(model, TrainConfig(augment=True), device="cpu")

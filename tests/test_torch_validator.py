@@ -44,9 +44,8 @@ from leanyolo_tpu_torch import Predictor, YOLOv10
 from leanyolo_tpu_torch.data.dataset import CocoDetection
 from leanyolo_tpu_torch.engine.validator import detections_to_coco_arrays, measure_fps, validate_coco
 from leanyolo_tpu_torch.models.yolov10.convert import export_jax_params, load_jax_params
-from leanyolo_tpu_torch.models.yolov10.layers import BatchNorm
 from synth_coco import make_synth_coco
-from torch_parity import randomize_bn
+from torch_parity import calibrated_model, randomize_bn, self_labels
 
 NC = 3
 KEYS = ("map_50_95", "map_50", "map_75", "map_small", "map_medium", "map_large")
@@ -56,45 +55,6 @@ MODES = [(d, p) for d in ("topk", "nms") for p in ("host", "device")]
 def _jax_twin(tm: YOLOv10) -> JYOLOv10:
     cfg = JYOLOv10.create("yolov10n", class_names=tm.class_names).cfg
     return JYOLOv10(cfg=cfg, class_names=tm.class_names, params=export_jax_params(tm))
-
-
-def calibrated_model(seed: int, images: np.ndarray) -> YOLOv10:
-    """yolov10n with BN statistics set from what each BN sees on `images`
-    (uint8 [B, S, S, 3]), and each final class conv rescaled so that its
-    logits there have mean -4 and std 1 per class."""
-    model = YOLOv10.create("yolov10n", class_names=[f"class{c}" for c in range(NC)], seed=seed).eval()
-    cls_convs = [seq[-1] for seq in (*model.head.cv3, *model.head.one2one_cv3)]
-
-    def set_stats(bn, args):
-        y = args[0].float()
-        bn.running_mean.copy_(y.mean(dim=(0, 2, 3)))
-        bn.running_var.copy_(y.var(dim=(0, 2, 3)))
-
-    def spread(conv, args, out):
-        mean, std = out.mean(dim=(0, 2, 3)), out.std(dim=(0, 2, 3))
-        conv.weight.mul_((1.0 / std).view(-1, 1, 1, 1))
-        conv.bias.copy_((conv.bias - mean) / std - 4.0)
-
-    hooks = [m.register_forward_pre_hook(set_stats) for m in model.modules() if isinstance(m, BatchNorm)]
-    hooks += [c.register_forward_hook(spread) for c in cls_convs]
-    with torch.no_grad():
-        model(torch.from_numpy(images))
-    for h in hooks:
-        h.remove()
-    return model
-
-
-def self_labels(results: list, image_ids: list) -> list:
-    """COCO annotations from detections at least 2 px wide and high: those
-    scoring at or above one threshold, the lowest third-highest score of an
-    image (so every image gets at least 3)."""
-    big = [r for r in results if r["bbox"][2] >= 2 and r["bbox"][3] >= 2]
-    thr = min(sorted((r["score"] for r in big if r["image_id"] == i), reverse=True)[2] for i in image_ids)
-    anns = [{"id": k + 1, "image_id": r["image_id"], "category_id": r["category_id"], "bbox": r["bbox"],
-             "area": r["bbox"][2] * r["bbox"][3], "iscrowd": 0}
-            for k, r in enumerate(r for r in big if r["score"] >= thr)]
-    assert min(sum(a["image_id"] == i for a in anns) for i in image_ids) >= 3
-    return anns
 
 
 @pytest.fixture(scope="module")
