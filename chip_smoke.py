@@ -33,8 +33,10 @@ Phases, each of which fails loudly (non-zero exit):
 6. the NMS decode: the fused max/argmax (K4) bit-equal to its plain
    version on bf16 and fp32 levels with signed-zero ties and repeated
    maxima under both zero rules, the NMS (K5) bit-equal at n in {1, 63,
-   1000, 1500} and 8, 32 and 66 images a launch with valid masks, IoUs
-   exactly at the threshold, class-wise on and off; then Predictor(decode="nms") on yolov10s (bf16, folded)
+   1000, 1500} and 1, 8, 32, 66 and 140 images a launch, and at n =
+   10,000 and 12,000, with valid masks, IoUs exactly at the threshold,
+   class-wise on and off, max_det below the survivors, and at n = 2^21 on
+   a known answer; then Predictor(decode="nms") on yolov10s (bf16, folded)
    answers requests of batch 1, 8 and 32 at the inference defaults (conf
    0.25, IoU 0.45) and the validator's (0.001, 0.65: 1000 valid
    candidates), and one class-wise, with its launches counted per request
@@ -42,7 +44,10 @@ Phases, each of which fails loudly (non-zero exit):
    decode on identical head maps bit-equal to the all-plain decode at
    batch 8 and 32; fp32 on the card against the CPU at 128 px; K5
    bit-equal on the path's batch-32 candidates; K4 and K5 timed at the
-   path's shapes and the NMS request at batch 32 and 1, with a profile;
+   path's shapes (K5 at batch 32 and 1, with its host cost a call and the
+   IoU pairs it evaluates beside those the data needs, and the split of
+   the kernel it replaced) and the NMS request at batch 32 and 1, with a
+   profile;
    predict_images on eight images of mixed sizes (1080x1920 among them),
    host and device letterbox, both decodes, every box inside its image,
    host and device letterbox held together as the JAX package holds them;
@@ -198,6 +203,18 @@ TOPK_KS = (1, MAX_DET, 1000, 1024, 1025, 1500)
 PER_REQUEST_NMS = {"stem": 1, "dw7x7": 2, "s2dconv": 2, "bmm": 45, "argmax": 1, "topk": 1, "nms": 1}
 # (conf_thresh, iou_thresh): inference defaults and the validator's (validator.py:211-212).
 NMS_SETTINGS = {"infer": (0.25, 0.45), "val": (0.001, 0.65)}
+# The split of the NMS kernel that slice 7 wrote (a cluster an image building
+# the n x n IoU bitmask, then a one-warp scan), on the path's candidates:
+# per-phase %globaltimer stamps of an instrumented copy, mean over the
+# images, on the first chip run of slice 14 (NVIDIA H100 80GB HBM3, 700.00 W).
+# The kernel is gone; the line is printed beside the new one's times.
+SLICE7_NMS_SPLIT = (
+    "us a phase (load+valid, mask, scan, compaction) and the launch's span; [32,1000] fp32 at 0.25/0.45: "
+    "2.000, 53.732, 29.180, 0.708, span 142.720 (device 0.1449 ms, events 0.1523; host 62.57 us a call through "
+    "the operator, 18.37 direct); at 0.001/0.65: 1.964, 53.536, 38.860, 0.924, span 150.016 (device 0.1521); "
+    "class-wise bf16 at 0.25/0.45: 2.052, 64.664, 65.964, 0.928, span 200.704 (device 0.2140, host 82.24 us); "
+    "[1,1000] fp32 at 0.25/0.45: 2.048, 30.720, 29.952, 0.768 (device 0.0617 ms, events 0.0695; host 78.28 us, "
+    "27.83 direct); at 0.001/0.65: 2.048, 30.464, 38.912, 1.024 (device 0.0706)")
 LEVELS = ((80, 80), (40, 40), (20, 20))  # the head's maps at 640 px
 # The sizes served folded in the variants phase, at full width and depth.
 VARIANTS = ("yolov10n", "yolov10s", "yolov10m", "yolov10b", "yolov10l", "yolov10x")
@@ -241,6 +258,7 @@ def cuda_ms(fn, *, warmup: int = 3, runs: int = 20, inner: int = 1) -> float:
 
 
 KERNEL_INNER = 10
+PROFILE_PAD_S = 0.25
 
 
 def profiled(fn):
@@ -250,16 +268,25 @@ def profiled(fn):
     from torch.profiler import ProfilerActivity, profile
 
     # A profile now and then comes back without device events, at times
-    # three in a row; take the next, after a pause.
-    for _ in range(8):
+    # three in a row; take the next, after a pause. Minutes into a run, a
+    # profile of a few short kernels kept their runtime calls but lost every
+    # kernel, eight tries over; the profiler keeps only device records whose
+    # timestamps fall inside its window, so the window is padded on each side
+    # (idle time: the device time sums kernel durations only), by
+    # PROFILE_PAD_S and twice as much at each try after.
+    for attempt in range(8):
+        pad = PROFILE_PAD_S * 2 ** attempt
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
             out = fn()
             torch.cuda.synchronize()
+            time.sleep(pad)
         ms = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type.name == "CUDA") / 1e3
         if ms > 0:
             return out, ms
         time.sleep(0.2)
-    fail("torch.profiler recorded no device time in eight tries")
+    seen = [(e.key[:60], e.device_type.name, e.count, e.self_device_time_total) for e in prof.key_averages()][:12]
+    fail(f"torch.profiler recorded no device time in eight tries; the last profile's events: {seen}")
 
 
 def device_ms(fn, reps: int = KERNEL_INNER) -> float:
@@ -976,12 +1003,14 @@ def phase_nms_kernels(seed: int, records: dict) -> None:
                     fail("argmax kernel disagrees with its plain version")
     records["argmax"]["max_abs_err"] = 0.0
     # K5: the keep mask and the decode's compaction at n in {1, 63, 1000,
-    # 1500} (the mask in shared memory up to 1000, in device memory at
-    # 1500), valid masks, IoUs exactly at the threshold, class-wise on and
-    # off; at 8 images a launch (clusters of 8 CTAs an image on 132 SMs),
-    # the path's 32 (clusters of 4) and 66 (clusters of 2).
-    for b in (8, BATCH, 66):
-        for n in (1, 63, 1000, 1500):
+    # 1500} (1000: the path's; 47 blocks of 32 ranks at 1500), valid masks,
+    # IoUs exactly at the threshold, class-wise on and off, max_det below the
+    # survivors; at 1, 8, the path's 32, 66 and 140 images a launch (a CTA
+    # an image: two waves at 140). Then, at one image, n = 10,000 and 12,000
+    # (past the table's 9,600 candidates: the boxes read from device
+    # memory) and 2^21 (the dead bits in device memory too).
+    for b in (1, 8, BATCH, 66, 140):
+        for n in (1, 63, 1000, 1500) + ((10_000, 12_000) if b == 1 else ()):
             for grid, thresh in ((True, 0.5), (False, 0.45), (False, 0.65)):
                 boxes, scores, cls = nms_inputs(g, b, n, grid)
                 valid = torch.rand(b, n, generator=g, device="cuda") < 0.7
@@ -992,18 +1021,37 @@ def phase_nms_kernels(seed: int, records: dict) -> None:
                         fail(f"nms keep mask disagrees with its plain version: b={b} n={n} grid={grid} "
                              f"iou={thresh} valid={v is not None}")
             for class_wise in (False, True):
-                for conf, iou in NMS_SETTINGS.values():
+                for conf, iou, max_det in [(*c, MAX_DET) for c in NMS_SETTINGS.values()] + [
+                        (*NMS_SETTINGS["val"], 20)]:
                     boxes, scores, cls = nms_inputs(g, b, n, False)
-                    kw = dict(iou_thresh=iou, conf_thresh=conf, max_det=MAX_DET, class_wise=class_wise)
+                    kw = dict(iou_thresh=iou, conf_thresh=conf, max_det=max_det, class_wise=class_wise)
                     gd, gn = nms.nms_compact(boxes, scores, cls, **kw)
                     rd, rn = nms.nms_compact_plain(boxes, scores, cls, **kw)
                     torch.cuda.synchronize()
                     if not (torch.equal(gd, rd) and torch.equal(gn, rn)):
                         fail(f"nms compaction disagrees with its plain version: b={b} n={n} "
-                             f"class_wise={class_wise} conf={conf} iou={iou}")
-        print(f"kernel nms [{b}, n] at n in (1, 63, 1000, 1500): keep masks (grid IoUs at 0.5, spread at 0.45 and "
-              f"0.65, with and without valid) and dets/num (class-wise and not, both threshold settings) bit-equal "
-              f"to the plain version", flush=True)
+                             f"class_wise={class_wise} conf={conf} iou={iou} max_det={max_det}")
+        print(f"kernel nms [{b}, n] at n in (1, 63, 1000, 1500{', 10000, 12000' if b == 1 else ''}): keep masks "
+              f"(grid IoUs at 0.5, spread at 0.45 and 0.65, with and without valid) and dets/num (class-wise and "
+              f"not, both threshold settings at max_det 300, the validator's at 20) bit-equal to the plain version",
+              flush=True)
+    # 2^21 candidates, two disjoint boxes in turn, half of them valid: the
+    # first valid of each survives (the plain version's n x n matrix would
+    # not fit; the answer is known).
+    n = 1 << 21
+    pair = torch.tensor([[0.0, 0.0, 10.0, 10.0], [100.0, 100.0, 110.0, 110.0]], device="cuda")
+    rank = torch.arange(n, device="cuda")
+    boxes = pair[rank % 2][None].contiguous()
+    valid = torch.rand(1, n, generator=g, device="cuda") < 0.5
+    expect = torch.zeros(1, n, dtype=torch.bool, device="cuda")
+    expect[0, [int(rank[valid[0] & (rank % 2 == p)][0]) for p in (0, 1)]] = True
+    for dtype in (torch.float32, torch.bfloat16):
+        got = nms.nms_keep(boxes.to(dtype), 0.5, valid)
+        torch.cuda.synchronize()
+        if not torch.equal(got, expect):
+            fail(f"nms keep mask at n = 2^21 ({dtype}): {int(got.sum())} survivors, not the two first valid ones")
+    print("kernel nms [1, 2^21] (dead bits in device memory), fp32 and bf16: the two first valid boxes survive, "
+          "nothing else", flush=True)
     records["nms"]["max_abs_err"] = 0.0
 
 
@@ -1146,7 +1194,7 @@ def phase_predict_images(model, seed: int) -> None:
 def phase_nms_times(seed: int, records: dict, pred, x32) -> None:
     """K4 and K5 at the path's shapes, and the NMS request's step time."""
     import torch
-    from leanyolo_tpu_torch.kernels import argmax, bounds, nms
+    from leanyolo_tpu_torch.kernels import _build, argmax, bounds, nms
 
     g = torch.Generator(device="cuda").manual_seed(seed + 6)
     bf = torch.bfloat16
@@ -1193,19 +1241,32 @@ def phase_nms_times(seed: int, records: dict, pred, x32) -> None:
         if not same:
             fail(f"nms kernel disagrees with its plain version on the path's batch-{BATCH} candidates")
         n = boxes.shape[1]
-        pairs = int(((n - 1 - torch.arange(n, device="cuda"))[None] * keep).sum())
-        nbytes, nops = bounds.nms_work(BATCH, n, MAX_DET, pairs)
-        t = {"ms": cuda_ms(lambda: nms.nms_compact(boxes, scores, cls, **kw), inner=KERNEL_INNER),
-             "device_ms": device_ms(lambda: nms.nms_compact(boxes, scores, cls, **kw)),
-             "plain_ms": cuda_ms(lambda: nms.nms_compact_plain(boxes, scores, cls, **kw), warmup=1, runs=3)}
-        set_bound(t, nbytes, nops, "fp32")
-        print(f"nms [{BATCH},{n}] conf {conf} iou {iou} ({int(keep.sum())} survivors, {pairs} pairs needed): kernel "
-              f"{t['ms']:.4f} ms (device {t['device_ms']:.4f}), plain {t['plain_ms']:.4f}, library none, bound "
-              f"{t['bound_ms']:.6f} ({t['bound_by']}; the serial scan's latency is outside it)", flush=True)
-        if name == "infer":
-            records["nms"].update(t, library_ms=None)
-        else:
-            records["nms"]["val_thresholds"] = t
+        ext, off = _build.ext(), nms.f32(kw["group_offset"])
+        for b in (BATCH, 1):
+            bx, sc, cl = (t[:b].contiguous() for t in (boxes, scores, cls))
+            evaluated, needed = bounds.nms_pairs(bx, iou, sc > nms.f32(conf), k_out=min(MAX_DET, n))
+            nbytes, nops = bounds.nms_work(b, n, MAX_DET, needed)
+            call = lambda: nms.nms_compact(bx, sc, cl, **kw)  # noqa: E731
+            direct = lambda: ext.nms(bx, sc, cl, None, nms.f32(iou), True, nms.f32(conf),  # noqa: E731
+                                     kw["class_wise"], off, False, kw["max_det"])
+            # Device time at the path's batch; batch 1 by CUDA events.
+            t = {"ms": cuda_ms(call, inner=KERNEL_INNER), **({"device_ms": device_ms(call)} if b == BATCH else {}),
+                 "plain_ms": cuda_ms(lambda: nms.nms_compact_plain(bx, sc, cl, **kw), warmup=1, runs=3),
+                 "host_us": host_us(call, n=200), "host_us_direct": host_us(direct, n=200),
+                 "pairs_evaluated": evaluated, "pairs_needed": needed}
+            set_bound(t, nbytes, nops, "fp32")
+            device = f" (device {t['device_ms']:.4f})" if b == BATCH else ""
+            print(f"nms [{b},{n}] conf {conf} iou {iou} ({int(keep[:b].sum())} survivors; pairs evaluated {evaluated}, "
+                  f"needed {needed}, the slice-7 kernel's {b * n * (n - 1) // 2}): kernel {t['ms']:.4f} ms{device}, "
+                  f"host {t['host_us']:.2f} us a call through the operator, {t['host_us_direct']:.2f} direct; plain "
+                  f"{t['plain_ms']:.4f}, library none, bound {t['bound_ms']:.6f} ({t['bound_by']}; the chain of "
+                  f"settles is outside it)", flush=True)
+            if name == "infer" and b == BATCH:
+                records["nms"].update(t, library_ms=None)
+            else:
+                records["nms"][f"{name}_batch{b}" if b == 1 else "val_thresholds"] = t
+    print(f"nms: the slice-7 kernel's split at the path's candidates, as slice 14's first chip run measured it: "
+          f"{SLICE7_NMS_SPLIT}", flush=True)
 
     # The NMS request: batch 32 and batch 1, one request from an idle card.
     x1 = x32[:1].contiguous()
@@ -3183,7 +3244,7 @@ def main() -> int:
     # Kernels rebuilt for Hopper after their first port, by the port's slice
     # that rebuilt them.
     for name, part in (("dw7x7", "slice 4"), ("bmm", "slice 4"), ("stem", "slice 5"), ("s2dconv", "slice 5"),
-                       ("topk", "slice 6"), ("mpbwd", "slice 6")):
+                       ("topk", "slice 6"), ("mpbwd", "slice 6"), ("nms", "slice 14")):
         records[name]["redesigned"] = part
     t_run = time.perf_counter()
 

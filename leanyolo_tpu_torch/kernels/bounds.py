@@ -5,7 +5,8 @@ serving and training paths and at the shapes the TPU probes ran.
 
     python -m leanyolo_tpu_torch.kernels.bounds
 
-Arithmetic from shapes only: it runs anywhere and measures nothing. The
+Arithmetic from shapes (and, for the NMS, a count of the IoU pairs its
+data needs, `nms_pairs`): it runs anywhere and measures nothing. The
 serving path's 1x1 shapes come from one forward of the folded model at
 64 px on the CPU, scaled to the requested size (every map side is
 imgsz / stride, so M scales with (imgsz / 64)^2).
@@ -59,10 +60,64 @@ def nms_work(b: int, n: int, max_det: int, pairs: int = None) -> Tuple[int, int]
     score-sorted candidates: boxes, scores and classes in (24 bytes a
     candidate), [b, max_det, 6] fp32 and the counts out; IOU_OPS fp32
     operations a pair. `pairs`: the pairs the data needs (rows of the
-    survivors against the ranks below them); default all b n(n-1)/2."""
+    survivors against the ranks below them); default all b n(n-1)/2.
+
+    The kernel (csrc/nms.cu) evaluates about that many pairs (`nms_pairs`),
+    but its steps form a chain: n / 32 blocks of ranks, each settled only
+    after the block before it, each step a barrier, the settle (a warp
+    reduction a sweep) and the survivors' rows. That chain's latency, not these
+    bytes or operations, sets its time; the bound does not cover it."""
     if pairs is None:
         pairs = b * n * (n - 1) // 2
     return b * n * 24 + b * max_det * 24 + b * 4, pairs * IOU_OPS
+
+
+NMS_BLOCK = 32  # ranks a step of the NMS kernel's scan (csrc/nms.cu)
+
+
+def nms_pairs(boxes, iou_thresh: float, valid=None, k_out: int = None) -> Tuple[int, int]:
+    """(pairs the NMS kernel evaluates, pairs the data needs) on score-sorted
+    candidates `boxes` [B, n, 4] (fp32 or bf16, the arithmetic's mode) with
+    the keep mode's `valid` [B, n], or the compaction's k_out slots.
+
+    Needed: each survivor's row against every rank below it (`nms_work`'s
+    `pairs`). Evaluated: the diagonal blocks of the steps the kernel takes
+    (the pairs inside each block of NMS_BLOCK ranks) and, at each step but
+    the last, each candidate of a later block that is still alive against
+    every survivor of the block. The compaction's last step is the one
+    whose survivors fill the k_out slots. Counted on the plain version's
+    IoUs; it measures nothing."""
+    import torch
+
+    from .nms import arithmetic_dtype, iou_matrix, nms_keep_plain, rounded
+
+    b, n = boxes.shape[:2]
+    dt = arithmetic_dtype(boxes)
+    bx = boxes.to(dt)
+    dev = boxes.device
+    valid = torch.ones(b, n, dtype=torch.bool, device=dev) if valid is None else valid.bool()
+    keep = nms_keep_plain(bx, iou_thresh, valid)
+    rank = torch.arange(n, device=dev)
+    needed = int(((n - 1 - rank)[None] * keep).sum())
+    nb = -(-n // NMS_BLOCK)
+    blk = rank // NMS_BLOCK
+    kept_blk = torch.zeros(b, nb, dtype=torch.int64, device=dev).index_add_(1, blk, keep.long())
+    if k_out is None:
+        last = torch.full((b,), nb - 1, device=dev)
+    else:  # the first block whose survivors fill the slots, else the last block
+        full = kept_blk.cumsum(1) >= k_out
+        last = torch.where(full.any(1), full.int().argmax(1), nb - 1)
+    sizes = (n - torch.arange(nb, device=dev) * NMS_BLOCK).clamp(max=NMS_BLOCK)
+    diag = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), (sizes * (sizes - 1) // 2).cumsum(0)])
+    evaluated = int(diag[last + 1].sum())
+    # The block of each candidate's first suppressor among the survivors.
+    kills = (iou_matrix(bx) > rounded(iou_thresh, dt)) & (rank[:, None] < rank[None, :]) & keep[:, :, None]
+    kill_blk = torch.where(kills.any(1), kills.int().argmax(1) // NMS_BLOCK, nb)
+    # Candidate j is tested at the steps w < blk[j] and w < last while alive
+    # (w <= kill_blk[j]), against every survivor of block w.
+    steps = torch.minimum(torch.minimum(blk[None], last[:, None]), kill_blk + 1)
+    before = torch.cat([torch.zeros(b, 1, dtype=torch.int64, device=dev), kept_blk.cumsum(1)], 1)
+    return evaluated + int(torch.where(valid, before.gather(1, steps), 0).sum()), needed
 
 
 def mpbwd_work(b: int, h: int, w: int, c: int, k: int = 5, elt: int = 2) -> Tuple[int, int]:

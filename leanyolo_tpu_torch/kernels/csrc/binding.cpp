@@ -214,51 +214,56 @@ void max_argmax(std::vector<torch::Tensor> levels, torch::Tensor vals, torch::Te
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-const float* nms_f32(const std::optional<torch::Tensor>& t, const torch::Tensor& boxes, const char* name) {
+const void* nms_input(const std::optional<torch::Tensor>& t, const torch::Tensor& boxes, const char* name) {
   if (!t) return nullptr;
   check(*t, name);
-  TORCH_CHECK(t->scalar_type() == at::kFloat && t->dim() == 2 && t->size(0) == boxes.size(0) &&
+  TORCH_CHECK(t->scalar_type() == boxes.scalar_type() && t->dim() == 2 && t->size(0) == boxes.size(0) &&
                   t->size(1) == boxes.size(1),
-              name, ": [B, n] float32");
-  return t->data_ptr<float>();
+              name, ": [B, n] in the boxes' dtype");
+  return t->data_ptr();
 }
 
 std::tuple<torch::Tensor, torch::Tensor, torch::Tensor> nms(torch::Tensor boxes, std::optional<torch::Tensor> scores,
                                                             std::optional<torch::Tensor> cls,
                                                             std::optional<torch::Tensor> valid, double iou_thresh,
                                                             bool use_conf, double conf_thresh, bool class_wise,
-                                                            double group_offset, bool want_keep, int64_t max_det,
-                                                            bool bf16) {
+                                                            double group_offset, bool want_keep, int64_t max_det) {
   check(boxes, "nms boxes");
-  TORCH_CHECK(boxes.scalar_type() == at::kFloat && boxes.dim() == 3 && boxes.size(2) == 4, "nms: boxes [B, n, 4] float32");
+  const bool bf16 = act_is_bf16(boxes, "nms boxes");
+  TORCH_CHECK(boxes.dim() == 3 && boxes.size(2) == 4, "nms: boxes [B, n, 4]");
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(boxes.data_ptr()) % (4 * boxes.element_size()) == 0,
+              "nms: boxes aligned to a box");
   const int64_t B = boxes.size(0), n = boxes.size(1);
   TORCH_CHECK(B < (int64_t(1) << 31) && n < (int64_t(1) << 31), "nms: B and n below 2^31");
-  const float* s = nms_f32(scores, boxes, "nms scores");
-  const float* c = nms_f32(cls, boxes, "nms cls");
+  const void* s = nms_input(scores, boxes, "nms scores");
+  const void* c = nms_input(cls, boxes, "nms cls");
   const uint8_t* v = nullptr;
   if (valid) {
     check(*valid, "nms valid");
-    TORCH_CHECK(valid->scalar_type() == at::kByte && valid->dim() == 2 && valid->size(0) == B && valid->size(1) == n,
-                "nms: valid [B, n] uint8");
-    v = valid->data_ptr<uint8_t>();
+    TORCH_CHECK((valid->scalar_type() == at::kByte || valid->scalar_type() == at::kBool) && valid->dim() == 2 &&
+                    valid->size(0) == B && valid->size(1) == n,
+                "nms: valid [B, n] bool or uint8");
+    v = static_cast<const uint8_t*>(valid->data_ptr());
   }
   TORCH_CHECK(!use_conf || s, "nms: use_conf needs scores");
   TORCH_CHECK(!class_wise || c, "nms: class_wise needs cls");
-  TORCH_CHECK(max_det == 0 || (s && c), "nms: dets need scores and cls");
+  TORCH_CHECK(want_keep || (s && c), "nms: the compaction needs scores and cls");
   TORCH_CHECK(max_det >= 0 && max_det < (int64_t(1) << 31), "nms: 0 <= max_det < 2^31");
   auto opts = boxes.options();
-  auto keep = torch::empty({want_keep ? B : 0, n}, opts.dtype(at::kByte));
+  auto keep = torch::empty({want_keep ? B : 0, n}, opts.dtype(at::kBool));
   // With no candidates the kernel does not run: zero rows and counts.
-  auto dets = n ? torch::empty({B, max_det, 6}, opts) : torch::zeros({B, max_det, 6}, opts);
-  auto num = n ? torch::empty({B}, opts.dtype(at::kInt)) : torch::zeros({B}, opts.dtype(at::kInt));
-  auto scratch = torch::empty({static_cast<int64_t>(nms_scratch_bytes(static_cast<int>(B), static_cast<int>(n)))},
-                              opts.dtype(at::kByte));
-  C10_CUDA_CHECK(launch_nms(boxes.data_ptr<float>(), s, c, v, static_cast<int>(B), static_cast<int>(n),
+  auto dets = torch::empty({want_keep ? 0 : B, want_keep ? 0 : max_det, 6}, opts.dtype(at::kFloat));
+  auto num = torch::empty({want_keep ? 0 : B}, opts.dtype(at::kInt));
+  if (n == 0) dets.zero_(), num.zero_();
+  const size_t scratch_bytes = nms_scratch_bytes(static_cast<int>(B), static_cast<int>(n));
+  torch::Tensor scratch;  // only past 1.8 million candidates an image
+  if (scratch_bytes) scratch = torch::empty({static_cast<int64_t>(scratch_bytes)}, opts.dtype(at::kByte));
+  uint8_t* k = want_keep ? static_cast<uint8_t*>(keep.data_ptr()) : nullptr;  // bool: one 0/1 byte each
+  C10_CUDA_CHECK(launch_nms(boxes.data_ptr(), s, c, v, static_cast<int>(B), static_cast<int>(n),
                             static_cast<float>(iou_thresh), use_conf, static_cast<float>(conf_thresh), class_wise,
-                            static_cast<float>(group_offset), want_keep ? keep.data_ptr<uint8_t>() : nullptr,
-                            max_det ? dets.data_ptr<float>() : nullptr, max_det ? num.data_ptr<int32_t>() : nullptr,
-                            static_cast<int>(max_det), static_cast<int>(std::min(max_det, n)), bf16,
-                            scratch.data_ptr(), at::cuda::getCurrentCUDAStream()));
+                            static_cast<float>(group_offset), k, want_keep ? nullptr : dets.data_ptr<float>(),
+                            want_keep ? nullptr : num.data_ptr<int32_t>(), static_cast<int>(max_det), bf16,
+                            scratch_bytes ? scratch.data_ptr() : nullptr, at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return {keep, dets, num};
 }

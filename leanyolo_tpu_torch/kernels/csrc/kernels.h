@@ -93,21 +93,23 @@ cudaError_t launch_argmax(const ArgmaxLevels& lv, int B, int n, bool bf16, bool 
                           bool vals_bf16, int32_t* idx, cudaStream_t stream);
 
 // Exact greedy NMS over score-sorted candidates, one CTA an image (nms.cu).
-// boxes [B, n, 4] xyxy fp32; scores and cls [B, n] fp32 (scores needed by
-// use_conf or dets, cls by class_wise or dets; else nullptr); valid [B, n]
-// uint8 or nullptr (all valid). A candidate is valid where valid says so and,
-// with use_conf, its score > conf_thresh; invalid ones never survive and
-// never suppress. class_wise: IoUs of boxes shifted by cls * group_offset.
-// bf16: the inputs hold bf16 values (in fp32), and the shift, the areas and
-// the IoU round each operation to bf16 (JAX's arithmetic on bf16 arrays);
-// thresholds and the offset come rounded to bf16 by the caller.
-// Outputs, each optional (nullptr): keep [B, n] uint8; dets [B, max_det, 6]
-// (the first min(kept, k_out) survivors' [box, score, cls] in rank order,
-// zero rows after) and num [B] int32. scratch: nms_scratch_bytes(B, n)
-// bytes of device memory, 16-byte aligned (none where the mask fits in
-// shared memory).
+// boxes [B, n, 4] xyxy; scores and cls [B, n]; all bf16 (bf16) or fp32
+// (scores needed by use_conf or num, cls by class_wise or num; else
+// nullptr); boxes 8-byte (bf16) or 16-byte (fp32) aligned. valid [B, n]
+// uint8 (or bool) or nullptr (all valid). A candidate is valid where valid
+// says so and, with use_conf, its score > conf_thresh; invalid ones never
+// survive and never suppress. class_wise: IoUs of boxes shifted by cls *
+// group_offset. bf16: the shift, the areas and the IoU round each operation
+// to bf16 (JAX's arithmetic on bf16 arrays); thresholds and the offset come
+// rounded to the inputs' type by the caller.
+// Outputs: keep [B, n] of 0/1 bytes (uint8 or bool), or nullptr; num [B]
+// int32 with dets [B, max_det, 6] (the first min(kept, max_det, n)
+// survivors' [box, score, cls] in rank order, zero rows after), or
+// nullptr: the compaction stops once its slots are filled. scratch:
+// nms_scratch_bytes(B, n) bytes of device memory, 4-byte aligned; none (0)
+// unless n is past 1.8 million, where the dead bits leave shared memory.
 size_t nms_scratch_bytes(int B, int n);
-cudaError_t launch_nms(const float* boxes, const float* scores, const float* cls, const uint8_t* valid, int B, int n,
+cudaError_t launch_nms(const void* boxes, const void* scores, const void* cls, const uint8_t* valid, int B, int n,
                        float iou_thresh, bool use_conf, float conf_thresh, bool class_wise, float group_offset,
-                       uint8_t* keep, float* dets, int32_t* num, int max_det, int k_out, bool bf16,
-                       void* scratch, cudaStream_t stream);
+                       uint8_t* keep, float* dets, int32_t* num, int max_det, bool bf16, void* scratch,
+                       cudaStream_t stream);

@@ -29,18 +29,23 @@ array in bf16), the class shift in bf16, and the payload the bf16 values
 in fp32. A bf16 IoU is not the fp32 IoU rounded: it differs in about 2% of
 pairs, so this mode is arithmetic of its own, not an upcast.
 
-The plain version forms the full [B, n, n] IoU matrix and walks the ranks
-in a loop vectorised over the batch. Bound: the larger of bytes and the
-fp32 IoU operations over n(n-1)/2 pairs an image (bounds.nms_work); the
-kernel's serial scan is latency, which no bound covers.
+The kernel reads the candidates in their own dtype and walks the ranks 32
+at a time: each block's survivors are settled from its diagonal IoUs in
+registers, then only their IoU rows against the later candidates still
+alive are computed, so the work follows survivors x n rather than n^2, and
+`nms_compact` stops once its slots are filled; one CTA an image. The
+plain version forms the full [B, n, n] IoU matrix and walks the ranks in a
+loop vectorised over the batch. Bound: the larger of bytes and
+the fp32 IoU operations of the survivors' rows (bounds.nms_work); the chain
+of n / 32 settles is latency, which no bound covers.
 
 The wrappers are the operators `leanyolo_tpu_torch::nms_keep` and
-`leanyolo_tpu_torch::nms_compact` (_build.operator); the cluster size by
-batch is chosen inside the kernel's launch.
+`leanyolo_tpu_torch::nms_compact` (_build.operator).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -57,9 +62,10 @@ def f32(v: float) -> float:
     return float(np.float32(v))
 
 
+@functools.lru_cache(maxsize=256)
 def rounded(v: float, dtype: torch.dtype) -> float:
     """v rounded to fp32, then to `dtype` (bf16: as a weak-typed Python float
-    meets a bf16 array in JAX)."""
+    meets a bf16 array in JAX). Cached: a kernel call pays no tensor for it."""
     return float(torch.tensor(f32(v)).to(dtype))
 
 
@@ -139,16 +145,14 @@ def _keep_fake(boxes: torch.Tensor, iou_thresh: float, valid: Optional[torch.Ten
 
 def _keep_cuda(boxes: torch.Tensor, iou_thresh: float, valid: Optional[torch.Tensor]) -> torch.Tensor:
     _check_boxes(boxes)
-    bf16 = boxes.dtype == torch.bfloat16
-    v = None
     if valid is not None:
-        v = valid.to(torch.uint8).contiguous()
-        check_cuda(v, "nms valid")
-    keep, _, _ = ext().nms(boxes.float(), None, None, v, rounded(iou_thresh, boxes.dtype), False, 0.0, False, 0.0,
-                           True, 0, bf16)
+        valid = valid.to(torch.bool)
+        check_cuda(valid, "nms valid")
+    keep, _, _ = ext().nms(boxes, None, None, valid, rounded(iou_thresh, boxes.dtype), False, 0.0, False, 0.0, True,
+                           0)
     if boxes.numel():
         LAUNCHES["nms"] += 1
-    return keep.bool()
+    return keep
 
 
 _NMS_KEEP = operator("nms_keep", "(Tensor boxes, float iou_thresh, Tensor? valid) -> Tensor", cpu=_keep_cpu,
@@ -179,10 +183,8 @@ def _compact_cuda(boxes, scores, cls, iou_thresh, conf_thresh, max_det, class_wi
         if t.dtype != boxes.dtype or tuple(t.shape) != tuple(boxes.shape[:2]):
             raise ValueError(f"{name}: [B, n] in the boxes' dtype {boxes.dtype}, got {t.dtype} {tuple(t.shape)}")
     dt = boxes.dtype
-    # bf16 values travel as fp32 (exact); the kernel rounds its arithmetic to bf16.
-    _, dets, num = ext().nms(boxes.float(), scores.float(), cls.float(), None, rounded(iou_thresh, dt), True,
-                             rounded(conf_thresh, dt), bool(class_wise), rounded(group_offset, dt), False,
-                             int(max_det), dt == torch.bfloat16)
+    _, dets, num = ext().nms(boxes, scores, cls, None, rounded(iou_thresh, dt), True, rounded(conf_thresh, dt),
+                             bool(class_wise), rounded(group_offset, dt), False, int(max_det))
     if boxes.numel():
         LAUNCHES["nms"] += 1
     return dets, num

@@ -471,19 +471,21 @@ def nms_inputs(g, b, n, device, grid):
     return boxes, scores.contiguous(), cls
 
 
-# Images a launch: 3 and 32 take clusters of 8 and 4 CTAs an image on 132
-# SMs (the mask rows split between them), 66 and 140 clusters of 2 and 1.
-NMS_BATCHES = [3, 32, 66, 140]
+# Images a launch: 1, 3 and 32 take clusters of 8, 8 and 4 CTAs an image on
+# 132 SMs (each CTA tests the candidates of every cl-th word of 32 ranks), 66
+# clusters of 2 and 140 one CTA an image, in two waves.
+NMS_BATCHES = [1, 3, 32, 66, 140]
+# Ranks around the blocks of 32 the kernel walks, the path's 1000 and 1500.
+NMS_SIZES = [1, 31, 32, 33, 63, 65, 1000, 1500]
 
 
 @pytest.mark.parametrize("b", NMS_BATCHES)
-@pytest.mark.parametrize("n", [1, 63, 1000, 1500])
+@pytest.mark.parametrize("n", NMS_SIZES)
 @pytest.mark.parametrize("grid,thresh", [(True, 0.5), (False, 0.45), (False, 0.65)])
 @pytest.mark.parametrize("with_valid", [True, False])
 def test_nms_keep_kernel(cuda_device, b, n, grid, thresh, with_valid):
-    """The keep mask, bit-equal to the plain version: the mask in shared
-    memory (n <= 1000) and in the device-memory scratch (n = 1500), at
-    every cluster size."""
+    """The keep mask, bit-equal to the plain version, at every cluster
+    size and at block edges."""
     g = torch.Generator(device=cuda_device).manual_seed(4)
     boxes, _, _ = nms_inputs(g, b, n, cuda_device, grid)
     valid = torch.rand(b, n, generator=g, device=cuda_device) < 0.7 if with_valid else None
@@ -496,13 +498,15 @@ def test_nms_keep_kernel(cuda_device, b, n, grid, thresh, with_valid):
 
 
 @pytest.mark.parametrize("b", NMS_BATCHES)
-@pytest.mark.parametrize("n", [1, 63, 1000, 1500])
+@pytest.mark.parametrize("n", NMS_SIZES)
 @pytest.mark.parametrize("class_wise", [True, False])
-@pytest.mark.parametrize("conf,iou,max_det", [(0.25, 0.45, 300), (0.001, 0.65, 300), (0.001, 0.65, 20)])
+@pytest.mark.parametrize("conf,iou,max_det", [(0.25, 0.45, 300), (0.001, 0.65, 300), (0.001, 0.65, 20),
+                                              (0.001, 0.65, 1)])
 def test_nms_compact_kernel(cuda_device, b, n, class_wise, conf, iou, max_det):
     """The decode's NMS with its compaction, bit-equal to the plain version
     (dets and num), class-wise and not, at the inference and the validator's
-    thresholds, with max_det below the survivors."""
+    thresholds, with max_det below the survivors (the kernel stops once the
+    slots are filled)."""
     g = torch.Generator(device=cuda_device).manual_seed(5)
     boxes, scores, cls = nms_inputs(g, b, n, cuda_device, False)
     gd, gn = nms.nms_compact(boxes, scores, cls, iou_thresh=iou, conf_thresh=conf, max_det=max_det,
@@ -512,6 +516,90 @@ def test_nms_compact_kernel(cuda_device, b, n, class_wise, conf, iou, max_det):
     torch.cuda.synchronize()
     assert gd.shape == (b, max_det, 6) and gn.dtype == torch.int32
     assert torch.equal(gn, rn) and torch.equal(gd, rd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [10_000, 12_000])
+def test_nms_many_candidates_kernel(cuda_device, dtype, n):
+    """n = 10,000 (the boxes still in shared memory) and 12,000 (read from
+    device memory), one image: keep masks and the compaction."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    for grid, thresh in ((True, 0.5), (False, 0.45)):
+        boxes, scores, cls = (t.to(dtype) for t in nms_inputs(g, 1, n, cuda_device, grid))
+        valid = torch.rand(1, n, generator=g, device=cuda_device) < 0.7
+        assert torch.equal(nms.nms_keep(boxes, thresh, valid), nms.nms_keep_plain(boxes, thresh, valid))
+    kw = dict(iou_thresh=0.65, conf_thresh=0.001, max_det=n, class_wise=True)
+    gd, gn = nms.nms_compact(boxes, scores, cls, **kw)
+    rd, rn = nms.nms_compact_plain(boxes, scores, cls, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(gn, rn) and torch.equal(gd, rd)
+
+
+def edge_blocks(device, dtype):
+    """65 ranks: rank 0, 30 disjoint boxes and a last survivor at rank 31
+    (block 0's last rank), then a block whose 32 candidates all lie under
+    rank 0, then one survivor in block 2; classes 0 and 79 in turn."""
+    base = [[0, 0, 10, 10]]
+    apart = [[100 + 20 * i, 100, 110 + 20 * i, 110] for i in range(30)]
+    boxes = torch.tensor(base + apart + [[100, 500, 110, 510]] + base * 32 + [[100, 900, 110, 910]],
+                         device=device, dtype=torch.float32)
+    n = boxes.shape[0]
+    scores = torch.linspace(0.9, 0.3, n, device=device)
+    cls = torch.tensor([0.0, 79.0], device=device).repeat(n)[:n]
+    return (t[None].to(dtype).contiguous() for t in (boxes, scores, cls))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 140])
+def test_nms_block_edges_kernel(cuda_device, dtype, b):
+    """A block whose candidates are all suppressed, a survivor at a
+    block's last rank, and (class-wise) classes 0 and 79 shifting the same
+    boxes apart: keep and compaction bit-equal to the plain version."""
+    boxes, scores, cls = (t.expand(b, -1, -1).contiguous() if t.dim() == 3 else t.expand(b, -1).contiguous()
+                          for t in edge_blocks(cuda_device, dtype))
+    keep = nms.nms_keep(boxes, 0.45)
+    assert torch.equal(keep, nms.nms_keep_plain(boxes, 0.45))
+    assert keep[:, 31].all() and not keep[:, 32:64].any() and keep[:, 64].all()
+    for class_wise in (False, True):
+        for max_det in (1, 20, 300):
+            kw = dict(iou_thresh=0.45, conf_thresh=0.25, max_det=max_det, class_wise=class_wise)
+            gd, gn = nms.nms_compact(boxes, scores, cls, **kw)
+            rd, rn = nms.nms_compact_plain(boxes, scores, cls, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(gn, rn) and torch.equal(gd, rd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("max_det", [1, 20, 300])
+def test_nms_compact_stops_early_kernel(cuda_device, dtype, max_det):
+    """The compaction's early stop, class-wise with classes 0 and 79 only,
+    in both arithmetic modes, at 32 images."""
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    boxes, scores, cls = nms_inputs(g, 32, 1000, cuda_device, False)
+    cls = (cls >= 40).float() * 79
+    boxes, scores, cls = (t.to(dtype) for t in (boxes, scores, cls))
+    kw = dict(iou_thresh=0.65, conf_thresh=0.001, max_det=max_det, class_wise=True)
+    gd, gn = nms.nms_compact(boxes, scores, cls, **kw)
+    rd, rn = nms.nms_compact_plain(boxes, scores, cls, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(gn, rn) and torch.equal(gd, rd)
+    assert int(gn.min()) == max_det  # every image filled its slots
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nms_dead_bits_in_device_memory_kernel(cuda_device, dtype):
+    """n = 2^21, past the dead bits shared memory holds: two disjoint boxes
+    in turn, half of them valid; the first valid of each survives."""
+    n = 1 << 21
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    pair = torch.tensor([[0.0, 0.0, 10.0, 10.0], [100.0, 100.0, 110.0, 110.0]], device=cuda_device)
+    rank = torch.arange(n, device=cuda_device)
+    boxes = pair[rank % 2][None].to(dtype).contiguous()
+    valid = torch.rand(1, n, generator=g, device=cuda_device) < 0.5
+    keep = nms.nms_keep(boxes, 0.5, valid)
+    torch.cuda.synchronize()
+    firsts = [int(rank[valid[0] & (rank % 2 == p)][0]) for p in (0, 1)]
+    assert int(keep.sum()) == 2 and keep[0, firsts].all()
 
 
 def test_new_wrappers_route_by_device(cuda_device, monkeypatch):
@@ -593,7 +681,7 @@ def test_predictor_nms_on_the_card(cuda_device, dtype, monkeypatch):
 
 
 @pytest.mark.parametrize("b", NMS_BATCHES)
-@pytest.mark.parametrize("n", [63, 1000, 1500])
+@pytest.mark.parametrize("n", [31, 33, 63, 1000, 1500])
 @pytest.mark.parametrize("thresh", [0.45, 0.451])
 def test_nms_bf16_mode_kernel(cuda_device, b, n, thresh):
     """K5's bf16 arithmetic mode (bf16 candidates): keep masks and the
