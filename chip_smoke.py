@@ -184,6 +184,35 @@ Phases, each of which fails loudly (non-zero exit):
    validate_coco in process (PARITY OK) and off by 0.05 (PARITY FAILED, a
    non-zero exit); check_imports over the port, and again with JAX hidden
    from the import system, every port module then imported.
+15. spatial and tensor parallelism (run last; parallel/spatial.py and
+   parallel/tensor.py): the band plans at 640 px over 2 and 4 ranks; then,
+   in this process on the card with the ranks as threads, each mesh's
+   split op by op (`split_ops`: each op given the whole run's input rows on
+   its band or slice, at yolov10s 640 bf16 folded batch 32): the port's
+   kernels and exact ops bit-equal to the whole op, a cuDNN or cuBLAS op
+   within one bf16 ulp of its largest output in at most 1e-3 of its
+   outputs; and the maps those threads gather. Then jobs of ranks this
+   script starts (`--split-rank`; NCCL where there are as many cards, else
+   gloo on the one card): two ranks on make_sp_mesh(1, 2) and
+   make_tp_mesh(1, 2), four on make_sp_mesh(1, 4), each serving the same
+   model and batch through Predictor(mesh=) with the top-k and the
+   class-wise NMS decode. A rank prints its band plan or split-layer count
+   and the layers kept whole, the bytes it received a request (halo and
+   gathered rows, or gathered channels), its launches a request (every
+   serving kernel, as one process: stem 1, dw7x7 2, s2dconv 2, bmm 45,
+   top-k 2, or argmax 1, top-k 1, nms 1), and wall and device ms a request
+   (shared-card figures, not scaling; a device time from a profile that
+   kept every record). Held: the launches, every rank's detections equal
+   and the decode of its gathered maps, those maps bit-equal to the
+   threads', each head map's rms gap to the one-process bf16 predictor on
+   the card within bf16's own gap (one process bf16 vs fp32) and no gap at
+   all where every op matched the whole op; at fp32 and batch 2, head maps
+   bit-equal to one process and the top-k (largest class logits) the same
+   anchors and classes on every row whose gaps to its neighbours exceed
+   the two rows' one-process card-vs-CPU gaps (at least 200 such rows).
+   The bf16 top-k's agreement with one process is printed, not held: a
+   cuDNN sum rounded the other way moves these random weights' bf16 logits
+   by whole units.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.
@@ -195,6 +224,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -239,6 +269,10 @@ LEVELS = ((80, 80), (40, 40), (20, 20))  # the head's maps at 640 px
 # The sizes served folded in the variants phase, at full width and depth.
 VARIANTS = ("yolov10n", "yolov10s", "yolov10m", "yolov10b", "yolov10l", "yolov10x")
 VARIANT_BATCH = 2
+# profile_step's stem a serving step, yolov10s 640 bf16 batch 32 (PERF.md
+# section 6, the profile_step families): the variants phase's device time of
+# that stem must be within 10%.
+STEM_PROFILE_STEP_MS = (0.2671, 0.2700)
 
 
 def fail(msg: str) -> None:
@@ -278,9 +312,11 @@ def cuda_ms(fn, *, warmup: int = 3, runs: int = 20, inner: int = 1) -> float:
 
 
 KERNEL_INNER = 10
-PROFILE_PAD_S = 0.25
-# The kernel records of the last `profiled` call: {kernel name: count}.
+PROFILE_PAD_S = 0.05
+# The kernel records of the last `profiled` call: {kernel name: count}, and
+# [(kernel name, records, device microseconds)].
 LAST_PROFILE = {}
+LAST_EVENTS = []
 
 
 def profiled(fn):
@@ -291,11 +327,13 @@ def profiled(fn):
 
     # A profile now and then comes back without device events, at times
     # three in a row; take the next, after a pause. Minutes into a run, a
-    # profile of a few short kernels kept their runtime calls but lost every
-    # kernel, eight tries over; the profiler keeps only device records whose
+    # profile of a few short kernels kept their runtime calls but lost some
+    # or every kernel record; the profiler keeps only device records whose
     # timestamps fall inside its window, so the window is padded on each side
     # (idle time: the device time sums kernel durations only), by
-    # PROFILE_PAD_S and twice as much at each try after.
+    # PROFILE_PAD_S and twice as much at each try after. A profile that kept
+    # some of its records is returned as it is: `device_ms` counts what it
+    # kept (`records_ms`).
     for attempt in range(8):
         pad = PROFILE_PAD_S * 2 ** attempt
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -308,22 +346,57 @@ def profiled(fn):
         if ms > 0:
             LAST_PROFILE.clear()
             LAST_PROFILE.update({e.key: e.count for e in events})
+            LAST_EVENTS[:] = [(e.key, e.count, e.self_device_time_total) for e in events]
             return out, ms
         time.sleep(0.2)
     seen = [(e.key[:60], e.device_type.name, e.count, e.self_device_time_total) for e in prof.key_averages()][:12]
     fail(f"torch.profiler recorded no device time in eight tries; the last profile's events: {seen}")
 
 
+def records_ms(profiles, reps: int):
+    """Device milliseconds a call from profiles of `reps` calls each, every
+    profile's device records as [(kernel name, records kept, microseconds)],
+    or None where they hold no record.
+
+    A profile can lose records (`profiled`), so the sum over them divided
+    by `reps` would fall with every lost one. A call takes each kernel's
+    mean record time (over every record kept) times its records a call: the
+    most records any profile kept of the kernel, over `reps`, rounded up. A
+    lost record then lowers nothing unless a kernel lost `reps` or more of
+    its records in every profile.
+    """
+    kept, total, most = {}, {}, {}
+    for events in profiles:
+        for k, c, t in events:
+            kept[k], total[k] = kept.get(k, 0) + c, total.get(k, 0.0) + t
+            most[k] = max(most.get(k, 0), c)
+    if not any(kept.values()):
+        return None
+    return sum(total[k] / kept[k] * -(-most[k] // reps) for k in kept) / 1e3
+
+
 def device_ms(fn, reps: int = KERNEL_INNER) -> float:
     """Device milliseconds per call of fn() over `reps` calls after a
     warm-up (`profiled`), free of the host's launch time (which a short
     kernel's CUDA-event time includes when the host enqueues slower than the
-    card runs)."""
+    card runs); see `records_ms`. Where a profile of several kernels lost
+    records, it is taken again, three times at most, and the time comes from
+    all of them (a profile of one kernel, a wrapper's, needs none: one
+    record gives its time): a lost record never lowers a time."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    return profiled(lambda: [fn() for _ in range(reps)])[1] / reps
+    profiles = []
+    for _ in range(4):
+        profiled(lambda: [fn() for _ in range(reps)])
+        profiles.append(list(LAST_EVENTS))
+        if len(LAST_EVENTS) == 1 or all(c % reps == 0 for _, c, _ in LAST_EVENTS):
+            break
+    ms = records_ms(profiles, reps)
+    if ms is None:
+        fail(f"device_ms: no kernel record in {len(profiles)} profiles of {reps} calls")
+    return ms
 
 
 def max_err(a, b) -> float:
@@ -1927,6 +2000,9 @@ def phase_variants(seed: int, records: dict) -> None:
               f"{KERNEL_INNER} launches), cuDNN conv+bias+SiLU x2 {t['library_ms']:.4f}, "
               f"bound {t['bound_ms']:.6f} ({t['bound_by']}), SiLU floor {t.pop('silu_floor_ms'):.6f}", flush=True)
         by_width.append(t)
+        lo, hi = STEM_PROFILE_STEP_MS
+        if name == "yolov10s" and not 0.9 * lo <= t["device_ms"] <= 1.1 * hi:
+            fail(f"stem yolov10s device {t['device_ms']!r} ms, beyond 10% of profile_step's {lo}-{hi} ms")
         del preds, pred, model, bb
         torch.cuda.empty_cache()
     records["stem"]["by_width"] = by_width
@@ -3474,6 +3550,545 @@ def phase_parallel(model, seed: int, card: str) -> None:
             fail("parallel sharded validation disagrees with the one-process run")
 
 
+SPLIT_SEED = 16  # added to SEED: the images of the phase
+# (mesh kind, n_data, n_second) a job runs, by its process count.
+SPLIT_JOBS = {2: (("sp", 1, 2), ("tp", 1, 2)), 4: (("sp", 1, 4),)}
+SPLIT_TIMED = 2  # after two untimed requests (the counted one, then the maps')
+SPLIT_FP32_BATCH = 2
+SPLIT_PROFILED = 2  # requests a rank's device profile holds
+SPLIT_DECODES = {"topk": {}, "nms": dict(decode="nms", conf_thresh=NMS_SETTINGS["infer"][0],
+                                         iou_thresh=NMS_SETTINGS["infer"][1], class_wise_nms=True)}
+# An op on a band or slice may differ from the whole op only where its sums
+# run in cuDNN or cuBLAS, which pick their engine, and so the order of the
+# sums, by shape: by at most SPLIT_LIB_ULPS bf16 ulps of its largest output
+# (a sum rounded the other way, wherever the epilogue then takes it), in at
+# most SPLIT_LIB_SHARE of its outputs.
+SPLIT_LIB_ULPS = 1.0
+SPLIT_LIB_SHARE = 1e-3
+SPLIT_MIN_DECIDED = 200  # top-k rows the comparison with one process must decide
+
+
+def maps_gap(got, ref, floor=None) -> dict:
+    """Per head map (P3-P5, reg and cls): `got` against `ref` (max abs, rms)
+    and, given `floor`, floor's rms against the same `ref` maps (the
+    rounding gap that bounds it)."""
+    out = {}
+    for lvl in range(3):
+        for j, name in enumerate(("reg", "cls")):
+            a, r = got[lvl][j].float(), ref[lvl][j].float()
+            g = {"max": max_err(a, r), "rms": float((a - r).pow(2).mean().sqrt()), "scale": float(r.abs().max())}
+            if floor is not None:
+                g["floor_rms"] = float((floor[lvl][j].float().to(r.device) - r).pow(2).mean().sqrt())
+            out[f"P{lvl + 3} {name}"] = g
+    return out
+
+
+def topk_flat(maps, k: int):
+    """(logits, flat indices) [B, k + 1] of the k + 1 largest class logits
+    over every level's anchors and classes, largest first: the decode's
+    top-k ranks the same logits."""
+    import torch
+
+    cls = torch.cat([c.float().reshape(c.shape[0], -1) for _, c in maps], 1)
+    return torch.topk(cls, k + 1, dim=1)
+
+
+def split_rank(argv) -> int:
+    """A rank of the spatial and tensor parallel phase: python3 chip_smoke.py
+    --split-rank R --world W --port P --root DIR. Runs yolov10s 640 bf16
+    folded, both decodes, on the meshes SPLIT_JOBS gives its world, holds
+    its gathered maps to the parent's threads running the same split, and
+    saves what it saw under DIR."""
+    import argparse
+
+    p = argparse.ArgumentParser()
+    for flag in ("--split-rank", "--world", "--port"):
+        p.add_argument(flag, type=int, required=True)
+    p.add_argument("--root", required=True)
+    args = p.parse_args(argv)
+    rank = args.split_rank
+    sys.path.insert(0, HERE)
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    from leanyolo_tpu_torch import Predictor, YOLOv10, kernels
+    from leanyolo_tpu_torch.kernels import _build
+    from leanyolo_tpu_torch.models.yolov10.decode import decode_nms, decode_topk
+    from leanyolo_tpu_torch.parallel.distributed import init_distributed
+    from leanyolo_tpu_torch.parallel.mesh import make_sp_mesh, make_tp_mesh
+
+    _build.ext()  # built by the parent: this loads it
+    if torch.cuda.device_count() >= args.world:
+        init_distributed(f"127.0.0.1:{args.port}", args.world, rank, device="cuda")
+    else:  # NCCL refuses two ranks on one card
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{args.port}", world_size=args.world,
+                                rank=rank)
+    inputs = torch.load(os.path.join(args.root, "split_inputs.pt"), weights_only=True)
+    model = YOLOv10.create("yolov10s", class_names=[f"c{i}" for i in range(NC)])
+    model.load_state_dict(inputs["state"])
+    x = inputs["images"].cuda()
+    say = lambda msg: print(f"{msg}; {dist.get_backend()}, rank {rank}/{args.world} on cuda:"
+                            f"{torch.cuda.current_device()}", flush=True)
+    common = dict(imgsz=IMGSZ, fuse=True, max_det=MAX_DET)
+    out = {"backend": dist.get_backend(), "card": torch.cuda.current_device(), "meshes": {}}
+    for kind, n_data, n_second in SPLIT_JOBS[args.world]:
+        mesh = (make_sp_mesh if kind == "sp" else make_tp_mesh)(n_data, n_second, device="cuda")
+        tag = f"{kind}({n_data},{n_second})"
+        res = {}
+        for d, kw in SPLIT_DECODES.items():
+            pm = Predictor(model, dtype="bfloat16", mesh=mesh, **common, **kw)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            counter = (pm._space or pm._model_group).traffic
+            counter.update((k, 0) for k in counter)
+            dets, num = pm.run_batch(x)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            traffic = dict(counter)
+            maps = pm.raw(x)
+            strides = pm.model.cfg.strides
+            if d == "topk":
+                again = decode_topk(maps, num_classes=NC, strides=strides, max_det=MAX_DET).float()
+                same_decode = torch.equal(again, dets)
+            else:
+                gd, gn = decode_nms(maps, num_classes=NC, strides=strides, conf_thresh=pm.conf_thresh,
+                                    iou_thresh=pm.iou_thresh, max_det=MAX_DET, class_wise=True,
+                                    rank_dtype=torch.float32)
+                same_decode = torch.equal(gd, dets) and torch.equal(gn, num)
+            emulated = inputs["emulated"][tag][d]
+            walls = []
+            for _ in range(SPLIT_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pm.run_batch(x)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            events = split_profile(lambda: pm.run_batch(x), launches)
+            res[d] = {"launches": launches, "traffic": traffic, "dets": dets.cpu(), "num": num.cpu(),
+                      "same_decode": same_decode,
+                      "same_emulated": all(torch.equal(a, b.to(a.device)) for lvl, el in zip(maps, emulated)
+                                           for a, b in zip(lvl, el)),
+                      "wall_ms": walls,
+                      "device_ms": records_ms([events], SPLIT_PROFILED) if events else None,
+                      "device_top": [(k[:48], c // SPLIT_PROFILED, t / SPLIT_PROFILED / 1e3)
+                                     for k, c, t in sorted(events or [], key=lambda e: -e[2])[:6]]}
+            if d == "topk":
+                res["plan"] = (pm._space.plan.describe() if pm._space is not None else
+                               {"split": len(pm.model.tp_plan["split"]), "whole": pm.model.tp_plan["whole"]})
+            say(f"{tag} bf16 folded {d}, batch {BATCH}: launches {launches}, bytes received a request {traffic}, "
+                f"wall ms {[round(w, 4) for w in walls]}, device ms {res[d]['device_ms']!r}")
+            del pm, maps
+            torch.cuda.empty_cache()
+        pm32 = Predictor(model, dtype="float32", mesh=mesh, **common)
+        res["fp32"] = [tuple(t.cpu() for t in lvl) for lvl in pm32.raw(x[:SPLIT_FP32_BATCH])]
+        del pm32
+        torch.cuda.empty_cache()
+        out["meshes"][tag] = res
+    torch.save(out, os.path.join(args.root, f"split_rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def split_profile(request, launches):
+    """This rank's device records [(kernel name, records, microseconds)] of
+    SPLIT_PROFILED requests, or None where records were lost in every try.
+
+    A profile is whole when each of the port's kernels kept SPLIT_PROFILED
+    times the launches its counter gave one request, and every other
+    kernel a multiple of SPLIT_PROFILED records. Every rank takes the same
+    profiles (a rank alone taking one again would leave the others waiting
+    in a collective): the ranks agree after each whether any lost records,
+    and take it again together, four tries at most."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from leanyolo_tpu_torch.utils.profiling import _family
+
+    for attempt in range(4):
+        pad = PROFILE_PAD_S * 2 ** attempt
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            for _ in range(SPLIT_PROFILED):
+                request()
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        events = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+                  if e.device_type.name == "CUDA"]
+        ours = {}
+        for k, c, _ in events:
+            if _family(k) in PROFILE_FAMILIES:
+                ours[PROFILE_FAMILIES[_family(k)]] = ours.get(PROFILE_FAMILIES[_family(k)], 0) + c
+        whole = (all(ours.get(k, 0) == SPLIT_PROFILED * launches.get(k, 0) for k in set(ours) | set(PER_REQUEST_NMS))
+                 and all(c % SPLIT_PROFILED == 0 for k, c, _ in events if _family(k) not in PROFILE_FAMILIES))
+        lost = torch.tensor([0 if whole else 1], device="cuda")
+        dist.all_reduce(lost, op=dist.ReduceOp.MAX)
+        if not lost.item():
+            return events
+    return None
+
+
+def split_decided(v, e):
+    """Rows of a top-k [B, k] whose order the one-process path's own bf16
+    rounding cannot change: `v` the k + 1 largest logits, largest first, `e`
+    each one's gap to the fp32 predictor's logit at the same index; a row is
+    decided where its gap to each neighbour exceeds the two rows' `e`."""
+    import torch
+
+    up = torch.cat([torch.full_like(v[:, :1], float("inf")), v[:, :-2] - v[:, 1:-1]], 1)
+    e_up = torch.cat([torch.zeros_like(e[:, :1]), e[:, :-2]], 1)
+    return (up > e_up + e[:, :-1]) & (v[:, :-1] - v[:, 1:] > e[:, :-1] + e[:, 1:])
+
+
+class BandThreads:
+    """n threads of this process standing in for a group's ranks
+    (`Space(exchange=)`, `Channels(exchange=)`): their all-gathers meet at
+    a barrier."""
+
+    def __init__(self, n: int) -> None:
+        import threading
+
+        self.n, self.barrier, self.slots = n, threading.Barrier(n), [None] * n
+
+    def exchange(self, pos: int):
+        def gather(t):
+            self.slots[pos] = t
+            self.barrier.wait()
+            out = list(self.slots)
+            self.barrier.wait()
+            return out
+        return gather
+
+    def run(self, fn):
+        """[fn(pos) for every pos], each on its own thread."""
+        import threading
+
+        out, errors = [None] * self.n, []
+
+        def one(pos):
+            try:
+                out[pos] = fn(pos)
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+                self.barrier.abort()
+
+        threads = [threading.Thread(target=one, args=(p,)) for p in range(self.n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return out
+
+
+def split_copies(pm, kind: str, n: int):
+    """(BandThreads, n copies of the one-process predictor `pm`): the
+    ranks of a space group (`kind` "sp": `plan_bands(IMGSZ, n)`) or of a
+    model group ("tp": each copy's model sliced by `shard_layers`) as
+    threads of this process, exchanging through a barrier."""
+    import copy
+
+    from leanyolo_tpu_torch.parallel.spatial import Space, plan_bands
+    from leanyolo_tpu_torch.parallel.tensor import Channels, shard_layers
+
+    threads = BandThreads(n)
+    copies = []
+    for pos in range(n):
+        pb = copy.copy(pm)
+        if kind == "sp":
+            pb._space = Space(plan_bands(IMGSZ, n), None, pos, threads.exchange(pos))
+        else:
+            pb.model = shard_layers(copy.deepcopy(pm.model), n, pos)
+            pb._model_group = Channels(None, threads.exchange(pos))
+        copies.append(pb)
+    return threads, copies
+
+
+def split_raw(pm, x, kind: str, n: int) -> list:
+    """The head maps of x from `split_copies(pm, kind, n)`, gathered as a
+    mesh's predictor gathers them (every thread's are the same; the first's)."""
+    threads, copies = split_copies(pm, kind, n)
+    return threads.run(lambda pos: copies[pos].raw(x))[0]
+
+
+# The ops the split check holds one at a time: each class's own forward (or
+# method) as the folded serving path calls it, the SPPF pool and the stem.
+SPLIT_OPS = (("Conv", "forward"), ("MatmulConv", "forward"), ("ConvBNAct", "forward"),
+             ("ConvBNAct", "forward_upcat"), ("FusedRepVGGDW", "forward"), ("S2DConvBNAct", "forward"),
+             ("Attention", "forward"))
+
+
+def split_ops(pm, x, kind: str, n: int) -> list:
+    """The one-process predictor `pm`'s model on x whole, then split as
+    `split_copies` splits it, op by op: each op the outermost at its call
+    (`SPLIT_OPS`, the SPPF pools, the fused stem) is given, on every rank,
+    the very rows of its input that the whole run gave it (its band, whose
+    halo rows then come from the op's own exchange, or the whole input of
+    a sliced layer), and its output, joined over the bands or gathered over
+    the channel slices, is held to the whole run's. An op whose output then
+    differs computes otherwise at the split's shape, whatever the ops before
+    it did. Returns, for every op called in the whole run's order, {"op",
+    "shape" (the whole input's), "max" (abs diff), "share" (of outputs that
+    differ), "ulps" (the largest diff in bf16 ulps of the largest |output|),
+    "scale" (that largest |output|), "lib": whether the op's sums run in cuDNN or cuBLAS (a
+    plain Conv's conv2d, Attention's products) rather than in the port's
+    kernels or in exact torch ops}."""
+    import threading
+
+    import torch
+    from leanyolo_tpu_torch.models.yolov10 import layers as L
+    from leanyolo_tpu_torch.models.yolov10.model import Backbone
+    from leanyolo_tpu_torch.parallel.spatial import plan_bands
+
+    plan = plan_bands(IMGSZ, n) if kind == "sp" else None
+    threads, copies = split_copies(pm, kind, n)
+    names = {id(m): k for p in [pm] + copies for k, m in p.model.named_modules()}
+    tl = threading.local()
+    whole_in, whole_out, lib, order = {}, {}, {}, []
+
+    def library(m) -> bool:
+        if isinstance(m, L.Attention):
+            return True
+        if isinstance(m, (L.FusedRepVGGDW, L.S2DConvBNAct)):
+            return False
+        conv = m.conv if isinstance(m, L.ConvBNAct) else m
+        return isinstance(conv, L.Conv) and not isinstance(conv, L.MatmulConv)
+
+    def rows_of(a, w, pos):
+        if plan is None or not plan.split(IMGSZ // w.shape[2]):
+            lo, hi = 0, w.shape[2]
+        else:
+            lo, hi = plan.band(IMGSZ // w.shape[2], pos)
+        if a.shape[2] != hi - lo or a.shape[:2] != w.shape[:2]:
+            raise AssertionError(f"split op input {tuple(a.shape)} is not rows {lo}-{hi} of {tuple(w.shape)}")
+        return torch.empty_like(a).copy_(w.narrow(2, lo, hi - lo))  # the split run's own memory format
+
+    def wrap(fn, label, swap=True):
+        def call(*args, **kw):
+            mode = getattr(tl, "mode", None)
+            if mode is None:
+                return fn(*args, **kw)
+            name, is_lib = label(args)
+            i = tl.calls[name] = tl.calls.get(name, -1) + 1
+            key = (name, i)
+            if mode == "whole":
+                whole_in[key], lib[key] = args, is_lib
+                order.append(key)
+            elif swap and tl.depth == 0:
+                args = tuple(rows_of(a, w, tl.pos) if torch.is_tensor(a) and a.ndim == 4 else a
+                             for a, w in zip(args, whole_in[key]))
+            tl.depth += 1
+            try:
+                y = fn(*args, **kw)
+            finally:
+                tl.depth -= 1
+            (whole_out if mode == "whole" else tl.out)[key] = y
+            return y
+        return call
+
+    def start(mode, pos=0):
+        tl.mode, tl.pos, tl.depth, tl.calls, tl.out = mode, pos, 0, {}, {}
+
+    def split(pos):
+        start("split", pos)
+        copies[pos].raw(x)
+        return tl.out
+
+    saved = [(getattr(L, c), m, getattr(L, c).__dict__[m]) for c, m in SPLIT_OPS if m in getattr(L, c).__dict__]
+    saved_pool, saved_stem = L.maxpool2d_same, Backbone.__dict__["stem"]
+    for cls, meth, fn in saved:
+        setattr(cls, meth, wrap(fn, lambda a, cls=cls, meth=meth: (f"{names[id(a[0])]} {cls.__name__}.{meth}",
+                                                                    library(a[0]))))
+    L.maxpool2d_same = wrap(saved_pool, lambda a: ("SPPF pool", False))
+    Backbone.stem = wrap(saved_stem, lambda a: ("stem", False), swap=False)
+    try:
+        start("whole")
+        pm.raw(x)
+        tl.mode = None
+        outs = threads.run(split)
+    finally:
+        for cls, meth, fn in saved:
+            setattr(cls, meth, fn)
+        L.maxpool2d_same, Backbone.stem = saved_pool, saved_stem
+    report = []
+    for key in order:
+        want, got = whole_out[key], [o[key] for o in outs]
+        if plan is not None and plan.split(IMGSZ // want.shape[2]):
+            joined = torch.cat(got, 2)
+        else:
+            joined = got[0]
+            if not all(torch.equal(g, joined) for g in got):
+                raise AssertionError(f"split op {key}: the ranks' whole outputs differ")
+        d = (joined.float() - want.float()).abs()
+        scale = float(want.float().abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(scale)) - 7) if scale > 0 else 2.0 ** -133  # bf16: 8 significant bits
+        report.append({"op": f"{key[0]}#{key[1]}" if key[1] else key[0],
+                       "shape": next(tuple(a.shape) for a in whole_in[key] if torch.is_tensor(a)),
+                       "max": float(d.max()), "share": float((d > 0).float().mean()), "ulps": float(d.max()) / ulp,
+                       "scale": scale, "lib": lib[key]})
+    return report
+
+
+def one_topk(maps, floor) -> dict:
+    """The one-process top-k (largest class logits, `topk_flat`) of `maps`
+    and each logit's gap to `floor`'s at the same index (the path's own
+    rounding there)."""
+    import torch
+
+    v, idx = topk_flat(maps, MAX_DET)
+    f = torch.cat([c.float().reshape(c.shape[0], -1) for _, c in floor], 1)
+    return {"v": v, "idx": idx, "e": (v - f.gather(1, idx)).abs()}
+
+
+def phase_split(model, seed: int, card: str) -> None:
+    """Spatial and tensor parallelism on the card (item 15 of the module doc)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from leanyolo_tpu_torch import Predictor
+    from leanyolo_tpu_torch.parallel.distributed import free_port
+    from leanyolo_tpu_torch.parallel.dryrun import check_ranks, spawn_ranks
+    from leanyolo_tpu_torch.parallel.spatial import plan_bands
+
+    for n in (2, 4):
+        print(f"split band plan: {plan_bands(IMGSZ, n).describe()}", flush=True)
+    rng = np.random.RandomState(seed + SPLIT_SEED)
+    images = torch.from_numpy(rng.randint(0, 256, (BATCH, IMGSZ, IMGSZ, 3)).astype(np.uint8))
+    x = images.cuda()
+    host = lambda maps: [tuple(t.cpu() for t in lvl) for lvl in maps]  # noqa: E731
+    common = dict(imgsz=IMGSZ, fuse=True, max_det=MAX_DET)
+    # The one-process references on the card (and fp32 on the CPU at batch 2).
+    one = {d: Predictor(model, dtype="bfloat16", **common, **kw) for d, kw in SPLIT_DECODES.items()}
+    ref = {d: {"maps": host(pm.raw(x)), "dets": [t.cpu() for t in pm.run_batch(x)]} for d, pm in one.items()}
+    ref32 = {d: host(Predictor(model, dtype="float32", **common, **kw).raw(x)) for d, kw in SPLIT_DECODES.items()}
+    ref_small = host(Predictor(model, dtype="float32", **common).raw(x[:SPLIT_FP32_BATCH]))
+    cpu_small = Predictor(model, dtype="float32", device="cpu", **common).raw(images[:SPLIT_FP32_BATCH])
+    top, top32 = one_topk(ref["topk"]["maps"], ref32["topk"]), one_topk(ref_small, cpu_small)
+    decided, decided32 = split_decided(top["v"], top["e"]), split_decided(top32["v"], top32["e"])
+    # The same process, the ranks as its threads: each op on its band or
+    # slice against the whole op, then the maps the ranks must return.
+    emulated, exact = {}, {}
+    for jobs in SPLIT_JOBS.values():
+        for kind, n_data, n_second in jobs:
+            tag = f"{kind}({n_data},{n_second})"
+            t0 = time.perf_counter()
+            rep = split_ops(one["topk"], x, kind, n_second)
+            differ = [r for r in rep if r["max"] > 0]
+            print(f"split {tag} op by op in one process, bf16 batch {BATCH}, each op on the whole run's input: "
+                  f"{len(rep)} ops, {len(rep) - len(differ)} bit-equal; the others (op, whole input shape, max, "
+                  f"share of outputs, ulps, scale, cuDNN/cuBLAS): "
+                  f"{[(r['op'], r['shape'], r['max'], r['share'], r['ulps'], r['scale'], r['lib']) for r in differ]}",
+                  flush=True)
+            for r in differ:
+                if not r["lib"]:
+                    fail(f"split {tag}: {r['op']} runs on the port's kernels or exact ops and differs from the "
+                         f"whole op on the same input rows by {r['max']!r} (a halo, crop or slice is wrong)")
+                if r["ulps"] > SPLIT_LIB_ULPS or r["share"] > SPLIT_LIB_SHARE:
+                    fail(f"split {tag}: {r['op']} differs from the whole op on the same input rows by {r['ulps']!r} "
+                         f"bf16 ulps in {r['share']!r} of its outputs (at most {SPLIT_LIB_ULPS} in "
+                         f"{SPLIT_LIB_SHARE}, what another cuDNN engine's order of sums gives)")
+            exact[tag] = not differ  # then the split path is one process's, op for op
+            emulated[tag] = {d: host(split_raw(pm, x, kind, n_second)) for d, pm in one.items()}
+            print(f"split {tag} op check and threads' maps in {time.perf_counter() - t0:.1f} s", flush=True)
+            del rep
+            torch.cuda.empty_cache()
+    del one, x
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"state": model.state_dict(), "images": images, "emulated": emulated},
+                   os.path.join(tmp, "split_inputs.pt"))
+        for world, jobs in SPLIT_JOBS.items():
+            port = free_port()
+            t0 = time.perf_counter()
+            results = spawn_ranks(lambda r: [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--split-rank",
+                                             str(r), "--world", str(world), "--port", str(port), "--root", tmp],
+                                  world, timeout=600)
+            wall = time.perf_counter() - t0
+            for r, (_, out, _) in enumerate(results):
+                for line in out.splitlines():
+                    print(f"  [split rank {r}/{world}] {line}", flush=True)
+            try:
+                check_ranks(results, f"split {world} ranks")
+            except RuntimeError as e:
+                fail(str(e))
+            ranks = [torch.load(os.path.join(tmp, f"split_rank{r}.pt"), weights_only=True) for r in range(world)]
+            shared = ranks[0]["card"] == ranks[-1]["card"]
+            print(f"split {world} ranks ({ranks[0]['backend']}{', one card shared by all: correctness only, no '
+                  f'scaling number' if shared else ''}) done in {wall:.1f} s, start-up included", flush=True)
+            for kind, n_data, n_second in jobs:
+                tag = f"{kind}({n_data},{n_second})"
+                rs = [rk["meshes"][tag] for rk in ranks]
+                print(f"split {tag} plan a rank: {rs[0]['plan']}", flush=True)
+                for d, per in (("topk", PER_REQUEST), ("nms", PER_REQUEST_NMS)):
+                    launches = [{k: r[d]["launches"].get(k, 0) for k in per} for r in rs]
+                    routes = [{k: r[d]["launches"].get(k, 0) for k in NEW_ROUTES} for r in rs]
+                    if launches != [per] * world:
+                        fail(f"split {tag} {d}: launches a rank {launches}, expected {per} on every rank")
+                    if not all(r[d]["same_decode"] for r in rs):
+                        fail(f"split {tag} {d}: a rank's detections are not the decode of its gathered maps")
+                    if not all(torch.equal(r[d]["dets"], rs[0][d]["dets"]) and torch.equal(r[d]["num"], rs[0][d]["num"])
+                               for r in rs):
+                        fail(f"split {tag} {d}: the ranks returned different detections")
+                    if not all(r[d]["same_emulated"] for r in rs):
+                        fail(f"split {tag} {d}: a rank's gathered head maps differ from this process's threads "
+                             f"running the same split (the exchange between processes is wrong)")
+                    maps = emulated[tag][d]  # every rank's, bit for bit
+                    worst = {}
+                    for name, g in maps_gap(maps, ref[d]["maps"], ref32[d]).items():
+                        worst[name] = (g["rms"], g["floor_rms"], g["max"], g["scale"])
+                        if not g["rms"] <= g["floor_rms"]:
+                            fail(f"split {tag} {d} head {name}: rms {g['rms']!r} against one process, beyond "
+                                 f"bf16's own rms {g['floor_rms']!r} (one process bf16 vs fp32)")
+                        if exact[tag] and g["max"] != 0:
+                            fail(f"split {tag} {d} head {name}: every op on its band or slice was the whole op's, "
+                                 f"yet the map differs from one process's by {g['max']!r}")
+                    dets, num = rs[0][d]["dets"], rs[0][d]["num"]
+                    rdets, rnum = ref[d]["dets"]
+                    same_rows = float((dets == rdets).all(dim=-1).float().mean())
+                    if d == "topk":
+                        # Reported, not held: in bf16 a cuDNN sum rounded the other
+                        # way moves these random weights' logits by up to whole
+                        # units, past any gap the one-process path gives (the
+                        # threads' maps above stand for the split path here).
+                        same = topk_flat(maps, MAX_DET)[1][:, :-1] == top["idx"][:, :-1]
+                        print(f"split {tag} bf16 top-k against one process: the same anchor and class in "
+                              f"{float(same.float().mean())!r} of the rows; {int(decided.sum())} of "
+                              f"{decided.numel()} rows decided by the one-process bf16-vs-fp32 gaps, "
+                              f"{int((decided & same).sum())} of them the same; detection rows bit-equal "
+                              f"{same_rows!r}", flush=True)
+                    else:
+                        print(f"split {tag} NMS against one process: counts equal in {int((num == rnum).sum())} of "
+                              f"{BATCH} images, rows bit-equal {same_rows!r}", flush=True)
+                    wall = [statistics.median(r[d]["wall_ms"]) for r in rs]
+                    dev = [r[d]["device_ms"] for r in rs]
+                    print(f"split {tag} bf16 folded {d} batch {BATCH}: launches a rank {launches[0]} (routes "
+                          f"{routes}); bytes received a request a rank {[r[d]['traffic'] for r in rs]}; head maps "
+                          f"(rms, bf16 floor rms, max, scale) {worst}; wall ms a request (median of {SPLIT_TIMED}) "
+                          f"{wall}, device ms a request {dev} (None: records lost in four profiles), rank 0's "
+                          f"largest (kernel, launches, ms) a request {rs[0][d]['device_top']}; {card}", flush=True)
+                maps32 = rs[0]["fp32"]
+                if not all(torch.equal(a, b) for r in rs for lvl, l0 in zip(r["fp32"], maps32) for a, b in zip(lvl, l0)):
+                    fail(f"split {tag} fp32: the ranks returned different head maps")
+                for name, g in maps_gap(maps32, ref_small).items():
+                    if g["max"] != 0:
+                        fail(f"split {tag} fp32 head {name}: max {g['max']!r} of scale {g['scale']!r} against the "
+                             f"one-process fp32 predictor (bit-equal wanted)")
+                same = topk_flat(maps32, MAX_DET)[1][:, :-1] == top32["idx"][:, :-1]
+                n_dec, n_same = int(decided32.sum()), int((decided32 & same).sum())
+                print(f"split {tag} fp32 batch {SPLIT_FP32_BATCH}: head maps bit-equal to one process; top-k "
+                      f"{n_dec} of {decided32.numel()} rows decided (each logit's gap to its neighbours beyond the "
+                      f"two rows' one-process card-vs-CPU gaps), {n_same} of them the same anchor and class",
+                      flush=True)
+                if n_dec < SPLIT_MIN_DECIDED or n_same != n_dec:
+                    fail(f"split {tag} fp32 top-k: {n_dec} decided rows (at least {SPLIT_MIN_DECIDED}), "
+                         f"{n_dec - n_same} of them differ from the one-process predictor's")
+
+
 def sm_clock_hz() -> float:
     """The card's maximum SM clock (nvidia-smi), for the special-function floor."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -3576,6 +4191,8 @@ def main() -> int:
     done("drawing and export")
     phase_parallel(model, SEED, card)
     done("parallel")
+    phase_split(model, SEED, card)
+    done("spatial and tensor parallel")
 
     print(card, flush=True)
     print(json.dumps({"kernels": list(records.values())}), flush=True)
@@ -3585,4 +4202,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(dp_rank(sys.argv[1:]) if "--rank" in sys.argv[1:] else main())
+    argv = sys.argv[1:]
+    sys.exit(split_rank(argv) if "--split-rank" in argv else dp_rank(argv) if "--rank" in argv else main())

@@ -2,8 +2,7 @@
 pipeline from images of any size to boxes in their own coordinates.
 
 Counterpart of the JAX package's `Predictor`
-(`leanyolo_tpu/engine/predictor.py`) without its buffer donation and its
-`space` and `model` mesh axes (ROADMAP.md Queue 1 item 7):
+(`leanyolo_tpu/engine/predictor.py`) without its buffer donation:
 
 - decode 'topk': the NMS-free two-stage top-k over the one2one branch;
 - decode 'nms': confidence threshold + greedy (optionally class-wise) NMS
@@ -16,10 +15,16 @@ Counterpart of the JAX package's `Predictor`
 the device (`run_canvas`: a canvas warped by torch ops) and maps the boxes
 back to each original image.
 
-With a mesh (data parallel, one process a card) `run_batch` and `run_canvas`
-take the global batch on every process: each process runs its rows through
-the serving path on its own device, and an all-gather returns the global
-detections to every process, as JAX's batch-sharded outputs are.
+With a mesh (one process a card) `run_batch` and `run_canvas` take the
+global batch on every process: the batch splits over the mesh's data axes,
+each process runs its rows through the serving path on its own device, and
+an all-gather over the data axes returns the global detections to every
+process, as JAX's batch-sharded outputs are. On a ("data", "space") mesh a
+process runs its band of each image's rows (parallel/spatial.py) and the
+head's maps are gathered over `space` before the decode; on a ("data",
+"model") mesh its slice of each layer's output channels
+(parallel/tensor.py). Either way every space or model process decodes the
+same maps and returns the same detections (JAX's `rows_sharded`).
 
 It runs on the card unless the caller names another device; with no card
 and no device named, it raises rather than run on the CPU.
@@ -36,6 +41,7 @@ import torch.distributed as dist
 
 from ..models.yolov10.decode import decode_nms, decode_topk, postprocess_to_original
 from ..models.yolov10.fold import fold_model
+from ..models.yolov10.layers import split_forward
 from ..models.yolov10.model import YOLOv10
 from ..ops.letterbox import canvas_batch, letterbox, letterbox_batch
 
@@ -59,8 +65,11 @@ class Predictor:
             card), and raises when there is none.
         mesh: a DeviceMesh over the job's processes (parallel/mesh.py): the
             weights are broadcast from its first process and batches split
-            over it (`update_params` loads on each process what it is
-            given). None, or a mesh of one process: this process alone.
+            over its data axes (`update_params` loads on each process what
+            it is given); a `space` axis splits image rows, a `model` axis
+            output channels (the predictor's copy is sliced, never the
+            caller's model). None, or a mesh of one process: this process
+            alone.
     """
 
     def __init__(self, model: YOLOv10, *, imgsz: int = 640, decode: str = "topk", conf_thresh: float = 0.25,
@@ -80,13 +89,24 @@ class Predictor:
         self.device = torch.device(device)
         self.dtype = _DTYPES[dtype]
         self._fuse = fuse
-        self.mesh, self._group = mesh, None
+        self.mesh, self._group, self._space, self._model_group = mesh, None, None, None
         if mesh is not None and mesh.size() > 1:
-            from ..parallel.mesh import mesh_group, shard_params
+            from ..parallel.mesh import (MODEL_AXIS, SPACE_AXIS, axis_coordinate, axis_group, data_group,
+                                         shard_params)
+            from ..parallel.spatial import Space, plan_bands
 
             # Every process serves the first process's weights (broadcast in fp32, before folding).
-            self._group = mesh_group(mesh)
+            self._group = data_group(mesh)
             model = shard_params(mesh, copy.deepcopy(model).to(self.device))
+            space = axis_group(mesh, SPACE_AXIS)
+            if space is not None:  # this rank's band of every image, the plan made once for imgsz
+                n, pos = axis_coordinate(mesh, SPACE_AXIS)
+                self._space = Space(plan_bands(int(imgsz), n), space, pos)
+            model_axis = axis_group(mesh, MODEL_AXIS)
+            if model_axis is not None:  # the group each sliced layer gathers its channels over
+                from ..parallel.tensor import Channels
+
+                self._model_group = Channels(model_axis)
         # The predictor's own copy (folding makes one): moving it to the device
         # and update_params leave the caller's module as it was.
         if fuse:
@@ -96,6 +116,10 @@ class Predictor:
         self.model = model.to(self.device).eval()
         if self.device.type == "cuda":
             self.model = self.model.to(memory_format=torch.channels_last)
+        if self._model_group is not None:
+            from ..parallel.tensor import tp_shard_params
+
+            tp_shard_params(mesh, self.model)
         self.imgsz = int(imgsz)
         self.decode = decode
         self.conf_thresh = float(conf_thresh)
@@ -113,11 +137,22 @@ class Predictor:
         modules' load hooks."""
         if isinstance(state, torch.nn.Module):
             state = state.state_dict()
-        if self._fuse and any(k.endswith("running_var") for k in state):
+        unfolded = any(k.endswith("running_var") for k in state)
+        if (self._fuse and unfolded) or self._model_group is not None:
             m = self.model
             src = YOLOv10(m.cfg, m.class_names, in_channels=m.input_subtract.numel())
-            src.load_state_dict(state)
-            state = fold_model(src, dtype=self.dtype if self.dtype == torch.bfloat16 else None).state_dict()
+            cast = self.dtype if self.dtype == torch.bfloat16 else None
+            if unfolded:
+                src.load_state_dict(state)
+            if self._fuse:
+                src = fold_model(src, dtype=cast)
+            if not unfolded:
+                src.load_state_dict(state)
+            if self._model_group is not None:  # the whole weights, sliced as this predictor's
+                from ..parallel.tensor import tp_shard_params
+
+                tp_shard_params(self.mesh, src)
+            state = src.state_dict()
         self.model.load_state_dict(state)
 
     @torch.inference_mode()
@@ -127,24 +162,35 @@ class Predictor:
         if x.is_floating_point():
             x = x.to(self.dtype)
         branch = _BRANCH[self.decode]
-        out = self.model(x, dtype=self.dtype, branches=(branch,), normalize=self._normalize, concat_head=False)
-        return out[branch]
+        kw = dict(dtype=self.dtype, branches=(branch,), normalize=self._normalize, concat_head=False)
+        if self._space is None and self._model_group is None:
+            return self.model(x, **kw)[branch]
+        sp = self._space
+        if sp is not None:
+            x = sp.take_band(x, 1, dim=1)
+        with split_forward(sp, self._model_group):
+            out = self.model(x, **kw)[branch]
+        if sp is not None:  # every row of each level, in rank order
+            out = [tuple(sp.gather_rows(t, 8 << i, dim=1) if sp.plan.split(8 << i) else t for t in level)
+                   for i, level in enumerate(out)]
+        return out
 
     def _rows(self, a):
         """This process's rows of a global-batch array (all of it off a mesh)."""
         if self._group is None:
             return a
-        from ..parallel.mesh import batch_sharded
+        from ..parallel.mesh import rows_sharded
 
-        return a[batch_sharded(self.mesh, a.shape[0])]
+        return a[rows_sharded(self.mesh).rows(a.shape[0])]
 
     def _gathered(self, dets: torch.Tensor, num: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Every process's rows, in mesh order, on every process."""
+        """Every data-parallel process's rows, in mesh order, on every process."""
         if self._group is None:
             return dets, num
+        n = dist.get_world_size(self._group)
         out = []
         for t in (dets, num):
-            parts = [torch.empty_like(t) for _ in range(self.mesh.size())]
+            parts = [torch.empty_like(t) for _ in range(n)]
             dist.all_gather(parts, t.contiguous(), group=self._group)
             out.append(torch.cat(parts))
         return out[0], out[1]

@@ -15,8 +15,9 @@ Counterpart of the JAX package's `leanyolo_tpu/engine/validator.py`:
   the host letterbox, on the original images with the boxes mapped back
   under the device letterbox, named by file, image id or index.
 
-Data parallel, as JAX's: `mesh=` splits every batch over the mesh's
-processes (`Predictor(mesh=)`) and every process scores all of it;
+Parallel, as JAX's: `mesh=` splits every batch over the mesh's data axes
+(`Predictor(mesh=)`, with a `space` or `model` axis too) and every process
+scores all of it;
 `shard=(pid, nprocs)` gives each process a stride slice of the image list (no
 image dropped), run on its own device with no collective per batch, and one
 `allgather_obj` merges the detections for process 0 to score
@@ -245,7 +246,9 @@ def validate_coco(
     detections (top-k: those above viz_conf; NMS: the first num) and save
     them there, named by viz_name_mode: 'file' (the image's file name), 'id'
     (<image_id>.jpg) or 'index' (sequential). mesh: batches split over a
-    DeviceMesh's processes (a new predictor's). shard=(pid, nprocs): this
+    DeviceMesh's data axes, images' rows over its `space` axis or layers'
+    channels over its `model` axis (a new predictor's); batch_size must
+    divide by the data axes' processes. shard=(pid, nprocs): this
     process evaluates images pid, pid + nprocs, ... and the stats are the
     whole set's (every process must call).
     """
@@ -253,6 +256,12 @@ def validate_coco(
         raise ValueError(f"unknown preprocess {preprocess!r}: 'host' or 'device'")
     if viz_name_mode not in ("file", "id", "index"):
         raise ValueError(f"unknown viz_name_mode {viz_name_mode!r}: 'file', 'id' or 'index'")
+    if mesh is not None:
+        from ..parallel.mesh import data_position
+
+        n_data = data_position(mesh)[0]
+        if batch_size % n_data:
+            raise ValueError(f"batch_size {batch_size} not divisible by the mesh's {n_data} data-parallel processes")
     ds = CocoDetection(images_dir, ann_json, img_size=imgsz, max_images=max_images)
     sharded = shard is not None and shard[1] > 1
     if sharded:

@@ -35,6 +35,17 @@ JAX's do over the global batch under its mesh. The recompute of a checkpoint
 sums over the same group again (it may run on another thread: the group
 rides the recompute's context).
 
+Spatial and tensor parallelism (`split_forward`, entered by a Predictor on a
+`space` or `model` mesh, parallel/spatial.py and parallel/tensor.py). With a
+`Space` active, maps are bands of rows, and `node(level)` tells the layers
+the stride of the map a node reads (a stride-2 conv moves it on): each op
+whose window spans rows (the stem, the 3x3 convs, dw7x7, s2dconv, the SPPF
+pools, `Attention`) reads its band with a halo from the neighbouring ranks
+and crops the rows the band's edges made wrong; 1x1 convs and the
+upsample-add are per pixel. With a model group active, a layer sliced by
+`tp_shard_params` (`tp_split`) computes its slice of the output channels
+(a depthwise one from its slice of the input) and gathers the slices.
+
 Folding (fold.py) routes the serving forward through the other kernel
 wrappers: dense 1x1 convs become `MatmulConv` (kernels/matmul.py), the
 dense 3x3 32 -> 32 convs `S2DConvBNAct` (kernels/s2dconv.py), RepVGGDW
@@ -61,7 +72,10 @@ BN_MOMENTUM = 0.03
 Tensor = torch.Tensor
 
 # .recomputing: inside a checkpoint's recompute; .group: the process group
-# BatchNorm sums its batch moments over (None: this process's batch alone).
+# BatchNorm sums its batch moments over (None: this process's batch alone);
+# .space: the spatial split's Space (None: whole maps); .level: the stride of
+# the map the running node reads; .model_group: the `Channels` tensor-parallel
+# layers gather their output channels over.
 _remat = threading.local()
 
 
@@ -83,6 +97,47 @@ def global_batch_stats(group):
     `group` (a torch.distributed group; None: this process alone). Every
     process must hold the same number of rows."""
     return _context(group=group)
+
+
+def split_forward(space=None, model_group=None):
+    """Within this context the forward runs split: over a `Space`'s bands
+    (parallel/spatial.py; the images are this rank's band) or, with a
+    model group (`parallel.tensor.Channels`), with the `tp_split` layers'
+    output channels gathered over it."""
+    return _context(space=space, level=1, model_group=model_group)
+
+
+def node(on: bool, level: int, fn, *args, **kwargs):
+    """`segment(on, fn, ...)` of a node that reads maps at stride `level`."""
+    if getattr(_remat, "space", None) is None:
+        return segment(on, fn, *args, **kwargs)
+    with _context(level=level):
+        return segment(on, fn, *args, **kwargs)
+
+
+def _split_space():
+    """(Space, level) when the map at the current level is split into bands, else (None, level)."""
+    sp = getattr(_remat, "space", None)
+    level = getattr(_remat, "level", 1)
+    return (sp if sp is not None and sp.plan.split(level) else None), level
+
+
+def _moved(stride: int) -> None:
+    """A stride-`stride` op ran: later ops of the node read the next level."""
+    if getattr(_remat, "space", None) is not None:
+        _remat.level *= stride
+
+
+def _tp_out(layer: nn.Module, y: Tensor) -> Tensor:
+    """A tensor-parallel layer's output-channel slice, gathered over the
+    model group into the whole output (the other layers' output as it is)."""
+    if layer.tp_split is None:
+        return y
+    channels = getattr(_remat, "model_group", None)
+    if channels is None:
+        raise RuntimeError("a layer sliced by tp_shard_params runs outside its model group "
+                           "(Predictor(mesh=make_tp_mesh(...)) enters it)")
+    return channels.gather(y)
 
 
 def _checkpoint_contexts():
@@ -115,6 +170,11 @@ class Conv(nn.Module):
     Init matches torch's Conv2d default (kaiming-uniform, a=sqrt(5)).
     """
 
+    #: (n, index) of a bare conv sliced by tp_shard_params; `channels`: the
+    #: input channels a sliced depthwise conv reads.
+    tp_split: Optional[Tuple[int, int]] = None
+    channels: Optional[slice] = None
+
     def __init__(self, c_in: int, c_out: int, k: int, *, stride: int = 1, groups: int = 1,
                  padding: Optional[int] = None, bias: bool = False,
                  generator: Optional[torch.Generator] = None) -> None:
@@ -130,14 +190,27 @@ class Conv(nn.Module):
 
     def conv(self, x: Tensor, lo: int = 0, hi: Optional[int] = None) -> Tensor:
         """The conv without its bias, over input channels lo:hi of the weight."""
-        w = self.weight if lo == 0 and hi is None else self.weight[:, lo:hi]
-        return F.conv2d(x, w.to(x.dtype), None, self.stride, self.padding, 1, self.groups)
+        w = (self.weight if lo == 0 and hi is None else self.weight[:, lo:hi]).to(x.dtype)
+        if self.channels is not None:
+            x = x[:, self.channels]
+        k, s, p = w.shape[2], self.stride, self.padding
+        if getattr(_remat, "space", None) is None or (k == 1 and s == 1):
+            return F.conv2d(x, w, None, s, p, 1, self.groups)
+        sp, level = _split_space()
+        _moved(s)
+        if sp is not None and s > 1 and not sp.plan.split(level * s):
+            x, sp = sp.gather_rows(x, level), None  # the next level runs whole
+        if sp is None:
+            return F.conv2d(x, w, None, s, p, 1, self.groups)
+        # Output rows [a, b) read input rows [s a - p, s (b - 1) - p + k).
+        x = sp.halo(x, level, p, k - p - s, 0.0)
+        return F.conv2d(x, w, None, s, (0, p), 1, self.groups)
 
     def forward(self, x: Tensor) -> Tensor:
         y = self.conv(x)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype).view(1, -1, 1, 1)
-        return y
+        return _tp_out(self, y)
 
 
 def _repack(module: nn.Module, incompatible_keys) -> None:
@@ -178,7 +251,7 @@ class MatmulConv(Conv):
         return y.view(b, h, w, -1).permute(0, 3, 1, 2)
 
     def forward(self, x: Tensor) -> Tensor:
-        return self.conv(x, bias=self.bias)
+        return _tp_out(self, self.conv(x, bias=self.bias))
 
 
 def _sum_over(group, a: Tensor, b: Tensor) -> Tuple[Tensor, Tensor]:
@@ -281,6 +354,9 @@ class ConvBNAct(nn.Module):
     (fold.py): `conv` carries the bias and `bn` is None.
     """
 
+    #: (n, index) when tp_shard_params sliced its output channels.
+    tp_split: Optional[Tuple[int, int]] = None
+
     def __init__(self, c_in: int, c_out: int, k: int, *, stride: int = 1, groups: int = 1,
                  padding: Optional[int] = None, act: bool = True,
                  generator: Optional[torch.Generator] = None) -> None:
@@ -303,8 +379,10 @@ class ConvBNAct(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         if self.bn is None and isinstance(self.conv, MatmulConv):
-            return self.conv.conv(x, bias=self.conv.bias, act=self.act)  # bias and SiLU in the bmm epilogue
-        return self.epilogue(self.conv.conv(x))
+            y = self.conv.conv(x, bias=self.conv.bias, act=self.act)  # bias and SiLU in the bmm epilogue
+        else:
+            y = self.epilogue(self.conv.conv(x))
+        return _tp_out(self, y)
 
     def forward_upcat(self, a: Tensor, b: Tensor) -> Tensor:
         """`forward(cat([upsample2x(a), b]))` for a 1x1 conv, with the conv
@@ -314,9 +392,12 @@ class ConvBNAct(nn.Module):
         w = self.conv.weight
         assert w.shape[2] == 1 and w.shape[3] == 1, "upcat distribution needs a 1x1 conv"
         ca = a.shape[1]
-        ya = self.conv.conv(a, 0, ca)
+        ya = F.interpolate(self.conv.conv(a, 0, ca), scale_factor=2, mode="nearest")
         yb = self.conv.conv(b, ca)
-        return self.epilogue(F.interpolate(ya, scale_factor=2, mode="nearest") + yb)
+        sp, level = _split_space()
+        if sp is not None and not sp.plan.split(2 * level):
+            ya = sp.take_band(ya, level)  # a whole map feeds a split level
+        return _tp_out(self, self.epilogue(ya + yb))
 
 
 def _cat(xs: Sequence[Tensor]) -> Tensor:
@@ -414,8 +495,12 @@ def maxpool2d_same(x: Tensor, k: int) -> Tensor:
     The forward is `F.max_pool2d`, as JAX's is `reduce_window` outside
     Pallas; the backward routes each window's gradient to the first
     (row-major) position holding its max, as XLA's select-and-scatter and
-    the Pallas kernel do.
+    the Pallas kernel do. On a band, the rows beyond the image are -inf as
+    well: SPPF's input follows a SiLU and can be negative.
     """
+    sp, level = _split_space()
+    if sp is not None:
+        return F.max_pool2d(sp.halo(x, level, k // 2, k // 2, float("-inf")), k, stride=1, padding=(0, k // 2))
     return _MaxPoolSame.apply(x, k)
 
 
@@ -458,8 +543,15 @@ class FusedRepVGGDW(ConvBNAct):
             self.w49 = dwconv.pack_weights(self.conv.weight)
 
     def forward(self, x: Tensor) -> Tensor:
+        if self.conv.channels is not None:
+            x = x[:, self.conv.channels]
+        sp, level = _split_space()
+        if sp is not None:
+            x = sp.halo(x, level, 3, 3, 0.0)
         y = dwconv.dw7x7_bias_silu(x.permute(0, 2, 3, 1).contiguous(), self.w49, self.conv.bias)
-        return y.permute(0, 3, 1, 2)
+        if sp is not None:
+            y = y[:, 3:-3]
+        return _tp_out(self, y.permute(0, 3, 1, 2))
 
 
 class S2DConvBNAct(ConvBNAct):
@@ -484,7 +576,12 @@ class S2DConvBNAct(ConvBNAct):
             self.w_s2d = s2dconv.pack_weights(self.conv.weight)
 
     def forward(self, x: Tensor) -> Tensor:
+        sp, level = _split_space()
+        if sp is not None:
+            x = sp.halo(x, level, 2, 2, 0.0)  # whole row pairs: the band's S2D cells stay the image's
         y = s2dconv.conv3x3_c32_bias_silu(x.permute(0, 2, 3, 1), self.w_s2d, self.conv.bias)
+        if sp is not None:
+            y = y[:, 2:-2]
         return y.permute(0, 3, 1, 2)
 
 
@@ -531,11 +628,17 @@ class Attention(nn.Module):
         n, nh, kd, hd = h * w, self.nh, self.kd, self.hd
         qkv = self.qkv(x).permute(0, 2, 3, 1).reshape(b, n, nh, 2 * kd + hd)
         q, k, v = qkv[..., :kd], qkv[..., kd : 2 * kd], qkv[..., 2 * kd :]
+        kk, vv = k, v
+        sp, level = _split_space()
+        if sp is not None:  # this band's queries against every row's keys and values
+            kv = sp.gather_rows(qkv[..., kd:].reshape(b, h, w, nh * (kd + hd)), level, dim=1)
+            kv = kv.reshape(b, -1, nh, kd + hd)
+            kk, vv = kv[..., :kd], kv[..., kd:]
         # Scores accumulate in fp32 and are stored in the activation dtype;
         # the softmax runs in fp32 (JAX layers.py:469-477).
-        attn = (torch.einsum("bine,bjne->bnij", q.float(), k.float()) * self.scale).to(x.dtype)
+        attn = (torch.einsum("bine,bjne->bnij", q.float(), kk.float()) * self.scale).to(x.dtype)
         attn = torch.softmax(attn.float(), dim=-1).to(v.dtype)
-        out = torch.einsum("bnij,bjnd->bind", attn.float(), v.float()).to(v.dtype)
+        out = torch.einsum("bnij,bjnd->bind", attn.float(), vv.float()).to(v.dtype)
         out = out.reshape(b, h, w, c).permute(0, 3, 1, 2)
         pe = self.pe(v.reshape(b, h, w, c).permute(0, 3, 1, 2))
         return self.proj(out + pe)

@@ -68,21 +68,38 @@ class Backbone(nn.Module):
 
         Folded, both convs run as one fused-stem kernel (kernels/stem.py) that
         reads the raw images; unfolded, as two conv->BN->SiLU blocks.
+
+        On a band of image rows (layers.split_forward) the kernel reads the
+        4 rows above (none at the image's top, where its own zero padding is
+        the image's: conv1 pads conv0's output with 0, which conv0 on rows
+        of 0 would not give), the band, and rows of 0 up to a multiple of 32;
+        the output rows the halo and the padding made are cropped.
         """
         if self.cv0.folded and self.cv1.folded:
-            y = stem.fused_stem(images, self.cv0.conv.weight, self.cv0.conv.bias, self.cv1.conv.weight,
+            sp, _ = L._split_space()
+            x, above = images, 0
+            if sp is not None:
+                lo, _ = sp.plan.band(1, sp.pos)
+                above = min(4, lo)
+                x = sp.halo(images, 1, 4, 0, None, dim=1)
+                pad = -x.shape[1] % 32
+                x = torch.cat([x, x.new_zeros((x.shape[0], pad, *x.shape[2:]))], 1)  # contiguous, as the kernel reads it
+                L._moved(4)
+            y = stem.fused_stem(x, self.cv0.conv.weight, self.cv0.conv.bias, self.cv1.conv.weight,
                                 self.cv1.conv.bias, dtype=dtype, packed=(self.stem_w0p, self.stem_w1p))
+            if sp is not None:
+                y = y[:, above // 4: above // 4 + images.shape[1] // 4]
             return y.permute(0, 3, 1, 2)
         x = images.to(dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         return self.cv1(self.cv0(x))
 
     def forward(self, images: Tensor, dtype: torch.dtype, remat: bool = False) -> Tuple[Tensor, Tensor, Tensor]:
-        seg = functools.partial(L.segment, remat)  # each node a checkpoint segment when remat
-        x = seg(self.c2, seg(self.stem, images, dtype))
-        c3 = seg(self.c4, seg(self.cv3, x))
-        c4 = seg(self.c6, seg(self.sc5, c3))
-        x = seg(self.c8, seg(self.sc7, c4))
-        c5 = seg(self.psa10, seg(self.sppf9, x))
+        seg = functools.partial(L.node, remat)  # each node (at the stride it reads) a checkpoint segment when remat
+        x = seg(4, self.c2, seg(1, self.stem, images, dtype))
+        c3 = seg(8, self.c4, seg(4, self.cv3, x))
+        c4 = seg(16, self.c6, seg(8, self.sc5, c3))
+        x = seg(32, self.c8, seg(16, self.sc7, c4))
+        c5 = seg(32, self.psa10, seg(32, self.sppf9, x))
         return c3, c4, c5
 
 
@@ -105,11 +122,11 @@ class Neck(nn.Module):
                                generator=g)
 
     def forward(self, c3: Tensor, c4: Tensor, c5: Tensor, remat: bool = False) -> Tuple[Tensor, Tensor, Tensor]:
-        seg = functools.partial(L.segment, remat)
-        p4 = seg(self.p5_p4_c2f, (c5, c4))
-        p3 = seg(self.p4_p3_c2f, (p4, c3))
-        p4 = seg(self.p3_p4_c2f, L._cat((seg(self.p3_down, p3), p4)))
-        p5 = seg(self.p4_p5_c2f, L._cat((seg(self.p4_down, p4), c5)))
+        seg = functools.partial(L.node, remat)
+        p4 = seg(16, self.p5_p4_c2f, (c5, c4))
+        p3 = seg(8, self.p4_p3_c2f, (p4, c3))
+        p4 = seg(16, self.p3_p4_c2f, L._cat((seg(8, self.p3_down, p3), p4)))
+        p5 = seg(32, self.p4_p5_c2f, L._cat((seg(16, self.p4_down, p4), c5)))
         return p3, p4, p5
 
 
@@ -161,9 +178,9 @@ class Head(nn.Module):
         else:
             raise ValueError(f"unknown head branch: {branch}")
         out = []
-        for reg_m, cls_m, x in zip(cv2, cv3, feats):
-            r = reg_m(x).permute(0, 2, 3, 1)
-            c = cls_m(x).permute(0, 2, 3, 1)
+        for i, (reg_m, cls_m, x) in enumerate(zip(cv2, cv3, feats)):
+            r = L.node(False, 8 << i, reg_m, x).permute(0, 2, 3, 1)
+            c = L.node(False, 8 << i, cls_m, x).permute(0, 2, 3, 1)
             out.append(torch.cat([r, c], dim=-1) if concat else (r, c))
         return out
 

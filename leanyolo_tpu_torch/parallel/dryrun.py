@@ -4,7 +4,9 @@
 dryrun_multichip`: it starts n gloo ranks on the CPU (one process each),
 which take one data-parallel train step of yolov10n at 64 px (augmentation
 and clip on, one image a rank), run a data-parallel top-k and a class-wise
-NMS `Predictor` on the same global batch, and, with n >= 4, the same step on
+NMS `Predictor` on the same global batch, and, with an even n >= 4, the
+top-k `Predictor` on a (n/2, 2) space mesh and a (n/2, 2) model mesh, whose
+detections must match the data-parallel ones to 1e-3, and the same step on
 a (dcn, data) hybrid mesh, whose loss must equal the flat mesh's. It prints
 one OK line.
 
@@ -81,7 +83,7 @@ def _rank_main(rank: int, world: int, port: int) -> None:
     from ..engine.trainer import TrainConfig, Trainer
     from ..models.yolov10.model import YOLOv10
     from .distributed import init_distributed, process_local_slice
-    from .mesh import make_hybrid_mesh, make_mesh
+    from .mesh import make_hybrid_mesh, make_mesh, make_sp_mesh, make_tp_mesh
 
     torch.set_num_threads(1)
     if init_distributed(f"127.0.0.1:{port}", world, rank, device="cpu") != world:
@@ -117,6 +119,17 @@ def _rank_main(rank: int, world: int, port: int) -> None:
     if ndets.shape[0] != b or not bool(torch.isfinite(ndets[..., 4]).all()) or int(nnum.min()) < 0:
         raise RuntimeError(f"NMS detections {tuple(ndets.shape)}")
 
+    # Spatial and tensor parallel legs: the same detections as the data-parallel forward.
+    sp_ok = tp_ok = False
+    if world % 2 == 0 and world >= 4:
+        for make in (make_sp_mesh, make_tp_mesh):
+            xdets, _ = Predictor(model, imgsz=64, decode="topk", device="cpu",
+                                 mesh=make(world // 2, 2, device="cpu")).run_batch(images)
+            if not torch.allclose(dets, xdets, rtol=1e-3, atol=1e-3):
+                raise RuntimeError(f"{make.__name__}({world // 2}, 2) detections differ from the data-parallel "
+                                   f"ones by {float((dets - xdets).abs().max())}")
+        sp_ok = tp_ok = True
+
     hybrid = None
     if world % 2 == 0 and world >= 4:
         hybrid, _ = step(make_hybrid_mesh(2, device="cpu"))
@@ -124,7 +137,8 @@ def _rank_main(rank: int, world: int, port: int) -> None:
             raise RuntimeError(f"hybrid mesh loss {hybrid} against the flat mesh's {total}")
     if rank == 0:
         print(f"dryrun_multichip({world}) OK: loss={total:.4f} hybrid_loss={hybrid if hybrid is None else round(hybrid, 4)} "
-              f"eval_dets={tuple(dets.shape)} nms_dets={tuple(ndets.shape)} processes={world} backend=gloo",
+              f"eval_dets={tuple(dets.shape)} nms_dets={tuple(ndets.shape)} sp={sp_ok} tp={tp_ok} processes={world} "
+              f"backend=gloo",
               flush=True)
 
 

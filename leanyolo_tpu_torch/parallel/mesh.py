@@ -1,7 +1,6 @@
-"""Device meshes over the job's processes, and data-parallel placement.
+"""Device meshes over the job's processes, and what each process holds.
 
-Counterpart of the data-parallel part of the JAX package's
-`leanyolo_tpu/parallel/mesh.py`. A mesh is a
+Counterpart of the JAX package's `leanyolo_tpu/parallel/mesh.py`. A mesh is a
 `torch.distributed.device_mesh.DeviceMesh` over the job's processes, one
 card (or one CPU) each: 1-D ("data",) or 2-D ("dcn", "data") of shape
 [nodes, cards per node]. Parameters are replicated (broadcast from rank 0),
@@ -12,17 +11,24 @@ hierarchical (NVLink within a node, the network between nodes), so the
 hybrid mesh reduces over the same group as the flat one; its two axes tell a
 caller which node and which card a rank is.
 
-Not ported: the `space` and `model` axes (JAX `make_sp_mesh`, `make_tp_mesh`,
+The 2-D ("data", "space") and ("data", "model") meshes (`make_sp_mesh`,
+`make_tp_mesh`) split the batch over `data` only. On a space mesh each rank
+holds a band of every image's rows (parallel/spatial.py); on a model mesh a
+slice of every layer's output channels (parallel/tensor.py,
 `tp_shard_params`). As the JAX docstring says, for a CNN of at most 32 M
-parameters data parallelism is the only dimension that pays: tensor or
-spatial parallelism would cut small convolutions below a tile (ROADMAP.md
-Queue 1 item 7).
+parameters data parallelism is the only dimension that pays; these meshes
+cut one image's latency across cards, at the cost of an exchange at every
+layer.
+
+`image_sharded`, `rows_sharded` and `replicated` say what a rank holds of a
+global array, as JAX's shardings of those names place it: a `Placement`
+whose call returns this rank's part.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,13 +41,9 @@ DATA_AXIS = "data"
 
 DCN_AXIS = "dcn"
 
-#: The axes of the meshes not ported (ROADMAP.md Queue 1 item 7).
 SPACE_AXIS = "space"
 
 MODEL_AXIS = "model"
-
-NOT_PORTED = ("spatial and tensor parallelism (the JAX package's make_sp_mesh / make_tp_mesh) are not ported: "
-              "ROADMAP.md Queue 1 item 7")
 
 
 def _ensure_group(kind: str) -> None:
@@ -91,6 +93,106 @@ def make_hybrid_mesh(n_hosts: Optional[int] = None, *, device: Device = None) ->
     if world % n_hosts:
         raise ValueError(f"{world} processes not divisible into {n_hosts} hosts")
     return init_device_mesh(kind, (n_hosts, world // n_hosts), mesh_dim_names=(DCN_AXIS, DATA_AXIS))
+
+
+def _make_2d_mesh(n_data: int, n_second: int, second_axis: str, device: Device) -> DeviceMesh:
+    kind = device_type(device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    need = int(n_data) * int(n_second)
+    if need != world:
+        raise ValueError(f"requested {need} devices, have {world} (one process a card: start {need} with "
+                         f"torchrun --nproc-per-node={need})")
+    _ensure_group(kind)
+    return init_device_mesh(kind, (int(n_data), int(n_second)), mesh_dim_names=(DATA_AXIS, second_axis))
+
+
+def make_sp_mesh(n_data: int, n_space: int, *, device: Device = None) -> DeviceMesh:
+    """2-D (data, space) mesh for latency-oriented inference: the batch
+    splits over `data`, each image's rows over `space` (parallel/spatial.py),
+    so a (1, n) mesh runs one image across n processes. n_data * n_space
+    must be the process count."""
+    return _make_2d_mesh(n_data, n_space, SPACE_AXIS, device)
+
+
+def make_tp_mesh(n_data: int, n_model: int, *, device: Device = None) -> DeviceMesh:
+    """2-D (data, model) mesh for tensor (channel) parallelism: the batch
+    splits over `data`, every conv's output channels over `model`
+    (parallel/tensor.py). n_data * n_model must be the process count."""
+    return _make_2d_mesh(n_data, n_model, MODEL_AXIS, device)
+
+
+def axis_group(mesh: DeviceMesh, axis: str):
+    """The process group along `axis` through this rank, or None where the
+    axis has one process."""
+    if axis not in mesh.mesh_dim_names or mesh.shape[mesh.mesh_dim_names.index(axis)] == 1:
+        return None
+    return mesh.get_group(axis)
+
+
+def axis_coordinate(mesh: DeviceMesh, axis: str) -> Tuple[int, int]:
+    """(size of `axis`, this rank's index on it)."""
+    dim = mesh.mesh_dim_names.index(axis)
+    return mesh.shape[dim], (mesh.get_coordinate()[dim] if mesh.size() > 1 else 0)
+
+
+def data_position(mesh: DeviceMesh) -> Tuple[int, int]:
+    """(processes over the data axes, this rank's index among them)."""
+    size, index = 1, 0
+    for axis in data_axis_names(mesh):
+        n, i = axis_coordinate(mesh, axis)
+        size, index = size * n, index * n + i
+    return size, index
+
+
+def data_group(mesh: DeviceMesh):
+    """The group over which the batch's rows are split (None: one process
+    holds them all)."""
+    if mesh.ndim == 2 and mesh.mesh_dim_names[1] in (SPACE_AXIS, MODEL_AXIS):
+        return axis_group(mesh, DATA_AXIS)
+    return mesh_group(mesh)
+
+
+class Placement:
+    """What this rank holds of a global array: with `batch`, its rows of
+    dim 0 over the mesh's data axes; with `band`, of an NHWC image batch on
+    a space mesh, also its band of image rows (dim 1)."""
+
+    def __init__(self, mesh: DeviceMesh, batch: bool, band: bool) -> None:
+        self.mesh, self.batch, self.band = mesh, batch, band and SPACE_AXIS in mesh.mesh_dim_names
+
+    def rows(self, n_global: int) -> slice:
+        if not self.batch:
+            return slice(0, n_global)
+        size, index = data_position(self.mesh)
+        if n_global % size:
+            raise ValueError(f"batch {n_global} not divisible by the mesh's {size} data-parallel processes")
+        per = n_global // size
+        return slice(index * per, (index + 1) * per)
+
+    def __call__(self, a):
+        a = a[self.rows(a.shape[0])]
+        if self.band:
+            from .spatial import plan_bands
+
+            n, pos = axis_coordinate(self.mesh, SPACE_AXIS)
+            lo, hi = plan_bands(a.shape[1], n).band(1, pos)
+            a = a[:, lo:hi]
+        return a
+
+
+def image_sharded(mesh: DeviceMesh) -> Placement:
+    """NHWC image batch: B over the data axes, H over `space` if present."""
+    return Placement(mesh, batch=True, band=True)
+
+
+def rows_sharded(mesh: DeviceMesh) -> Placement:
+    """Per-image row tensors (e.g. detections [B, k, 6]): B over the data
+    axes, the same on every `space` and `model` rank."""
+    return Placement(mesh, batch=True, band=False)
+
+
+def replicated(mesh: DeviceMesh) -> Placement:
+    return Placement(mesh, batch=False, band=False)
 
 
 def mesh_group(mesh: DeviceMesh):

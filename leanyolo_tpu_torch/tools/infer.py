@@ -1,11 +1,14 @@
 """Inference CLI: detections per box on stdout and drawn images in --save-dir.
 
-Counterpart of the JAX package's `tools/infer.py` (--spatial-parallel is
-accepted and raises when non-zero: not ported, ROADMAP.md Queue 1 item 7):
-`--decode topk` runs the NMS-free one2one branch, `--decode nms` the
+Counterpart of the JAX package's `tools/infer.py`: `--decode topk` runs the NMS-free one2one branch, `--decode nms` the
 one2many branch with --conf and --iou; images letterbox on the host
 (--preprocess host, cv2's pixels) or on the device (--preprocess device).
 Runs on the card unless --device names another.
+
+--spatial-parallel S runs each image across the S processes of the job, one
+card each, on a (1, S) space mesh (each holds a band of the image's rows):
+start it with `torchrun --nproc-per-node=S` or one launch a process with
+the LEANYOLO_* variables. Process 0 prints and draws.
 
 Example:
     python -m leanyolo_tpu_torch.tools.infer --source dog.jpg --model yolov10s \\
@@ -43,7 +46,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    "the predictor's device")
     p.add_argument(
         "--spatial-parallel", type=int, default=0, metavar="S",
-        help="shard one image's HEIGHT over S devices (not ported: ROADMAP.md Queue 1 item 7; non-zero raises)",
+        help="latency mode: run EACH image across S processes, one card each, by splitting its height over a "
+        "(1, S) mesh (halo exchanges between neighbouring bands)",
     )
     p.add_argument("--device", default="cuda", help="where the model runs: 'cuda' (default) or 'cpu'")
     return p.parse_args(argv)
@@ -74,10 +78,16 @@ def class_names_of(args: argparse.Namespace) -> List[str]:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
+    mesh, pid = None, 0
     if args.spatial_parallel:
-        from ..parallel.mesh import NOT_PORTED
+        from ..parallel.distributed import cli_distributed_setup
+        from ..parallel.mesh import make_sp_mesh
 
-        raise NotImplementedError(f"--spatial-parallel: {NOT_PORTED}")
+        _, pid = cli_distributed_setup(device=args.device)
+        try:
+            mesh = make_sp_mesh(1, args.spatial_parallel, device=args.device)
+        except ValueError as e:
+            raise SystemExit(f"--spatial-parallel {args.spatial_parallel}: {e}") from None
 
     from ..data.dataset import read_rgb
     from ..engine.predictor import Predictor
@@ -88,17 +98,21 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     weights = None if args.weights in ("none", "None", "") else args.weights
     model = get_model(args.model, weights=weights, class_names=class_names)
     predictor = Predictor(model, imgsz=args.imgsz, decode=args.decode, conf_thresh=args.conf, iou_thresh=args.iou,
-                          max_det=args.max_det, dtype=args.dtype, device=args.device)
+                          max_det=args.max_det, dtype=args.dtype, device=args.device, mesh=mesh)
 
     paths = list_images(args.source)
-    os.makedirs(args.save_dir, exist_ok=True)
+    if pid == 0:
+        os.makedirs(args.save_dir, exist_ok=True)
     for path in paths:
         try:
             rgb = read_rgb(str(path))
         except OSError:
-            print(f"skip unreadable image: {path}")
+            if pid == 0:
+                print(f"skip unreadable image: {path}")
             continue
         dets = predictor.predict_images([rgb], preprocess=args.preprocess)[0]
+        if pid:
+            continue  # process 0 reports
         for d in dets:
             x1, y1, x2, y2, score, cls = d[:6]
             name = class_names[int(cls)] if int(cls) < len(class_names) else str(int(cls))

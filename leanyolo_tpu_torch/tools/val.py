@@ -12,9 +12,17 @@ Data parallel, one process a card: --data-parallel N splits each batch of
 all of it); --distributed gives each process a stride shard of the image list,
 evaluated on its own card with a per-process --batch-size, merged by one
 allgather (every process reports the global mAP). The CSV row, saved
-detections and drawings come from process 0. --spatial-parallel and
---tensor-parallel are accepted and raise: not ported (ROADMAP.md Queue 1
-item 7).
+detections and drawings come from process 0.
+
+Spatial and tensor parallelism: --spatial-parallel S (or --tensor-parallel
+M) with --data-parallel N runs in a job of N*S (N*M) processes, one card
+each, on a (data, space) or (data, model) mesh: each batch of --batch-size
+splits over the N data processes, and each image's rows over S (each
+layer's output channels over M). Start it with torchrun
+(`torchrun --nproc-per-node=<N*S> -m leanyolo_tpu_torch.tools.val
+--data-parallel N --spatial-parallel S ...`) or one launch a process with
+LEANYOLO_COORDINATOR / LEANYOLO_NUM_PROCS / LEANYOLO_PROC_ID. Neither
+composes with --distributed, and the two are mutually exclusive.
 
 Example:
     python -m leanyolo_tpu_torch.tools.val --model yolov10s --weights PRETRAINED_COCO \\
@@ -69,12 +77,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     )
     p.add_argument(
         "--spatial-parallel", type=int, default=0, metavar="S",
-        help="shard image HEIGHT over S devices (not ported: ROADMAP.md Queue 1 item 7; non-zero raises)",
+        help="shard image HEIGHT over S processes, one card each; composes with --data-parallel into a "
+        "(data, space) mesh of N*S processes (latency mode: --data-parallel 1 --spatial-parallel S)",
     )
     p.add_argument(
         "--tensor-parallel", type=int, default=0, metavar="M",
-        help="shard conv filters (output channels) over M devices (not ported: ROADMAP.md Queue 1 item 7; "
-        "non-zero raises)",
+        help="shard conv filters (output channels) over M processes, one card each; composes with "
+        "--data-parallel into a (data, model) mesh of N*M processes",
     )
     add_distributed_args(
         p,
@@ -106,16 +115,39 @@ def resolve_dataset(args: argparse.Namespace):
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
-    from ..parallel.mesh import NOT_PORTED, make_mesh
+    from ..parallel.mesh import make_mesh, make_sp_mesh, make_tp_mesh
 
-    if args.spatial_parallel or args.tensor_parallel:
-        raise NotImplementedError(f"--spatial-parallel / --tensor-parallel: {NOT_PORTED}")
+    if args.spatial_parallel and args.tensor_parallel:
+        raise SystemExit("--spatial-parallel and --tensor-parallel are mutually exclusive")
+    second = args.spatial_parallel or args.tensor_parallel
     nprocs, pid = 1, 0
-    if args.distributed or args.data_parallel:
+    if args.distributed or args.data_parallel or second:
         from ..parallel.distributed import cli_distributed_setup
 
         nprocs, pid = cli_distributed_setup(args.coordinator, args.num_processes, args.process_id,
                                             device=args.device)
+    sharded = args.distributed and nprocs > 1
+    mesh = None
+    if second:
+        if sharded:
+            raise SystemExit("--spatial/tensor-parallel do not compose with --distributed")
+        n_data = args.data_parallel or 1
+        if args.batch_size % n_data:
+            raise SystemExit("--batch-size must be divisible by --data-parallel")
+        make, flag = (make_sp_mesh, "spatial") if args.spatial_parallel else (make_tp_mesh, "tensor")
+        try:
+            mesh = make(n_data, second, device=args.device)
+        except ValueError as e:
+            raise SystemExit(f"--data-parallel {n_data} x --{flag}-parallel {second}: {e}") from None
+    elif args.data_parallel:
+        if args.data_parallel != nprocs:
+            raise SystemExit(f"--data-parallel {args.data_parallel} needs as many processes, one a card "
+                             f"(torchrun --nproc-per-node={args.data_parallel}); the job has {nprocs}")
+        # Under --distributed each process evaluates its shard alone: a mesh of this process.
+        mesh = make_mesh(local=sharded, device=args.device)
+        if not sharded and args.batch_size % args.data_parallel:
+            raise SystemExit("--batch-size must be divisible by --data-parallel")
+
     images_dir, ann_json = resolve_dataset(args)
 
     from ..engine.validator import validate_coco
@@ -128,17 +160,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     weights = None if args.weights in ("none", "None", "") else args.weights
     model = get_model(args.model, weights=weights, class_names=class_names)
-
-    sharded = args.distributed and nprocs > 1
-    mesh = None
-    if args.data_parallel:
-        if args.data_parallel != nprocs:
-            raise SystemExit(f"--data-parallel {args.data_parallel} needs as many processes, one a card "
-                             f"(torchrun --nproc-per-node={args.data_parallel}); the job has {nprocs}")
-        # Under --distributed each process evaluates its shard alone: a mesh of this process.
-        mesh = make_mesh(local=sharded, device=args.device)
-        if not sharded and args.batch_size % args.data_parallel:
-            raise SystemExit("--batch-size must be divisible by --data-parallel")
 
     stats = validate_coco(
         model,

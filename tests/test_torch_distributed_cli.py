@@ -1,6 +1,7 @@
-"""The port's CLIs data-parallel: `train`, `transfer_learn` and `val` under
---distributed with two gloo processes on the CPU (`--device cpu`), their
-parsers against the JAX CLIs', and the options not ported.
+"""The port's CLIs in parallel: `train`, `transfer_learn` and `val` under
+--distributed, and `val` and `infer` on space and model meshes, with two
+gloo processes on the CPU (`--device cpu`), and their parsers against the
+JAX CLIs'.
 
 Each run starts two processes that run this file as a script (`_worker`, at
 the bottom): a rank imports the port only, takes one thread, runs the CLI's
@@ -20,9 +21,14 @@ What is held:
   each on a mesh of itself, one allgather) prints the one-process CLI's mAP
   line on both processes, on a set
   labelled by the model's own detections (so the mAP is not 0);
+- `val --spatial-parallel 2` and `val --tensor-parallel 2` (two processes
+  started with the LEANYOLO_* variables, one job running both and then
+  `infer --spatial-parallel 2`) print the one-process CLI's mAP line on both
+  processes, and infer's process 0 prints the one-process CLI's boxes;
 - each CLI's parser gives JAX's namespace for the same argv;
-- --spatial-parallel and --tensor-parallel raise, naming ROADMAP.md Queue 1
-  item 7; --data-parallel without a card raises unless --device cpu.
+- --spatial-parallel with --tensor-parallel, or a space or model mesh that
+  is not the job's process count, exits with what to start (JAX's rules and
+  words); --data-parallel without a card raises unless --device cpu.
 """
 
 from __future__ import annotations
@@ -130,7 +136,10 @@ def test_transfer_learn_distributed(runs):
         assert frozen and all(np.array_equal(s[k], e1[k]) for k in frozen)
 
 
-def test_val_distributed_equals_one_process(runs):
+@pytest.fixture(scope="module")
+def labelled(runs):
+    """The set labelled by the trained model's own detections, the val argv
+    and the one-process CLI's mAP line on it."""
     from leanyolo_tpu_torch.tools import val
     from torch_parity import self_labels
 
@@ -155,6 +164,12 @@ def test_val_distributed_equals_one_process(runs):
                          str(root / "one.csv")])
     line = next(l for l in one.getvalue().splitlines() if l.startswith("mAP50-95="))
     assert float(line.split()[0].split("=")[1]) > 0.5 and "images=8" in line
+    return labelled, argv, line
+
+
+def test_val_distributed_equals_one_process(runs, labelled):
+    labelled, argv, line = labelled
+    root = runs["root"]
     csv = str(root / "dist.csv")
     ranks = _run("val", argv + ["--ann-json", labelled, "--batch-size", "2", "--data-parallel", "2", "--log-csv",
                                 csv], str(root), "val")
@@ -196,23 +211,97 @@ def test_parsers_give_the_jax_namespaces(cli):
 
 
 def test_parallel_options_not_ported_raise(tmp_path):
+    """The spatial and tensor options are ported: in one process they exit
+    with JAX's rules (exclusive; the mesh must be the job's processes, and
+    the message says what to start) before any process group is made."""
+    import torch.distributed as dist
+
     from leanyolo_tpu_torch.tools import infer, train, val
 
+    data = ["--images-dir", str(tmp_path), "--ann-json", "none.json", "--device", "cpu"]
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        val.main(data + ["--spatial-parallel", "2", "--tensor-parallel", "2"])
     for flag in ("--spatial-parallel", "--tensor-parallel"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            val.main(["--images-dir", str(tmp_path), "--ann-json", "none.json", "--device", "cpu", flag, "2"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        with pytest.raises(SystemExit, match=r"requested 4 devices, have 1 .*torchrun --nproc-per-node=4"):
+            val.main(data + [flag, "2", "--data-parallel", "2", "--batch-size", "4"])
+        with pytest.raises(SystemExit, match="divisible by --data-parallel"):
+            val.main(data + [flag, "2", "--data-parallel", "2", "--batch-size", "3"])
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node=2"):
         infer.main(["--source", str(tmp_path), "--device", "cpu", "--spatial-parallel", "2"])
+    assert not dist.is_initialized()
     if torch.cuda.is_available():
         pytest.skip("a card is present: --data-parallel runs on it")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--train-images", str(tmp_path), "--train-ann", "none.json", "--data-parallel"])
 
 
-def _worker(argv) -> None:
-    """argv: <cli module> <state file> <the CLI's arguments>."""
+SEQUENCE_MARK = "=== cli "
+
+
+def test_val_and_infer_on_space_and_model_meshes_equal_one_process(runs, labelled):
+    from leanyolo_tpu_torch.parallel.distributed import free_port
+    from leanyolo_tpu_torch.parallel.dryrun import check_ranks, spawn_ranks
+    from leanyolo_tpu_torch.tools import infer
+
+    labelled, argv, line = labelled
+    root = runs["root"]
+    img_dir, _ = runs["data"]
+    weights = os.path.join(runs["full"], "ckpt.npz")
+    inf = ["--source", img_dir, "--model", "yolov10n", "--weights", weights, "--imgsz", "64", "--decode", "nms",
+           "--conf", "0.05", "--class-names", "rect,circle,triangle", "--device", "cpu"]
+    one = io.StringIO()
+    with contextlib.redirect_stdout(one):
+        infer.main(inf + ["--save-dir", str(root / "inf1")])
+    val_argv = argv + ["--ann-json", labelled, "--batch-size", "4", "--device", "cpu"]
+    seq = ["val", *val_argv, "--spatial-parallel", "2", "--log-csv", str(root / "sp.csv"), "--then",
+           "val", *val_argv, "--tensor-parallel", "2", "--log-csv", str(root / "tp.csv"), "--then",
+           "infer", *inf, "--spatial-parallel", "2", "--save-dir", str(root / "inf2")]
+    port = free_port()
+    results = spawn_ranks(lambda r: [sys.executable, os.path.abspath(__file__), "--sequence", f"127.0.0.1:{port}",
+                                     "2", str(r), *seq], 2, timeout=300)
+    check_ranks(results, "val and infer on space and model meshes")
+    want_boxes = [l for l in one.getvalue().splitlines() if not l.startswith("saved:")]
+    assert len(want_boxes) > 8
+    for r, (_, out, _) in enumerate(results):
+        parts = out.split(SEQUENCE_MARK)[1:]
+        assert [p.split()[0] for p in parts] == ["val", "val", "infer"]
+        for p in parts[:2]:
+            got = next(l for l in p.splitlines() if l.startswith("mAP50-95="))
+            assert got.split(" throughput=")[0] == line.split(" throughput=")[0]
+        boxes = [l for l in parts[2].splitlines()[1:] if l and not l.startswith("saved:")]
+        assert boxes == (want_boxes if r == 0 else [])  # process 0 reports
+
+
+def _sequence(argv) -> None:
+    """argv: <coordinator> <processes> <process id> <cli module> <arguments>
+    [--then <cli module> <arguments> ...]: the CLIs one after another in one
+    job started through the LEANYOLO_* variables."""
     import importlib
 
+    torch.set_num_threads(1)
+    os.environ.update(LEANYOLO_COORDINATOR=argv[0], LEANYOLO_NUM_PROCS=argv[1], LEANYOLO_PROC_ID=argv[2])
+    rest, segments = argv[3:], []
+    while "--then" in rest:
+        i = rest.index("--then")
+        segments.append(rest[:i])
+        rest = rest[i + 1:]
+    segments.append(rest)
+    for module, *cli_argv in segments:
+        print(f"{SEQUENCE_MARK}{module}", flush=True)
+        importlib.import_module(f"leanyolo_tpu_torch.tools.{module}").main(cli_argv)
+        sys.stdout.flush()
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def _worker(argv) -> None:
+    """argv: <cli module> <state file> <the CLI's arguments>, or --sequence
+    and `_sequence`'s."""
+    import importlib
+
+    if argv[0] == "--sequence":
+        return _sequence(argv[1:])
     torch.set_num_threads(1)
     import torch.distributed as dist
 

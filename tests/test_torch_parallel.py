@@ -412,17 +412,23 @@ def test_dryrun_multichip_on_two_ranks(capsys):
 
 def test_devices_without_a_backend_or_a_card_raise():
     """A device with no process-group backend raises; without a card the
-    card's NCCL group raises unless the CPU (gloo) is asked for; the sp/tp
-    message names its ROADMAP.md item."""
-    from leanyolo_tpu_torch.parallel import distributed as TD
-    from leanyolo_tpu_torch.parallel.mesh import NOT_PORTED
+    card's NCCL group raises unless the CPU (gloo) is asked for; a space or
+    model mesh that is not the job's process count raises with JAX's words
+    and says what to start, before any process group is made."""
+    import torch.distributed as dist
 
-    assert "Queue 1 item 7" in NOT_PORTED
+    from leanyolo_tpu_torch.parallel import distributed as TD
+    from leanyolo_tpu_torch.parallel.mesh import make_sp_mesh, make_tp_mesh
+
     with pytest.raises(ValueError, match="backend"):
         TD.device_type("meta")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TD.init_distributed(device="cuda")
+    for make in (make_sp_mesh, make_tp_mesh):
+        with pytest.raises(ValueError, match=r"requested 4 devices, have 1 .*torchrun --nproc-per-node=4"):
+            make(2, 2, device="cpu")
+    assert not dist.is_initialized()
 
 
 # --------------------------------------------------------------------------- the ranks

@@ -446,3 +446,42 @@ def test_parser_matches_jax(monkeypatch):
             jprofile_step.parse_args()
         with pytest.raises(SystemExit):
             profile_step.parse_args(bad)
+
+
+def test_chip_smoke_device_ms_counts_the_records_kept(monkeypatch):
+    """chip_smoke.py's device time a call from profiles that lost records:
+    each kernel's mean record time times its records a call, never the sum
+    over `reps` (3 of 10 stem records kept give 0.2706 ms, not 0.0812); a
+    call of several kernels takes the most records any profile kept of
+    each, rounded up to a whole number a call, and a profile that lost some
+    is taken again (four at most) unless it holds one kernel."""
+    import chip_smoke as cs
+
+    stem = [("stem_tc_kernel", 3, 811.8)]
+    assert cs.records_ms([stem], 10) == pytest.approx(0.2706)
+    whole = [("a", 10, 500.0), ("b", 20, 300.0)]
+    assert cs.records_ms([whole], 10) == pytest.approx(0.08)
+    lossy = [("a", 9, 450.0), ("b", 12, 180.0)]  # 1 and 8 records lost
+    assert cs.records_ms([lossy], 10) == pytest.approx(0.08)
+    assert cs.records_ms([lossy, [("a", 4, 200.0), ("b", 20, 300.0)]], 10) == pytest.approx(0.08)
+    assert cs.records_ms([[]], 10) is None
+
+    calls, profiles = [], []
+
+    def fake_profiled(fn):  # each profile keeps what the next entry says
+        fn()
+        cs.LAST_EVENTS[:] = profiles.pop(0)
+        return None, sum(t for _, _, t in cs.LAST_EVENTS) / 1e3
+
+    monkeypatch.setattr(cs, "profiled", fake_profiled)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    fn = lambda: calls.append(1)  # noqa: E731
+    profiles[:] = [stem, stem]
+    assert cs.device_ms(fn) == pytest.approx(0.2706) and len(profiles) == 1  # one kernel: no retry
+    profiles[:] = [lossy, whole, lossy]
+    assert cs.device_ms(fn) == pytest.approx(0.08) and len(profiles) == 1
+    profiles[:] = [lossy] * 5
+    assert cs.device_ms(fn) == pytest.approx(0.08) and len(profiles) == 1
+    profiles[:] = [[]] * 4
+    with pytest.raises(SystemExit):
+        cs.device_ms(fn)
