@@ -15,21 +15,30 @@ Phases, each of which fails loudly (non-zero exit):
    bottleneck's two 3x3 convs, the 45 dense 1x1 convs with their bias and
    SiLU), in bf16 and fp32, plus an odd shape each; bmm's fused epilogue
    against the bias-free kernel followed by PyTorch's bias add and SiLU (at
-   most one bf16 ulp apart);
+   most one bf16 ulp apart); the decode's level gather (K2, gather_rows)
+   and box decode (K3, dfl_boxes, NMS and top-k modes) bit-equal to their
+   plain versions at the decodes' shapes (DECODE_SHAPES: [32, 300] and
+   [32, 1000] at 640 px, [8, 1500] at 320, batch 1, k = A, odd class
+   counts), bf16 and fp32, on whole maps and on the strided slices of a
+   concatenated map, with signed zeros;
 4. the serving path: yolov10s at full width and depth, random weights from a
    seed, folded to bf16, answers uint8 requests of batch 1, 8 and 32 through
    Predictor.run_batch; the launches of every kernel are counted per request
-   (stem 1, dw7x7 2, top-k 2, s2dconv 2, bmm 45, all 45 on bmm's TMA +
-   wgmma route, the stem on its tensor-core route and both s2dconv launches
-   on its wgmma route). Then the kernel path is held against the all-plain path on
-   the card, and an fp32 run on the card against an fp32 run on the CPU at
-   a small input;
+   (stem 1, dw7x7 2, s2dconv 2, bmm 45, argmax 1, top-k 2, gather_rows 1,
+   dfl_boxes 1, all 45 bmm on bmm's TMA + wgmma route, the stem on its
+   tensor-core route and both s2dconv launches on its wgmma route). Then
+   the kernel path is held against the all-plain path on the card, the
+   top-k decode on identical bf16 and fp32 head maps bit-equal to the
+   all-plain decode at batch 1, 8 and 32, and an fp32 run on the card
+   against an fp32 run on the CPU at a small input;
 5. times from CUDA events (warm-up, median of 20 runs): each kernel, its
    plain version and the PyTorch call that computes the same function, each
    run the mean of 10 back-to-back calls (bmm also per distinct shape, with
-   its route and tile), and the serving path's images per second at batch
-   32, each run one request from an idle card; a profile of the serving step
-   with its count of elementwise kernels;
+   its route and tile; K2 and K3 on the top-k decode's own inputs of a
+   batch-32 request, K2 against three torch.gather calls), and the
+   serving path's images per second at batch 32, each run one request from
+   an idle card; a profile of the serving step with its count of
+   elementwise kernels;
 6. the NMS decode: the fused max/argmax (K4) bit-equal to its plain
    version on bf16 and fp32 levels with signed-zero ties and repeated
    maxima under both zero rules, the NMS (K5) bit-equal at n in {1, 63,
@@ -40,11 +49,15 @@ Phases, each of which fails loudly (non-zero exit):
    answers requests of batch 1, 8 and 32 at the inference defaults (conf
    0.25, IoU 0.45) and the validator's (0.001, 0.65: 1000 valid
    candidates), and one class-wise, with its launches counted per request
-   (stem 1, dw7x7 2, s2dconv 2, bmm 45, argmax 1, top-k 1, nms 1); the
+   (stem 1, dw7x7 2, s2dconv 2, bmm 45, argmax 1, top-k 1, dfl_boxes 1,
+   nms 1); the
    decode on identical head maps bit-equal to the all-plain decode at
-   batch 8 and 32; fp32 on the card against the CPU at 128 px; K5
-   bit-equal on the path's batch-32 candidates; K4 and K5 timed at the
-   path's shapes (K5 at batch 32 and 1, with its host cost a call and the
+   batch 1, 8 and 32 (one batch-32 forward a predictor, its first images
+   for the smaller batches; bf16 maps at each setting, fp32 maps at the
+   inference defaults); fp32 on the card against the CPU at 128 px; K5
+   bit-equal on the path's batch-32 candidates; K4, K3 (NMS mode, [32,
+   1000]) and K5 timed at the path's shapes (K5 at batch 32 and 1, with its
+   host cost a call and the
    IoU pairs it evaluates beside those the data needs, and the split of
    the kernel it replaced) and the NMS request at batch 32 and 1, with a
    profile;
@@ -111,12 +124,13 @@ Phases, each of which fails loudly (non-zero exit):
    against "none" on one fp32 step from one state (deterministic cuDNN:
    gradients and parameters within 1e-5 of scale, BN statistics advanced
    once and equal) and the peak memory and step time of both in bf16 at
-   batch 32 (full must be lower); then the train CLI in a subprocess (3
+   batch 32 (full must be lower); then the CLIs in subprocesses, two at a
+   time, beside 14's QT-001 training: the train CLI (3
    epochs, bf16, augment, device letterbox: a history row with finite
    losses and mAP each epoch, the last epoch's mean loss below the first's,
-   its checkpoints), a run of 2 epochs resumed to 3 whose last.npz equals
-   the uninterrupted run's bit for bit (cuDNN and PyTorch deterministic),
-   and the transfer CLI from the train CLI's 3-class ckpt.npz onto 2
+   its checkpoints) beside a run of 2 epochs, then that run resumed to 3,
+   whose last.npz equals the uninterrupted run's bit for bit (cuDNN and
+   PyTorch deterministic), beside the transfer CLI from the train CLI's 3-class ckpt.npz onto 2
    classes (the head leaves skipped, UNFREEZE at epoch 2, a VAL line each
    epoch, best.npz, --viz-interval 2 snapshots named by step), each CLI's
    wall time printed;
@@ -142,12 +156,14 @@ Phases, each of which fails loudly (non-zero exit):
    sizes) and update_demo_viz;
 13. data parallelism (run last; leanyolo_tpu_torch/parallel/), in ranks this
    script starts as processes of their own (`--rank`, one fresh port each;
-   any rank's failure or a timeout fails the run): the card count and NCCL's
+   the one-rank and the two-rank job at once, the one rank timing its steps
+   once the two ranks have ended; any rank's failure or a timeout fails the
+   run): the card count and NCCL's
    version; one NCCL rank: Trainer(mesh=make_mesh()) on yolov10s 640 at
    batch 32 (augment, clip 1.0) bit-equal to the plain Trainer in one fp32
    and one bf16 step (losses, every gradient, statistic and parameter;
    deterministic cuDNN), mpbwd 3 launches a step, both bf16 steps timed in
-   turns (median of 10 after 3 warm-ups) and the mesh step's collectives
+   turns (median of 6 after 3 warm-ups) and the mesh step's collectives
    from the profiler; two ranks of 16 rows (NCCL on two cards, or gloo on
    the one card: printed): the fp32 step against the one-process step on
    the global batch, loss within 1e-5 relative and statistics within 1e-5;
@@ -167,23 +183,26 @@ Phases, each of which fails loudly (non-zero exit):
    within 1e-3, detections matched within 1e-3 px, the slowest shard's wall.
 14. the remaining CLIs and utils (run after 11, before 12), each run as a
    user runs it (`python -m leanyolo_tpu_torch.tools.<name>`):
-   profile_step on the serving step (yolov10s 640 bf16 --fuse, batch 32,
-   5 steps) whose table, parsed from torch.profiler's trace, holds each of
+   profile_step, alone on the card before 11, on the serving step (yolov10s 640 bf16 --fuse, batch 32,
+   3 steps) whose table, parsed from torch.profiler's trace, holds each of
    the port's kernels as a family with its launches a step (top-k decode:
-   stem 1, dw7x7 2, top-k 2, s2dconv 2, bmm 45; NMS decode: argmax 1, top-k
-   1, nms 1 and the rest) and whose device time a step is within 10% of
-   5's profile of the same step; on the training step (mpbwd 3 a step),
-   printed beside PERF.md's figure; the JAX package's SQA convergence step
-   QT-001 through the port's CLIs (make_learnable_coco's 240 images, seed
-   0, and 60 held out, seed 777; train yolov10n 160 px 30 epochs at batch
-   16, bf16, augment, clip 1.0; val with the top-k decode; the two-arm
+   stem 1, dw7x7 2, s2dconv 2, bmm 45, argmax 1, top-k 2, gather_rows 1,
+   dfl_boxes 1; NMS decode: argmax 1, top-k 1, dfl_boxes 1, nms 1 and the
+   rest) and whose device time a step is within 10% of 5's profile of the
+   same step; on the training step (mpbwd 3 a step), printed beside
+   PERF.md's figure; a shortened QT-001 (the JAX package's SQA convergence
+   step, 20 of its 30 epochs; its training runs beside 11's CLIs and the
+   checks below, and is read last) through the port's CLIs (make_learnable_coco's
+   240 images, seed 0, and 60 held out, seed 777; train yolov10n 160 px at
+   batch 16, bf16, augment, clip 1.0; val with the top-k decode; the two-arm
    convergence_gate at held-out mAP50 0.2, strict on cuda), with every
    epoch's loss and the CLI's wall time; a release-format yolov10n through
    convert_official_weights --local-pt, served at batch 32 bit-equal to its
    source; check_map_parity on the held-out set self-labelled by it against
    validate_coco in process (PARITY OK) and off by 0.05 (PARITY FAILED, a
-   non-zero exit); check_imports over the port, and again with JAX hidden
-   from the import system, every port module then imported.
+   non-zero exit), the two at once; check_imports over the port, and at the
+   same time an import of every port module with JAX hidden from the import
+   system.
 15. spatial and tensor parallelism (run last; parallel/spatial.py and
    parallel/tensor.py): the band plans at 640 px over 2 and 4 ranks; then,
    in this process on the card with the ranks as threads, each mesh's
@@ -193,14 +212,16 @@ Phases, each of which fails loudly (non-zero exit):
    within one bf16 ulp of its largest output in at most 1e-3 of its
    outputs; and the maps those threads gather. Then jobs of ranks this
    script starts (`--split-rank`; NCCL where there are as many cards, else
-   gloo on the one card): two ranks on make_sp_mesh(1, 2) and
-   make_tp_mesh(1, 2), four on make_sp_mesh(1, 4), each serving the same
+   gloo on the one card; the three jobs at once): two ranks on
+   make_sp_mesh(1, 2), two on make_tp_mesh(1, 2), four on
+   make_sp_mesh(1, 4), each serving the same
    model and batch through Predictor(mesh=) with the top-k and the
    class-wise NMS decode. A rank prints its band plan or split-layer count
    and the layers kept whole, the bytes it received a request (halo and
    gathered rows, or gathered channels), its launches a request (every
    serving kernel, as one process: stem 1, dw7x7 2, s2dconv 2, bmm 45,
-   top-k 2, or argmax 1, top-k 1, nms 1), and wall and device ms a request
+   argmax 1, top-k 2, gather_rows 1, dfl_boxes 1, or argmax 1, top-k 1,
+   dfl_boxes 1, nms 1), and wall and device ms a request
    (shared-card figures, not scaling; a device time from a profile that
    kept every record). Held: the launches, every rank's detections equal
    and the decode of its gathered maps, those maps bit-equal to the
@@ -214,14 +235,17 @@ Phases, each of which fails loudly (non-zero exit):
    cuDNN sum rounded the other way moves these random weights' bf16 logits
    by whole units.
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last is {"ok": true, "device": {...}}.
+Before the card's line at the end, the run prints the seconds it spent on
+the gather (K2) and box decode (K3) kernels' checks and times. The
+second-to-last line is a JSON object with one entry per kernel; the last is
+{"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import math
@@ -229,6 +253,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -243,14 +268,23 @@ MAX_DET = 300
 NC = 80
 SEED = 0  # weights, images and test inputs all come from it
 # Launches of each serving-path kernel per request; mpbwd runs on the training path.
-PER_REQUEST = {"stem": 1, "dw7x7": 2, "topk": 2, "s2dconv": 2, "bmm": 45}
+PER_REQUEST = {"stem": 1, "dw7x7": 2, "topk": 2, "s2dconv": 2, "bmm": 45, "argmax": 1, "gather_rows": 1,
+               "dfl_boxes": 1}
 # The bf16 routes every launch of the path takes: the tensor-core stem, the
 # wgmma s2dconv, bmm's TMA + wgmma route.
 NEW_ROUTES = {"stem_tc": "stem", "s2dconv_wgmma": "s2dconv", "bmm_wgmma": "bmm"}
 # Top-k's k checked against its plain version at the decode shapes (and n).
 TOPK_KS = (1, MAX_DET, 1000, 1024, 1025, 1500)
 # Launches a request on the NMS path (one2many head: 45 bmm, as one2one's).
-PER_REQUEST_NMS = {"stem": 1, "dw7x7": 2, "s2dconv": 2, "bmm": 45, "argmax": 1, "topk": 1, "nms": 1}
+PER_REQUEST_NMS = {"stem": 1, "dw7x7": 2, "s2dconv": 2, "bmm": 45, "argmax": 1, "topk": 1, "nms": 1,
+                   "dfl_boxes": 1}
+# (batch, image size, k, nc) at which the decode's gather (K2) and box
+# decode (K3) are held to their plain versions: the top-k decode's [32, 300]
+# and the NMS decode's [32, 1000] at 640 px, max_det 1500 at 320 px, batch 1,
+# k = A, and class counts that hold no whole 16-byte vector a row.
+DECODE_SHAPES = ((32, 640, 300, 80), (32, 640, 1000, 80), (8, 320, 1500, 80), (1, 640, 300, 80),
+                 (1, 640, 1000, 80), (2, 128, 336, 80), (4, 320, 300, 3), (2, 256, 700, 37))
+STRIDES = (8, 16, 32)
 # (conf_thresh, iou_thresh): inference defaults and the validator's (validator.py:211-212).
 NMS_SETTINGS = {"infer": (0.25, 0.45), "val": (0.001, 0.65)}
 # The split of the NMS kernel that slice 7 wrote (a cluster an image building
@@ -278,6 +312,70 @@ STEM_PROFILE_STEP_MS = (0.2671, 0.2700)
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+# Processes the run starts beside its main thread: any still running when
+# the run ends, a failure included, is killed.
+JOBS: list = []
+
+
+class Job:
+    """A command started at once from the repository's root, its output
+    going to files (so no full pipe stalls it); killed after `timeout`
+    seconds. result() waits: (stdout, stderr, returncode, wall seconds from
+    its start to its exit)."""
+
+    def __init__(self, cmd, env=None, timeout: float = 900):
+        self.files = (tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+        self.timeout, self.wall = timeout, None
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([str(c) for c in cmd], cwd=HERE, env=env, stdout=self.files[0],
+                                     stderr=self.files[1])
+        JOBS.append(self)
+
+    def done(self) -> bool:
+        if self.wall is None:
+            if self.proc.poll() is not None:
+                self.wall = time.perf_counter() - self.t0
+            elif time.perf_counter() - self.t0 > self.timeout:
+                self.proc.kill()
+        return self.wall is not None
+
+    def result(self) -> tuple:
+        while not self.done():
+            time.sleep(0.05)
+        out = []
+        for f in self.files:
+            f.seek(0)
+            out.append(f.read())
+        return out[0], out[1], self.proc.returncode, self.wall
+
+
+def wait_all(jobs) -> list:
+    """Wait for every job, each timed to its own exit: their results."""
+    while not all([j.done() for j in jobs]):
+        time.sleep(0.05)
+    return [j.result() for j in jobs]
+
+
+def free_ports(n: int) -> list:
+    """n distinct free ports on this host, for jobs of ranks started at once."""
+    from leanyolo_tpu_torch.parallel.distributed import free_port
+
+    ports = []
+    while len(ports) < n:
+        port = free_port()
+        if port not in ports:
+            ports.append(port)
+    return ports
+
+
+@atexit.register
+def stop_jobs() -> None:
+    for j in JOBS:
+        if j.proc.poll() is None:
+            j.proc.kill()
+            j.proc.wait()
 
 
 def card_line() -> str:
@@ -399,6 +497,20 @@ def device_ms(fn, reps: int = KERNEL_INNER) -> float:
     return ms
 
 
+# Seconds this run spends on the checks and times of the decode's gather
+# (K2) and box decode (K3) kernels, printed at its end.
+DECODE_CHECK_S: dict = {}
+
+
+@contextlib.contextmanager
+def decode_check_time(name: str):
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        DECODE_CHECK_S[name] = DECODE_CHECK_S.get(name, 0.0) + time.perf_counter() - t0
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -411,10 +523,10 @@ def plain_kernels():
     device alone. This swaps the module attributes the port calls through,
     for the all-plain reference run on the card only.
     """
-    from leanyolo_tpu_torch.kernels import argmax, dwconv, matmul, mpbwd, nms, s2dconv, stem, topk
+    from leanyolo_tpu_torch.kernels import argmax, dfl, dwconv, gather, matmul, mpbwd, nms, s2dconv, stem, topk
 
     saved = (stem.fused_stem, dwconv.dw7x7_bias_silu, topk.topk, mpbwd.mpbwd, s2dconv.conv3x3_c32_bias_silu,
-             matmul.bmm, argmax.max_argmax_levels, nms.nms_compact, nms.nms_keep)
+             matmul.bmm, argmax.max_argmax_levels, nms.nms_compact, nms.nms_keep, gather.gather_rows, dfl.dfl_boxes)
     stem.fused_stem = lambda *a, dtype=None, packed=None: stem.fused_stem_plain(*a, dtype=dtype or a[1].dtype)
     dwconv.dw7x7_bias_silu = dwconv.dw7x7_bias_silu_plain
     topk.topk = topk.topk_plain
@@ -424,11 +536,14 @@ def plain_kernels():
     argmax.max_argmax_levels = argmax.max_argmax_levels_plain
     nms.nms_compact = nms.nms_compact_plain
     nms.nms_keep = nms.nms_keep_plain
+    gather.gather_rows = gather.gather_rows_plain
+    dfl.dfl_boxes = dfl.dfl_boxes_plain
     try:
         yield
     finally:
         (stem.fused_stem, dwconv.dw7x7_bias_silu, topk.topk, mpbwd.mpbwd, s2dconv.conv3x3_c32_bias_silu,
-         matmul.bmm, argmax.max_argmax_levels, nms.nms_compact, nms.nms_keep) = saved
+         matmul.bmm, argmax.max_argmax_levels, nms.nms_compact, nms.nms_keep, gather.gather_rows,
+         dfl.dfl_boxes) = saved
 
 
 def capture_path_calls(folded, images):
@@ -706,6 +821,69 @@ def phase_kernels(folded, seed: int, records: dict) -> dict:
     return calls
 
 
+def decode_maps(g, b: int, size: int, nc: int, dtype, concat: bool):
+    """Per level (reg [B, HW, 64], cls [B, HW, nc]) maps on the card, the
+    head's at `size` px: coarse class logits with zeros of both signs; whole
+    maps, or the slices of a concatenated [B, HW, 64 + nc] map (rows 64 + nc
+    apart, read in place)."""
+    import torch
+
+    out = []
+    for s in STRIDES:
+        m = torch.randn(b, (size // s) ** 2, 64 + nc, generator=g, device="cuda") * 2
+        c = (m[..., 64:] * 2).round() / 2
+        c[..., ::3] = torch.where(c[..., ::3] == 0, torch.full_like(c[..., ::3], -0.0), c[..., ::3])
+        m[..., 64:] = c
+        m = m.to(dtype)
+        out.append((m[..., :64], m[..., 64:]) if concat else (m[..., :64].contiguous(), m[..., 64:].contiguous()))
+    return out
+
+
+def phase_decode_kernels(seed: int, records: dict) -> None:
+    """The decode's level gather (K2) and box decode (K3, both modes) against
+    their plain versions on the card, bit-equal, at DECODE_SHAPES, bf16 and
+    fp32, whole and concatenated maps."""
+    import torch
+    from leanyolo_tpu_torch import kernels
+    from leanyolo_tpu_torch.kernels import dfl, gather
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 17)
+    worst = 0.0
+    for b, size, k, nc in DECODE_SHAPES:
+        hw = [(size // s, size // s) for s in STRIDES]
+        a = sum(h * w for h, w in hw)
+        for dtype in (torch.bfloat16, torch.float32):
+            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            for concat in (False, True):
+                levels = decode_maps(g, b, size, nc, dtype, concat)
+                regs, cls = [r for r, _ in levels], [c for _, c in levels]
+                idx = torch.rand(b, a, generator=g, device="cuda").argsort(dim=1)[:, :k].int().contiguous()
+                pairs = torch.rand(b, k * nc, generator=g, device="cuda").argsort(dim=1)[:, :k].int().contiguous()
+                logits = (torch.randn(b, k, generator=g, device="cuda") * 4).to(dtype)
+                kw = dict(pair_idx=pairs, pair_logits=logits, num_classes=nc)
+                n0 = dict(kernels.LAUNCHES)
+                got = (gather.gather_rows(cls, idx), dfl.dfl_boxes(regs, hw, STRIDES, idx),
+                       dfl.dfl_boxes(regs, hw, STRIDES, idx, **kw))
+                ref = (gather.gather_rows_plain(cls, idx), dfl.dfl_boxes_plain(regs, hw, STRIDES, idx),
+                       dfl.dfl_boxes_plain(regs, hw, STRIDES, idx, **kw))
+                torch.cuda.synchronize()
+                launched = (kernels.LAUNCHES["gather_rows"] - n0["gather_rows"],
+                            kernels.LAUNCHES["dfl_boxes"] - n0["dfl_boxes"])
+                same = [torch.equal(got[0].view(bits), ref[0].view(bits))] + [
+                    torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(got[1:], ref[1:])]
+                if launched != (1, 2) or not all(same):
+                    cols = [int((x != y).any(dim=(0, 1)).nonzero().numel()) for x, y in zip(got[1:], ref[1:])]
+                    fail(f"decode kernels at [{b}, {k}] {size} px nc {nc} {dtype} concat={concat}: launches "
+                         f"{launched}, bits equal (gather_rows, dfl_boxes nms, dfl_boxes topk) {same}, "
+                         f"dfl columns that differ {cols}, max_abs_err "
+                         f"{[max_err(x, y) for x, y in zip(got[1:], ref[1:])]}")
+                worst = max(worst, *(max_err(x, y) for x, y in zip(got[1:], ref[1:])))
+        print(f"kernel gather_rows and dfl_boxes (NMS and top-k modes) at [{b}, {k}] of {a} anchors ({size} px), "
+              f"nc {nc}, bf16 and fp32, whole and concatenated maps: bit-equal to their plain versions", flush=True)
+    records["gather_rows"]["max_abs_err"] = 0.0
+    records["dfl_boxes"]["max_abs_err"] = worst
+
+
 def bf16_ulps_apart(a, b):
     """Per element, how many bf16 steps lie between a and b (+0 == -0)."""
     import torch
@@ -791,6 +969,48 @@ def check_paths(pred, pred32, x, label: str, pred32_cpu=None) -> None:
     print(f"{label} decode on identical head maps: kernel and plain outputs bit-equal", flush=True)
 
 
+def decode_topk_on(pred, maps):
+    """The top-k decode of `pred`'s requests on the head maps `maps`."""
+    from leanyolo_tpu_torch.models.yolov10.decode import decode_topk
+
+    return (decode_topk(maps, num_classes=NC, strides=pred.model.cfg.strides, max_det=MAX_DET),)
+
+
+def decode_nms_on(pred, maps):
+    """The NMS decode of `pred`'s requests (its thresholds, fp32 ranking) on the head maps `maps`."""
+    import torch
+    from leanyolo_tpu_torch.models.yolov10.decode import decode_nms
+
+    return decode_nms(maps, num_classes=NC, strides=pred.model.cfg.strides, conf_thresh=pred.conf_thresh,
+                      iou_thresh=pred.iou_thresh, max_det=MAX_DET, class_wise=pred.class_wise_nms,
+                      rank_dtype=torch.float32)
+
+
+def check_decodes(decode, preds: dict, x32, label: str) -> None:
+    """`decode(pred, maps)` with the kernels against the all-plain decode on
+    identical head maps, bit for bit, for each predictor of `preds` (bf16
+    and fp32 maps) at batch 1, 8 and 32: one forward of the batch-32
+    request a predictor, its maps' first images for the smaller batches."""
+    import torch
+
+    with decode_check_time(f"{label} decodes on identical maps"):
+        for dt, pred in preds.items():
+            full = pred.raw(x32)
+            for b in (1, 8, BATCH):
+                maps = [tuple(t[:b] for t in lvl) for lvl in full]
+                with torch.inference_mode():
+                    got = decode(pred, maps)
+                    with plain_kernels():
+                        ref = decode(pred, maps)
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+                    fail(f"{label} decode on identical {dt} head maps at batch {b}: kernels and plain versions "
+                         f"differ")
+            del full
+        print(f"{label} decode on identical head maps at batch 1, 8 and {BATCH} ({', '.join(preds)} maps): kernels "
+              f"and plain versions bit-equal", flush=True)
+
+
 def phase_main(model, seed: int, records: dict):
     """Serve the requests, check them, compare paths; returns the predictor
     and the batch-32 request on the card for the timing phase."""
@@ -827,8 +1047,10 @@ def phase_main(model, seed: int, records: dict):
               f"top score {float(dets[0, 0, 4]):.4f}", flush=True)
 
     # Kernel path against the all-plain path on the card, on the batch of 8.
-    check_paths(pred, Predictor(model, imgsz=IMGSZ, dtype="float32", fuse=True), torch.from_numpy(requests[8]).cuda(),
-                "yolov10s")
+    pred32 = Predictor(model, imgsz=IMGSZ, dtype="float32", fuse=True)
+    check_paths(pred, pred32, torch.from_numpy(requests[8]).cuda(), "yolov10s")
+    check_decodes(decode_topk_on, {"bf16": pred, "fp32": pred32}, torch.from_numpy(requests[BATCH]).cuda(), "top-k")
+    del pred32
 
     # fp32 on the card (kernels) against fp32 on the CPU (plain), small input.
     small = rng.randint(0, 256, (2, 128, 128, 3)).astype(np.uint8)
@@ -879,6 +1101,50 @@ def time_stem(bb, g, plain: bool = False) -> dict:
     silus = BATCH * (h0 * h0 * c0 * 561 / 512 + h1 * h1 * c1)
     r["silu_floor_ms"] = 2 * silus / (16 * sms * clock) * 1e3
     return r
+
+
+def time_decode_kernels(records: dict, pred, x32) -> None:
+    """K2 and K3 (top-k mode) on the top-k decode's inputs of a batch-32
+    request (the one2one head's maps, stage 1's 300 anchors, stage 2's
+    pairs)."""
+    import torch
+    from leanyolo_tpu_torch.kernels import argmax, bounds, dfl, gather, topk
+
+    maps = pred.raw(x32)
+    cls = [c.reshape(BATCH, -1, NC) for _, c in maps]
+    regs = [r.reshape(BATCH, -1, r.shape[-1]) for r, _ in maps]
+    hw = [tuple(c.shape[1:3]) for _, c in maps]
+    vals, _ = argmax.max_argmax_levels(cls, canon_zero=False)
+    _, idx = topk.topk(vals, MAX_DET, canon_zero=True)
+    sel = gather.gather_rows(cls, idx)
+    logits, pairs = topk.topk(sel.reshape(BATCH, -1), MAX_DET, canon_zero=True)
+    # The library figure: one torch.gather a level on its anchors (clamped,
+    # the rows of other levels masked afterwards), as K4's is torch.max a level.
+    offs, lib_idx = 0, []
+    for c in cls:
+        lib_idx.append((idx.long() - offs).clamp(0, c.shape[1] - 1)[..., None].expand(-1, -1, NC))
+        offs += c.shape[1]
+    r = records["gather_rows"]
+    r["ms"] = cuda_ms(lambda: gather.gather_rows(cls, idx), inner=KERNEL_INNER)
+    r["device_ms"] = device_ms(lambda: gather.gather_rows(cls, idx))
+    r["plain_ms"] = cuda_ms(lambda: gather.gather_rows_plain(cls, idx), inner=KERNEL_INNER)
+    r["library_ms"] = cuda_ms(lambda: [torch.gather(c, 1, i) for c, i in zip(cls, lib_idx)], inner=KERNEL_INNER)
+    set_bound(r, *bounds.gather_rows_work(BATCH, MAX_DET, NC, sel.element_size()), "fp32")
+    print(f"gather_rows {list(sel.shape)} bf16 of the three levels, one launch: kernel {r['ms']:.4f} ms (device "
+          f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f}, torch.gather x3 {r['library_ms']:.4f}, bound "
+          f"{r['bound_ms']:.6f} ({r['bound_by']})", flush=True)
+    r = records["dfl_boxes"]
+    call = lambda: dfl.dfl_boxes(regs, hw, STRIDES, idx, pair_idx=pairs, pair_logits=logits,  # noqa: E731
+                                 num_classes=NC)
+    r["ms"] = cuda_ms(call, inner=KERNEL_INNER)
+    r["device_ms"] = device_ms(call)
+    r["plain_ms"] = cuda_ms(lambda: dfl.dfl_boxes_plain(regs, hw, STRIDES, idx, pair_idx=pairs, pair_logits=logits,
+                                                        num_classes=NC), inner=KERNEL_INNER)
+    r["library_ms"] = None
+    set_bound(r, *bounds.dfl_boxes_work(BATCH, MAX_DET, regs[0].element_size(), topk=True), "fp32")
+    print(f"dfl_boxes top-k mode [{BATCH},{MAX_DET}] bf16 reg rows -> [{BATCH},{MAX_DET},6]: kernel {r['ms']:.4f} ms "
+          f"(device {r['device_ms']:.4f}), plain {r['plain_ms']:.4f}, library none, bound {r['bound_ms']:.6f} "
+          f"({r['bound_by']})", flush=True)
 
 
 def phase_times(folded, seed: int, records: dict, pred, x32, calls: dict) -> dict:
@@ -938,6 +1204,8 @@ def phase_times(folded, seed: int, records: dict, pred, x32, calls: dict) -> dic
         nbytes, nops = nbytes + nb, nops + no
     r.update(ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib)
     set_bound(r, nbytes, nops, "fp32")
+    with decode_check_time("K2 and K3 timed"):
+        time_decode_kernels(records, pred, x32)
 
     # s2dconv, one launch at [32,160,160,32] (the input of c2.m[0].cv1, made
     # contiguous for all three); the library call is cuDNN's conv + bias +
@@ -1028,7 +1296,8 @@ def phase_times(folded, seed: int, records: dict, pred, x32, calls: dict) -> dic
     # The port's kernels by device time (bmm: both of its routes' kernels).
     ours = {"stem tc": "stem_tc_kernel", "stem fp32": "stem_kernel<", "dw7x7": "dw7x7_kernel",
             "topk": "topk_kernel", "s2dconv wgmma": "s2d_wgmma_kernel", "s2dconv fp32": "S2DProblem",
-            "bmm wgmma": "sm90::gemm_kernel", "bmm mma.sync": "MatmulProblem"}
+            "bmm wgmma": "sm90::gemm_kernel", "bmm mma.sync": "MatmulProblem", "argmax": "argmax_kernel",
+            "gather_rows": "gather_rows_kernel", "dfl_boxes": "dfl_boxes_kernel"}
     for name, tag in ours.items():
         es = [e for e in events if tag in e.key]
         print(f"profile: {name} kernels {sum(e.self_device_time_total for e in es) / 5 / 1e3:.4f} ms/step in "
@@ -1189,7 +1458,6 @@ def phase_nms(model, seed: int, records: dict):
     import torch
     from leanyolo_tpu_torch import Predictor, kernels
     from leanyolo_tpu_torch.kernels import nms
-    from leanyolo_tpu_torch.models.yolov10.decode import decode_nms
 
     rng = np.random.RandomState(seed + 3)
     requests = {b: rng.randint(0, 256, (b, IMGSZ, IMGSZ, 3)).astype(np.uint8) for b in (1, 8, BATCH)}
@@ -1224,29 +1492,20 @@ def phase_nms(model, seed: int, records: dict):
         nms.nms_compact = spy
     print(f"nms serving path launches over requests of batch {list(requests)} at the inference defaults: {launches}",
           flush=True)
-    for k in ("argmax", "nms"):
-        records[k]["launches"] = launches[k]
+    records["nms"]["launches"] = launches["nms"]
+    for k in ("argmax", "dfl_boxes"):  # the main path (top-k) counts their "launches"
+        records[k]["launches_nms"] = launches[k]
     if candidates["val"] < 1000:
         fail(f"at the validator's thresholds the NMS saw at most {candidates['val']} valid candidates, not 1000")
 
     # The decode on identical head maps, kernels against plain versions, at
-    # batch 8 and the path's 32.
-    for b in (8, BATCH):
-        xb = torch.from_numpy(requests[b]).cuda()
-        for name, pred in preds.items():
-            maps = pred.raw(xb)
-            kw = dict(num_classes=NC, strides=pred.model.cfg.strides, conf_thresh=pred.conf_thresh,
-                      iou_thresh=pred.iou_thresh, max_det=MAX_DET, class_wise=pred.class_wise_nms,
-                      rank_dtype=torch.float32)
-            d_k = decode_nms(maps, **kw)
-            with plain_kernels():
-                d_p = decode_nms(maps, **kw)
-            torch.cuda.synchronize()
-            if not (torch.equal(d_k[0], d_p[0]) and torch.equal(d_k[1], d_p[1])):
-                fail(f"nms decode ({name}) batch {b} on identical head maps differs between the kernels and their "
-                     f"plain versions")
-        print(f"nms decode batch {b} on identical head maps (all three settings): kernels and plain versions "
-              f"bit-equal (dets, num)", flush=True)
+    # batches 1, 8 and 32: bf16 maps at each setting, fp32 maps at the
+    # inference defaults.
+    pred32 = Predictor(model, imgsz=IMGSZ, decode="nms", dtype="float32", fuse=True, max_det=MAX_DET,
+                       conf_thresh=NMS_SETTINGS["infer"][0], iou_thresh=NMS_SETTINGS["infer"][1])
+    check_decodes(decode_nms_on, {**{f"bf16 {n}": p for n, p in preds.items()}, "fp32 infer": pred32},
+                  torch.from_numpy(requests[BATCH]).cuda(), "nms")
+    del pred32
 
     # fp32 on the card against fp32 on the CPU at a small input.
     small = rng.randint(0, 256, (2, 128, 128, 3)).astype(np.uint8)
@@ -1299,9 +1558,10 @@ def phase_predict_images(model, seed: int) -> None:
 
 
 def phase_nms_times(seed: int, records: dict, pred, x32) -> None:
-    """K4 and K5 at the path's shapes, and the NMS request's step time."""
+    """K4, K3 (NMS mode) and K5 at the path's shapes, and the NMS request's
+    step time."""
     import torch
-    from leanyolo_tpu_torch.kernels import _build, argmax, bounds, nms
+    from leanyolo_tpu_torch.kernels import _build, argmax, bounds, dfl, nms, topk
 
     g = torch.Generator(device="cuda").manual_seed(seed + 6)
     bf = torch.bfloat16
@@ -1320,6 +1580,21 @@ def phase_nms_times(seed: int, records: dict, pred, x32) -> None:
     print(f"argmax levels {[list(c.shape) for c in levels]} bf16, one launch: kernel {r['ms']:.4f} ms (device "
           f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f}, torch.max x3 {r['library_ms']:.4f}, bound "
           f"{r['bound_ms']:.6f} ({r['bound_by']}); a launch per level {[round(t, 4) for t in per_level]}", flush=True)
+
+    # K3 in NMS mode on the [32, 1000] candidates of the batch-32 request.
+    with decode_check_time("K3 NMS mode timed"):
+        regs = [r.reshape(BATCH, -1, r.shape[-1]) for r, _ in maps]
+        hw = [tuple(c.shape[1:3]) for _, c in maps]
+        best, _ = argmax.max_argmax_levels(levels, canon_zero=False)
+        _, anc = topk.topk(best, 1000, canon_zero=False)
+        call = lambda: dfl.dfl_boxes(regs, hw, STRIDES, anc)  # noqa: E731
+        t = {"ms": cuda_ms(call, inner=KERNEL_INNER), "device_ms": device_ms(call),
+             "plain_ms": cuda_ms(lambda: dfl.dfl_boxes_plain(regs, hw, STRIDES, anc), inner=KERNEL_INNER)}
+        set_bound(t, *bounds.dfl_boxes_work(BATCH, 1000, regs[0].element_size()), "fp32")
+        records["dfl_boxes"]["nms_mode"] = t
+        print(f"dfl_boxes NMS mode [{BATCH},1000] bf16 reg rows -> [{BATCH},1000,4]: kernel {t['ms']:.4f} ms (device "
+              f"{t['device_ms']:.4f}), plain {t['plain_ms']:.4f}, library none, bound {t['bound_ms']:.6f} "
+              f"({t['bound_by']})", flush=True)
 
     # K5 on the candidates of a batch-32 request under each threshold setting.
     from leanyolo_tpu_torch.models.yolov10.decode import decode_nms
@@ -1394,7 +1669,8 @@ def phase_nms_times(seed: int, records: dict, pred, x32) -> None:
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 5 / 1e3:9.4f} ms/request {e.count // 5:5d} calls  {e.key[:90]}",
               flush=True)
-    for name, tag in (("argmax", "argmax_kernel"), ("nms", "nms_kernel"), ("topk", "topk_kernel")):
+    for name, tag in (("argmax", "argmax_kernel"), ("nms", "nms_kernel"), ("topk", "topk_kernel"),
+                      ("dfl_boxes", "dfl_boxes_kernel")):
         es = [e for e in events if tag in e.key]
         print(f"nms profile: {name} kernels {sum(e.self_device_time_total for e in es) / 5 / 1e3:.4f} ms/request in "
               f"{sum(e.count for e in es) // 5} calls", flush=True)
@@ -1983,8 +2259,9 @@ def phase_variants(seed: int, records: dict) -> None:
             got = {k: v for k, v in kernels.LAUNCHES.items() if v}
             print(f"variant {name} {dtype} batch {VARIANT_BATCH}: launches {got}, top score "
                   f"{float(dets[0, 0, 4]):.4f}", flush=True)
-            if got.get("stem") != 1 or got.get("stem_tc", 0) != (dtype == "bfloat16") or got.get("topk") != 2:
-                fail(f"{name} {dtype}: the stem and top-k did not launch on their kernel routes: {got}")
+            if (got.get("stem") != 1 or got.get("stem_tc", 0) != (dtype == "bfloat16") or got.get("topk") != 2
+                    or any(got.get(k) != 1 for k in ("argmax", "gather_rows", "dfl_boxes"))):
+                fail(f"{name} {dtype}: the stem and the decode's kernels did not launch on their routes: {got}")
             check_dets(dets, num, VARIANT_BATCH)
             preds[dtype] = pred
         cpu32 = Predictor(model, imgsz=IMGSZ, dtype="float32", fuse=True, device="cpu")
@@ -2187,7 +2464,7 @@ def phase_train_times(seed: int, records: dict) -> None:
 FOLDER_TRAIN, FOLDER_VAL = 64, 32  # images of the train and val sets
 SHAPES = ("rect", "circle", "triangle")  # class i is shape i in colour i
 SHAPE_RGB = ((200, 40, 40), (40, 200, 40), (40, 40, 200))
-FOLDER_STEPS = 4  # timed steps a preprocess mode, after an epoch's warm-up
+FOLDER_STEPS = 2  # timed steps a preprocess mode, after an epoch's warm-up
 CLI_EPOCHS = 3
 # The CLIs in a subprocess, with cuDNN and PyTorch on deterministic
 # algorithms, so a resumed run can be held to the uninterrupted one bit for bit.
@@ -2237,17 +2514,19 @@ def write_shape_set(root: str, n: int, seed: int):
     return images_dir, ann
 
 
-def run_cli(module: str, args) -> tuple:
-    """`python -c` running the CLI's main on `args` (DETERMINISTIC_CLI):
-    (stdout + stderr, wall seconds); fails on a non-zero exit."""
+def run_clis(*clis) -> list:
+    """`python -c` running each CLI's main on its args (DETERMINISTIC_CLI),
+    all at once, each (module, args): [(stdout + stderr, wall seconds)];
+    fails on a non-zero exit."""
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-c", DETERMINISTIC_CLI.format(module=module), *args], cwd=HERE, env=env,
-                       capture_output=True, text=True, timeout=900)
-    wall = time.perf_counter() - t0
-    if r.returncode != 0:
-        fail(f"{module} CLI {args}: rc {r.returncode}\nstdout {r.stdout[-3000:]}\nstderr {r.stderr[-4000:]}")
-    return r.stdout + r.stderr, wall
+    jobs = [Job([sys.executable, "-c", DETERMINISTIC_CLI.format(module=module), *args], env=env)
+            for module, args in clis]
+    outs = []
+    for (module, args), (out, err, rc, wall) in zip(clis, wait_all(jobs)):
+        if rc != 0:
+            fail(f"{module} CLI {args}: rc {rc}\nstdout {out[-3000:]}\nstderr {err[-4000:]}")
+        outs.append((out + err, wall))
+    return outs
 
 
 def timed_steps(tr, batches, gen, n: int):
@@ -2266,10 +2545,11 @@ def timed_steps(tr, batches, gen, n: int):
     return [s.elapsed_time(e) for s, e in times], losses
 
 
-def phase_train_folder(seed: int, records: dict, card: str) -> None:
-    """Training from a COCO-format folder (item 11 of the module doc)."""
+def phase_train_folder(seed: int, records: dict, card: str, tmp: str) -> tuple:
+    """Training from a COCO-format folder in process (item 11 of the module
+    doc); writes the sets under `tmp`: (train images, train annotations,
+    val images, val annotations)."""
     import copy
-    import tempfile
 
     import numpy as np
     import torch
@@ -2278,194 +2558,204 @@ def phase_train_folder(seed: int, records: dict, card: str) -> None:
     from leanyolo_tpu_torch.engine.validator import validate_coco
 
     names = list(SHAPES)
-    with tempfile.TemporaryDirectory() as tmp:
-        tr_dir, tr_ann = write_shape_set(os.path.join(tmp, "train"), FOLDER_TRAIN, seed + 11)
-        va_dir, va_ann = write_shape_set(os.path.join(tmp, "val"), FOLDER_VAL, seed + 12)
+    tr_dir, tr_ann = write_shape_set(os.path.join(tmp, "train"), FOLDER_TRAIN, seed + 11)
+    va_dir, va_ann = write_shape_set(os.path.join(tmp, "val"), FOLDER_VAL, seed + 12)
 
-        # Loader and trainer in process, host and device letterbox, bf16 at
-        # batch 32. Peak memory is the mode's own: above what was allocated
-        # before its trainer was made (the other mode's trainer, earlier phases).
-        runs = {}
-        for mode in ("host", "device"):
-            loader = DataLoader(CocoDetection(tr_dir, tr_ann, img_size=IMGSZ, preprocess=mode), batch_size=BATCH,
-                                shuffle=True, seed=seed)
-            cfg = TrainConfig(bf16=True, augment=True, grad_clip=1.0, steps_per_epoch=len(loader),
-                              device_preprocess=mode == "device", imgsz=IMGSZ)
-            base = torch.cuda.memory_allocated()
-            tr = Trainer(YOLOv10.create("yolov10s", class_names=names, seed=seed), cfg)
-            gen = torch.Generator(device="cuda").manual_seed(seed)
-            t0 = time.perf_counter()
-            warm = list(loader)  # epoch 0: the batches of the warm-up
-            load_s = time.perf_counter() - t0
-            for b in warm:
-                tr.train_step(b, gen)
-            batches = list(loader)  # epoch 1's batches, another order
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            kernels.reset_launches()
-            step_ms, losses = timed_steps(tr, batches, gen, FOLDER_STEPS)
-            launches = dict(kernels.LAUNCHES)
-            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-            totals = [float(l["total"]) for l in losses]
-            if not np.isfinite([float(v) for l in losses for v in l.values()]).all():
-                fail(f"train from a folder ({mode} letterbox): non-finite losses {totals}")
-            if launches["mpbwd"] != 3 * FOLDER_STEPS:
-                fail(f"train from a folder ({mode}): mpbwd launched {launches['mpbwd']} times over "
-                     f"{FOLDER_STEPS} steps, expected 3 a step")
-            records["mpbwd"][f"launches_folder_{mode}"] = launches["mpbwd"]
-            print(f"train from a folder, {mode} letterbox, yolov10s 640 bf16 batch {BATCH} ({FOLDER_TRAIN} images, "
-                  f"augment, clip 1.0): ms/step median {statistics.median(step_ms):.4f} (CUDA events, "
-                  f"{[round(v, 4) for v in step_ms]}), peak memory {peak:.4f} GiB, loader {load_s:.4f} s for an "
-                  f"epoch of {len(warm)} batches; mpbwd launches {launches['mpbwd']} over {FOLDER_STEPS} steps; "
-                  f"losses {[round(v, 4) for v in totals]}; {card}", flush=True)
-            runs[mode] = (tr, batches, gen)
-            if mode == "device":
-                # The per-epoch validation of the CLIs: fp32, unfolded, top-k.
-                pred = Predictor(tr.model, imgsz=IMGSZ, decode="topk", conf_thresh=0.001, iou_thresh=0.65)
-                kernels.reset_launches()
-                t0 = time.perf_counter()
-                st = validate_coco(tr.model, images_dir=va_dir, ann_json=va_ann, imgsz=IMGSZ, batch_size=BATCH,
-                                   predictor=pred)
-                val_s = time.perf_counter() - t0
-                n_topk = kernels.LAUNCHES["topk"]
-                if n_topk != 2 * (FOLDER_VAL // BATCH) or not np.isfinite(st["map_50_95"]):
-                    fail(f"the CLIs' validation: top-k launched {n_topk} times, mAP {st['map_50_95']}")
-                records["topk"]["launches_folder_val"] = n_topk
-                print(f"the CLIs' validation (fp32 unfolded top-k, {FOLDER_VAL} images) after "
-                      f"{len(warm) + FOLDER_STEPS} steps: mAP50-95 {st['map_50_95']:.5f}, {val_s:.4f} s wall, top-k "
-                      f"launches {n_topk}; {card}", flush=True)
-                del pred
-        # Step time of the two modes in turns (host, device, device, host),
-        # so the drift of a host-bound step falls on both.
-        turns = {"host": [], "device": []}
-        for order in (("host", "device"), ("device", "host")):
-            for mode in order:
-                turns[mode] += timed_steps(*runs[mode], FOLDER_STEPS)[0]
-        print(f"train from a folder, ms/step in turns (host, device, device, host; {FOLDER_STEPS} steps a turn, CUDA "
-              f"events): host median {statistics.median(turns['host']):.4f} "
-              f"({[round(v, 4) for v in turns['host']]}), device median {statistics.median(turns['device']):.4f} "
-              f"({[round(v, 4) for v in turns['device']]}); {card}", flush=True)
-        device_batches = runs["device"][1]
-        del runs, tr
-        torch.cuda.empty_cache()
-
-        # remat="full" against "none": one fp32 step from one state and batch
-        # (device letterbox, batch 8, deterministic cuDNN), then peak memory
-        # and step time of both in bf16 at batch 32.
-        cudnn = torch.backends.cudnn
-        saved = (cudnn.deterministic, cudnn.benchmark)
-        cudnn.deterministic, cudnn.benchmark = True, False
-        small = next(iter(DataLoader(CocoDetection(tr_dir, tr_ann, img_size=IMGSZ, preprocess="device"),
-                                     batch_size=8)))
-        model = YOLOv10.create("yolov10s", class_names=names, seed=seed + 13)
-        f32 = {r: Trainer(copy.deepcopy(model), TrainConfig(augment=False, grad_clip=1.0, remat=r,
-                                                            device_preprocess=True, imgsz=IMGSZ))
-               for r in ("none", "full")}
-        loss = {r: float(t.train_step(small)["total"]) for r, t in f32.items()}
+    # Loader and trainer in process, host and device letterbox, bf16 at
+    # batch 32. Peak memory is the mode's own: above what was allocated
+    # before its trainer was made (the other mode's trainer, earlier phases).
+    runs = {}
+    for mode in ("host", "device"):
+        loader = DataLoader(CocoDetection(tr_dir, tr_ann, img_size=IMGSZ, preprocess=mode), batch_size=BATCH,
+                            shuffle=True, seed=seed)
+        cfg = TrainConfig(bf16=True, augment=True, grad_clip=1.0, steps_per_epoch=len(loader),
+                          device_preprocess=mode == "device", imgsz=IMGSZ)
+        base = torch.cuda.memory_allocated()
+        tr = Trainer(YOLOv10.create("yolov10s", class_names=names, seed=seed), cfg)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        t0 = time.perf_counter()
+        warm = list(loader)  # epoch 0: the batches of the warm-up
+        load_s = time.perf_counter() - t0
+        for b in warm:
+            tr.train_step(b, gen)
+        batches = list(loader)  # epoch 1's batches, another order
         torch.cuda.synchronize()
-        cudnn.deterministic, cudnn.benchmark = saved
-        mn, mf = f32["none"].model, f32["full"].model
-        worst_g = worst_p = 0.0
-        for (name, a), (_, b) in zip(mf.named_parameters(), mn.named_parameters()):
-            worst_g = max(worst_g, max_err(a.grad, b.grad) / max(1e-12, float(b.grad.abs().max())))
-            worst_p = max(worst_p, max_err(a.detach(), b.detach()) / max(1e-12, float(b.detach().abs().max())))
-        stats_equal = all(torch.equal(a, b) for (k, a), (_, b) in zip(mf.state_dict().items(), mn.state_dict().items())
-                          if "running" in k)
-        moved = not torch.equal(mf.backbone.cv0.bn.running_mean, model.backbone.cv0.bn.running_mean.cuda())
-        print(f"remat full vs none, fp32 step yolov10s 640 batch 8 (device letterbox): loss {loss['full']:.6f} vs "
-              f"{loss['none']:.6f}; worst grad gap {worst_g:.3g}, worst parameter gap {worst_p:.3g} of the tensor's "
-              f"scale; BN running statistics equal: {stats_equal}", flush=True)
-        if not (worst_g <= 1e-5 and worst_p <= 1e-5 and stats_equal and moved):
-            fail("remat='full' disagrees with remat='none' (or the BN statistics did not advance once)")
-        del f32, mn, mf, small
-        torch.cuda.empty_cache()
-        peaks = {}
-        for r in ("none", "full"):
-            cfg = TrainConfig(bf16=True, augment=True, grad_clip=1.0, remat=r, device_preprocess=True, imgsz=IMGSZ)
-            base = torch.cuda.memory_allocated()
-            tr = Trainer(YOLOv10.create("yolov10s", class_names=names, seed=seed), cfg)
-            gen = torch.Generator(device="cuda").manual_seed(seed)
-            tr.train_step(device_batches[0], gen)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            step_ms, _ = timed_steps(tr, device_batches, gen, FOLDER_STEPS)
-            peaks[r] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-            print(f"remat={r!r}, yolov10s 640 bf16 batch {BATCH} (device letterbox): peak memory {peaks[r]:.4f} GiB, "
-                  f"ms/step median {statistics.median(step_ms):.4f} ({[round(v, 4) for v in step_ms]}); {card}",
-                  flush=True)
-            del tr
-            torch.cuda.empty_cache()
-        if not peaks["full"] < peaks["none"]:
-            fail(f"remat='full' did not lower peak memory: {peaks}")
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        step_ms, losses = timed_steps(tr, batches, gen, FOLDER_STEPS)
+        launches = dict(kernels.LAUNCHES)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        totals = [float(l["total"]) for l in losses]
+        if not np.isfinite([float(v) for l in losses for v in l.values()]).all():
+            fail(f"train from a folder ({mode} letterbox): non-finite losses {totals}")
+        if launches["mpbwd"] != 3 * FOLDER_STEPS:
+            fail(f"train from a folder ({mode}): mpbwd launched {launches['mpbwd']} times over "
+                 f"{FOLDER_STEPS} steps, expected 3 a step")
+        records["mpbwd"][f"launches_folder_{mode}"] = launches["mpbwd"]
+        print(f"train from a folder, {mode} letterbox, yolov10s 640 bf16 batch {BATCH} ({FOLDER_TRAIN} images, "
+              f"augment, clip 1.0): ms/step median {statistics.median(step_ms):.4f} (CUDA events, "
+              f"{[round(v, 4) for v in step_ms]}), peak memory {peak:.4f} GiB, loader {load_s:.4f} s for an "
+              f"epoch of {len(warm)} batches; mpbwd launches {launches['mpbwd']} over {FOLDER_STEPS} steps; "
+              f"losses {[round(v, 4) for v in totals]}; {card}", flush=True)
+        runs[mode] = (tr, batches, gen)
+        if mode == "device":
+            # The per-epoch validation of the CLIs: fp32, unfolded, top-k.
+            pred = Predictor(tr.model, imgsz=IMGSZ, decode="topk", conf_thresh=0.001, iou_thresh=0.65)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            st = validate_coco(tr.model, images_dir=va_dir, ann_json=va_ann, imgsz=IMGSZ, batch_size=BATCH,
+                               predictor=pred)
+            val_s = time.perf_counter() - t0
+            n_topk = kernels.LAUNCHES["topk"]
+            if n_topk != 2 * (FOLDER_VAL // BATCH) or not np.isfinite(st["map_50_95"]):
+                fail(f"the CLIs' validation: top-k launched {n_topk} times, mAP {st['map_50_95']}")
+            records["topk"]["launches_folder_val"] = n_topk
+            print(f"the CLIs' validation (fp32 unfolded top-k, {FOLDER_VAL} images) after "
+                  f"{len(warm) + FOLDER_STEPS} steps: mAP50-95 {st['map_50_95']:.5f}, {val_s:.4f} s wall, top-k "
+                  f"launches {n_topk}; {card}", flush=True)
+            del pred
+    # Step time of the two modes in turns (host, device, device, host),
+    # so the drift of a host-bound step falls on both.
+    turns = {"host": [], "device": []}
+    for order in (("host", "device"), ("device", "host")):
+        for mode in order:
+            turns[mode] += timed_steps(*runs[mode], FOLDER_STEPS)[0]
+    print(f"train from a folder, ms/step in turns (host, device, device, host; {FOLDER_STEPS} steps a turn, CUDA "
+          f"events): host median {statistics.median(turns['host']):.4f} "
+          f"({[round(v, 4) for v in turns['host']]}), device median {statistics.median(turns['device']):.4f} "
+          f"({[round(v, 4) for v in turns['device']]}); {card}", flush=True)
+    device_batches = runs["device"][1]
+    del runs, tr
+    torch.cuda.empty_cache()
 
-        # The train CLI: 3 epochs, device letterbox, bf16, augment; then a run
-        # of 2 epochs resumed to 3. Warmup is one epoch and the cosine starts
-        # at its top, so a 2-epoch run's schedule is the 3-epoch run's for its
-        # two epochs: stopping there is stopping the 3-epoch run.
-        common = ["--model", "yolov10s", "--train-images", tr_dir, "--train-ann", tr_ann, "--val-images", va_dir,
-                  "--val-ann", va_ann, "--imgsz", str(IMGSZ), "--batch-size", str(BATCH), "--bf16", "--augment",
-                  "--preprocess", "device", "--seed", str(seed), "--log-interval", "1"]
-        full, part = os.path.join(tmp, "train_full"), os.path.join(tmp, "train_part")
-        out, wall = run_cli("train", common + ["--epochs", str(CLI_EPOCHS), "--out-dir", full])
-        with open(os.path.join(full, "history.jsonl")) as f:
-            rows = [json.loads(line) for line in f]
-        keys = {"epoch", "loss_total", "loss_cls", "loss_reg", "steps", "time_s", "img_s", "map_50_95", "map_50"}
-        if len(rows) != CLI_EPOCHS or any(set(r) != keys for r in rows) or "eval failed" in out:
-            fail(f"train CLI: history {rows}\n{out[-3000:]}")
-        if not all(np.isfinite([r[k] for k in ("loss_total", "loss_cls", "loss_reg", "map_50_95")]).all()
-                   for r in rows):
-            fail(f"train CLI: non-finite history {rows}")
-        if not rows[-1]["loss_total"] < rows[0]["loss_total"]:
-            fail(f"train CLI: the last epoch's mean loss is not below the first's: {rows}")
-        files = [f"epoch{e:03d}.npz" for e in range(1, CLI_EPOCHS + 1)] + ["last.npz", "ckpt.npz", "train_state.pt"]
-        if any(not os.path.exists(os.path.join(full, f)) for f in files):
-            fail(f"train CLI: missing checkpoints in {sorted(os.listdir(full))}")
-        print(f"train CLI (python -m leanyolo_tpu_torch.tools.train, yolov10s 640 bf16 batch {BATCH}, device "
-              f"letterbox, {CLI_EPOCHS} epochs of {FOLDER_TRAIN} images, validation on {FOLDER_VAL}) in {wall:.1f} s "
-              f"wall; per epoch loss_total {[round(r['loss_total'], 4) for r in rows]}, mAP50-95 "
-              f"{[r['map_50_95'] for r in rows]}, mAP50 {[r['map_50'] for r in rows]}, epoch s "
-              f"{[r['time_s'] for r in rows]}; {card}", flush=True)
-        _, wall2 = run_cli("train", common + ["--epochs", "2", "--out-dir", part])
-        out3, wall3 = run_cli("train", common + ["--epochs", str(CLI_EPOCHS), "--out-dir", part, "--resume"])
-        if "resumed from" not in out3:
-            fail(f"train CLI --resume did not resume:\n{out3[-3000:]}")
-        with np.load(os.path.join(full, "last.npz")) as a, np.load(os.path.join(part, "last.npz")) as b:
-            gaps = {k: float(np.abs(a[k].astype(np.float64) - b[k]).max()) for k in a.files if a[k].dtype != np.uint8}
-            same = a.files == b.files and all(np.array_equal(a[k], b[k]) for k in a.files)
-        print(f"train CLI stopped after epoch 2 ({wall2:.1f} s) and resumed to {CLI_EPOCHS} ({wall3:.1f} s): last.npz "
-              f"bit-equal to the uninterrupted run's: {same} (largest gap {max(gaps.values()):.3g}); {card}",
+    # remat="full" against "none": one fp32 step from one state and batch
+    # (device letterbox, batch 8, deterministic cuDNN), then peak memory
+    # and step time of both in bf16 at batch 32.
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    small = next(iter(DataLoader(CocoDetection(tr_dir, tr_ann, img_size=IMGSZ, preprocess="device"),
+                                 batch_size=8)))
+    model = YOLOv10.create("yolov10s", class_names=names, seed=seed + 13)
+    f32 = {r: Trainer(copy.deepcopy(model), TrainConfig(augment=False, grad_clip=1.0, remat=r,
+                                                        device_preprocess=True, imgsz=IMGSZ))
+           for r in ("none", "full")}
+    loss = {r: float(t.train_step(small)["total"]) for r, t in f32.items()}
+    torch.cuda.synchronize()
+    cudnn.deterministic, cudnn.benchmark = saved
+    mn, mf = f32["none"].model, f32["full"].model
+    worst_g = worst_p = 0.0
+    for (name, a), (_, b) in zip(mf.named_parameters(), mn.named_parameters()):
+        worst_g = max(worst_g, max_err(a.grad, b.grad) / max(1e-12, float(b.grad.abs().max())))
+        worst_p = max(worst_p, max_err(a.detach(), b.detach()) / max(1e-12, float(b.detach().abs().max())))
+    stats_equal = all(torch.equal(a, b) for (k, a), (_, b) in zip(mf.state_dict().items(), mn.state_dict().items())
+                      if "running" in k)
+    moved = not torch.equal(mf.backbone.cv0.bn.running_mean, model.backbone.cv0.bn.running_mean.cuda())
+    print(f"remat full vs none, fp32 step yolov10s 640 batch 8 (device letterbox): loss {loss['full']:.6f} vs "
+          f"{loss['none']:.6f}; worst grad gap {worst_g:.3g}, worst parameter gap {worst_p:.3g} of the tensor's "
+          f"scale; BN running statistics equal: {stats_equal}", flush=True)
+    if not (worst_g <= 1e-5 and worst_p <= 1e-5 and stats_equal and moved):
+        fail("remat='full' disagrees with remat='none' (or the BN statistics did not advance once)")
+    del f32, mn, mf, small
+    torch.cuda.empty_cache()
+    peaks = {}
+    for r in ("none", "full"):
+        cfg = TrainConfig(bf16=True, augment=True, grad_clip=1.0, remat=r, device_preprocess=True, imgsz=IMGSZ)
+        base = torch.cuda.memory_allocated()
+        tr = Trainer(YOLOv10.create("yolov10s", class_names=names, seed=seed), cfg)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        tr.train_step(device_batches[0], gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, _ = timed_steps(tr, device_batches, gen, FOLDER_STEPS)
+        peaks[r] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        print(f"remat={r!r}, yolov10s 640 bf16 batch {BATCH} (device letterbox): peak memory {peaks[r]:.4f} GiB, "
+              f"ms/step median {statistics.median(step_ms):.4f} ({[round(v, 4) for v in step_ms]}); {card}",
               flush=True)
-        if not same:
-            fail("train CLI: the resumed run's last.npz differs from the uninterrupted run's")
+        del tr
+        torch.cuda.empty_cache()
+    if not peaks["full"] < peaks["none"]:
+        fail(f"remat='full' did not lower peak memory: {peaks}")
+    return tr_dir, tr_ann, va_dir, va_ann
 
-        # The transfer CLI from the train CLI's 3-class ckpt.npz onto a 2-class set.
-        with open(tr_ann) as f:
-            gt = json.load(f)
-        gt["categories"] = gt["categories"][:2]
-        gt["annotations"] = [a for a in gt["annotations"] if a["category_id"] <= 2]
-        two = os.path.join(tmp, "two_classes.json")
-        with open(two, "w") as f:
-            json.dump(gt, f)
-        tl = os.path.join(tmp, "transfer")
-        out, wall = run_cli("transfer_learn", [
+
+def phase_train_clis(seed: int, card: str, tmp: str, sets: tuple) -> None:
+    """The train and transfer CLIs on phase_train_folder's sets, two at a
+    time (item 11 of the module doc)."""
+    import numpy as np
+
+    tr_dir, tr_ann, va_dir, va_ann = sets
+    # The train CLI: 3 epochs, device letterbox, bf16, augment; at the same
+    # time a run of 2 epochs, then resumed to 3 beside the transfer CLI.
+    # Warmup is one epoch and the cosine starts at its top, so a 2-epoch
+    # run's schedule is the 3-epoch run's for its two epochs: stopping there
+    # is stopping the 3-epoch run. Deterministic algorithms make a run's bits
+    # its own, whatever runs beside it.
+    common = ["--model", "yolov10s", "--train-images", tr_dir, "--train-ann", tr_ann, "--val-images", va_dir,
+              "--val-ann", va_ann, "--imgsz", str(IMGSZ), "--batch-size", str(BATCH), "--bf16", "--augment",
+              "--preprocess", "device", "--seed", str(seed), "--log-interval", "1"]
+    full, part = os.path.join(tmp, "train_full"), os.path.join(tmp, "train_part")
+    (out, wall), (_, wall2) = run_clis(("train", common + ["--epochs", str(CLI_EPOCHS), "--out-dir", full]),
+                                       ("train", common + ["--epochs", "2", "--out-dir", part]))
+    with open(os.path.join(full, "history.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    keys = {"epoch", "loss_total", "loss_cls", "loss_reg", "steps", "time_s", "img_s", "map_50_95", "map_50"}
+    if len(rows) != CLI_EPOCHS or any(set(r) != keys for r in rows) or "eval failed" in out:
+        fail(f"train CLI: history {rows}\n{out[-3000:]}")
+    if not all(np.isfinite([r[k] for k in ("loss_total", "loss_cls", "loss_reg", "map_50_95")]).all()
+               for r in rows):
+        fail(f"train CLI: non-finite history {rows}")
+    if not rows[-1]["loss_total"] < rows[0]["loss_total"]:
+        fail(f"train CLI: the last epoch's mean loss is not below the first's: {rows}")
+    files = [f"epoch{e:03d}.npz" for e in range(1, CLI_EPOCHS + 1)] + ["last.npz", "ckpt.npz", "train_state.pt"]
+    if any(not os.path.exists(os.path.join(full, f)) for f in files):
+        fail(f"train CLI: missing checkpoints in {sorted(os.listdir(full))}")
+    print(f"train CLI (python -m leanyolo_tpu_torch.tools.train, yolov10s 640 bf16 batch {BATCH}, device "
+          f"letterbox, {CLI_EPOCHS} epochs of {FOLDER_TRAIN} images, validation on {FOLDER_VAL}) in {wall:.1f} s "
+          f"wall, beside the 2-epoch run and the shortened QT-001's training; per epoch loss_total "
+          f"{[round(r['loss_total'], 4) for r in rows]}, mAP50-95 {[r['map_50_95'] for r in rows]}, mAP50 "
+          f"{[r['map_50'] for r in rows]}, epoch s {[r['time_s'] for r in rows]}; {card}", flush=True)
+
+    # The resumed run, and beside it the transfer CLI from the train CLI's
+    # 3-class ckpt.npz onto a 2-class set.
+    with open(tr_ann) as f:
+        gt = json.load(f)
+    gt["categories"] = gt["categories"][:2]
+    gt["annotations"] = [a for a in gt["annotations"] if a["category_id"] <= 2]
+    two = os.path.join(tmp, "two_classes.json")
+    with open(two, "w") as f:
+        json.dump(gt, f)
+    tl = os.path.join(tmp, "transfer")
+    (out3, wall3), (out, wall) = run_clis(
+        ("train", common + ["--epochs", str(CLI_EPOCHS), "--out-dir", part, "--resume"]),
+        ("transfer_learn", [
             "--model", "yolov10s", "--weights", os.path.join(full, "ckpt.npz"), "--train-images", tr_dir,
             "--train-ann", two, "--val-images", tr_dir, "--val-ann", two, "--max-val-images", str(FOLDER_VAL),
             "--imgsz", str(IMGSZ), "--batch-size", str(BATCH), "--epochs", "2", "--unfreeze-epoch", "1",
-            "--seed", str(seed), "--viz-interval", "2", "--out-dir", tl])
-        cover = [ln for ln in out.splitlines() if "transfer init from" in ln]
-        skipped = int(cover[0].split("loaded, ")[1].split(" ")[0]) if cover else 0
-        vals = [ln.split(" ", 2)[2] for ln in out.splitlines() if " VAL epoch " in ln]
-        need = ("head reset to fresh random init", "UNFREEZE backbone at epoch 2", "RUN END best mAP50-95=")
-        if (not skipped or len(vals) != 2 or "VAL failed" in out or any(s not in out for s in need)
-                or not os.path.exists(os.path.join(tl, "best.npz"))):
-            fail(f"transfer CLI:\n{out[-3000:]}")
-        snaps = sorted(os.listdir(os.path.join(tl, "viz")))
-        if not snaps or snaps[0] != "step000002.jpg" or out.count("[viz] saved:") != len(snaps):
-            fail(f"transfer CLI --viz-interval 2: snapshots {snaps}")
-        print(f"transfer CLI (python -m leanyolo_tpu_torch.tools.transfer_learn, 3-class ckpt.npz onto 2 classes, "
-              f"bf16, host letterbox, unfreeze at epoch 2 of 2) in {wall:.1f} s wall: {cover[0].split(' ', 2)[2]}; "
-              f"{vals}; best.npz written; --viz-interval 2 snapshots {snaps}; {card}", flush=True)
-
+            "--seed", str(seed), "--viz-interval", "2", "--out-dir", tl]))
+    if "resumed from" not in out3:
+        fail(f"train CLI --resume did not resume:\n{out3[-3000:]}")
+    with np.load(os.path.join(full, "last.npz")) as a, np.load(os.path.join(part, "last.npz")) as b:
+        gaps = {k: float(np.abs(a[k].astype(np.float64) - b[k]).max()) for k in a.files if a[k].dtype != np.uint8}
+        same = a.files == b.files and all(np.array_equal(a[k], b[k]) for k in a.files)
+    print(f"train CLI stopped after epoch 2 ({wall2:.1f} s) and resumed to {CLI_EPOCHS} ({wall3:.1f} s, beside the "
+          f"transfer CLI): last.npz bit-equal to the uninterrupted run's: {same} (largest gap "
+          f"{max(gaps.values()):.3g}); {card}", flush=True)
+    if not same:
+        fail("train CLI: the resumed run's last.npz differs from the uninterrupted run's")
+    cover = [ln for ln in out.splitlines() if "transfer init from" in ln]
+    skipped = int(cover[0].split("loaded, ")[1].split(" ")[0]) if cover else 0
+    vals = [ln.split(" ", 2)[2] for ln in out.splitlines() if " VAL epoch " in ln]
+    need = ("head reset to fresh random init", "UNFREEZE backbone at epoch 2", "RUN END best mAP50-95=")
+    if (not skipped or len(vals) != 2 or "VAL failed" in out or any(s not in out for s in need)
+            or not os.path.exists(os.path.join(tl, "best.npz"))):
+        fail(f"transfer CLI:\n{out[-3000:]}")
+    snaps = sorted(os.listdir(os.path.join(tl, "viz")))
+    if not snaps or snaps[0] != "step000002.jpg" or out.count("[viz] saved:") != len(snaps):
+        fail(f"transfer CLI --viz-interval 2: snapshots {snaps}")
+    print(f"transfer CLI (python -m leanyolo_tpu_torch.tools.transfer_learn, 3-class ckpt.npz onto 2 classes, "
+          f"bf16, host letterbox, unfreeze at epoch 2 of 2) in {wall:.1f} s wall: {cover[0].split(' ', 2)[2]}; "
+          f"{vals}; best.npz written; --viz-interval 2 snapshots {snaps}; {card}", flush=True)
 
 
 # The remaining CLIs and utils.
@@ -2474,15 +2764,18 @@ def phase_train_folder(seed: int, records: dict, card: str) -> None:
 # kernel's base identifier) -> their launch counters' names.
 PROFILE_FAMILIES = {"stem_tc_kernel": "stem", "dw7x7_kernel": "dw7x7", "topk_kernel": "topk",
                     "s2d_wgmma_kernel": "s2dconv", "gemm_kernel": "bmm", "argmax_kernel": "argmax",
-                    "nms_kernel": "nms", "mpbwd_vec_kernel": "mpbwd", "mpbwd_kernel": "mpbwd"}
-PROFILE_STEPS = 5
-TRAIN_PROFILE_STEPS = 3
+                    "nms_kernel": "nms", "mpbwd_vec_kernel": "mpbwd", "mpbwd_kernel": "mpbwd",
+                    "gather_rows_kernel": "gather_rows", "dfl_boxes_kernel": "dfl_boxes"}
+PROFILE_STEPS = 3
+TRAIN_PROFILE_STEPS = 2
 TRAIN_DEVICE_MS = 113.87  # PERF.md section 5: device time a training step, PRs 2 and 6
 # The JAX package's SQA step QT-001 (sqa.yaml): make_learnable_coco sets of
 # 240 (seed 0) and 60 held-out (seed 777) images at 160 px, yolov10n trained
-# 30 epochs at batch 16 (bf16, augment, clip 1.0, 8 boxes), validated by the
-# top-k decode, gated at held-out mAP50 0.2.
-QT001 = {"train": (240, 0), "val": (60, 777), "imgsz": 160, "epochs": 30, "batch": 16, "map50_min": 0.2}
+# at batch 16 (bf16, augment, clip 1.0, 8 boxes), validated by the top-k
+# decode, gated at held-out mAP50 0.2. QT-001 trains 30 epochs; this run
+# trains 20 of them, for its time limit (its loss has flattened by then): a
+# shortened QT-001, named so in what it prints.
+QT001 = {"train": (240, 0), "val": (60, 777), "imgsz": 160, "epochs": 20, "batch": 16, "map50_min": 0.2}
 
 
 # check_imports, then an import of every port module, with `jax`, `jaxlib`
@@ -2507,14 +2800,21 @@ def run_tool(module: str, args, ok=True) -> tuple:
     """`python -m leanyolo_tpu_torch.tools.<module> args`, as a user runs it:
     (stdout, stderr, wall seconds); fails unless it exits 0 (ok=True) or
     not (ok=False); ok=None leaves the exit to the caller's reading."""
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", f"leanyolo_tpu_torch.tools.{module}", *map(str, args)], cwd=HERE,
-                       capture_output=True, text=True, timeout=900)
-    wall = time.perf_counter() - t0
-    if ok is not None and (r.returncode == 0) != ok:
-        fail(f"{module} {list(args)}: rc {r.returncode}, expected {'0' if ok else 'non-zero'}\nstdout "
-             f"{r.stdout[-3000:]}\nstderr {r.stderr[-3000:]}")
-    return r.stdout, r.stderr, wall
+    out, err, rc, wall = Job(tool_argv(module, args)).result()
+    if ok is not None and (rc == 0) != ok:
+        fail(f"{module} {list(args)}: rc {rc}, expected {'0' if ok else 'non-zero'}\nstdout "
+             f"{out[-3000:]}\nstderr {err[-3000:]}")
+    return out, err, wall
+
+
+def run_at_once(cmds) -> list:
+    """Run independent checks that time nothing, each an argv list, as
+    processes at the same time: [(stdout, stderr, returncode)] in order."""
+    return [r[:3] for r in wait_all([Job(c) for c in cmds])]
+
+
+def tool_argv(module: str, args) -> list:
+    return [sys.executable, "-m", f"leanyolo_tpu_torch.tools.{module}", *map(str, args)]
 
 
 def profile_counts(tag: str, data: dict, out_dir: str, steps: int, want: dict) -> None:
@@ -2539,21 +2839,9 @@ def profile_counts(tag: str, data: dict, out_dir: str, steps: int, want: dict) -
         fail(f"profile_step {tag}: the port's kernels {per_step} a step ({total} in all), expected {want} a step")
 
 
-def phase_tools(seed: int, card: str, serving_profile: dict) -> None:
-    """The remaining CLIs and utils on the card (item 14 of the module doc)."""
-    import copy
-    import tempfile
-
-    import numpy as np
-    import torch
-    from leanyolo_tpu_torch import Predictor, YOLOv10, get_model, kernels
-    from leanyolo_tpu_torch.data.coco import coco80_class_names
-    from leanyolo_tpu_torch.engine.validator import validate_coco
-    from leanyolo_tpu_torch.tools.convergence_gate import loss_curve_stats
-
-    sys.path.insert(0, os.path.join(HERE, "tests"))
-    from synth_coco import make_learnable_coco
-
+def phase_profile_step(card: str, serving_profile: dict) -> None:
+    """profile_step on the serving and the training step, alone on the card
+    (item 14 of the module doc)."""
     with tempfile.TemporaryDirectory() as tmp:
         # a) profile_step on the serving path, both decodes, against the
         # serving step's profile in phase 5.
@@ -2594,132 +2882,166 @@ def phase_tools(seed: int, card: str, serving_profile: dict) -> None:
         print(f"training step device time: profile_step {data['total_ms_per_step']:.4f} ms/step beside PERF.md "
               f"section 5's {TRAIN_DEVICE_MS} ms (PRs 2 and 6); {card}", flush=True)
 
-        # c) QT-001 through the port's train, val and convergence_gate CLIs.
-        sets = {}
-        for part in ("train", "val"):
-            n, s = QT001[part]
-            sets[part] = make_learnable_coco(os.path.join(tmp, f"qt_{part}"), n_images=n, seed=s)
-        run = os.path.join(tmp, "qt_run")
-        out, _, train_wall = run_tool("train", [
-            "--model", "yolov10n", "--train-images", sets["train"][0], "--train-ann", sets["train"][1], "--imgsz",
-            QT001["imgsz"], "--epochs", QT001["epochs"], "--batch-size", QT001["batch"], "--bf16", "--augment",
-            "--grad-clip", "1.0", "--max-boxes", "8", "--out-dir", run])
-        with open(os.path.join(run, "history.jsonl")) as f:
-            rows = [json.loads(line) for line in f]
-        if len(rows) != QT001["epochs"] or not np.isfinite([r["loss_total"] for r in rows]).all():
-            fail(f"QT-001 train CLI: history {rows}\n{out[-3000:]}")
-        val_csv = os.path.join(tmp, "qt_val.csv")
-        out, _, val_wall = run_tool("val", [
-            "--model", "yolov10n", "--weights", os.path.join(run, "ckpt.npz"), "--images-dir", sets["val"][0],
-            "--ann-json", sets["val"][1], "--imgsz", QT001["imgsz"], "--batch-size", QT001["batch"], "--decode",
-            "topk", "--log-csv", val_csv])
-        map_line = next(ln for ln in out.splitlines() if ln.startswith("mAP50-95="))
-        gate, gate_err, _ = run_tool("convergence_gate", [
-            "--history", os.path.join(run, "history.jsonl"), "--val-csv", val_csv, "--map50-min", QT001["map50_min"]],
-            ok=None)
-        stats = loss_curve_stats(rows)
-        print(f"QT-001 through the port (yolov10n {QT001['imgsz']} px, {QT001['epochs']} epochs of "
-              f"{QT001['train'][0]} images at batch {QT001['batch']}, bf16, augment, clip 1.0): train CLI "
-              f"{train_wall:.1f} s wall, epoch s {[r['time_s'] for r in rows]}; loss_total by epoch "
-              f"{[round(r['loss_total'], 4) for r in rows]}; ratio {stats['ratio']:.4f}, decreasing "
-              f"{stats['decreasing_frac']:.4f}; held-out ({QT001['val'][0]} images) {map_line} in {val_wall:.1f} s; "
-              f"{card}\nconvergence_gate:\n{gate.rstrip()}\n{gate_err.rstrip()}", flush=True)
-        if "mAP arm (STRICT, backend=cuda)" not in gate or not gate.rstrip().endswith("convergence gate: PASSED"):
-            fail("QT-001: the convergence gate did not pass on backend cuda")
 
-        # d) A release-format yolov10n (random, BN calibrated on the held-out
-        # images, scores spread) converted by the CLI, served against its
-        # source, then the parity CLI on the held-out set labelled by it.
-        from leanyolo_tpu_torch.data.dataset import CocoDetection
+def start_qt001(tmp: str) -> dict:
+    """The shortened QT-001's sets written under `tmp` and its train CLI
+    started, to run beside the phases up to phase_tools, which reads it:
+    {"sets", "run" (its out-dir), "job"}."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from synth_coco import make_learnable_coco
 
-        ds = CocoDetection(*sets["val"], img_size=QT001["imgsz"])
-        raw = [ds.load_image(i) for i in range(len(ds))]
-        model = YOLOv10.create("yolov10n", class_names=[f"c{i}" for i in range(NC)], seed=seed + 15).cuda().eval()
-        model = calibrate(model, torch.from_numpy(np.stack(raw)).cuda(), logits=VAL_LOGITS, var_scale=VAL_VAR_SCALE)
-        pt, npz = os.path.join(tmp, "yolov10n.pt"), os.path.join(tmp, "yolov10n_coco.npz")
-        write_release_file(release_state_dict(model, fused=False), pt)
-        out, _, wall = run_tool("convert_official_weights", ["--model", "yolov10n", "--local-pt", pt, "--out", npz])
-        if "missing 0" not in out or f"saved: {npz}" not in out:
-            fail(f"convert_official_weights:\n{out}")
-        names = coco80_class_names()
-        loaded = get_model("yolov10n", weights=npz, class_names=names)
-        src16 = copy.deepcopy(model)
-        src16.load_state_dict({k: v if k.startswith("input_") else v.half().float()
-                               for k, v in model.state_dict().items()})
-        rng = np.random.RandomState(seed + 16)
-        x32 = torch.from_numpy(rng.randint(0, 256, (BATCH, IMGSZ, IMGSZ, 3)).astype(np.uint8)).cuda()
-        cudnn = torch.backends.cudnn
-        saved = (cudnn.deterministic, cudnn.benchmark)
-        cudnn.deterministic, cudnn.benchmark = True, False
-        try:
-            pred = Predictor(loaded, imgsz=IMGSZ, decode="topk", dtype="bfloat16", fuse=True, max_det=MAX_DET)
-            ref = Predictor(src16, imgsz=IMGSZ, decode="topk", dtype="bfloat16", fuse=True, max_det=MAX_DET)
-            launched, outs = [], []
-            for p in (pred, ref):
-                kernels.reset_launches()
-                outs.append(p.run_batch(x32))
-                torch.cuda.synchronize()
-                launched.append({n: kernels.LAUNCHES[n] for n in PER_REQUEST})
-            (dets, num), (want_dets, want_num) = outs
-            maps, want_maps = pred.raw(x32), ref.raw(x32)
+    sets = {}
+    for part in ("train", "val"):
+        n, s = QT001[part]
+        sets[part] = make_learnable_coco(os.path.join(tmp, f"qt_{part}"), n_images=n, seed=s)
+    run = os.path.join(tmp, "qt_run")
+    job = Job(tool_argv("train", [
+        "--model", "yolov10n", "--train-images", sets["train"][0], "--train-ann", sets["train"][1], "--imgsz",
+        QT001["imgsz"], "--epochs", QT001["epochs"], "--batch-size", QT001["batch"], "--bf16", "--augment",
+        "--grad-clip", "1.0", "--max-boxes", "8", "--out-dir", run]))
+    return {"sets": sets, "run": run, "job": job}
+
+
+def phase_tools(seed: int, card: str, tmp: str, qt: dict) -> None:
+    """The remaining CLIs and utils on the card (item 14 of the module doc),
+    profile_step apart; the shortened QT-001 (start_qt001) last."""
+    import copy
+
+    import numpy as np
+    import torch
+    from leanyolo_tpu_torch import Predictor, YOLOv10, get_model, kernels
+    from leanyolo_tpu_torch.data.coco import coco80_class_names
+    from leanyolo_tpu_torch.engine.validator import validate_coco
+    from leanyolo_tpu_torch.tools.convergence_gate import loss_curve_stats
+
+    sets = qt["sets"]
+    # d) A release-format yolov10n (random, BN calibrated on the held-out
+    # images, scores spread) converted by the CLI, served against its
+    # source, then the parity CLI on the held-out set labelled by it.
+    from leanyolo_tpu_torch.data.dataset import CocoDetection
+
+    ds = CocoDetection(*sets["val"], img_size=QT001["imgsz"])
+    raw = [ds.load_image(i) for i in range(len(ds))]
+    model = YOLOv10.create("yolov10n", class_names=[f"c{i}" for i in range(NC)], seed=seed + 15).cuda().eval()
+    model = calibrate(model, torch.from_numpy(np.stack(raw)).cuda(), logits=VAL_LOGITS, var_scale=VAL_VAR_SCALE)
+    pt, npz = os.path.join(tmp, "yolov10n.pt"), os.path.join(tmp, "yolov10n_coco.npz")
+    write_release_file(release_state_dict(model, fused=False), pt)
+    out, _, wall = run_tool("convert_official_weights", ["--model", "yolov10n", "--local-pt", pt, "--out", npz])
+    if "missing 0" not in out or f"saved: {npz}" not in out:
+        fail(f"convert_official_weights:\n{out}")
+    names = coco80_class_names()
+    loaded = get_model("yolov10n", weights=npz, class_names=names)
+    src16 = copy.deepcopy(model)
+    src16.load_state_dict({k: v if k.startswith("input_") else v.half().float()
+                           for k, v in model.state_dict().items()})
+    rng = np.random.RandomState(seed + 16)
+    x32 = torch.from_numpy(rng.randint(0, 256, (BATCH, IMGSZ, IMGSZ, 3)).astype(np.uint8)).cuda()
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        pred = Predictor(loaded, imgsz=IMGSZ, decode="topk", dtype="bfloat16", fuse=True, max_det=MAX_DET)
+        ref = Predictor(src16, imgsz=IMGSZ, decode="topk", dtype="bfloat16", fuse=True, max_det=MAX_DET)
+        launched, outs = [], []
+        for p in (pred, ref):
+            kernels.reset_launches()
+            outs.append(p.run_batch(x32))
             torch.cuda.synchronize()
-        finally:
-            cudnn.deterministic, cudnn.benchmark = saved
-        check_dets(dets, num, BATCH)
-        same = (torch.equal(dets, want_dets) and torch.equal(num, want_num)
-                and all(torch.equal(a, b) for lvl, w in zip(maps, want_maps) for a, b in zip(lvl, w)))
-        print(f"convert_official_weights --local-pt (release-format yolov10n, fp16) in {wall:.1f} s: "
-              f"{out.splitlines()[0]}; get_model(weights=<npz>) serves batch {BATCH} ({IMGSZ} px, bf16 folded, "
-              f"launches {launched[0]}) bit-equal to the source module: {same}", flush=True)
-        # yolov10n folds to its own counts (fewer bmm, more s2dconv than yolov10s): the source's.
-        if not same or launched[0] != launched[1] or not all(launched[0].values()):
-            fail("convert_official_weights: the converted checkpoint does not serve as its source does")
-        del pred, ref, maps, want_maps
+            launched.append({n: kernels.LAUNCHES[n] for n in PER_REQUEST})
+        (dets, num), (want_dets, want_num) = outs
+        maps, want_maps = pred.raw(x32), ref.raw(x32)
+        torch.cuda.synchronize()
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    check_dets(dets, num, BATCH)
+    same = (torch.equal(dets, want_dets) and torch.equal(num, want_num)
+            and all(torch.equal(a, b) for lvl, w in zip(maps, want_maps) for a, b in zip(lvl, w)))
+    print(f"convert_official_weights --local-pt (release-format yolov10n, fp16) in {wall:.1f} s: "
+          f"{out.splitlines()[0]}; get_model(weights=<npz>) serves batch {BATCH} ({IMGSZ} px, bf16 folded, "
+          f"launches {launched[0]}) bit-equal to the source module: {same}", flush=True)
+    # yolov10n folds to its own counts (fewer bmm, more s2dconv than yolov10s): the source's.
+    if not same or launched[0] != launched[1] or not all(launched[0].values()):
+        fail("convert_official_weights: the converted checkpoint does not serve as its source does")
+    del pred, ref, maps, want_maps
 
-        pred32 = Predictor(loaded, imgsz=QT001["imgsz"], decode="topk", dtype="float32", max_det=MAX_DET)
-        dets = []
-        for s in range(0, len(raw), QT001["batch"]):
-            dets += pred32.predict_images(raw[s:s + QT001["batch"]], apply_conf_filter=False)
-        entries = ds.images
-        anns, _ = self_label(dets, entries)
-        cats = [{"id": c, "name": n} for c, n in zip(COCO_CAT_IDS, names)]
-        ann80 = os.path.join(tmp, "qt_val_80.json")
-        with open(ann80, "w") as f:
-            json.dump({"images": entries, "annotations": anns, "categories": cats}, f)
-        kw = dict(images_dir=sets["val"][0], ann_json=ann80, imgsz=QT001["imgsz"], batch_size=QT001["batch"])
-        in_process = validate_coco(loaded, decode="topk", conf_thresh=0.001, iou_thresh=0.65, **kw)["map_50_95"]
-        argv = ["--model", "yolov10n", "--weights", npz, "--images-dir", kw["images_dir"], "--ann-json", ann80,
-                "--imgsz", kw["imgsz"], "--batch-size", kw["batch_size"]]
-        out, _, wall = run_tool("check_map_parity", argv + ["--official-map", repr(in_process)])
-        if not out.rstrip().endswith("PARITY OK"):
-            fail(f"check_map_parity:\n{out}")
-        out_bad, err_bad, _ = run_tool("check_map_parity", argv + ["--official-map", repr(in_process + 0.05)],
-                                       ok=False)
-        if "PARITY FAILED" not in err_bad:
-            fail(f"check_map_parity off by 0.05:\n{out_bad}\n{err_bad}")
-        print(f"check_map_parity on the held-out set self-labelled by the converted yolov10n ({len(anns)} labels "
-              f"and crowd regions, 80 categories) against validate_coco in process (mAP50-95 {in_process!r}), in "
-              f"{wall:.1f} s: {out.strip().splitlines()[-2]} -> PARITY OK; with --official-map off by 0.05: "
-              f"{err_bad.strip().splitlines()[-1]}", flush=True)
+    pred32 = Predictor(loaded, imgsz=QT001["imgsz"], decode="topk", dtype="float32", max_det=MAX_DET)
+    dets = []
+    for s in range(0, len(raw), QT001["batch"]):
+        dets += pred32.predict_images(raw[s:s + QT001["batch"]], apply_conf_filter=False)
+    entries = ds.images
+    anns, _ = self_label(dets, entries)
+    cats = [{"id": c, "name": n} for c, n in zip(COCO_CAT_IDS, names)]
+    ann80 = os.path.join(tmp, "qt_val_80.json")
+    with open(ann80, "w") as f:
+        json.dump({"images": entries, "annotations": anns, "categories": cats}, f)
+    kw = dict(images_dir=sets["val"][0], ann_json=ann80, imgsz=QT001["imgsz"], batch_size=QT001["batch"])
+    in_process = validate_coco(loaded, decode="topk", conf_thresh=0.001, iou_thresh=0.65, **kw)["map_50_95"]
+    argv = ["--model", "yolov10n", "--weights", npz, "--images-dir", kw["images_dir"], "--ann-json", ann80,
+            "--imgsz", kw["imgsz"], "--batch-size", kw["batch_size"]]
+    t0 = time.perf_counter()
+    (out, err, rc), (out_bad, err_bad, rc_bad) = run_at_once(
+        [tool_argv("check_map_parity", argv + ["--official-map", repr(in_process)]),
+         tool_argv("check_map_parity", argv + ["--official-map", repr(in_process + 0.05)])])
+    wall = time.perf_counter() - t0
+    if rc or not out.rstrip().endswith("PARITY OK"):
+        fail(f"check_map_parity: rc {rc}\n{out}\n{err[-3000:]}")
+    if not rc_bad or "PARITY FAILED" not in err_bad:
+        fail(f"check_map_parity off by 0.05: rc {rc_bad}\n{out_bad}\n{err_bad}")
+    print(f"check_map_parity on the held-out set self-labelled by the converted yolov10n ({len(anns)} labels "
+          f"and crowd regions, 80 categories) against validate_coco in process (mAP50-95 {in_process!r}), both "
+          f"runs at once in {wall:.1f} s: {out.strip().splitlines()[-2]} -> PARITY OK; with --official-map off "
+          f"by 0.05: {err_bad.strip().splitlines()[-1]}", flush=True)
 
-        # e) check_imports over the port as a user runs it, and again with
-        # JAX hidden from the import system (this machine may have it): the
-        # port's imports resolve without it, and every port module imports.
-        import importlib.util
+    # e) check_imports over the port as a user runs it, and again with
+    # JAX hidden from the import system (this machine may have it): the
+    # port's imports resolve without it, and every port module imports.
+    import importlib.util
 
-        out, _, _ = run_tool("check_imports", [])
-        r = subprocess.run([sys.executable, "-c", NO_JAX], cwd=HERE, capture_output=True, text=True, timeout=300)
-        print(f"check_imports over leanyolo_tpu_torch: {out.strip()}; with JAX hidden (installed here: "
-              f"{importlib.util.find_spec('jax') is not None}): rc {r.returncode}, {r.stdout.strip()}", flush=True)
-        if (r.returncode or out != r.stdout.splitlines()[0] + "\n"
-                or not out.rstrip().endswith("top-level imports resolvable")):
-            fail(f"check_imports: the port's imports do not all resolve without JAX\n{r.stdout}\n{r.stderr[-3000:]}")
+    (out, err, rc), (r_out, r_err, r_rc) = run_at_once([tool_argv("check_imports", []),
+                                                         [sys.executable, "-c", NO_JAX]])
+    print(f"check_imports over leanyolo_tpu_torch: {out.strip()}; with JAX hidden (installed here: "
+          f"{importlib.util.find_spec('jax') is not None}): rc {r_rc}, {r_out.strip()}", flush=True)
+    if (rc or r_rc or out != r_out.splitlines()[0] + "\n"
+            or not out.rstrip().endswith("top-level imports resolvable")):
+        fail(f"check_imports: the port's imports do not all resolve without JAX\n{err[-3000:]}\n{r_out}\n"
+             f"{r_err[-3000:]}")
+
+    # c) The shortened QT-001 through the port's train (started by
+    # start_qt001), val and convergence_gate CLIs.
+    out, err, rc, train_wall = qt["job"].result()
+    if rc != 0:
+        fail(f"shortened QT-001 train CLI: rc {rc}\nstdout {out[-3000:]}\nstderr {err[-3000:]}")
+    run = qt["run"]
+    with open(os.path.join(run, "history.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    if len(rows) != QT001["epochs"] or not np.isfinite([r["loss_total"] for r in rows]).all():
+        fail(f"shortened QT-001 train CLI: history {rows}\n{out[-3000:]}")
+    val_csv = os.path.join(tmp, "qt_val.csv")
+    out, _, val_wall = run_tool("val", [
+        "--model", "yolov10n", "--weights", os.path.join(run, "ckpt.npz"), "--images-dir", sets["val"][0],
+        "--ann-json", sets["val"][1], "--imgsz", QT001["imgsz"], "--batch-size", QT001["batch"], "--decode",
+        "topk", "--log-csv", val_csv])
+    map_line = next(ln for ln in out.splitlines() if ln.startswith("mAP50-95="))
+    gate, gate_err, _ = run_tool("convergence_gate", [
+        "--history", os.path.join(run, "history.jsonl"), "--val-csv", val_csv, "--map50-min", QT001["map50_min"]],
+        ok=None)
+    stats = loss_curve_stats(rows)
+    print(f"shortened QT-001 through the port (yolov10n {QT001['imgsz']} px, {QT001['epochs']} of its 30 epochs of "
+          f"{QT001['train'][0]} images at batch {QT001['batch']}, bf16, augment, clip 1.0): train CLI "
+          f"{train_wall:.1f} s wall (beside the train and transfer CLIs and this phase's checks), epoch s "
+          f"{[r['time_s'] for r in rows]}; loss_total by epoch "
+          f"{[round(r['loss_total'], 4) for r in rows]}; ratio {stats['ratio']:.4f}, decreasing "
+          f"{stats['decreasing_frac']:.4f}; held-out ({QT001['val'][0]} images) {map_line} in {val_wall:.1f} s; "
+          f"{card}\nconvergence_gate:\n{gate.rstrip()}\n{gate_err.rstrip()}", flush=True)
+    if "mAP arm (STRICT, backend=cuda)" not in gate or not gate.rstrip().endswith("convergence gate: PASSED"):
+        fail("shortened QT-001: the convergence gate did not pass on backend cuda")
 
 
 # Drawing and export.
 EXPORT_PER_CALL = {"stem": 1, "dw7x7": 2, "s2dconv": 2, "bmm": 45, "topk": 1, "argmax": 1, "nms": 0}
 EXPORT_PER_CALL_NMS = {"stem": 1, "dw7x7": 2, "s2dconv": 2, "bmm": 45, "topk": 1, "argmax": 0, "nms": 1}
 BUCKETS = (320, 640)
+EXPORT_RUNS = 10  # timed requests a median, artifact against live module and predictor
 BF16_NMS_THRESHOLDS = (0.45, 0.451, 0.65)  # 0.451 rounds up in bf16
 DIRECT_LEVELS = ((80, 80), (40, 40), (20, 20))
 
@@ -2944,8 +3266,9 @@ def phase_export(model, seed: int, card: str) -> None:
                 runs = {"artifact": lambda: art(xs[b]), "live": lambda: fn(xs[b]), "predictor": lambda: pred.run_batch(xb)}
                 ms = {k: [] for k in runs}
                 for k in ("artifact", "live", "predictor", "predictor", "live", "artifact"):
-                    ms[k].append(cuda_ms(runs[k]))
-                print(f"{label} request ms at batch {b} (CUDA events, median of 20 from an idle card, two runs in "
+                    ms[k].append(cuda_ms(runs[k], runs=EXPORT_RUNS))
+                print(f"{label} request ms at batch {b} (CUDA events, median of {EXPORT_RUNS} from an idle card, two "
+                      f"runs in "
                       f"turns): artifact {ms['artifact']}, live build_serving_fn {ms['live']}, Predictor.run_batch "
                       f"{ms['predictor']}; {card}", flush=True)
             dev = [device_ms(lambda: art(xs[BATCH]), reps=3), device_ms(lambda: fn(xs[BATCH]), reps=3),
@@ -3078,7 +3401,7 @@ def phase_infer_cli(model, seed: int, card: str) -> None:
 
 # Phase 13: data parallelism, one process a card (leanyolo_tpu_torch/parallel/).
 DP_SEED = 13  # added to SEED: the model, the batch and the augmentation draws of the phase
-DP_WARMUP, DP_TIMED, DP_PAIR_TIMED = 3, 10, 5
+DP_WARMUP, DP_TIMED, DP_PAIR_TIMED = 3, 6, 3
 
 
 @contextlib.contextmanager
@@ -3220,8 +3543,9 @@ def grad_report(got: dict, ref: dict, n: int = 4) -> str:
 
 def dp_rank(argv) -> int:
     """A rank of phase 13: python3 chip_smoke.py --rank R --world W --port P
-    --task world1|pair --root DIR. 'world1': one NCCL rank, the mesh step
-    against the plain step and both timed; 'pair': two ranks (NCCL on two
+    --task world1|pair --root DIR [--after FILE]. 'world1': one NCCL rank,
+    the mesh step against the plain step and both timed (once FILE exists);
+    'pair': two ranks (NCCL on two
     cards, or gloo on the one card), the data-parallel step, the predictor
     on a mesh and the sharded validation. Saves what it saw under DIR."""
     import argparse
@@ -3233,6 +3557,7 @@ def dp_rank(argv) -> int:
         p.add_argument(flag, type=int, required=True)
     p.add_argument("--task", choices=("world1", "pair"), required=True)
     p.add_argument("--root", required=True)
+    p.add_argument("--after", default=None, help="a file whose existence the timed steps wait for")
     args = p.parse_args(argv)
     sys.path.insert(0, HERE)
     import numpy as np
@@ -3295,6 +3620,10 @@ def dp_rank(argv) -> int:
             say(f"world-1 mesh step {d}: loss {meshed['losses']['total']!r} against the plain step's "
                 f"{plain['losses']['total']!r}; bit-equal losses, gradients, statistics and parameters: {same}; "
                 f"worst gradient gap {grad_gap(meshed['grads'], plain['grads'])!r}; mpbwd launches {mpbwd}")
+        if args.after:  # the job started beside this one ends first, so the timing has the card alone
+            deadline = time.monotonic() + 900
+            while not os.path.exists(args.after) and time.monotonic() < deadline:
+                time.sleep(0.1)
         tp, tm = Trainer(copy.deepcopy(model), cfgs["bf16"]), Trainer(copy.deepcopy(model), cfgs["bf16"], mesh=mesh)
         gp, gm = (torch.Generator(device="cuda").manual_seed(seed) for _ in range(2))
         for _ in range(DP_WARMUP):
@@ -3419,12 +3748,11 @@ def same_detections(a: list, b: list):
 
 def phase_parallel(model, seed: int, card: str) -> None:
     """Data parallelism on the card (item 13 of the module doc)."""
-    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     import torch
     from leanyolo_tpu_torch import kernels
     from leanyolo_tpu_torch.engine.validator import validate_coco
-    from leanyolo_tpu_torch.parallel.distributed import free_port
     from leanyolo_tpu_torch.parallel.dryrun import check_ranks, spawn_ranks
 
     n_cards = torch.cuda.device_count()
@@ -3432,13 +3760,21 @@ def phase_parallel(model, seed: int, card: str) -> None:
           flush=True)
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     with tempfile.TemporaryDirectory() as tmp:
-        def launch(task: str, world: int, timeout: float):
-            port = free_port()
+        pair_done = os.path.join(tmp, "pair_done")
+
+        def launch(task: str, world: int, port: int, extra=()):
+            """The task's ranks: (results, wall s); the pair then leaves pair_done."""
             t0 = time.perf_counter()
-            results = spawn_ranks(lambda r: [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--rank", str(r),
-                                             "--world", str(world), "--port", str(port), "--task", task, "--root",
-                                             tmp], world, timeout=timeout, env=env)
-            wall = time.perf_counter() - t0
+            try:
+                results = spawn_ranks(lambda r: [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--rank",
+                                                 str(r), "--world", str(world), "--port", str(port), "--task", task,
+                                                 "--root", tmp, *extra], world, timeout=900, env=env)
+            finally:
+                if task == "pair":
+                    open(pair_done, "w").close()
+            return results, time.perf_counter() - t0
+
+        def report(task: str, world: int, results, wall):
             for r, (_, out, _) in enumerate(results):
                 for line in out.splitlines():
                     print(f"  [{task} rank {r}] {line}", flush=True)
@@ -3446,11 +3782,30 @@ def phase_parallel(model, seed: int, card: str) -> None:
                 check_ranks(results, f"parallel {task}")
             except RuntimeError as e:
                 fail(str(e))
-            print(f"parallel {task}: {world} rank(s) done in {wall:.1f} s (start-up included)", flush=True)
+            print(f"parallel {task}: {world} rank(s) done in {wall:.1f} s (start-up included, both tasks at once)",
+                  flush=True)
             return [torch.load(os.path.join(tmp, f"{task}_rank{r}.pt"), weights_only=True) for r in range(world)]
 
-        # One NCCL rank: the mesh step bit-equal to the plain step, both timed.
-        (w1,) = launch("world1", 1, 600)
+        # One NCCL rank (the mesh step bit-equal to the plain step, both
+        # timed once the pair has ended) and two ranks (NCCL on two cards, or
+        # gloo on the one card), at once: the pair once the sharded
+        # validation's set is labelled, as item 10 labels it.
+        ports = free_ports(2)
+        with ThreadPoolExecutor(2) as pool:
+            w1_run = pool.submit(launch, "world1", 1, ports[0], ("--after", pair_done))
+            try:
+                images_dir, _, ann, _, _, _, npz, loaded, pred32 = labelled_val_set(model, seed, tmp)
+                del pred32
+                torch.cuda.empty_cache()
+                with open(os.path.join(tmp, "val.json"), "w") as f:
+                    json.dump({"images_dir": images_dir, "ann": ann, "npz": npz,
+                               "dets": os.path.join(tmp, "dets2.json")}, f)
+            except BaseException:
+                open(pair_done, "w").close()  # the one rank's timing waits for nothing more
+                raise
+            pair_run = pool.submit(launch, "pair", 2, ports[1])
+            w1_run, pair_run = w1_run.result(), pair_run.result()
+        (w1,) = report("world1", 1, *w1_run)
         for d in ("fp32", "bf16"):
             if not w1[d]["bit_equal"] or w1[d]["mpbwd"] != 3:
                 fail(f"parallel world-1 {d}: mesh step bit-equal {w1[d]['bit_equal']}, mpbwd {w1[d]['mpbwd']}")
@@ -3458,15 +3813,7 @@ def phase_parallel(model, seed: int, card: str) -> None:
         print(f"parallel world-1 (NCCL, one rank): bf16 step {w1['ms']['plain']!r} ms plain, {w1['ms']['mesh']!r} "
               f"ms on the mesh ({over:+.4f}); collectives a step {w1['collectives']}; {card}", flush=True)
 
-        # The sharded validation's set, labelled as item 10 labels it.
-        images_dir, _, ann, _, _, _, npz, loaded, pred32 = labelled_val_set(model, seed, tmp)
-        del pred32
-        torch.cuda.empty_cache()
-        with open(os.path.join(tmp, "val.json"), "w") as f:
-            json.dump({"images_dir": images_dir, "ann": ann, "npz": npz, "dets": os.path.join(tmp, "dets2.json")}, f)
-
-        # Two ranks: NCCL on two cards, or gloo on the one card.
-        pair = launch("pair", 2, 900)
+        pair = report("pair", 2, *pair_run)
         backend = pair[0]["backend"]
         print(f"parallel two ranks: {backend} on cuda:{pair[0]['card']} and cuda:{pair[1]['card']}"
               + ("" if pair[0]["card"] != pair[1]["card"] else
@@ -3515,7 +3862,7 @@ def phase_parallel(model, seed: int, card: str) -> None:
             fail("parallel two ranks: the bf16 data-parallel step is further from one process than bf16 is from fp32")
         ms = [statistics.median(rk["ms"]) for rk in pair]
         print(f"parallel two ranks bf16 step, {BATCH // 2} rows a rank: {ms[0]!r} / {ms[1]!r} ms (median of "
-              f"{DP_PAIR_TIMED}, each rank's CUDA events){'; not a scaling number: both ranks share one card' if pair[0]['card'] == pair[1]['card'] else ''}; "
+              f"{DP_PAIR_TIMED}, each rank's CUDA events, beside the one-rank job){'; not a scaling number: both ranks share one card' if pair[0]['card'] == pair[1]['card'] else ''}; "
               f"{card}", flush=True)
         for name, per in (("topk", PER_REQUEST), ("nms", PER_REQUEST_NMS)):
             a, b = pair[0]["predict"][name], pair[1]["predict"][name]
@@ -3551,11 +3898,20 @@ def phase_parallel(model, seed: int, card: str) -> None:
 
 
 SPLIT_SEED = 16  # added to SEED: the images of the phase
-# (mesh kind, n_data, n_second) a job runs, by its process count.
-SPLIT_JOBS = {2: (("sp", 1, 2), ("tp", 1, 2)), 4: (("sp", 1, 4),)}
-SPLIT_TIMED = 2  # after two untimed requests (the counted one, then the maps')
+# The meshes served, each by a job of n_data x n_second ranks of its own;
+# the jobs run at once.
+SPLIT_JOBS = (("sp", 1, 2), ("tp", 1, 2), ("sp", 1, 4))
+# Timed requests a decode, after two untimed ones (the counted one, then the
+# maps'): one, since a tp(1,2) request over gloo takes seconds and the run's
+# time limit is near.
+SPLIT_TIMED = 1
 SPLIT_FP32_BATCH = 2
 SPLIT_PROFILED = 2  # requests a rank's device profile holds
+# Profiles a rank takes at most for its device time: four where each rank
+# has a card of its own; one where the ranks share the card, where every
+# profile lost records once the jobs ran at once (the other three cost a
+# tp(1,2) rank about 40 s of requests).
+SPLIT_PROFILE_TRIES = {"own": 4, "shared": 1}
 SPLIT_DECODES = {"topk": {}, "nms": dict(decode="nms", conf_thresh=NMS_SETTINGS["infer"][0],
                                          iou_thresh=NMS_SETTINGS["infer"][1], class_wise_nms=True)}
 # An op on a band or slice may differ from the whole op only where its sums
@@ -3595,18 +3951,20 @@ def topk_flat(maps, k: int):
 
 def split_rank(argv) -> int:
     """A rank of the spatial and tensor parallel phase: python3 chip_smoke.py
-    --split-rank R --world W --port P --root DIR. Runs yolov10s 640 bf16
-    folded, both decodes, on the meshes SPLIT_JOBS gives its world, holds
+    --split-rank R --job J --port P --root DIR. Runs yolov10s 640 bf16
+    folded, both decodes, on the mesh SPLIT_JOBS[J] names, holds
     its gathered maps to the parent's threads running the same split, and
     saves what it saw under DIR."""
     import argparse
 
     p = argparse.ArgumentParser()
-    for flag in ("--split-rank", "--world", "--port"):
+    for flag in ("--split-rank", "--job", "--port"):
         p.add_argument(flag, type=int, required=True)
     p.add_argument("--root", required=True)
     args = p.parse_args(argv)
     rank = args.split_rank
+    kind, n_data, n_second = SPLIT_JOBS[args.job]
+    world = n_data * n_second
     sys.path.insert(0, HERE)
     import torch
     import torch.distributed as dist
@@ -3621,79 +3979,79 @@ def split_rank(argv) -> int:
     from leanyolo_tpu_torch.parallel.mesh import make_sp_mesh, make_tp_mesh
 
     _build.ext()  # built by the parent: this loads it
-    if torch.cuda.device_count() >= args.world:
-        init_distributed(f"127.0.0.1:{args.port}", args.world, rank, device="cuda")
+    cards = "own" if torch.cuda.device_count() >= world else "shared"
+    if cards == "own":
+        init_distributed(f"127.0.0.1:{args.port}", world, rank, device="cuda")
     else:  # NCCL refuses two ranks on one card
         torch.cuda.set_device(0)
-        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{args.port}", world_size=args.world,
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{args.port}", world_size=world,
                                 rank=rank)
     inputs = torch.load(os.path.join(args.root, "split_inputs.pt"), weights_only=True)
     model = YOLOv10.create("yolov10s", class_names=[f"c{i}" for i in range(NC)])
     model.load_state_dict(inputs["state"])
     x = inputs["images"].cuda()
-    say = lambda msg: print(f"{msg}; {dist.get_backend()}, rank {rank}/{args.world} on cuda:"
+    say = lambda msg: print(f"{msg}; {dist.get_backend()}, rank {rank}/{world} on cuda:"
                             f"{torch.cuda.current_device()}", flush=True)
     common = dict(imgsz=IMGSZ, fuse=True, max_det=MAX_DET)
     out = {"backend": dist.get_backend(), "card": torch.cuda.current_device(), "meshes": {}}
-    for kind, n_data, n_second in SPLIT_JOBS[args.world]:
-        mesh = (make_sp_mesh if kind == "sp" else make_tp_mesh)(n_data, n_second, device="cuda")
-        tag = f"{kind}({n_data},{n_second})"
-        res = {}
-        for d, kw in SPLIT_DECODES.items():
-            pm = Predictor(model, dtype="bfloat16", mesh=mesh, **common, **kw)
+    mesh = (make_sp_mesh if kind == "sp" else make_tp_mesh)(n_data, n_second, device="cuda")
+    tag = f"{kind}({n_data},{n_second})"
+    res = {}
+    for d, kw in SPLIT_DECODES.items():
+        pm = Predictor(model, dtype="bfloat16", mesh=mesh, **common, **kw)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        counter = (pm._space or pm._model_group).traffic
+        counter.update((k, 0) for k in counter)
+        dets, num = pm.run_batch(x)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        traffic = dict(counter)
+        maps = pm.raw(x)
+        strides = pm.model.cfg.strides
+        if d == "topk":
+            again = decode_topk(maps, num_classes=NC, strides=strides, max_det=MAX_DET).float()
+            same_decode = torch.equal(again, dets)
+        else:
+            gd, gn = decode_nms(maps, num_classes=NC, strides=strides, conf_thresh=pm.conf_thresh,
+                                iou_thresh=pm.iou_thresh, max_det=MAX_DET, class_wise=True,
+                                rank_dtype=torch.float32)
+            same_decode = torch.equal(gd, dets) and torch.equal(gn, num)
+        emulated = inputs["emulated"][tag][d]
+        walls = []
+        for _ in range(SPLIT_TIMED):
             torch.cuda.synchronize()
-            kernels.reset_launches()
-            counter = (pm._space or pm._model_group).traffic
-            counter.update((k, 0) for k in counter)
-            dets, num = pm.run_batch(x)
+            t0 = time.perf_counter()
+            pm.run_batch(x)
             torch.cuda.synchronize()
-            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
-            traffic = dict(counter)
-            maps = pm.raw(x)
-            strides = pm.model.cfg.strides
-            if d == "topk":
-                again = decode_topk(maps, num_classes=NC, strides=strides, max_det=MAX_DET).float()
-                same_decode = torch.equal(again, dets)
-            else:
-                gd, gn = decode_nms(maps, num_classes=NC, strides=strides, conf_thresh=pm.conf_thresh,
-                                    iou_thresh=pm.iou_thresh, max_det=MAX_DET, class_wise=True,
-                                    rank_dtype=torch.float32)
-                same_decode = torch.equal(gd, dets) and torch.equal(gn, num)
-            emulated = inputs["emulated"][tag][d]
-            walls = []
-            for _ in range(SPLIT_TIMED):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                pm.run_batch(x)
-                torch.cuda.synchronize()
-                walls.append((time.perf_counter() - t0) * 1e3)
-            events = split_profile(lambda: pm.run_batch(x), launches)
-            res[d] = {"launches": launches, "traffic": traffic, "dets": dets.cpu(), "num": num.cpu(),
-                      "same_decode": same_decode,
-                      "same_emulated": all(torch.equal(a, b.to(a.device)) for lvl, el in zip(maps, emulated)
-                                           for a, b in zip(lvl, el)),
-                      "wall_ms": walls,
-                      "device_ms": records_ms([events], SPLIT_PROFILED) if events else None,
-                      "device_top": [(k[:48], c // SPLIT_PROFILED, t / SPLIT_PROFILED / 1e3)
-                                     for k, c, t in sorted(events or [], key=lambda e: -e[2])[:6]]}
-            if d == "topk":
-                res["plan"] = (pm._space.plan.describe() if pm._space is not None else
-                               {"split": len(pm.model.tp_plan["split"]), "whole": pm.model.tp_plan["whole"]})
-            say(f"{tag} bf16 folded {d}, batch {BATCH}: launches {launches}, bytes received a request {traffic}, "
-                f"wall ms {[round(w, 4) for w in walls]}, device ms {res[d]['device_ms']!r}")
-            del pm, maps
-            torch.cuda.empty_cache()
-        pm32 = Predictor(model, dtype="float32", mesh=mesh, **common)
-        res["fp32"] = [tuple(t.cpu() for t in lvl) for lvl in pm32.raw(x[:SPLIT_FP32_BATCH])]
-        del pm32
+            walls.append((time.perf_counter() - t0) * 1e3)
+        events = split_profile(lambda: pm.run_batch(x), launches, SPLIT_PROFILE_TRIES[cards])
+        res[d] = {"launches": launches, "traffic": traffic, "dets": dets.cpu(), "num": num.cpu(),
+                  "same_decode": same_decode,
+                  "same_emulated": all(torch.equal(a, b.to(a.device)) for lvl, el in zip(maps, emulated)
+                                       for a, b in zip(lvl, el)),
+                  "wall_ms": walls,
+                  "device_ms": records_ms([events], SPLIT_PROFILED) if events else None,
+                  "device_top": [(k[:48], c // SPLIT_PROFILED, t / SPLIT_PROFILED / 1e3)
+                                 for k, c, t in sorted(events or [], key=lambda e: -e[2])[:6]]}
+        if d == "topk":
+            res["plan"] = (pm._space.plan.describe() if pm._space is not None else
+                           {"split": len(pm.model.tp_plan["split"]), "whole": pm.model.tp_plan["whole"]})
+        say(f"{tag} bf16 folded {d}, batch {BATCH}: launches {launches}, bytes received a request {traffic}, "
+            f"wall ms {[round(w, 4) for w in walls]}, device ms {res[d]['device_ms']!r}")
+        del pm, maps
         torch.cuda.empty_cache()
-        out["meshes"][tag] = res
+    pm32 = Predictor(model, dtype="float32", mesh=mesh, **common)
+    res["fp32"] = [tuple(t.cpu() for t in lvl) for lvl in pm32.raw(x[:SPLIT_FP32_BATCH])]
+    del pm32
+    torch.cuda.empty_cache()
+    out["meshes"][tag] = res
     torch.save(out, os.path.join(args.root, f"split_rank{rank}.pt"))
     dist.destroy_process_group()
     return 0
 
 
-def split_profile(request, launches):
+def split_profile(request, launches, tries: int):
     """This rank's device records [(kernel name, records, microseconds)] of
     SPLIT_PROFILED requests, or None where records were lost in every try.
 
@@ -3702,13 +4060,13 @@ def split_profile(request, launches):
     kernel a multiple of SPLIT_PROFILED records. Every rank takes the same
     profiles (a rank alone taking one again would leave the others waiting
     in a collective): the ranks agree after each whether any lost records,
-    and take it again together, four tries at most."""
+    and take it again together, `tries` in all at most."""
     import torch
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
     from leanyolo_tpu_torch.utils.profiling import _family
 
-    for attempt in range(4):
+    for attempt in range(tries):
         pad = PROFILE_PAD_S * 2 ** attempt
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             time.sleep(pad)
@@ -3722,7 +4080,7 @@ def split_profile(request, launches):
         for k, c, _ in events:
             if _family(k) in PROFILE_FAMILIES:
                 ours[PROFILE_FAMILIES[_family(k)]] = ours.get(PROFILE_FAMILIES[_family(k)], 0) + c
-        whole = (all(ours.get(k, 0) == SPLIT_PROFILED * launches.get(k, 0) for k in set(ours) | set(PER_REQUEST_NMS))
+        whole = (all(ours.get(k, 0) == SPLIT_PROFILED * launches.get(k, 0) for k in set(ours) | set(launches))
                  and all(c % SPLIT_PROFILED == 0 for k, c, _ in events if _family(k) not in PROFILE_FAMILIES))
         lost = torch.tensor([0 if whole else 1], device="cuda")
         dist.all_reduce(lost, op=dist.ReduceOp.MAX)
@@ -3947,11 +4305,11 @@ def one_topk(maps, floor) -> dict:
 def phase_split(model, seed: int, card: str) -> None:
     """Spatial and tensor parallelism on the card (item 15 of the module doc)."""
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
     import torch
     from leanyolo_tpu_torch import Predictor
-    from leanyolo_tpu_torch.parallel.distributed import free_port
     from leanyolo_tpu_torch.parallel.dryrun import check_ranks, spawn_ranks
     from leanyolo_tpu_torch.parallel.spatial import plan_bands
 
@@ -3973,120 +4331,132 @@ def phase_split(model, seed: int, card: str) -> None:
     # The same process, the ranks as its threads: each op on its band or
     # slice against the whole op, then the maps the ranks must return.
     emulated, exact = {}, {}
-    for jobs in SPLIT_JOBS.values():
-        for kind, n_data, n_second in jobs:
-            tag = f"{kind}({n_data},{n_second})"
-            t0 = time.perf_counter()
-            rep = split_ops(one["topk"], x, kind, n_second)
-            differ = [r for r in rep if r["max"] > 0]
-            print(f"split {tag} op by op in one process, bf16 batch {BATCH}, each op on the whole run's input: "
-                  f"{len(rep)} ops, {len(rep) - len(differ)} bit-equal; the others (op, whole input shape, max, "
-                  f"share of outputs, ulps, scale, cuDNN/cuBLAS): "
-                  f"{[(r['op'], r['shape'], r['max'], r['share'], r['ulps'], r['scale'], r['lib']) for r in differ]}",
-                  flush=True)
-            for r in differ:
-                if not r["lib"]:
-                    fail(f"split {tag}: {r['op']} runs on the port's kernels or exact ops and differs from the "
-                         f"whole op on the same input rows by {r['max']!r} (a halo, crop or slice is wrong)")
-                if r["ulps"] > SPLIT_LIB_ULPS or r["share"] > SPLIT_LIB_SHARE:
-                    fail(f"split {tag}: {r['op']} differs from the whole op on the same input rows by {r['ulps']!r} "
-                         f"bf16 ulps in {r['share']!r} of its outputs (at most {SPLIT_LIB_ULPS} in "
-                         f"{SPLIT_LIB_SHARE}, what another cuDNN engine's order of sums gives)")
-            exact[tag] = not differ  # then the split path is one process's, op for op
-            emulated[tag] = {d: host(split_raw(pm, x, kind, n_second)) for d, pm in one.items()}
-            print(f"split {tag} op check and threads' maps in {time.perf_counter() - t0:.1f} s", flush=True)
-            del rep
-            torch.cuda.empty_cache()
+    for kind, n_data, n_second in SPLIT_JOBS:
+        tag = f"{kind}({n_data},{n_second})"
+        t0 = time.perf_counter()
+        rep = split_ops(one["topk"], x, kind, n_second)
+        differ = [r for r in rep if r["max"] > 0]
+        print(f"split {tag} op by op in one process, bf16 batch {BATCH}, each op on the whole run's input: "
+              f"{len(rep)} ops, {len(rep) - len(differ)} bit-equal; the others (op, whole input shape, max, "
+              f"share of outputs, ulps, scale, cuDNN/cuBLAS): "
+              f"{[(r['op'], r['shape'], r['max'], r['share'], r['ulps'], r['scale'], r['lib']) for r in differ]}",
+              flush=True)
+        for r in differ:
+            if not r["lib"]:
+                fail(f"split {tag}: {r['op']} runs on the port's kernels or exact ops and differs from the "
+                     f"whole op on the same input rows by {r['max']!r} (a halo, crop or slice is wrong)")
+            if r["ulps"] > SPLIT_LIB_ULPS or r["share"] > SPLIT_LIB_SHARE:
+                fail(f"split {tag}: {r['op']} differs from the whole op on the same input rows by {r['ulps']!r} "
+                     f"bf16 ulps in {r['share']!r} of its outputs (at most {SPLIT_LIB_ULPS} in "
+                     f"{SPLIT_LIB_SHARE}, what another cuDNN engine's order of sums gives)")
+        exact[tag] = not differ  # then the split path is one process's, op for op
+        emulated[tag] = {d: host(split_raw(pm, x, kind, n_second)) for d, pm in one.items()}
+        print(f"split {tag} op check and threads' maps in {time.perf_counter() - t0:.1f} s", flush=True)
+        del rep
+        torch.cuda.empty_cache()
     del one, x
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        torch.save({"state": model.state_dict(), "images": images, "emulated": emulated},
-                   os.path.join(tmp, "split_inputs.pt"))
-        for world, jobs in SPLIT_JOBS.items():
-            port = free_port()
+        inputs = os.path.join(tmp, "split_inputs.pt")
+        torch.save({"state": model.state_dict(), "images": images, "emulated": emulated}, inputs)
+
+        def job(i: int, port: int):
+            """The ranks of SPLIT_JOBS[i] in a root of their own: (results, wall s, root)."""
+            root = os.path.join(tmp, f"job{i}")
+            os.makedirs(root)
+            os.link(inputs, os.path.join(root, "split_inputs.pt"))
+            _, n_data, n_second = SPLIT_JOBS[i]
             t0 = time.perf_counter()
             results = spawn_ranks(lambda r: [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--split-rank",
-                                             str(r), "--world", str(world), "--port", str(port), "--root", tmp],
-                                  world, timeout=600)
-            wall = time.perf_counter() - t0
+                                             str(r), "--job", str(i), "--port", str(port), "--root", root],
+                                  n_data * n_second, timeout=600)
+            return results, time.perf_counter() - t0, root
+
+        # Every job at once (the run's time limit): their walls and device
+        # times are those of one card shared by all ranks.
+        with ThreadPoolExecutor(len(SPLIT_JOBS)) as pool:
+            running = [pool.submit(job, i, port) for i, port in enumerate(free_ports(len(SPLIT_JOBS)))]
+            done = [f.result() for f in running]
+        for (kind, n_data, n_second), (results, wall, root) in zip(SPLIT_JOBS, done):
+            world, tag = n_data * n_second, f"{kind}({n_data},{n_second})"
             for r, (_, out, _) in enumerate(results):
                 for line in out.splitlines():
                     print(f"  [split rank {r}/{world}] {line}", flush=True)
             try:
-                check_ranks(results, f"split {world} ranks")
+                check_ranks(results, f"split {tag}")
             except RuntimeError as e:
                 fail(str(e))
-            ranks = [torch.load(os.path.join(tmp, f"split_rank{r}.pt"), weights_only=True) for r in range(world)]
+            ranks = [torch.load(os.path.join(root, f"split_rank{r}.pt"), weights_only=True) for r in range(world)]
             shared = ranks[0]["card"] == ranks[-1]["card"]
-            print(f"split {world} ranks ({ranks[0]['backend']}{', one card shared by all: correctness only, no '
-                  f'scaling number' if shared else ''}) done in {wall:.1f} s, start-up included", flush=True)
-            for kind, n_data, n_second in jobs:
-                tag = f"{kind}({n_data},{n_second})"
-                rs = [rk["meshes"][tag] for rk in ranks]
-                print(f"split {tag} plan a rank: {rs[0]['plan']}", flush=True)
-                for d, per in (("topk", PER_REQUEST), ("nms", PER_REQUEST_NMS)):
-                    launches = [{k: r[d]["launches"].get(k, 0) for k in per} for r in rs]
-                    routes = [{k: r[d]["launches"].get(k, 0) for k in NEW_ROUTES} for r in rs]
-                    if launches != [per] * world:
-                        fail(f"split {tag} {d}: launches a rank {launches}, expected {per} on every rank")
-                    if not all(r[d]["same_decode"] for r in rs):
-                        fail(f"split {tag} {d}: a rank's detections are not the decode of its gathered maps")
-                    if not all(torch.equal(r[d]["dets"], rs[0][d]["dets"]) and torch.equal(r[d]["num"], rs[0][d]["num"])
-                               for r in rs):
-                        fail(f"split {tag} {d}: the ranks returned different detections")
-                    if not all(r[d]["same_emulated"] for r in rs):
-                        fail(f"split {tag} {d}: a rank's gathered head maps differ from this process's threads "
-                             f"running the same split (the exchange between processes is wrong)")
-                    maps = emulated[tag][d]  # every rank's, bit for bit
-                    worst = {}
-                    for name, g in maps_gap(maps, ref[d]["maps"], ref32[d]).items():
-                        worst[name] = (g["rms"], g["floor_rms"], g["max"], g["scale"])
-                        if not g["rms"] <= g["floor_rms"]:
-                            fail(f"split {tag} {d} head {name}: rms {g['rms']!r} against one process, beyond "
-                                 f"bf16's own rms {g['floor_rms']!r} (one process bf16 vs fp32)")
-                        if exact[tag] and g["max"] != 0:
-                            fail(f"split {tag} {d} head {name}: every op on its band or slice was the whole op's, "
-                                 f"yet the map differs from one process's by {g['max']!r}")
-                    dets, num = rs[0][d]["dets"], rs[0][d]["num"]
-                    rdets, rnum = ref[d]["dets"]
-                    same_rows = float((dets == rdets).all(dim=-1).float().mean())
-                    if d == "topk":
-                        # Reported, not held: in bf16 a cuDNN sum rounded the other
-                        # way moves these random weights' logits by up to whole
-                        # units, past any gap the one-process path gives (the
-                        # threads' maps above stand for the split path here).
-                        same = topk_flat(maps, MAX_DET)[1][:, :-1] == top["idx"][:, :-1]
-                        print(f"split {tag} bf16 top-k against one process: the same anchor and class in "
-                              f"{float(same.float().mean())!r} of the rows; {int(decided.sum())} of "
-                              f"{decided.numel()} rows decided by the one-process bf16-vs-fp32 gaps, "
-                              f"{int((decided & same).sum())} of them the same; detection rows bit-equal "
-                              f"{same_rows!r}", flush=True)
-                    else:
-                        print(f"split {tag} NMS against one process: counts equal in {int((num == rnum).sum())} of "
-                              f"{BATCH} images, rows bit-equal {same_rows!r}", flush=True)
-                    wall = [statistics.median(r[d]["wall_ms"]) for r in rs]
-                    dev = [r[d]["device_ms"] for r in rs]
-                    print(f"split {tag} bf16 folded {d} batch {BATCH}: launches a rank {launches[0]} (routes "
-                          f"{routes}); bytes received a request a rank {[r[d]['traffic'] for r in rs]}; head maps "
-                          f"(rms, bf16 floor rms, max, scale) {worst}; wall ms a request (median of {SPLIT_TIMED}) "
-                          f"{wall}, device ms a request {dev} (None: records lost in four profiles), rank 0's "
-                          f"largest (kernel, launches, ms) a request {rs[0][d]['device_top']}; {card}", flush=True)
-                maps32 = rs[0]["fp32"]
-                if not all(torch.equal(a, b) for r in rs for lvl, l0 in zip(r["fp32"], maps32) for a, b in zip(lvl, l0)):
-                    fail(f"split {tag} fp32: the ranks returned different head maps")
-                for name, g in maps_gap(maps32, ref_small).items():
-                    if g["max"] != 0:
-                        fail(f"split {tag} fp32 head {name}: max {g['max']!r} of scale {g['scale']!r} against the "
-                             f"one-process fp32 predictor (bit-equal wanted)")
-                same = topk_flat(maps32, MAX_DET)[1][:, :-1] == top32["idx"][:, :-1]
-                n_dec, n_same = int(decided32.sum()), int((decided32 & same).sum())
-                print(f"split {tag} fp32 batch {SPLIT_FP32_BATCH}: head maps bit-equal to one process; top-k "
-                      f"{n_dec} of {decided32.numel()} rows decided (each logit's gap to its neighbours beyond the "
-                      f"two rows' one-process card-vs-CPU gaps), {n_same} of them the same anchor and class",
-                      flush=True)
-                if n_dec < SPLIT_MIN_DECIDED or n_same != n_dec:
-                    fail(f"split {tag} fp32 top-k: {n_dec} decided rows (at least {SPLIT_MIN_DECIDED}), "
-                         f"{n_dec - n_same} of them differ from the one-process predictor's")
+            shared_note = ", one card shared by all jobs: correctness only, no scaling number" if shared else ""
+            print(f"split {tag}: {world} ranks ({ranks[0]['backend']}{shared_note}) done in {wall:.1f} s, start-up "
+                  f"included", flush=True)
+            rs = [rk["meshes"][tag] for rk in ranks]
+            print(f"split {tag} plan a rank: {rs[0]['plan']}", flush=True)
+            for d, per in (("topk", PER_REQUEST), ("nms", PER_REQUEST_NMS)):
+                launches = [{k: r[d]["launches"].get(k, 0) for k in per} for r in rs]
+                routes = [{k: r[d]["launches"].get(k, 0) for k in NEW_ROUTES} for r in rs]
+                if launches != [per] * world:
+                    fail(f"split {tag} {d}: launches a rank {launches}, expected {per} on every rank")
+                if not all(r[d]["same_decode"] for r in rs):
+                    fail(f"split {tag} {d}: a rank's detections are not the decode of its gathered maps")
+                if not all(torch.equal(r[d]["dets"], rs[0][d]["dets"]) and torch.equal(r[d]["num"], rs[0][d]["num"])
+                           for r in rs):
+                    fail(f"split {tag} {d}: the ranks returned different detections")
+                if not all(r[d]["same_emulated"] for r in rs):
+                    fail(f"split {tag} {d}: a rank's gathered head maps differ from this process's threads "
+                         f"running the same split (the exchange between processes is wrong)")
+                maps = emulated[tag][d]  # every rank's, bit for bit
+                worst = {}
+                for name, g in maps_gap(maps, ref[d]["maps"], ref32[d]).items():
+                    worst[name] = (g["rms"], g["floor_rms"], g["max"], g["scale"])
+                    if not g["rms"] <= g["floor_rms"]:
+                        fail(f"split {tag} {d} head {name}: rms {g['rms']!r} against one process, beyond "
+                             f"bf16's own rms {g['floor_rms']!r} (one process bf16 vs fp32)")
+                    if exact[tag] and g["max"] != 0:
+                        fail(f"split {tag} {d} head {name}: every op on its band or slice was the whole op's, "
+                             f"yet the map differs from one process's by {g['max']!r}")
+                dets, num = rs[0][d]["dets"], rs[0][d]["num"]
+                rdets, rnum = ref[d]["dets"]
+                same_rows = float((dets == rdets).all(dim=-1).float().mean())
+                if d == "topk":
+                    # Reported, not held: in bf16 a cuDNN sum rounded the other
+                    # way moves these random weights' logits by up to whole
+                    # units, past any gap the one-process path gives (the
+                    # threads' maps above stand for the split path here).
+                    same = topk_flat(maps, MAX_DET)[1][:, :-1] == top["idx"][:, :-1]
+                    print(f"split {tag} bf16 top-k against one process: the same anchor and class in "
+                          f"{float(same.float().mean())!r} of the rows; {int(decided.sum())} of "
+                          f"{decided.numel()} rows decided by the one-process bf16-vs-fp32 gaps, "
+                          f"{int((decided & same).sum())} of them the same; detection rows bit-equal "
+                          f"{same_rows!r}", flush=True)
+                else:
+                    print(f"split {tag} NMS against one process: counts equal in {int((num == rnum).sum())} of "
+                          f"{BATCH} images, rows bit-equal {same_rows!r}", flush=True)
+                wall = [statistics.median(r[d]["wall_ms"]) for r in rs]
+                dev = [r[d]["device_ms"] for r in rs]
+                print(f"split {tag} bf16 folded {d} batch {BATCH}: launches a rank {launches[0]} (routes "
+                      f"{routes}); bytes received a request a rank {[r[d]['traffic'] for r in rs]}; head maps "
+                      f"(rms, bf16 floor rms, max, scale) {worst}; wall ms a request (median of {SPLIT_TIMED}) "
+                      f"{wall}, device ms a request {dev} (None: records lost in every profile, "
+                      f"{SPLIT_PROFILE_TRIES['shared' if shared else 'own']} at most), rank 0's "
+                      f"largest (kernel, launches, ms) a request {rs[0][d]['device_top']}; {card}", flush=True)
+            maps32 = rs[0]["fp32"]
+            if not all(torch.equal(a, b) for r in rs for lvl, l0 in zip(r["fp32"], maps32) for a, b in zip(lvl, l0)):
+                fail(f"split {tag} fp32: the ranks returned different head maps")
+            for name, g in maps_gap(maps32, ref_small).items():
+                if g["max"] != 0:
+                    fail(f"split {tag} fp32 head {name}: max {g['max']!r} of scale {g['scale']!r} against the "
+                         f"one-process fp32 predictor (bit-equal wanted)")
+            same = topk_flat(maps32, MAX_DET)[1][:, :-1] == top32["idx"][:, :-1]
+            n_dec, n_same = int(decided32.sum()), int((decided32 & same).sum())
+            print(f"split {tag} fp32 batch {SPLIT_FP32_BATCH}: head maps bit-equal to one process; top-k "
+                  f"{n_dec} of {decided32.numel()} rows decided (each logit's gap to its neighbours beyond the "
+                  f"two rows' one-process card-vs-CPU gaps), {n_same} of them the same anchor and class",
+                  flush=True)
+            if n_dec < SPLIT_MIN_DECIDED or n_same != n_dec:
+                fail(f"split {tag} fp32 top-k: {n_dec} decided rows (at least {SPLIT_MIN_DECIDED}), "
+                     f"{n_dec - n_same} of them differ from the one-process predictor's")
 
 
 def sm_clock_hz() -> float:
@@ -4139,6 +4509,8 @@ def main() -> int:
             ("bmm", "leanyolo_tpu_torch/kernels/csrc/matmul.cu", "experiments/exp_pallas_mm.py:47"),
             ("argmax", "leanyolo_tpu_torch/kernels/csrc/argmax.cu", "leanyolo_tpu/ops/topk.py:90"),
             ("nms", "leanyolo_tpu_torch/kernels/csrc/nms.cu", "leanyolo_tpu/ops/boxes.py:163"),
+            ("gather_rows", "leanyolo_tpu_torch/kernels/csrc/decode.cu", "leanyolo_tpu/models/yolov10/decode.py:102"),
+            ("dfl_boxes", "leanyolo_tpu_torch/kernels/csrc/decode.cu", "leanyolo_tpu/models/yolov10/decode.py:191"),
         )
     }
     # Kernels rebuilt for Hopper after their first port, by the port's slice
@@ -4154,6 +4526,8 @@ def main() -> int:
     model = make_model(SEED)
     folded = fold_model(model, dtype=torch.bfloat16).cuda().to(memory_format=torch.channels_last)  # as Predictor
     calls = phase_kernels(folded, SEED, records)
+    with decode_check_time("K2 and K3 against their plain versions"):
+        phase_decode_kernels(SEED, records)
     done("kernels")
     pred, x32 = phase_main(model, SEED, records)
     done("serving")
@@ -4178,10 +4552,17 @@ def main() -> int:
         phase_train(SEED, records)
     phase_train_times(SEED, records)
     done("train")
-    with torch.enable_grad():
-        phase_train_folder(SEED, records, card)
-    done("train from a folder")
-    phase_tools(SEED, card, serving_profile)
+    phase_profile_step(card, serving_profile)
+    done("profile_step")
+    with tempfile.TemporaryDirectory() as tmp:
+        with torch.enable_grad():
+            sets = phase_train_folder(SEED, records, card, tmp)
+        # From here to the end of phase_tools the card is shared: the
+        # shortened QT-001 trains beside the CLIs and checks that time nothing.
+        qt = start_qt001(tmp)
+        phase_train_clis(SEED, card, tmp, sets)
+        done("train from a folder")
+        phase_tools(SEED, card, tmp, qt)
     done("tools")
     # Last: it exports programs and starts a CLI, and no later phase needs the profiler.
     phase_nms_bf16(SEED, records)
@@ -4194,6 +4575,8 @@ def main() -> int:
     phase_split(model, SEED, card)
     done("spatial and tensor parallel")
 
+    print(f"the decode kernels' (K2, K3) checks and times took {sum(DECODE_CHECK_S.values()):.1f} s: "
+          f"{ {k: round(v, 1) for k, v in DECODE_CHECK_S.items()} }", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -204,8 +204,13 @@ class Predictor:
         return self._gathered(*self._run(self._rows(images)))
 
     def _run(self, images) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.decode_raw(self.raw(images))
+
+    @torch.inference_mode()
+    def decode_raw(self, raw: list) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The decode of `run_batch` on head maps from `raw` -> (dets [B,
+        max_det, 6] fp32, num [B] int32), this process's rows."""
         cfg, nc = self.model.cfg, self.model.nc
-        raw = self.raw(images)
         if self.decode == "topk":
             dets = decode_topk(raw, num_classes=nc, strides=cfg.strides, max_det=self.max_det)
             num = (dets[..., 4] > self.conf_thresh).sum(dim=-1).to(torch.int32)

@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
 
 Each wrapper module (stem.py, dwconv.py, topk.py, mpbwd.py, s2dconv.py,
-matmul.py, argmax.py, nms.py) holds a kernel's wrapper and, beside it, a
-plain PyTorch version of the same function. Each wrapper but mpbwd's is a
+matmul.py, argmax.py, nms.py, gather.py, dfl.py) holds a kernel's wrapper
+and, beside it, a plain PyTorch version of the same function. Each wrapper but mpbwd's is a
 PyTorch operator, `leanyolo_tpu_torch::<name>` (_build.operator), and the
 dispatcher picks by the devices of its tensors: CPU tensors take the plain
 version; CUDA tensors launch the kernel, which is built from `csrc/` at
@@ -21,7 +21,7 @@ from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"stem": 0, "stem_tc": 0, "dw7x7": 0, "topk": 0, "mpbwd": 0, "mpbwd_vec": 0,
                             "s2dconv": 0, "s2dconv_wgmma": 0, "bmm": 0, "bmm_wgmma": 0,
-                            "argmax": 0, "nms": 0}
+                            "argmax": 0, "nms": 0, "gather_rows": 0, "dfl_boxes": 0}
 
 
 def reset_launches() -> None:

@@ -3,7 +3,7 @@
 
 Replaces the JAX package's hand-shaped lax op
 `leanyolo_tpu/ops/topk.py:90 max_argmax_lastdim`, the per-anchor best class
-of the NMS decode. JAX gives it two routes, and the signed-zero rule
+of the NMS decode; the top-k decode's stage 1 takes its max (`jnp.max`). JAX gives it two routes, and the signed-zero rule
 depends on the route (`packed_route` names JAX's choice), so the caller
 passes it (`canon_zero`, as for top-k):
 

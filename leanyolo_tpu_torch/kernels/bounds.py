@@ -52,6 +52,26 @@ def argmax_work(rows: int, n: int, elt: int = 2, out_elt: int = 4) -> Tuple[int,
     return rows * n * elt + rows * (out_elt + 4), rows * n
 
 
+def gather_rows_work(b: int, k: int, c: int, elt: int = 2) -> Tuple[int, int]:
+    """(bytes, operations) of the decode's level gather: [b, k] int32 indices
+    and the k selected rows of c values in, [b, k, c] out; no arithmetic."""
+    return b * k * 4 + 2 * b * k * c * elt, 0
+
+
+DFL_SIDE_OPS = 15 + 16 * 4 + 15 + 1 + 2  # a side: the max, the subtraction, exp, product and sum a bin, den, d, box
+
+
+def dfl_boxes_work(b: int, k: int, elt: int = 2, topk: bool = False, reg_max: int = 16) -> Tuple[int, int]:
+    """(bytes, operations) of the selected anchors' DFL box decode: the k
+    anchors' 4 * reg_max bins (elt bytes each) and their indices in (NMS
+    mode: an int32 anchor a row; top-k mode: an int32 pair, its logit (elt
+    bytes) and the int32 stage-1 anchor it names), [b, k, 4] fp32 out (top-k:
+    [b, k, 6]); DFL_SIDE_OPS fp32 operations a side (exp counted as one), and
+    the sigmoid in top-k mode."""
+    index = (4 + elt + 4) if topk else 4
+    return b * k * (4 * reg_max * elt + index + (6 if topk else 4) * 4), b * k * (4 * DFL_SIDE_OPS + (3 if topk else 0))
+
+
 IOU_OPS = 14  # a pair: 4 min/max, 2 subs, 2 clamps, the product, 2 adds and a sub, the division, the compare
 
 
@@ -172,8 +192,9 @@ def serving_1x1_shapes(variant: str = "yolov10s", imgsz: int = 640) -> List[Tupl
 def kernel_bounds(batch: int = 32):
     """Rows of (kernel, shape, MB moved, GFLOP, bound ms, bound by) of the
     stem at each size's widths on [batch,640,640,3] uint8, the top-k pair of
-    a request, the NMS decode's argmax and NMS (every pair, the most its
-    data can need) and mpbwd at the training path's SPPF shape."""
+    a request, the decode's argmax, level gather and box decode (top-k and
+    NMS modes), the NMS (every pair, the most its data can need) and mpbwd
+    at the training path's SPPF shape."""
     from ..models.yolov10.config import VARIANTS
 
     rows = []
@@ -188,6 +209,13 @@ def kernel_bounds(batch: int = 32):
     nbytes, nops = argmax_work(batch * 8400, 80)
     rows.append(("argmax", f"[{batch},8400,80] bf16 -> fp32 + int32", nbytes, nops,
                  *bound(nbytes, nops, FP32_OPS_PER_S)))
+    nbytes, nops = gather_rows_work(batch, 300, 80)
+    rows.append(("gather_rows", f"[{batch},300,80] bf16 of 3 levels", nbytes, nops,
+                 *bound(nbytes, nops, FP32_OPS_PER_S)))
+    for k, topk in ((300, True), (1000, False)):
+        nbytes, nops = dfl_boxes_work(batch, k, topk=topk)
+        rows.append(("dfl_boxes", f"[{batch},{k}] bf16 reg rows, {'top-k' if topk else 'NMS'} mode", nbytes, nops,
+                     *bound(nbytes, nops, FP32_OPS_PER_S)))
     nbytes, nops = nms_work(batch, 1000, 300)
     rows.append(("nms", f"[{batch},1000] fp32, max_det 300, every pair", nbytes, nops,
                  *bound(nbytes, nops, FP32_OPS_PER_S)))

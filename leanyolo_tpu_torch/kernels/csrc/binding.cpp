@@ -214,6 +214,98 @@ void max_argmax(std::vector<torch::Tensor> levels, torch::Tensor vals, torch::Te
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+DecodeLevels decode_levels(const std::vector<torch::Tensor>& levels, const char* name, bool& bf16, int64_t& B,
+                           int64_t& n) {
+  TORCH_CHECK(!levels.empty() && levels.size() <= DECODE_MAX_LEVELS, name, ": 1 to 4 levels");
+  const torch::Tensor& x0 = levels[0];
+  bf16 = act_is_bf16(x0, name);
+  TORCH_CHECK(x0.dim() == 3, name, ": levels [B, rows, n]");
+  B = x0.size(0), n = x0.size(2);
+  DecodeLevels lv{};
+  lv.count = static_cast<int>(levels.size());
+  int64_t a = 0;
+  for (size_t l = 0; l < levels.size(); ++l) {
+    const torch::Tensor& x = levels[l];
+    TORCH_CHECK(x.is_cuda() && x.dim() == 3 && x.stride(2) == 1, name, ": a level [B, rows, n] on the card, unit "
+                "stride in n");
+    TORCH_CHECK(x.scalar_type() == x0.scalar_type() && x.size(0) == B && x.size(2) == n, name,
+                ": levels differ in dtype, batch or n");
+    lv.x[l] = x.data_ptr();
+    lv.sb[l] = x.stride(0);
+    lv.ld[l] = x.stride(1);
+    lv.start[l] = static_cast<int>(a);
+    a += x.size(1);
+  }
+  lv.start[lv.count] = static_cast<int>(a);
+  TORCH_CHECK(a < (int64_t(1) << 31) && n > 0, name, ": fewer than 2^31 anchors, n > 0");
+  return lv;
+}
+
+void check_idx(const torch::Tensor& idx, int64_t B, const char* name) {
+  check(idx, name);
+  TORCH_CHECK(idx.scalar_type() == at::kInt && idx.dim() == 2 && idx.size(0) == B && idx.size(1) > 0, name,
+              ": int32 [B, k], k > 0");
+}
+
+void gather_rows(std::vector<torch::Tensor> levels, torch::Tensor idx, torch::Tensor out) {
+  bool bf16;
+  int64_t B, C;
+  const DecodeLevels lv = decode_levels(levels, "gather_rows", bf16, B, C);
+  check_idx(idx, B, "gather_rows idx");
+  const int64_t k = idx.size(1);
+  check(out, "gather_rows out");
+  TORCH_CHECK(out.scalar_type() == levels[0].scalar_type() && out.dim() == 3 && out.size(0) == B &&
+                  out.size(1) == k && out.size(2) == C,
+              "gather_rows: out [B, k, C] in the levels' dtype");
+  TORCH_CHECK(B * k * C < (int64_t(1) << 40), "gather_rows: output too large");
+  C10_CUDA_CHECK(launch_gather_rows(lv, static_cast<int>(B), static_cast<int>(C), idx.data_ptr<int32_t>(),
+                                    static_cast<int>(k), bf16, out.data_ptr(), at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void dfl_boxes(std::vector<torch::Tensor> levels, std::vector<int64_t> widths, std::vector<double> strides,
+               torch::Tensor anchor_idx, std::optional<torch::Tensor> pair_idx,
+               std::optional<torch::Tensor> pair_logits, int64_t nc, torch::Tensor out) {
+  bool bf16;
+  int64_t B, n;
+  DecodeLevels lv = decode_levels(levels, "dfl_boxes", bf16, B, n);
+  TORCH_CHECK(n == 64, "dfl_boxes: reg rows of 4 x 16 bins");
+  TORCH_CHECK(widths.size() == levels.size() && strides.size() == levels.size(), "dfl_boxes: a width and a stride a "
+              "level");
+  for (size_t l = 0; l < levels.size(); ++l) {
+    TORCH_CHECK(widths[l] > 0 && levels[l].size(1) % widths[l] == 0, "dfl_boxes: a level's rows are h x w cells");
+    lv.w[l] = static_cast<int>(widths[l]);
+    lv.stride[l] = static_cast<float>(strides[l]);
+  }
+  check_idx(anchor_idx, B, "dfl_boxes anchor_idx");
+  const int64_t k1 = anchor_idx.size(1);
+  int64_t k = k1;
+  const int32_t* pairs = nullptr;
+  const void* logits = nullptr;
+  bool logits_bf16 = false;
+  TORCH_CHECK(pair_idx.has_value() == pair_logits.has_value(), "dfl_boxes: pair_idx and pair_logits together");
+  if (pair_idx) {
+    check_idx(*pair_idx, B, "dfl_boxes pair_idx");
+    k = pair_idx->size(1);
+    check(*pair_logits, "dfl_boxes pair_logits");
+    logits_bf16 = act_is_bf16(*pair_logits, "dfl_boxes pair_logits");
+    TORCH_CHECK(pair_logits->dim() == 2 && pair_logits->size(0) == B && pair_logits->size(1) == k,
+                "dfl_boxes: pair_logits [B, k]");
+    TORCH_CHECK(nc > 0 && k1 * nc < (int64_t(1) << 31), "dfl_boxes: nc > 0, k1 * nc below 2^31");
+    pairs = pair_idx->data_ptr<int32_t>();
+    logits = pair_logits->data_ptr();
+  }
+  check(out, "dfl_boxes out");
+  TORCH_CHECK(out.scalar_type() == at::kFloat && out.dim() == 3 && out.size(0) == B && out.size(1) == k &&
+                  out.size(2) == (pairs ? 6 : 4),
+              "dfl_boxes: out float32 [B, k, 6] (pairs) or [B, k, 4]");
+  TORCH_CHECK(4 * B * k < (int64_t(1) << 40), "dfl_boxes: output too large");
+  C10_CUDA_CHECK(launch_dfl_boxes(lv, static_cast<int>(B), anchor_idx.data_ptr<int32_t>(), static_cast<int>(k1),
+                                  pairs, logits, logits_bf16, static_cast<int>(k), static_cast<int>(nc), bf16,
+                                  out.data_ptr<float>(), at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 const void* nms_input(const std::optional<torch::Tensor>& t, const torch::Tensor& boxes, const char* name) {
   if (!t) return nullptr;
   check(*t, name);
@@ -281,5 +373,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("s2dconv", &s2dconv, "3x3 conv 32->32 + bias + SiLU over the space-to-depth form (fp32)");
   m.def("max_argmax", &max_argmax, "per-row (max, first argmax) of up to four levels, into [B, sum rows] outputs");
   m.def("nms", &nms, "exact greedy NMS over score-sorted candidates: (keep, dets, num), allocated here");
+  m.def("gather_rows", &gather_rows, "rows of k anchors by global index from up to four levels, -0.0 as +0.0");
+  m.def("dfl_boxes", &dfl_boxes, "DFL expectation and xyxy pixel boxes of the selected anchors (+ score, class)");
   m.def("s2dconv_wgmma", &s2dconv_wgmma, "3x3 conv 32->32 + bias + SiLU over the space-to-depth form (bf16, wgmma)");
 }

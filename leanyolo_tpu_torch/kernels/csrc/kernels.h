@@ -113,3 +113,34 @@ cudaError_t launch_nms(const void* boxes, const void* scores, const void* cls, c
                        float iou_thresh, bool use_conf, float conf_thresh, bool class_wise, float group_offset,
                        uint8_t* keep, float* dets, int32_t* num, int max_det, bool bf16, void* scratch,
                        cudaStream_t stream);
+
+// The decode's per-anchor kernels (decode.cu), over up to DECODE_MAX_LEVELS
+// levels of head maps. Level l: x[l] [B, rows_l, n] with unit stride in n,
+// rows ld[l] and images sb[l] elements apart, its anchors the global indices
+// start[l] .. start[l + 1] (start[0] = 0), its rows w[l] cells wide at
+// stride[l] pixels; all levels bf16 (bf16) or fp32.
+#define DECODE_MAX_LEVELS 4
+struct DecodeLevels {
+  const void* x[DECODE_MAX_LEVELS];
+  long long sb[DECODE_MAX_LEVELS];
+  long long ld[DECODE_MAX_LEVELS];
+  int start[DECODE_MAX_LEVELS + 1];
+  int w[DECODE_MAX_LEVELS];
+  float stride[DECODE_MAX_LEVELS];
+  int count;
+};
+// launch_gather_rows: out [B, k, C] dense, in the levels' type, row (b, j) =
+// row idx[b, j] (int32 [B, k], a global index) of its level, bits copied but
+// -0.0 written as +0.0; an index outside [0, start[count]) gives a zero row.
+cudaError_t launch_gather_rows(const DecodeLevels& lv, int B, int C, const int32_t* idx, int k, bool bf16,
+                               void* out, cudaStream_t stream);
+// launch_dfl_boxes: the levels' rows are the reg maps, n = 4 * 16 (reg_max
+// 16, the four sides' bins in order l, t, r, b). NMS mode (pair_idx null):
+// out [B, k, 4] fp32, the xyxy pixel box of anchor anchor_idx[b, j] (int32
+// [B, k], k1 = k). Top-k mode: pair_idx int32 [B, k] indexes the [B, k1 * nc]
+// (anchor, class) pairs of anchor_idx [B, k1]; out [B, k, 6] fp32 = the box
+// of anchor_idx[b, pair / nc], 1 / (1 + exp(-logit)) of pair_logits [B, k]
+// (bf16 if logits_bf16, else fp32) and the class pair % nc.
+cudaError_t launch_dfl_boxes(const DecodeLevels& lv, int B, const int32_t* anchor_idx, int k1,
+                             const int32_t* pair_idx, const void* pair_logits, bool logits_bf16, int k, int nc,
+                             bool bf16, float* out, cudaStream_t stream);

@@ -4,20 +4,26 @@ Counterpart of the JAX package's `leanyolo_tpu/models/yolov10/decode.py`
 (`approx=True`, `lax.approx_max_k`, is out of the port's scope):
 
 - `decode_topk` (one2one branch): ranking runs on logits (the sigmoid is
-  monotonic), per level, in the maps' dtype: stage 1 ranks the per-anchor
-  class max, stage 2 the (anchor, class) pairs of the survivors;
+  monotonic), in the maps' dtype: stage 1 ranks the per-anchor class max
+  (the fused max/argmax kernel over the three levels, `jnp.max`'s zero
+  rule: -0.0 below +0.0), stage 2 the (anchor, class) pairs of the
+  survivors, whose class rows the level-gather kernel reads (-0.0 as +0.0,
+  as JAX's one-hot dot gives); the box decode kernel then decodes the
+  final anchors and writes the detections: five launches;
 - `decode_nms` (one2many branch): candidates are the best class of each
   anchor (the fused max/argmax kernel, one launch for all levels) or, with
-  `multi_label`, the top (anchor, class) pairs; the top `pre_topk` by logit
-  go to the NMS kernel, which masks by confidence, runs greedy NMS
+  `multi_label`, the top (anchor, class) pairs; the top `pre_topk` by logit,
+  with their boxes from the box decode kernel (those anchors only), go to
+  the NMS kernel, which masks by confidence, runs greedy NMS
   (class-wise by the JAX decode's offset trick) and compacts the survivors
   into `(dets [B, max_det, 6], num [B])`;
 - `decode_direct_nms`: the legacy direct-offset head layout, then the same
   NMS, in the maps' dtype as JAX runs it: on bf16 maps every step rounds
   to bf16 and the NMS kernel runs its bf16 mode.
 
-The level gather is a direct index gather. DFL and the box decode run in
-fp32 on the upcast reg logits. `detections_to_list` and
+The DFL and the box decode run in fp32 on the selected anchors' reg logits
+only (kernels/dfl.py), never densely; `_flatten_pyramid` keeps the dense
+decode for the serving export. `detections_to_list` and
 `postprocess_to_original` are the host side, in numpy.
 """
 
@@ -28,9 +34,13 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ...kernels import argmax as _kargmax
+from ...kernels import dfl as _kdfl
+from ...kernels import gather as _kgather
 from ...kernels import nms as _knms
+from ...kernels import topk as _ktopk
 from ...ops.anchors import dfl_expectation, dist2bbox, make_anchors
-from ...ops.topk import max_argmax_lastdim, topk_lastdim
+from ...ops.topk import canon_zero, max_argmax_lastdim, topk_lastdim
 
 Tensor = torch.Tensor
 
@@ -73,50 +83,26 @@ def _flatten_pyramid(preds: Sequence, num_classes: int, strides: Sequence[int]):
     return dist2bbox(dist, anchors[None]) * stride_t[None], flat[..., 4 * reg_max:]
 
 
-def _gather_levels(level_arrays: Sequence[Tensor], idx: Tensor) -> Tensor:
-    """Rows by global anchor index [B, k] from per-level [B, HW_l, C] arrays."""
-    out = None
-    off = 0
-    for lv in level_arrays:
-        hw = lv.shape[1]
-        local = idx - off
-        inside = (local >= 0) & (local < hw)
-        g = torch.gather(lv, 1, local.clamp(0, hw - 1).long()[..., None].expand(-1, -1, lv.shape[-1]))
-        out = g if out is None else torch.where(inside[..., None], g, out)
-        off += hw
-    return out
-
-
-def _boxes_per_level(levels, hw_shapes, strides, reg_max) -> List[Tensor]:
-    """Dense per-level DFL + box decode -> [B, HW_l, 4] xyxy pixel boxes."""
-    out = []
-    for (reg, _), (h, w), s in zip(levels, hw_shapes, strides):
-        anchors_l, _ = make_anchors([(h, w)], [s], device=reg.device)
-        dist_l = dfl_expectation(reg.float(), reg_max)
-        out.append(dist2bbox(dist_l, anchors_l[None]) * float(s))
-    return out
-
-
 def decode_topk(preds: Sequence, *, num_classes: int, strides: Sequence[int] = (8, 16, 32),
                 max_det: int = 300) -> Tensor:
     """[B, k, 6] = [x1, y1, x2, y2, score, cls], k = min(max_det, anchors)."""
-    levels, hw_shapes, reg_max = _split_levels(list(preds), num_classes)
+    levels, hw_shapes, _ = _split_levels(list(preds), num_classes)
     b = levels[0][0].shape[0]
-    k = min(max_det, sum(h * w for h, w in hw_shapes))
-    nc = num_classes
+    a = sum(h * w for h, w in hw_shapes)
+    k = min(max_det, a)
+    cls_levels = [cls for _, cls in levels]
 
-    max_per_anchor = torch.cat([cls.amax(dim=-1) for _, cls in levels], dim=1)  # [B, A]
-    _, top_anchor_idx = topk_lastdim(max_per_anchor, k)  # [B, k]
-    sel_logits = _gather_levels([cls for _, cls in levels], top_anchor_idx)  # [B, k, nc]
+    # Stage 1: jnp.max per anchor (fp32 values, exact for bf16), ranked as the
+    # maps' dtype with JAX's tie rule for it.
+    max_per_anchor, _ = _kargmax.max_argmax_levels(cls_levels, canon_zero=False)  # [B, A]
+    _, top_anchor_idx = _ktopk.topk(max_per_anchor, k, canon_zero=canon_zero(cls_levels[0].dtype, k, a))  # [B, k]
+    sel_logits = _kgather.gather_rows(cls_levels, top_anchor_idx)  # [B, k, nc]
 
+    # Stage 2: the (anchor, class) pairs of the survivors; the kernel decodes
+    # the boxes of the final anchors and writes the rows.
     flat_logits, flat_idx = topk_lastdim(sel_logits.reshape(b, -1), k)  # [B, k]
-    scores = torch.sigmoid(flat_logits.float())
-    rel_anchor = torch.div(flat_idx, nc, rounding_mode="floor")
-    cls_idx = (flat_idx % nc).float()
-    final_anchor_idx = torch.gather(top_anchor_idx, 1, rel_anchor.long())
-
-    final_boxes = _gather_levels(_boxes_per_level(levels, hw_shapes, strides, reg_max), final_anchor_idx)
-    return torch.cat([final_boxes, scores[..., None], cls_idx[..., None]], dim=-1)
+    return _kdfl.dfl_boxes([reg for reg, _ in levels], hw_shapes, strides, top_anchor_idx, pair_idx=flat_idx,
+                           pair_logits=flat_logits, num_classes=num_classes)
 
 
 GROUP_OFFSET = _knms.GROUP_OFFSET  # class offset of the class-wise NMS (JAX decode.py:341)
@@ -158,7 +144,7 @@ def decode_nms(preds: Sequence, *, num_classes: int, strides: Sequence[int] = (8
     JAX's predictor ranks its upcast maps, without writing them, since the
     upcast is exact).
     """
-    levels, hw_shapes, reg_max = _split_levels(list(preds), num_classes)
+    levels, hw_shapes, _ = _split_levels(list(preds), num_classes)
     b = levels[0][0].shape[0]
     a = sum(h * w for h, w in hw_shapes)
     nc = num_classes
@@ -182,7 +168,7 @@ def decode_nms(preds: Sequence, *, num_classes: int, strides: Sequence[int] = (8
         cand_logits, anc_idx = topk_lastdim(best_logits, k_pre)
         cand_cls = torch.gather(best_cls, 1, anc_idx.long()).float()
     cand_scores = torch.sigmoid(cand_logits.float())
-    cand_boxes = _gather_levels(_boxes_per_level(levels, hw_shapes, strides, reg_max), anc_idx)
+    cand_boxes = _kdfl.dfl_boxes([reg for reg, _ in levels], hw_shapes, strides, anc_idx)
     return _nms_single(cand_boxes, cand_scores, cand_cls, iou_thresh=iou_thresh, conf_thresh=conf_thresh,
                        max_det=max_det, class_wise=class_wise)
 

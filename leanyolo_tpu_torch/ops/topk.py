@@ -38,12 +38,16 @@ def _rank_dtype(have: torch.dtype, dtype: Optional[torch.dtype]) -> torch.dtype:
     raise ValueError(f"cannot rank {have} values as {dtype}: the cast is not exact")
 
 
+def canon_zero(dtype: torch.dtype, k: int, n: int) -> bool:
+    """Whether JAX's top-k of k from rows of n `dtype` values ties -0.0 with
+    +0.0 (k == 1, or the packed bf16 route); else -0.0 ranks below +0.0."""
+    return k == 1 or (dtype == torch.bfloat16 and k < n <= 32768)
+
+
 def topk_lastdim(x: torch.Tensor, k: int, *, dtype: Optional[torch.dtype] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k (values, int32 indices) over the last dimension."""
     dtype = _rank_dtype(x.dtype, dtype)
-    n = x.shape[-1]
-    canon = k == 1 or (dtype == torch.bfloat16 and k < n <= 32768)
-    vals, idx = _ktopk.topk(x, k, canon_zero=canon)
+    vals, idx = _ktopk.topk(x, k, canon_zero=canon_zero(dtype, k, x.shape[-1]))
     return vals.to(dtype), idx
 
 

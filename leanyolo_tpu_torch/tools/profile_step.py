@@ -5,14 +5,18 @@ warm-up step outside the trace, which also builds the kernels) and sums
 the device's kernel time per family (utils/profiling.py): each of the port's
 hand-written kernels is a family of its own. Counterpart of the JAX
 package's `tools/profile_step.py`, with the same flags and JSON, plus
---device; runs on the card unless --device names another (on the CPU the
-table holds the CPU operators' self time).
+--device and `--mode decode` (the inference step's decode alone, on the
+head maps of one forward made before the trace); runs on the card unless
+--device names another (on the CPU the table holds the CPU operators' self
+time).
 
 Examples:
     python -m leanyolo_tpu_torch.tools.profile_step --mode infer --model yolov10s \\
         --imgsz 640 --batch-size 32 --dtype bf16 --fuse --steps 5
     python -m leanyolo_tpu_torch.tools.profile_step --mode train --model yolov10s \\
         --imgsz 640 --batch-size 32 --out-dir runs/prof --json prof.json
+    python -m leanyolo_tpu_torch.tools.profile_step --mode decode --decode nms --fuse \\
+        --batch-size 1 --top 40
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model", default="yolov10s")
     p.add_argument("--weights", default="none", help="'none' (random), 'PRETRAINED_COCO', or a checkpoint path")
-    p.add_argument("--mode", choices=["infer", "train"], default="infer")
+    p.add_argument("--mode", choices=["infer", "train", "decode"], default="infer",
+                   help="decode: the infer step's decode alone, on the head maps of one forward")
     p.add_argument("--imgsz", type=int, default=640)
     p.add_argument("--batch-size", type=int, default=128)
     p.add_argument("--dtype", choices=["float32", "bf16"], default="bf16")
@@ -58,13 +63,21 @@ def build_step(args: argparse.Namespace):
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
 
     rng = np.random.RandomState(0)
-    if args.mode == "infer":
+    if args.mode in ("infer", "decode"):
         from ..engine.predictor import Predictor
 
         pred = Predictor(model, imgsz=args.imgsz, decode=args.decode, dtype=args.dtype, fuse=args.fuse,
                          device=device)
         x = torch.from_numpy(rng.randint(0, 256, (args.batch_size, args.imgsz, args.imgsz, 3)).astype(np.uint8))
         x = x.to(device)
+        if args.mode == "decode":
+            raw = pred.raw(x)
+
+            def step():
+                pred.decode_raw(raw)
+                sync()
+
+            return step
 
         def step():
             pred.run_batch(x)

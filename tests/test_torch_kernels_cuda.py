@@ -16,8 +16,10 @@ bias-free kernel followed by PyTorch's bias add and SiLU is held to one
 bf16 ulp per element: both round the same fp32 sums at the same points, but
 the wgmma route's SiLU uses the hardware's approximate exp2 and reciprocal,
 a few fp32 ulps from PyTorch's, which flips a bf16 rounding now and then.
-Top-k, the max-pool backward (mpbwd), the fused max/argmax and the NMS
-are bit-exact.
+Top-k, the max-pool backward (mpbwd), the fused max/argmax, the NMS, the
+decode's level gather (gather_rows) and its box decode (dfl_boxes) are
+bit-exact: dfl_boxes' plain version fixes the kernel's order of operations,
+one rounding each, and both run on the card's exp.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import pytest
 import torch
 
 from leanyolo_tpu_torch import kernels
-from leanyolo_tpu_torch.kernels import argmax, dwconv, matmul, mpbwd, nms, s2dconv, stem, topk
+from leanyolo_tpu_torch.kernels import argmax, dfl, dwconv, gather, matmul, mpbwd, nms, s2dconv, stem, topk
 from leanyolo_tpu_torch.models.yolov10.layers import maxpool2d_same
 from torch_parity import cuda_device  # noqa: F401  (fixture)
 
@@ -666,6 +668,7 @@ def test_predictor_nms_on_the_card(cuda_device, dtype, monkeypatch):
     dets, num = pred.run_batch(imgs)
     torch.cuda.synchronize()
     assert (kernels.LAUNCHES["argmax"], kernels.LAUNCHES["topk"], kernels.LAUNCHES["nms"]) == (1, 1, 1)
+    assert (kernels.LAUNCHES["dfl_boxes"], kernels.LAUNCHES["gather_rows"]) == (1, 0)
     assert dets.shape == (2, 300, 6) and num.shape == (2,)
     raw = pred.raw(imgs)
     kw = dict(num_classes=80, conf_thresh=0.001, iou_thresh=0.65, rank_dtype=torch.float32)
@@ -673,6 +676,7 @@ def test_predictor_nms_on_the_card(cuda_device, dtype, monkeypatch):
     monkeypatch.setattr(argmax, "max_argmax_levels", argmax.max_argmax_levels_plain)
     monkeypatch.setattr(topk, "topk", topk.topk_plain)
     monkeypatch.setattr(nms, "nms_compact", nms.nms_compact_plain)
+    monkeypatch.setattr(dfl, "dfl_boxes", dfl.dfl_boxes_plain)
     n0 = dict(kernels.LAUNCHES)
     ref = decode_nms(raw, **kw)
     torch.cuda.synchronize()
@@ -741,3 +745,136 @@ def test_serving_export_on_the_card(cuda_device, tmp_path, decode):
         with torch.no_grad():
             ref = fn(x)
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def _decode_levels(g, b, size, nc, dtype, concat, device):
+    """Per level (reg [B, HW, 64], cls [B, HW, nc]) maps on the card: coarse
+    class logits with zeros of both signs; whole maps, or the slices of a
+    concatenated [B, HW, 64 + nc] map (strided rows, read in place)."""
+    out = []
+    for s in (8, 16, 32):
+        hw = (size // s) ** 2
+        m = torch.randn(b, hw, 64 + nc, generator=g, device=device) * 2
+        m[..., 64:] = (m[..., 64:] * 2).round() / 2
+        m[..., 64::3] = torch.where(m[..., 64::3] == 0, torch.full_like(m[..., 64::3], -0.0), m[..., 64::3])
+        m = m.to(dtype)
+        out.append((m[..., :64], m[..., 64:]) if concat else (m[..., :64].contiguous(), m[..., 64:].contiguous()))
+    return out
+
+
+# (batch, image size, k, nc): the top-k decode's [32, 300] and the NMS
+# decode's [32, 1000] at 640 px, max_det 1500 at 320 px, batch 1, k = A,
+# and odd class counts (no whole 16-byte vector a row: element loads).
+DECODE_SHAPES = [(32, 640, 300, 80), (32, 640, 1000, 80), (8, 320, 1500, 80), (1, 640, 300, 80),
+                 (2, 128, 336, 80), (4, 320, 300, 3), (2, 256, 700, 37)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,size,k,nc", DECODE_SHAPES)
+@pytest.mark.parametrize("concat", [False, True])
+def test_gather_rows_kernel(cuda_device, dtype, b, size, k, nc, concat):
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    cls = [c for _, c in _decode_levels(g, b, size, nc, dtype, concat, cuda_device)]
+    a = sum(c.shape[1] for c in cls)
+    idx = torch.stack([torch.randperm(a, generator=g, device=cuda_device)[:k] for _ in range(b)]).int()
+    idx[:, -1] = a + 3  # past the levels: a zero row
+    n0 = kernels.LAUNCHES["gather_rows"]
+    got = gather.gather_rows(cls, idx)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gather_rows"] == n0 + 1
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    ref = gather.gather_rows_plain(cls, idx)
+    assert got.shape == (b, k, nc) and torch.equal(got.view(bits), ref.view(bits))
+    assert torch.equal(got.cpu().view(bits), gather.gather_rows([c.cpu() for c in cls], idx.cpu()).view(bits))
+    assert not bool(torch.signbit(got[got == 0].float()).any()) and not got[:, -1].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,size,k,nc", DECODE_SHAPES)
+@pytest.mark.parametrize("concat", [False, True])
+@pytest.mark.parametrize("mode", ["nms", "topk"])
+def test_dfl_boxes_kernel(cuda_device, dtype, b, size, k, nc, concat, mode):
+    """Both modes bit-equal to the plain version on the card (every column),
+    and within 5e-4 of the pixel scale of the plain version on the CPU."""
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    levels = _decode_levels(g, b, size, nc, dtype, concat, cuda_device)
+    regs = [r for r, _ in levels]
+    hw = [(size // s, size // s) for s in (8, 16, 32)]
+    a = sum(r.shape[1] for r in regs)
+    anchors = torch.stack([torch.randperm(a, generator=g, device=cuda_device)[:k] for _ in range(b)]).int()
+    kw = {}
+    if mode == "topk":
+        pairs = torch.stack([torch.randperm(k * nc, generator=g, device=cuda_device)[:k] for _ in range(b)]).int()
+        kw = dict(pair_idx=pairs, pair_logits=(torch.randn(b, k, generator=g, device=cuda_device) * 4).to(dtype),
+                  num_classes=nc)
+    n0 = kernels.LAUNCHES["dfl_boxes"]
+    got = dfl.dfl_boxes(regs, hw, (8, 16, 32), anchors, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["dfl_boxes"] == n0 + 1
+    assert got.shape == (b, k, 6 if mode == "topk" else 4) and got.dtype == torch.float32
+    ref = dfl.dfl_boxes_plain(regs, hw, (8, 16, 32), anchors, **kw)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    cpu = dfl.dfl_boxes_plain([r.cpu() for r in regs], hw, (8, 16, 32), anchors.cpu(),
+                              **{n: (v.cpu() if torch.is_tensor(v) else v) for n, v in kw.items()})
+    assert float((got.cpu()[..., :4] - cpu[..., :4]).abs().max()) <= 5e-4 * size
+
+
+def test_decode_wrappers_route_by_device_and_raise(cuda_device, monkeypatch):
+    """CPU tensors never reach the kernels, CUDA tensors never the plain
+    versions; the kernel takes reg_max 16 only and int32 indices."""
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    levels = _decode_levels(g, 2, 64, 80, torch.bfloat16, True, cuda_device)
+    regs, cls = [r for r, _ in levels], [c for _, c in levels]
+    hw = [(8, 8), (4, 4), (2, 2)]
+    idx = torch.randint(0, 84, (2, 9), generator=g, device=cuda_device, dtype=torch.int32)
+    counts = dict(kernels.LAUNCHES)
+    gather.gather_rows([c.cpu() for c in cls], idx.cpu())
+    dfl.dfl_boxes([r.cpu() for r in regs], hw, (8, 16, 32), idx.cpu())
+    assert kernels.LAUNCHES == counts
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(gather, "gather_rows_plain", refuse)
+    monkeypatch.setattr(dfl, "dfl_boxes_plain", refuse)
+    gather.gather_rows(cls, idx)
+    dfl.dfl_boxes(regs, hw, (8, 16, 32), idx)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gather_rows"] == counts["gather_rows"] + 1
+    assert kernels.LAUNCHES["dfl_boxes"] == counts["dfl_boxes"] + 1
+    with pytest.raises(ValueError):  # reg_max 8
+        dfl.dfl_boxes([r[..., :32] for r in regs], hw, (8, 16, 32), idx)
+    with pytest.raises(ValueError):  # int64 indices
+        gather.gather_rows(cls, idx.long())
+    with pytest.raises(ValueError):
+        gather.gather_rows([c.half() for c in cls], idx)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_predictor_decode_launches(cuda_device, dtype, monkeypatch):
+    """A folded Predictor's top-k request launches argmax 1, top-k 2,
+    gather_rows 1 and dfl_boxes 1; its NMS request argmax 1, top-k 1,
+    dfl_boxes 1 and nms 1; each decode bit-equal to the all-plain decode on
+    the same head maps."""
+    from leanyolo_tpu_torch import Predictor, YOLOv10
+    from leanyolo_tpu_torch.models.yolov10.decode import decode_topk
+
+    model = YOLOv10.create("yolov10s", class_names=[f"c{i}" for i in range(80)], seed=0)
+    imgs = torch.randint(0, 256, (2, 320, 320, 3), dtype=torch.uint8, device=cuda_device)
+    names = ("argmax", "topk", "gather_rows", "dfl_boxes", "nms")
+    for decode, want in (("topk", (1, 2, 1, 1, 0)), ("nms", (1, 1, 0, 1, 1))):
+        pred = Predictor(model, imgsz=320, decode=decode, dtype=dtype, fuse=True)
+        kernels.reset_launches()
+        pred.run_batch(imgs)
+        torch.cuda.synchronize()
+        assert tuple(kernels.LAUNCHES[n] for n in names) == want, decode
+    raw = pred.raw(imgs)  # the NMS branch's maps serve both decodes here
+    got = decode_topk(raw, num_classes=80)
+    for mod, name, plain in ((argmax, "max_argmax_levels", argmax.max_argmax_levels_plain),
+                             (topk, "topk", topk.topk_plain), (gather, "gather_rows", gather.gather_rows_plain),
+                             (dfl, "dfl_boxes", dfl.dfl_boxes_plain)):
+        monkeypatch.setattr(mod, name, plain)
+    n0 = dict(kernels.LAUNCHES)
+    ref = decode_topk(raw, num_classes=80)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == n0 and torch.equal(got, ref)
