@@ -20,7 +20,15 @@ Phases, each of which fails loudly (non-zero exit):
    plain versions at the decodes' shapes (DECODE_SHAPES: [32, 300] and
    [32, 1000] at 640 px, [8, 1500] at 320, batch 1, k = A, odd class
    counts), bf16 and fp32, on whole maps and on the strided slices of a
-   concatenated map, with signed zeros;
+   concatenated map, with signed zeros; the training BN's batch moments
+   (K8, bn_moments and bn_moments_bwd) bit-equal to their plain versions,
+   each launched three times with the same bits, at the 14 input shapes of
+   the 99 BNs of a batch-32 yolov10s 640 training forward in bf16, three
+   of them in fp32, at odd shapes (C = 33 on the general route, one row,
+   row counts that leave the last block partial, C = 8) in both, on a
+   contiguous NCHW input and on a cancellation case (mean 1000, std 0.01
+   in fp32, where the variance clamps), and an empty input (zero sums, no
+   launch);
 4. the serving path: yolov10s at full width and depth, random weights from a
    seed, folded to bf16, answers uint8 requests of batch 1, 8 and 32 through
    Predictor.run_batch; the launches of every kernel are counted per request
@@ -74,10 +82,15 @@ Phases, each of which fails loudly (non-zero exit):
    activations over fp32 parameters, trains through Trainer.train_step at
    batch 32 (24 GT slots, 40% valid, augmentation on, clip 1.0): 3 warm-up
    and 10 timed steps, with the launches of the SPPF max-pool backward
-   kernel counted over them, finite losses, peak memory and a profile; the
-   loss on one fixed batch falls over 20 steps; one fp32 step with the
-   kernel against the all-plain step from the same state (deterministic
-   cuDNN), and one fp32 step on the card against the CPU (yolov10n, 128 px);
+   kernel (3 a step) and of K8 (bn_moments and bn_moments_bwd 99 a step
+   each, all on the 16-byte route) counted over them, finite losses, peak
+   memory and a profile; the loss on one fixed batch falls over 20 steps;
+   one fp32 step with the kernels against the all-plain step from the same
+   state (deterministic cuDNN), and one fp32 step on the card against the
+   CPU (yolov10n, 128 px); then mpbwd and K8 timed (K8 summed over the
+   step's 99 BN inputs, with torch.batch_norm_stats as the forward's library
+   call and torch.addcmul as the backward's; its device time from profiles
+   whose kernel records are matched to their launches' shapes);
 9. official weights (run after 6): the yolov10s of 4 written as a THU-MIG
    release file (`model.{idx}.` keys, fp16, a pickled DetectionModel whose
    module cannot be imported, so the reader must stub it), once unfused and
@@ -118,12 +131,13 @@ Phases, each of which fails loudly (non-zero exit):
    noise (64 train and 32 val JPEGs at COCO-like sizes) feeds
    DataLoader(shuffle=True) and Trainer (yolov10s 640 bf16, batch 32,
    augment, clip 1.0) with the host and with the device letterbox: finite
-   losses, mpbwd 3 launches a step, ms a step (also in turns, host,
+   losses, mpbwd 3 launches a step and K8 99 + 99, ms a step (also in turns, host,
    device, device, host) and peak memory for each; the
    CLIs' validation (fp32 unfolded top-k) launches top-k; remat="full"
    against "none" on one fp32 step from one state (deterministic cuDNN:
    gradients and parameters within 1e-5 of scale, BN statistics advanced
-   once and equal) and the peak memory and step time of both in bf16 at
+   once and equal; K8's launches a step 99 + 99, and 198 + 99 with remat,
+   whose recompute runs every BN's forward again) and the peak memory and step time of both in bf16 at
    batch 32 (full must be lower); then the CLIs in subprocesses, two at a
    time, beside 14's QT-001 training: the train CLI (3
    epochs, bf16, augment, device letterbox: a history row with finite
@@ -189,7 +203,8 @@ Phases, each of which fails loudly (non-zero exit):
    stem 1, dw7x7 2, s2dconv 2, bmm 45, argmax 1, top-k 2, gather_rows 1,
    dfl_boxes 1; NMS decode: argmax 1, top-k 1, dfl_boxes 1, nms 1 and the
    rest) and whose device time a step is within 10% of 5's profile of the
-   same step; on the training step (mpbwd 3 a step), printed beside
+   same step; on the training step (mpbwd 3, bn_moments 99 and
+   bn_moments_bwd 99 a step), printed beside
    PERF.md's figure; a shortened QT-001 (the JAX package's SQA convergence
    step, 20 of its 30 epochs; its training runs beside 11's CLIs and the
    checks below, and is read last) through the port's CLIs (make_learnable_coco's
@@ -236,7 +251,8 @@ Phases, each of which fails loudly (non-zero exit):
    by whole units.
 
 Before the card's line at the end, the run prints the seconds it spent on
-the gather (K2) and box decode (K3) kernels' checks and times. The
+the gather (K2) and box decode (K3) kernels' checks and times, those of
+the batch moments (K8), and the run's whole time. The
 second-to-last line is a JSON object with one entry per kernel; the last is
 {"ok": true, "device": {...}}.
 
@@ -247,6 +263,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import functools
 import json
 import math
 import os
@@ -498,17 +515,19 @@ def device_ms(fn, reps: int = KERNEL_INNER) -> float:
 
 
 # Seconds this run spends on the checks and times of the decode's gather
-# (K2) and box decode (K3) kernels, printed at its end.
+# (K2) and box decode (K3) kernels, and of the training BN's batch moments
+# (K8), printed at its end.
 DECODE_CHECK_S: dict = {}
+BN_CHECK_S: dict = {}
 
 
 @contextlib.contextmanager
-def decode_check_time(name: str):
+def check_time(store: dict, name: str):
     t0 = time.perf_counter()
     try:
         yield
     finally:
-        DECODE_CHECK_S[name] = DECODE_CHECK_S.get(name, 0.0) + time.perf_counter() - t0
+        store[name] = store.get(name, 0.0) + time.perf_counter() - t0
 
 
 def max_err(a, b) -> float:
@@ -523,10 +542,12 @@ def plain_kernels():
     device alone. This swaps the module attributes the port calls through,
     for the all-plain reference run on the card only.
     """
-    from leanyolo_tpu_torch.kernels import argmax, dfl, dwconv, gather, matmul, mpbwd, nms, s2dconv, stem, topk
+    from leanyolo_tpu_torch.kernels import (argmax, bnstats, dfl, dwconv, gather, matmul, mpbwd, nms, s2dconv, stem,
+                                            topk)
 
     saved = (stem.fused_stem, dwconv.dw7x7_bias_silu, topk.topk, mpbwd.mpbwd, s2dconv.conv3x3_c32_bias_silu,
-             matmul.bmm, argmax.max_argmax_levels, nms.nms_compact, nms.nms_keep, gather.gather_rows, dfl.dfl_boxes)
+             matmul.bmm, argmax.max_argmax_levels, nms.nms_compact, nms.nms_keep, gather.gather_rows, dfl.dfl_boxes,
+             bnstats.bn_moments, bnstats.bn_moments_bwd)
     stem.fused_stem = lambda *a, dtype=None, packed=None: stem.fused_stem_plain(*a, dtype=dtype or a[1].dtype)
     dwconv.dw7x7_bias_silu = dwconv.dw7x7_bias_silu_plain
     topk.topk = topk.topk_plain
@@ -538,12 +559,14 @@ def plain_kernels():
     nms.nms_keep = nms.nms_keep_plain
     gather.gather_rows = gather.gather_rows_plain
     dfl.dfl_boxes = dfl.dfl_boxes_plain
+    bnstats.bn_moments = bnstats.bn_moments_plain
+    bnstats.bn_moments_bwd = bnstats.bn_moments_bwd_plain
     try:
         yield
     finally:
         (stem.fused_stem, dwconv.dw7x7_bias_silu, topk.topk, mpbwd.mpbwd, s2dconv.conv3x3_c32_bias_silu,
          matmul.bmm, argmax.max_argmax_levels, nms.nms_compact, nms.nms_keep, gather.gather_rows,
-         dfl.dfl_boxes) = saved
+         dfl.dfl_boxes, bnstats.bn_moments, bnstats.bn_moments_bwd) = saved
 
 
 def capture_path_calls(folded, images):
@@ -884,6 +907,97 @@ def phase_decode_kernels(seed: int, records: dict) -> None:
     records["dfl_boxes"]["max_abs_err"] = worst
 
 
+# The training BN's batch moments (K8): every input shape of a batch-32
+# yolov10s 640 training forward (kernels/bounds.py::train_bn_shapes: 99 BNs,
+# 14 shapes) in bf16, these three in fp32 too, and odd shapes: C = 33 (the
+# general route), one row, row counts that leave the last block partial
+# (blocks of 32 R rows, kernels/bnstats.py::rows_per_lane), C = 8, and a
+# contiguous NCHW input (the general route, read in the same logical order).
+BN_FP32_SHAPES = ((BATCH, 32, 320, 320), (BATCH, 128, 80, 80), (BATCH, 512, 20, 20))
+BN_ODD_SHAPES = ((2, 33, 17, 19), (1, 64, 1, 1), (3, 40, 37, 41), (5, 8, 45, 45))
+
+
+@functools.lru_cache(maxsize=1)
+def train_bn_shapes() -> tuple:
+    """[N, C, H, W] of the 99 BN inputs of the training forward, in call order."""
+    from leanyolo_tpu_torch.kernels import bounds
+
+    return tuple(bounds.train_bn_shapes("yolov10s", IMGSZ, BATCH))
+
+
+def bn_check(y, g, label: str, records: dict) -> None:
+    """K8 forward and backward on y against their plain versions on the card,
+    bit for bit, each launched three times (the same bits each time)."""
+    import torch
+    from leanyolo_tpu_torch import kernels
+    from leanyolo_tpu_torch.kernels import bnstats
+
+    n, c, h, w = y.shape
+    route = bnstats.route(y)
+    g1 = torch.randn(c, generator=g, device=y.device)
+    g2 = torch.randn(c, generator=g, device=y.device) * 1e-3
+    before = dict(kernels.LAUNCHES)
+    runs = [bnstats.bn_moments(y) for _ in range(3)]
+    druns = [bnstats.bn_moments_bwd(y, g1, g2) for _ in range(3)]
+    torch.cuda.synchronize()
+    ref, dref = bnstats.bn_moments_plain(y), bnstats.bn_moments_bwd_plain(y, g1, g2)
+    vec = route == "vec"
+    want = {"bn_moments": 3, "bn_moments_vec": 3 * vec, "bn_moments_bwd": 3, "bn_moments_bwd_vec": 3 * vec}
+    got = {k: kernels.LAUNCHES[k] - before[k] for k in want}
+    same = all(same_bits(a, b) for run in runs for a, b in zip(run, ref))
+    dsame = all(same_bits(d, dref) and d.stride() == y.stride() for d in druns)
+    r = bnstats.rows_per_lane(n * h * w, c)
+    print(f"kernel bn_moments {label} {str(y.dtype)[6:]} {list(y.shape)} ({route} route, R {r}, "
+          f"{-(-n * h * w // (bnstats.LANES * r))} blocks): s1, s2 bit-equal to the plain version in each of three "
+          f"launches {same}; bn_moments_bwd dy bit-equal in each of three {dsame}", flush=True)
+    if got != want:
+        fail(f"bn_moments {label} {list(y.shape)}: launches {got}, expected {want}")
+    if not (same and dsame):
+        fail(f"bn_moments {label} {list(y.shape)}: the kernels disagree with their plain versions (forward "
+             f"{same}, backward {dsame}; largest gaps {[max_err(a, b) for a, b in zip(runs[0], ref)]}, "
+             f"{max_err(druns[0], dref)})")
+    for name in ("bn_moments", "bn_moments_bwd"):
+        records[name]["max_abs_err"] = 0.0
+
+
+def phase_bn_kernels(seed: int, records: dict) -> None:
+    """K8 against its plain versions (see BN_FP32_SHAPES, BN_ODD_SHAPES)."""
+    import torch
+    from leanyolo_tpu_torch import kernels
+    from leanyolo_tpu_torch.kernels import bnstats
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 18)
+
+    def make(shape, dtype, mean=None, std=1.0, layout=torch.channels_last):
+        """Normal values of std `std` about `mean` (default: a normal mean a channel)."""
+        if mean is None:
+            mean = torch.randn(1, shape[1], 1, 1, generator=g, device="cuda")
+        return (torch.randn(shape, generator=g, device="cuda") * std + mean).to(dtype).contiguous(memory_format=layout)
+
+    shapes = sorted(set(train_bn_shapes()), key=lambda s: -s[1] * s[2] * s[3])
+    for shape in shapes:
+        bn_check(make(shape, torch.bfloat16), g, "train path", records)
+    for shape in BN_FP32_SHAPES:
+        bn_check(make(shape, torch.float32), g, "train path", records)
+    for shape in BN_ODD_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            bn_check(make(shape, dtype), g, "odd", records)
+    bn_check(make((BATCH, 64, 40, 40), torch.bfloat16, layout=torch.contiguous_format), g, "NCHW", records)
+    # Cancellation: mean 1000, std 0.01 in fp32, where s2/n - mean^2 is rounding noise.
+    y = make((BATCH, 64, 80, 80), torch.float32, mean=1000.0, std=0.01)
+    bn_check(y, g, "mean 1000 std 0.01", records)
+    s1, s2 = bnstats.bn_moments(y)
+    rows = y.numel() // y.shape[1]
+    mean = s1 / rows
+    raw = s2 / rows - mean * mean  # as _BatchMoments forms it
+    print(f"mean 1000 std 0.01: s2/n - mean^2 is 0 or below in {int((raw <= 0).sum())} of {raw.numel()} channels "
+          f"(the variance clamps there), at most {float(raw.abs().max()):.4g}", flush=True)
+    n = kernels.LAUNCHES["bn_moments"]
+    s1, s2 = bnstats.bn_moments(torch.zeros(0, 16, 4, 4, device="cuda", dtype=torch.bfloat16))
+    if kernels.LAUNCHES["bn_moments"] != n or s1.tolist() != [0.0] * 16 or s2.tolist() != [0.0] * 16:
+        fail("bn_moments of an empty input: expected zero sums and no launch")
+
+
 def bf16_ulps_apart(a, b):
     """Per element, how many bf16 steps lie between a and b (+0 == -0)."""
     import torch
@@ -993,7 +1107,7 @@ def check_decodes(decode, preds: dict, x32, label: str) -> None:
     request a predictor, its maps' first images for the smaller batches."""
     import torch
 
-    with decode_check_time(f"{label} decodes on identical maps"):
+    with check_time(DECODE_CHECK_S, f"{label} decodes on identical maps"):
         for dt, pred in preds.items():
             full = pred.raw(x32)
             for b in (1, 8, BATCH):
@@ -1204,7 +1318,7 @@ def phase_times(folded, seed: int, records: dict, pred, x32, calls: dict) -> dic
         nbytes, nops = nbytes + nb, nops + no
     r.update(ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib)
     set_bound(r, nbytes, nops, "fp32")
-    with decode_check_time("K2 and K3 timed"):
+    with check_time(DECODE_CHECK_S, "K2 and K3 timed"):
         time_decode_kernels(records, pred, x32)
 
     # s2dconv, one launch at [32,160,160,32] (the input of c2.m[0].cv1, made
@@ -1582,7 +1696,7 @@ def phase_nms_times(seed: int, records: dict, pred, x32) -> None:
           f"{r['bound_ms']:.6f} ({r['bound_by']}); a launch per level {[round(t, 4) for t in per_level]}", flush=True)
 
     # K3 in NMS mode on the [32, 1000] candidates of the batch-32 request.
-    with decode_check_time("K3 NMS mode timed"):
+    with check_time(DECODE_CHECK_S, "K3 NMS mode timed"):
         regs = [r.reshape(BATCH, -1, r.shape[-1]) for r, _ in maps]
         hw = [tuple(c.shape[1:3]) for _, c in maps]
         best, _ = argmax.max_argmax_levels(levels, canon_zero=False)
@@ -2308,6 +2422,28 @@ def train_batch(rng, b: int, imgsz: int, device):
     return SimpleNamespace(images=t(images), gt_labels=t(labels), gt_boxes=t(boxes), gt_mask=mask)
 
 
+# K8's launches a yolov10s training step: a forward and a backward launch for
+# each of its 99 training-mode BNs. With remat="full" every BN sits in a
+# checkpointed node or head branch (model.py: each backbone and neck node
+# and each head branch is a segment), so the backward's recompute runs each
+# forward again: 198 forward launches, 99 backward (the recompute's graph is
+# the one differentiated).
+BN_PER_STEP = {"bn_moments": 99, "bn_moments_bwd": 99}
+BN_PER_STEP_REMAT = {"bn_moments": 198, "bn_moments_bwd": 99}
+
+
+def check_bn_launches(launches: dict, steps: int, what: str, per_step: dict) -> None:
+    """Hold K8's launches over `steps` steps to `per_step` a step, every one on
+    the 16-byte route (every BN input of the path is channels_last, C a
+    multiple of 8), and print them."""
+    want = {name: k * steps for name, k in per_step.items()}
+    want.update({f"{name}_vec": k for name, k in want.items()})
+    got = {name: launches[name] for name in want}
+    print(f"K8 launches over {steps} {what}: {got}", flush=True)
+    if got != want:
+        fail(f"K8 over {steps} {what}: launches {got}, expected {want}")
+
+
 def phase_train(seed: int, records: dict) -> None:
     """The training path at full size, then its checks (see the module doc)."""
     import copy
@@ -2340,6 +2476,9 @@ def phase_train(seed: int, records: dict) -> None:
     records["mpbwd"]["launches"] = launches["mpbwd"]
     if launches["mpbwd"] != 3 * 13:
         fail(f"mpbwd launched {launches['mpbwd']} times over 13 train steps, expected 3 per step")
+    check_bn_launches(launches, 13, "train steps", BN_PER_STEP)
+    for name in ("bn_moments", "bn_moments_bwd"):
+        records[name]["launches"] = launches[name]
     totals = [float(l["total"]) for l in losses]
     if not all(np.isfinite([float(v) for l in losses for v in l.values()])):
         fail(f"non-finite training losses: {totals}")
@@ -2396,10 +2535,11 @@ def phase_train(seed: int, records: dict) -> None:
     model = YOLOv10.create("yolov10s", class_names=names, seed=seed + 2)
     batch = train_batch(rng, 8, IMGSZ, "cuda")
     tk, tp = Trainer(copy.deepcopy(model), f32cfg), Trainer(model, f32cfg)
-    n = kernels.LAUNCHES["mpbwd"]
+    before = dict(kernels.LAUNCHES)
     lk = tk.forward_backward(batch)
-    if kernels.LAUNCHES["mpbwd"] != n + 3:
+    if kernels.LAUNCHES["mpbwd"] != before["mpbwd"] + 3:
         fail("the fp32 kernel step did not launch mpbwd three times")
+    check_bn_launches({k: v - before[k] for k, v in kernels.LAUNCHES.items()}, 1, "fp32 kernel steps", BN_PER_STEP)
     with plain_kernels():
         lp = tp.forward_backward(batch)
     torch.cuda.synchronize()
@@ -2458,6 +2598,127 @@ def phase_train_times(seed: int, records: dict) -> None:
     dyg = torch.randn(BATCH, 20, 20, 255, generator=g, device="cuda").to(torch.bfloat16)
     t_g = cuda_ms(lambda: mpbwd.mpbwd(xg, dyg), inner=KERNEL_INNER)
     print(f"mpbwd [{BATCH},20,20,255] bf16 ({mpbwd.route(xg, dyg, xg)} route): kernel {t_g:.4f} ms", flush=True)
+    del x, dy, xg, dyg, xc, dyc, idx
+    with check_time(BN_CHECK_S, "K8 timed"):
+        time_bn_moments(seed, records)
+
+
+def time_bn_moments(seed: int, records: dict) -> None:
+    """K8 forward and backward summed over the 99 BN inputs of a batch-32
+    yolov10s 640 bf16 training forward, as bmm's 45 calls are summed: each of
+    the 14 shapes timed once (CUDA events, mean of 10 back-to-back launches)
+    and counted as often as the step has it, beside the plain version and
+    the library's one call for the same function: torch.batch_norm_stats(y,
+    1e-3) for the forward (mean and invstd), torch.addcmul(g_s1, y, g_s2,
+    value=2, out=dy) for the backward (fp32 math, written to a tensor of
+    y's dtype and layout); timed only. The device time (profiler) from
+    profiles of the step's 99 launches in order (`bn_step_device_ms`)."""
+    from collections import Counter
+
+    import torch
+    from leanyolo_tpu_torch.kernels import bnstats, bounds
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 19)
+    counts = Counter(train_bn_shapes())
+    f, b = records["bn_moments"], records["bn_moments_bwd"]
+    for r in (f, b):
+        r.update(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bound_by="bytes")
+    ins = {}
+    print("bn_moments per shape (bf16 channels_last, BNs of the step, R): kernel ms, plain ms, "
+          "torch.batch_norm_stats ms, bound ms | backward: kernel ms, plain ms, torch.addcmul ms, bound ms",
+          flush=True)
+    for shape, k in sorted(counts.items(), key=lambda kv: -kv[0][1] * kv[0][2] * kv[0][3]):
+        y = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        g1, g2 = torch.randn(shape[1], generator=g, device="cuda"), torch.randn(shape[1], generator=g, device="cuda")
+        ins[shape] = (y, g1, g2)
+        rows = shape[0] * shape[2] * shape[3]
+        dy = torch.empty_like(y)
+        row = [cuda_ms(lambda: bnstats.bn_moments(y), inner=KERNEL_INNER),
+               cuda_ms(lambda: bnstats.bn_moments_plain(y), warmup=1, runs=5, inner=2),
+               cuda_ms(lambda: torch.batch_norm_stats(y, 1e-3), inner=KERNEL_INNER),
+               bounds.bound(*bounds.bn_moments_work(rows, shape[1]), bounds.FP32_OPS_PER_S)[0],
+               cuda_ms(lambda: bnstats.bn_moments_bwd(y, g1, g2), inner=KERNEL_INNER),
+               cuda_ms(lambda: bnstats.bn_moments_bwd_plain(y, g1, g2), warmup=1, runs=5, inner=2),
+               cuda_ms(lambda: torch.addcmul(g1.view(1, -1, 1, 1), y, g2.view(1, -1, 1, 1), value=2.0, out=dy),
+                       inner=KERNEL_INNER),
+               bounds.bound(*bounds.bn_moments_bwd_work(rows, shape[1]), bounds.FP32_OPS_PER_S)[0]]
+        for r, part in ((f, row[:4]), (b, row[4:])):
+            for key, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"), part):
+                r[key] += k * v
+        print(f"  {list(shape)} x{k} R {bnstats.rows_per_lane(rows, shape[1])}: "
+              f"{' '.join(f'{v:.5f}' for v in row[:4])} | {' '.join(f'{v:.5f}' for v in row[4:])}", flush=True)
+    step = [(tuple(shape), ins[shape]) for shape in train_bn_shapes()]
+    f["device_ms"], f["device_records"] = bn_step_device_ms(
+        "bn_moments", [(shape, lambda y=y: bnstats.bn_moments(y)) for shape, (y, _, _) in step])
+    b["device_ms"], b["device_records"] = bn_step_device_ms(
+        "bn_moments_bwd", [(shape, lambda a=a: bnstats.bn_moments_bwd(*a)) for shape, a in step])
+    print(f"bn_moments, the {len(step)} BNs of a batch-{BATCH} yolov10s {IMGSZ} bf16 training forward, summed: "
+          f"kernel {f['ms']:.4f} ms (device {f['device_ms']:.4f}, the 99 in a row, {f['device_records']}), plain "
+          f"{f['plain_ms']:.4f}, torch.batch_norm_stats {f['library_ms']:.4f}, bound {f['bound_ms']:.4f} (bytes); "
+          f"bn_moments_bwd: kernel {b['ms']:.4f} ms (device {b['device_ms']:.4f}, {b['device_records']}), plain "
+          f"{b['plain_ms']:.4f}, torch.addcmul {b['library_ms']:.4f}, bound {b['bound_ms']:.4f} (bytes); "
+          f"{card_line()}", flush=True)
+
+
+def bn_step_device_ms(kernel: str, launches: list, calls: int = 2) -> tuple:
+    """(device ms of the step's launches, "K of M kernel records kept"):
+    `launches` is [(shape, fn)], each fn launching `kernel` once, run in
+    order `calls` times a profile.
+
+    A profile can lose kernel records (`profiled`), and one kernel of 14
+    shapes whose launches differ 7x in time gives no mean that stands for
+    the step. Each kept kernel record is matched to its launch by the
+    correlation id it shares with the launch's runtime record, so its shape
+    is known, and the step's time is each shape's mean kept record times the
+    step's count of the shape: a lost record moves no weight between shapes.
+    A profile is taken again, four times at most, until every shape has a
+    record; a profile whose runtime records are not one a launch is not
+    used."""
+    from collections import Counter
+
+    import torch
+    from leanyolo_tpu_torch.utils.profiling import _family
+    from torch.profiler import ProfilerActivity, profile
+
+    for _, fn in launches:
+        fn()
+    torch.cuda.synchronize()
+    counts = Counter(shape for shape, _ in launches)
+    kept, us = Counter(), Counter()
+    taken = 0
+    for attempt in range(4):
+        pad = PROFILE_PAD_S * 2 ** attempt
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            for _ in range(calls):
+                for _, fn in launches:
+                    fn()
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        events = prof.events()
+        runtime = sorted((e for e in events if e.device_type.name == "CPU" and "LaunchKernel" in e.name),
+                         key=lambda e: e.time_range.start)
+        records = {e.id: e.time_range.elapsed_us() for e in events
+                   if e.device_type.name == "CUDA" and _family(e.name) == kernel + "_kernel"}
+        if len(runtime) != calls * len(launches):
+            print(f"{kernel} step profile {attempt + 1}: {len(runtime)} launch records of "
+                  f"{calls * len(launches)}; profiling again", flush=True)
+            continue
+        taken += calls * len(launches)
+        for (shape, _), e in zip(launches * calls, runtime):
+            if e.id in records:
+                kept[shape] += 1
+                us[shape] += records[e.id]
+        if all(kept[shape] for shape in counts):
+            break
+    if not all(kept[shape] for shape in counts):
+        fail(f"{kernel} step profile: shapes with no kernel record in {attempt + 1} profiles: "
+             f"{[list(s) for s in counts if not kept[s]]}")
+    ms = sum(us[shape] / kept[shape] * n for shape, n in counts.items()) / 1e3
+    kept_line = f"{sum(kept.values())} of {taken} kernel records kept"
+    print(f"{kernel} step profile: {kept_line}", flush=True)
+    return ms, kept_line
 
 
 # Phase 11: training from a folder, as a user trains.
@@ -2591,6 +2852,7 @@ def phase_train_folder(seed: int, records: dict, card: str, tmp: str) -> tuple:
         if launches["mpbwd"] != 3 * FOLDER_STEPS:
             fail(f"train from a folder ({mode}): mpbwd launched {launches['mpbwd']} times over "
                  f"{FOLDER_STEPS} steps, expected 3 a step")
+        check_bn_launches(launches, FOLDER_STEPS, f"steps from a folder ({mode} letterbox)", BN_PER_STEP)
         records["mpbwd"][f"launches_folder_{mode}"] = launches["mpbwd"]
         print(f"train from a folder, {mode} letterbox, yolov10s 640 bf16 batch {BATCH} ({FOLDER_TRAIN} images, "
               f"augment, clip 1.0): ms/step median {statistics.median(step_ms):.4f} (CUDA events, "
@@ -2640,7 +2902,12 @@ def phase_train_folder(seed: int, records: dict, card: str, tmp: str) -> tuple:
     f32 = {r: Trainer(copy.deepcopy(model), TrainConfig(augment=False, grad_clip=1.0, remat=r,
                                                         device_preprocess=True, imgsz=IMGSZ))
            for r in ("none", "full")}
-    loss = {r: float(t.train_step(small)["total"]) for r, t in f32.items()}
+    loss = {}
+    for r, t in f32.items():
+        before = dict(kernels.LAUNCHES)
+        loss[r] = float(t.train_step(small)["total"])
+        check_bn_launches({k: v - before[k] for k, v in kernels.LAUNCHES.items()}, 1, f"remat={r!r} fp32 steps",
+                          BN_PER_STEP_REMAT if r == "full" else BN_PER_STEP)
     torch.cuda.synchronize()
     cudnn.deterministic, cudnn.benchmark = saved
     mn, mf = f32["none"].model, f32["full"].model
@@ -2765,10 +3032,11 @@ def phase_train_clis(seed: int, card: str, tmp: str, sets: tuple) -> None:
 PROFILE_FAMILIES = {"stem_tc_kernel": "stem", "dw7x7_kernel": "dw7x7", "topk_kernel": "topk",
                     "s2d_wgmma_kernel": "s2dconv", "gemm_kernel": "bmm", "argmax_kernel": "argmax",
                     "nms_kernel": "nms", "mpbwd_vec_kernel": "mpbwd", "mpbwd_kernel": "mpbwd",
-                    "gather_rows_kernel": "gather_rows", "dfl_boxes_kernel": "dfl_boxes"}
+                    "gather_rows_kernel": "gather_rows", "dfl_boxes_kernel": "dfl_boxes",
+                    "bn_moments_kernel": "bn_moments", "bn_moments_bwd_kernel": "bn_moments_bwd"}
 PROFILE_STEPS = 3
 TRAIN_PROFILE_STEPS = 2
-TRAIN_DEVICE_MS = 113.87  # PERF.md section 5: device time a training step, PRs 2 and 6
+TRAIN_DEVICE_MS = 80.81  # PERF.md section 5: device time a training step by profile_step
 # The JAX package's SQA step QT-001 (sqa.yaml): make_learnable_coco sets of
 # 240 (seed 0) and 60 held-out (seed 777) images at 160 px, yolov10n trained
 # at batch 16 (bf16, augment, clip 1.0, 8 boxes), validated by the top-k
@@ -2878,9 +3146,9 @@ def phase_profile_step(card: str, serving_profile: dict) -> None:
             data = json.load(f)
         print(f"profile_step --mode train (yolov10s {IMGSZ} bf16, batch {BATCH}, {TRAIN_PROFILE_STEPS} steps) in "
               f"{wall:.1f} s wall; {card}:\n{out.rstrip()}", flush=True)
-        profile_counts("train", data, out_dir, TRAIN_PROFILE_STEPS, {"mpbwd": 3})
+        profile_counts("train", data, out_dir, TRAIN_PROFILE_STEPS, {"mpbwd": 3, **BN_PER_STEP})
         print(f"training step device time: profile_step {data['total_ms_per_step']:.4f} ms/step beside PERF.md "
-              f"section 5's {TRAIN_DEVICE_MS} ms (PRs 2 and 6); {card}", flush=True)
+              f"section 5's {TRAIN_DEVICE_MS} ms; {card}", flush=True)
 
 
 def start_qt001(tmp: str) -> dict:
@@ -3616,7 +3884,10 @@ def dp_rank(argv) -> int:
                                          gt_boxes=batch.gt_boxes.cpu(), gt_mask=batch.gt_mask)
                 with deterministic(), box_pool_backward():
                     out[d]["box"] = dp_step(Trainer(copy.deepcopy(model), cfgs[d]), batch, seed)
+                    t0 = time.perf_counter()
                     out[d]["box_cpu"] = dp_step(Trainer(copy.deepcopy(model), cfgs[d], device="cpu"), on_cpu, seed)
+                say(f"the one-process fp32 step on the CPU (the box-backward comparison's reference) took "
+                    f"{time.perf_counter() - t0:.1f} s")
             say(f"world-1 mesh step {d}: loss {meshed['losses']['total']!r} against the plain step's "
                 f"{plain['losses']['total']!r}; bit-equal losses, gradients, statistics and parameters: {same}; "
                 f"worst gradient gap {grad_gap(meshed['grads'], plain['grads'])!r}; mpbwd launches {mpbwd}")
@@ -4490,6 +4761,7 @@ def main() -> int:
     from leanyolo_tpu_torch.kernels import _build
     from leanyolo_tpu_torch.models.yolov10.fold import fold_model
 
+    t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
@@ -4511,6 +4783,9 @@ def main() -> int:
             ("nms", "leanyolo_tpu_torch/kernels/csrc/nms.cu", "leanyolo_tpu/ops/boxes.py:163"),
             ("gather_rows", "leanyolo_tpu_torch/kernels/csrc/decode.cu", "leanyolo_tpu/models/yolov10/decode.py:102"),
             ("dfl_boxes", "leanyolo_tpu_torch/kernels/csrc/decode.cu", "leanyolo_tpu/models/yolov10/decode.py:191"),
+            ("bn_moments", "leanyolo_tpu_torch/kernels/csrc/bnstats.cu", "leanyolo_tpu/models/yolov10/layers.py:202"),
+            ("bn_moments_bwd", "leanyolo_tpu_torch/kernels/csrc/bnstats.cu",
+             "leanyolo_tpu/models/yolov10/layers.py:202"),
         )
     }
     # Kernels rebuilt for Hopper after their first port, by the port's slice
@@ -4526,8 +4801,10 @@ def main() -> int:
     model = make_model(SEED)
     folded = fold_model(model, dtype=torch.bfloat16).cuda().to(memory_format=torch.channels_last)  # as Predictor
     calls = phase_kernels(folded, SEED, records)
-    with decode_check_time("K2 and K3 against their plain versions"):
+    with check_time(DECODE_CHECK_S, "K2 and K3 against their plain versions"):
         phase_decode_kernels(SEED, records)
+    with check_time(BN_CHECK_S, "K8 against its plain versions"):
+        phase_bn_kernels(SEED, records)
     done("kernels")
     pred, x32 = phase_main(model, SEED, records)
     done("serving")
@@ -4577,6 +4854,9 @@ def main() -> int:
 
     print(f"the decode kernels' (K2, K3) checks and times took {sum(DECODE_CHECK_S.values()):.1f} s: "
           f"{ {k: round(v, 1) for k, v in DECODE_CHECK_S.items()} }", flush=True)
+    print(f"the batch moments' (K8) checks and times took {sum(BN_CHECK_S.values()):.1f} s: "
+          f"{ {k: round(v, 1) for k, v in BN_CHECK_S.items()} }; the run took {time.perf_counter() - t_start:.1f} s "
+          f"in all, the build included", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
 
 Each wrapper module (stem.py, dwconv.py, topk.py, mpbwd.py, s2dconv.py,
-matmul.py, argmax.py, nms.py, gather.py, dfl.py) holds a kernel's wrapper
-and, beside it, a plain PyTorch version of the same function. Each wrapper but mpbwd's is a
+matmul.py, argmax.py, nms.py, gather.py, dfl.py, bnstats.py) holds a
+kernel's wrapper and, beside it, a plain PyTorch version of the same
+function. Each wrapper but the training path's (mpbwd's and bnstats's) is a
 PyTorch operator, `leanyolo_tpu_torch::<name>` (_build.operator), and the
 dispatcher picks by the devices of its tensors: CPU tensors take the plain
 version; CUDA tensors launch the kernel, which is built from `csrc/` at
@@ -12,16 +13,18 @@ to the other.
 
 `LAUNCHES` counts kernel launches per kernel; a wrapper adds one where it
 launches its kernel and nowhere else. `stem`, `s2dconv`, `bmm` and
-`mpbwd` count both routes of their kernel; `stem_tc` (the tensor-core
-stem), `s2dconv_wgmma` and `bmm_wgmma` (the wgmma routes) the bf16 route
-alone, `mpbwd_vec` mpbwd's 16-byte route.
+`mpbwd`, `bn_moments` and `bn_moments_bwd` count both routes of their
+kernel; `stem_tc` (the tensor-core stem), `s2dconv_wgmma` and `bmm_wgmma`
+(the wgmma routes) the bf16 route alone, `mpbwd_vec`, `bn_moments_vec` and
+`bn_moments_bwd_vec` the 16-byte routes.
 """
 
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"stem": 0, "stem_tc": 0, "dw7x7": 0, "topk": 0, "mpbwd": 0, "mpbwd_vec": 0,
                             "s2dconv": 0, "s2dconv_wgmma": 0, "bmm": 0, "bmm_wgmma": 0,
-                            "argmax": 0, "nms": 0, "gather_rows": 0, "dfl_boxes": 0}
+                            "argmax": 0, "nms": 0, "gather_rows": 0, "dfl_boxes": 0,
+                            "bn_moments": 0, "bn_moments_vec": 0, "bn_moments_bwd": 0, "bn_moments_bwd_vec": 0}
 
 
 def reset_launches() -> None:

@@ -148,6 +148,50 @@ def mpbwd_work(b: int, h: int, w: int, c: int, k: int = 5, elt: int = 2) -> Tupl
     return 3 * n * elt, k * k * n
 
 
+def bn_moments_work(rows: int, c: int, elt: int = 2) -> Tuple[int, int]:
+    """(bytes, operations) of the training BN's batch moments on [rows, C]
+    (rows = N*H*W): y read once, the two fp32 [C] sums written; an add for
+    s1 and a multiply and an add for s2 an element (fp32 rate)."""
+    return rows * c * elt + 2 * c * 4, 3 * rows * c
+
+
+def bn_moments_bwd_work(rows: int, c: int, elt: int = 2) -> Tuple[int, int]:
+    """(bytes, operations) of its backward on [rows, C]: y read and dy
+    written, the two fp32 [C] coefficients read; 2 y, its product with g_s2
+    and the sum with g_s1 an element (fp32 rate)."""
+    return 2 * rows * c * elt + 2 * c * 4, 3 * rows * c
+
+
+def train_bn_shapes(variant: str = "yolov10s", imgsz: int = 640, batch: int = 32) -> List[Tuple[int, int, int, int]]:
+    """[N, C, H, W] of each training-mode BatchNorm input of one training
+    forward (both branches, as `Trainer` runs it), in call order: spied on
+    the moments wrapper in one forward at 64 px and batch 1 on the CPU,
+    scaled to the requested size and batch (every map side is imgsz /
+    stride)."""
+    import torch
+
+    from ..models.yolov10.model import YOLOv10
+    from . import bnstats
+
+    if imgsz % 64:
+        raise ValueError("imgsz must be a multiple of 64")
+    f = imgsz // 64
+    model = YOLOv10.create(variant, class_names=[f"c{i}" for i in range(80)]).train()
+    shapes, moments = [], bnstats.bn_moments
+
+    def spy(y):
+        shapes.append((batch, y.shape[1], y.shape[2] * f, y.shape[3] * f))
+        return moments(y)
+
+    bnstats.bn_moments = spy
+    try:
+        with torch.no_grad():
+            model(torch.zeros(1, 64, 64, 3), dtype=torch.float32, concat_head=False)
+    finally:
+        bnstats.bn_moments = moments
+    return shapes
+
+
 def bmm_work(b: int, m: int, k: int, n: int, elt: int = 2) -> Tuple[int, int]:
     """(bytes, operations) of [b, m, k] x [k, n] -> [b, m, n]."""
     return elt * (b * m * k + k * n + b * m * n), 2 * b * m * k * n
@@ -193,8 +237,9 @@ def kernel_bounds(batch: int = 32):
     """Rows of (kernel, shape, MB moved, GFLOP, bound ms, bound by) of the
     stem at each size's widths on [batch,640,640,3] uint8, the top-k pair of
     a request, the decode's argmax, level gather and box decode (top-k and
-    NMS modes), the NMS (every pair, the most its data can need) and mpbwd
-    at the training path's SPPF shape."""
+    NMS modes), the NMS (every pair, the most its data can need), mpbwd at
+    the training path's SPPF shape and the batch moments (forward and
+    backward) of a training step's BNs, each bounded alone, then summed."""
     from ..models.yolov10.config import VARIANTS
 
     rows = []
@@ -221,6 +266,13 @@ def kernel_bounds(batch: int = 32):
                  *bound(nbytes, nops, FP32_OPS_PER_S)))
     nbytes, nops = mpbwd_work(batch, 20, 20, 256)
     rows.append(("mpbwd", f"[{batch},20,20,256] bf16, k=5", nbytes, nops, *bound(nbytes, nops, FP32_OPS_PER_S)))
+    shapes = train_bn_shapes("yolov10s", 640, batch)
+    for name, work in (("bn_moments", bn_moments_work), ("bn_moments_bwd", bn_moments_bwd_work)):
+        works = [work(n * h * w, c) for n, c, h, w in shapes]
+        nbytes, nops = sum(w[0] for w in works), sum(w[1] for w in works)
+        ms = sum(bound(nb, no, FP32_OPS_PER_S)[0] for nb, no in works)
+        rows.append((name, f"{len(shapes)} BN inputs of a yolov10s 640 bf16 train step, summed", nbytes, nops, ms,
+                     bound(nbytes, nops, FP32_OPS_PER_S)[1]))
     return rows
 
 

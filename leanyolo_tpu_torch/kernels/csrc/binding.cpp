@@ -6,8 +6,12 @@
 #include <ATen/cuda/CUDAContext.h>
 #include <c10/cuda/CUDAException.h>
 
+#include <algorithm>
+#include <map>
+#include <mutex>
 #include <optional>
 #include <tuple>
+#include <utility>
 #include <vector>
 
 #include "kernels.h"
@@ -103,6 +107,77 @@ void mpbwd(torch::Tensor x, torch::Tensor dy, torch::Tensor dx, int64_t k, bool 
   TORCH_CHECK(k % 2 == 1 && k >= 1 && k <= 15, "mpbwd: k odd, 1 <= k <= 15");
   C10_CUDA_CHECK(launch_mpbwd(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), x.size(0), x.size(1), x.size(2), x.size(3),
                               static_cast<int>(k), bf16, vec, at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// y's sizes and strides for the bn_moments launchers; sizes must fit an int.
+void bn_shape(const torch::Tensor& y, int* size, long long* stride, const char* name) {
+  TORCH_CHECK(y.is_cuda() && y.dim() == 4, name, ": y must be a 4-D CUDA tensor");
+  for (int i = 0; i < 4; ++i) {
+    TORCH_CHECK(y.size(i) < (int64_t(1) << 31), name, ": size too large");
+    size[i] = static_cast<int>(y.size(i));
+    stride[i] = y.stride(i);
+  }
+}
+
+bool bn_vec_ok(const torch::Tensor& t) {
+  return t.is_contiguous(at::MemoryFormat::ChannelsLast) && t.size(1) % (16 / t.element_size()) == 0 &&
+         reinterpret_cast<uintptr_t>(t.data_ptr()) % 16 == 0;
+}
+
+// bn_moments' ticket counters for the current device and stream, at least
+// `need` of them: zeroed once, left at 0 by every launch, kept (never freed)
+// for the process's life; launches on one stream never overlap.
+torch::Tensor bn_tickets(const torch::Tensor& y, int64_t need) {
+  static std::mutex mu;
+  static auto* cache = new std::map<std::pair<int, cudaStream_t>, torch::Tensor>();
+  const std::pair<int, cudaStream_t> key{y.get_device(), at::cuda::getCurrentCUDAStream().stream()};
+  std::lock_guard<std::mutex> lock(mu);
+  torch::Tensor& t = (*cache)[key];
+  if (!t.defined() || t.numel() < need) t = torch::zeros({std::max<int64_t>(64, need)}, y.options().dtype(at::kInt));
+  return t;
+}
+
+void bn_moments(torch::Tensor y, torch::Tensor partials, torch::Tensor s1, torch::Tensor s2, int64_t rows_per_lane,
+                bool vec) {
+  int size[4];
+  long long stride[4];
+  bn_shape(y, size, stride, "bn_moments");
+  const bool bf16 = act_is_bf16(y, "bn_moments y");
+  for (auto* p : {&partials, &s1, &s2}) {
+    check(*p, "bn_moments");
+    TORCH_CHECK(p->scalar_type() == at::kFloat, "bn_moments: fp32 sums and partials");
+  }
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(partials.data_ptr()) % 16 == 0, "bn_moments: partials 16-byte aligned");
+  const int64_t C = y.size(1), rows = y.size(0) * y.size(2) * y.size(3), block = 32 * rows_per_lane;
+  TORCH_CHECK(rows_per_lane >= 1 && rows_per_lane < (int64_t(1) << 24), "bn_moments: rows_per_lane out of range");
+  TORCH_CHECK(s1.numel() == C && s2.numel() == C, "bn_moments: s1, s2 [C]");
+  TORCH_CHECK(partials.numel() >= 2 * ((rows + block - 1) / block) * C, "bn_moments: partials too small");
+  TORCH_CHECK(!vec || bn_vec_ok(y), "bn_moments: the 16-byte route needs y channels_last, dense and aligned");
+  const torch::Tensor tickets = bn_tickets(y, C);  // a channel tile takes one; C is always enough
+  C10_CUDA_CHECK(launch_bn_moments(y.data_ptr(), size, stride, static_cast<int>(rows_per_lane), bf16, vec,
+                                   partials.data_ptr<float>(), reinterpret_cast<unsigned*>(tickets.data_ptr<int32_t>()),
+                                   static_cast<int>(tickets.numel()), s1.data_ptr<float>(), s2.data_ptr<float>(),
+                                   at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void bn_moments_bwd(torch::Tensor y, torch::Tensor g_s1, torch::Tensor g_s2, torch::Tensor dy, bool vec) {
+  int size[4];
+  long long stride[4], dstride[4];
+  bn_shape(y, size, stride, "bn_moments_bwd");
+  const bool bf16 = act_is_bf16(y, "bn_moments_bwd y");
+  for (auto* p : {&g_s1, &g_s2}) {
+    check(*p, "bn_moments_bwd");
+    TORCH_CHECK(p->scalar_type() == at::kFloat && p->numel() == y.size(1), "bn_moments_bwd: g_s1, g_s2 fp32 [C]");
+  }
+  TORCH_CHECK(dy.is_cuda() && dy.scalar_type() == y.scalar_type() && dy.sizes() == y.sizes(),
+              "bn_moments_bwd: dy like y");
+  for (int i = 0; i < 4; ++i) dstride[i] = dy.stride(i);
+  TORCH_CHECK(!vec || (bn_vec_ok(y) && dy.strides() == y.strides() && bn_vec_ok(dy)),
+              "bn_moments_bwd: the 16-byte route needs y and dy channels_last, dense and aligned");
+  C10_CUDA_CHECK(launch_bn_moments_bwd(y.data_ptr(), g_s1.data_ptr<float>(), g_s2.data_ptr<float>(), dy.data_ptr(),
+                                       size, stride, dstride, bf16, vec, at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -368,6 +443,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("dw7x7", &dw7x7, "depthwise 7x7 + bias + SiLU");
   m.def("topk", &topk, "exact per-row top-k: (values, int32 indices), allocated here");
   m.def("mpbwd", &mpbwd, "backward of the k x k stride-1 same max pool");
+  m.def("bn_moments", &bn_moments, "training BatchNorm batch moments (sum, sum of squares) in a fixed order");
+  m.def("bn_moments_bwd", &bn_moments_bwd, "backward of the batch moments: g_s1 + 2 y g_s2, cast to y's type");
   m.def("bmm", &bmm, "matrix product with an fp32 sum and the folded conv epilogue (mma.sync)");
   m.def("bmm_wgmma", &bmm_wgmma, "matrix product with an fp32 sum and the folded conv epilogue (TMA + wgmma)");
   m.def("s2dconv", &s2dconv, "3x3 conv 32->32 + bias + SiLU over the space-to-depth form (fp32)");

@@ -144,3 +144,24 @@ cudaError_t launch_gather_rows(const DecodeLevels& lv, int B, int C, const int32
 cudaError_t launch_dfl_boxes(const DecodeLevels& lv, int B, const int32_t* anchor_idx, int k1,
                              const int32_t* pair_idx, const void* pair_logits, bool logits_bf16, int k, int nc,
                              bool bf16, float* out, cudaStream_t stream);
+
+// The training BatchNorm's one-pass batch moments (bnstats.cu). y [N, C, H,
+// W] bf16 (bf16) or fp32, size {N, C, H, W} and stride (elements) as the
+// tensor has them. vec: the 16-byte route (y channels_last and dense, C a
+// multiple of 8 bf16 or 4 fp32 values, y and dy 16-byte aligned), else the
+// general route (any strides).
+// launch_bn_moments: s1, s2 fp32 [C] = sum y, sum y^2 over N, H, W in the
+// fixed order of kernels/bnstats.py; rows_per_lane R >= 1 (blocks of 32 R
+// rows); partials: 2 * blocks * C floats of scratch, 16-byte
+// aligned; tickets: n_tickets unsigned counters, at least one a channel tile
+// (C / 64 bf16 or C / 32 fp32 channels on the 16-byte route, C / 8 on the
+// general route; C is always enough), 0 before the launch and 0 again after
+// it, used by one stream's launches only.
+cudaError_t launch_bn_moments(const void* y, const int* size, const long long* stride, int rows_per_lane, bool bf16,
+                              bool vec, float* partials, unsigned* tickets, int n_tickets, float* s1, float* s2,
+                              cudaStream_t stream);
+// launch_bn_moments_bwd: dy = g_s1[c] + (2 y) g_s2[c] (fp32, rounded after the
+// product and the sum) cast to y's type; g_s1, g_s2 fp32 [C]; dy by dy_stride.
+cudaError_t launch_bn_moments_bwd(const void* y, const float* g_s1, const float* g_s2, void* dy, const int* size,
+                                  const long long* y_stride, const long long* dy_stride, bool bf16, bool vec,
+                                  cudaStream_t stream);

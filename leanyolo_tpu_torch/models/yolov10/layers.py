@@ -19,8 +19,9 @@ workaround and numerically the identity; it has no counterpart here.
 In training mode (`module.train()`) BatchNorm normalizes with the batch
 statistics and advances its running statistics in the forward, as the JAX
 train step does after its update (`merge_bn_stats`): nothing in the forward
-reads them, so the order makes no difference. The SPPF max pools backpropagate
-through the mpbwd kernel wrapper (kernels/mpbwd.py).
+reads them, so the order makes no difference. The batch moments and their
+backward run through the K8 kernel wrappers (kernels/bnstats.py), the SPPF
+max pools' backward through the mpbwd kernel wrapper (kernels/mpbwd.py).
 
 Activation checkpointing (`YOLOv10.forward(remat=True)`, the trainer's
 `remat="full"`): the model's nodes run through `segment`, which wraps each in
@@ -64,7 +65,7 @@ import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...kernels import dwconv, matmul, mpbwd, s2dconv
+from ...kernels import bnstats, dwconv, matmul, mpbwd, s2dconv
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
@@ -264,23 +265,24 @@ def _sum_over(group, a: Tensor, b: Tensor) -> Tuple[Tensor, Tensor]:
 class _BatchMoments(torch.autograd.Function):
     """Per-channel (mean, biased var) of y [N, C, H, W] over N, H, W in fp32,
     from one pass of sum and sum of squares: var = max(s2/n - mean^2, 0)
-    (JAX `_bn_act`, train branch). With a `group`, s1 and s2 are summed over
-    its processes first and n is the global count (every process holds the
-    same number of rows), so mean and var are the global batch's.
+    (JAX `_bn_act`, train branch). The sums come from the K8 kernel wrapper
+    (kernels/bnstats.py: one read of y, in a fixed order). With a `group`,
+    s1 and s2 are summed over its processes first and n is the global count
+    (every process holds the same number of rows), so mean and var are the
+    global batch's.
 
     The backward is the chain rule of that formula, dy = ds1 + 2 y ds2 with
-    ds2 = dvar/n and ds1 = (dmean - 2 mean dvar)/n, and keeps only y (which
-    the BN affine keeps anyway), where autograd would keep an fp32 copy.
-    With a group, the incoming gradients of the moments are summed over it
-    first: each process's loss reaches the moments through its own rows.
+    ds2 = dvar/n and ds1 = (dmean - 2 mean dvar)/n (the [C] coefficients
+    here, dy in K8's backward kernel), and keeps only y (which the BN affine
+    keeps anyway), where autograd would keep an fp32 copy. With a group, the
+    incoming gradients of the moments are summed over it first: each
+    process's loss reaches the moments through its own rows.
     """
 
     @staticmethod
     def forward(ctx, y: Tensor, group):
         n = y.numel() // y.shape[1]
-        yf = y.float()
-        s1 = yf.sum(dim=(0, 2, 3))
-        s2 = yf.square().sum(dim=(0, 2, 3))
+        s1, s2 = bnstats.bn_moments(y)
         if group is not None:
             s1, s2 = _sum_over(group, s1, s2)
             n *= dist.get_world_size(group)
@@ -296,9 +298,9 @@ class _BatchMoments(torch.autograd.Function):
         if ctx.group is not None:
             g_mean, g_var = _sum_over(ctx.group, g_mean, g_var)
         g_var = torch.where(live, g_var, 0.0)
-        g_s1 = ((g_mean - 2.0 * mean * g_var) / ctx.n).view(1, -1, 1, 1)
-        g_s2 = (g_var / ctx.n).view(1, -1, 1, 1)
-        return (g_s1 + 2.0 * y.float() * g_s2).to(y.dtype), None
+        g_s1 = (g_mean - 2.0 * mean * g_var) / ctx.n
+        g_s2 = g_var / ctx.n
+        return bnstats.bn_moments_bwd(y, g_s1, g_s2), None
 
 
 class BatchNorm(nn.Module):

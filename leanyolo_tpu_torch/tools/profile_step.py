@@ -3,7 +3,10 @@
 Captures a `torch.profiler` trace of N steps of the hot path (after one
 warm-up step outside the trace, which also builds the kernels) and sums
 the device's kernel time per family (utils/profiling.py): each of the port's
-hand-written kernels is a family of its own. Counterpart of the JAX
+hand-written kernels is a family of its own. Beside the table it prints the
+median wall ms of the profiled steps (host clock, each step ending in a
+synchronize; under the profiler) and, on the card, the peak GiB allocated
+over them. Counterpart of the JAX
 package's `tools/profile_step.py`, with the same flags and JSON, plus
 --device and `--mode decode` (the inference step's decode alone, on the
 head maps of one forward made before the trace); runs on the card unless
@@ -23,6 +26,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
+import time
 from typing import Optional, Sequence
 
 # Captures taken before giving up on a trace with no kernel records, the pad
@@ -110,14 +115,22 @@ def build_step(args: argparse.Namespace):
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
+    import torch
+
     from ..utils.profiling import PAD_S, capture_trace, format_table, summarize_trace
 
+    cuda = torch.device(args.device).type == "cuda"
     step = build_step(args)
     step()  # warm-up (and the kernels' build) outside the trace
     for attempt in range(CAPTURE_TRIES):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        walls = []
         with capture_trace(args.out_dir, pad_s=PAD_S * 2**attempt):
             for _ in range(args.steps):
+                t0 = time.perf_counter()
                 step()
+                walls.append((time.perf_counter() - t0) * 1e3)
         try:
             summary = summarize_trace(args.out_dir, steps=args.steps)
             break
@@ -125,7 +138,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             if attempt == CAPTURE_TRIES - 1:
                 raise
             print(f"capture {attempt + 1}: {e}; capturing again", flush=True)
+    wall_ms = statistics.median(walls)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
     print(format_table(summary, top=args.top))
+    print(f"wall {wall_ms:.3f} ms/step (host clock, median of the {args.steps} profiled steps); peak "
+          + (f"{peak_gib:.3f} GiB allocated" if cuda else "not measured (CPU)"))
     if args.json:
         with open(args.json, "w", encoding="utf-8") as f:
             json.dump(
@@ -133,6 +150,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     "plane": summary.plane,
                     "total_ms_per_step": summary.total_ms,
                     "steps": summary.steps,
+                    "wall_ms_median": wall_ms,
+                    "peak_gib": peak_gib,
                     "families": [
                         {"name": fa.name, "ms_per_step": fa.total_ms, "count": fa.count, "example": fa.example}
                         for fa in summary.families

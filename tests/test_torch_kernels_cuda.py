@@ -17,9 +17,11 @@ bf16 ulp per element: both round the same fp32 sums at the same points, but
 the wgmma route's SiLU uses the hardware's approximate exp2 and reciprocal,
 a few fp32 ulps from PyTorch's, which flips a bf16 rounding now and then.
 Top-k, the max-pool backward (mpbwd), the fused max/argmax, the NMS, the
-decode's level gather (gather_rows) and its box decode (dfl_boxes) are
-bit-exact: dfl_boxes' plain version fixes the kernel's order of operations,
-one rounding each, and both run on the card's exp.
+decode's level gather (gather_rows), its box decode (dfl_boxes) and the
+training BN's batch moments (bn_moments, bn_moments_bwd) are bit-exact:
+dfl_boxes' plain version fixes the kernel's order of operations, one
+rounding each, and both run on the card's exp; bn_moments' plain version
+spells the kernel's fixed order of additions.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import pytest
 import torch
 
 from leanyolo_tpu_torch import kernels
-from leanyolo_tpu_torch.kernels import argmax, dfl, dwconv, gather, matmul, mpbwd, nms, s2dconv, stem, topk
+from leanyolo_tpu_torch.kernels import argmax, bnstats, dfl, dwconv, gather, matmul, mpbwd, nms, s2dconv, stem, topk
 from leanyolo_tpu_torch.models.yolov10.layers import maxpool2d_same
 from torch_parity import cuda_device  # noqa: F401  (fixture)
 
@@ -168,6 +170,40 @@ def test_mpbwd_kernel_routes(cuda_device, dtype, shape, k, misaligned):
     assert kernels.LAUNCHES["mpbwd"] == n + 1 and kernels.LAUNCHES["mpbwd_vec"] == nv + vec
     bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
     assert torch.equal(got.view(bits), mpbwd.mpbwd_plain(x, dy, k).view(bits))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,layout", [((32, 64, 40, 40), "cl"), ((32, 512, 20, 20), "cl"),
+                                          ((8, 128, 80, 80), "cl"), ((2, 33, 17, 19), "cl"),
+                                          ((1, 64, 1, 1), "cl"), ((3, 40, 37, 41), "cl"), ((4, 64, 20, 20), "nchw")])
+def test_bn_moments_kernels(cuda_device, dtype, shape, layout):
+    """K8 forward and backward bit-equal to their plain versions on both
+    routes (the 16-byte route on channels_last inputs whose C holds whole
+    vectors; the general route at C = 33 and on a contiguous NCHW input),
+    and the same bits over repeated launches."""
+    g = torch.Generator(device=cuda_device).manual_seed(18)
+    fmt = torch.channels_last if layout == "cl" else torch.contiguous_format
+    y = (torch.randn(shape, generator=g, device=cuda_device) * 2 + 1).to(dtype).contiguous(memory_format=fmt)
+    g1 = torch.randn(shape[1], generator=g, device=cuda_device)
+    g2 = torch.randn(shape[1], generator=g, device=cuda_device)
+    vec = bnstats.route(y) == "vec"
+    assert vec == (layout == "cl" and shape[1] % (16 // y.element_size()) == 0)
+    before = dict(kernels.LAUNCHES)
+    runs = [bnstats.bn_moments(y) for _ in range(3)]
+    druns = [bnstats.bn_moments_bwd(y, g1, g2) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bn_moments"] == before["bn_moments"] + 3
+    assert kernels.LAUNCHES["bn_moments_vec"] == before["bn_moments_vec"] + 3 * vec
+    assert kernels.LAUNCHES["bn_moments_bwd"] == before["bn_moments_bwd"] + 3
+    assert kernels.LAUNCHES["bn_moments_bwd_vec"] == before["bn_moments_bwd_vec"] + 3 * vec
+    s1, s2 = bnstats.bn_moments_plain(y)
+    dref = bnstats.bn_moments_bwd_plain(y, g1, g2)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for a, b in runs:
+        assert torch.equal(a.view(torch.int32), s1.view(torch.int32))
+        assert torch.equal(b.view(torch.int32), s2.view(torch.int32))
+    for d in druns:
+        assert d.stride() == y.stride() and torch.equal(d.view(bits), dref.view(bits))
 
 
 @pytest.mark.parametrize("k", [3, 7])

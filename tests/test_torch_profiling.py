@@ -317,8 +317,10 @@ def test_profile_step_cli(tmp_path, capsys, mode):
     out = capsys.readouterr().out
     assert "CPU operator self time" in out and "plane: cpu" in out
     data = json.load(open(tmp_path / "p.json"))
-    assert set(data) == {"plane", "total_ms_per_step", "steps", "families"}
+    assert set(data) == {"plane", "total_ms_per_step", "steps", "wall_ms_median", "peak_gib", "families"}
     assert data["plane"] == "cpu" and data["steps"] == 2 and data["total_ms_per_step"] > 0 and data["families"]
+    assert data["wall_ms_median"] > 0 and data["peak_gib"] is None  # peak memory is the card's
+    assert "ms/step (host clock, median of the 2 profiled steps)" in out
     assert all(set(f) == {"name", "ms_per_step", "count", "example"} for f in data["families"])
     names = {f["name"] for f in data["families"]}
     assert ("convolution_backward" in names) == (mode == "train")
