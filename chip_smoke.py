@@ -28,7 +28,14 @@ Phases, each of which fails loudly (non-zero exit):
    row counts that leave the last block partial, C = 8) in both, on a
    contiguous NCHW input and on a cancellation case (mean 1000, std 0.01
    in fp32, where the variance clamps), and an empty input (zero sums, no
-   launch);
+   launch); the task-aligned assignment's two kernels (K6 + K7,
+   tal_candidates and tal_targets) bit-equal to its plain version on the
+   five outputs and, in its check mode, on every row's CIoU and alignment,
+   at k = 10 and 1, at each case of tests/tal_cases.py (a padded slot that
+   wins the highest-CIoU resolve, the anchor-0 fallback, zero-align
+   members, identical boxes, k >= A, 1, 16 and 128 slots, the concatenated
+   head's strided scores, an all-padded image, 640 px) and at the training
+   step's [32, 16, 8400] with 80 classes, and a batch against its halves;
 4. the serving path: yolov10s at full width and depth, random weights from a
    seed, folded to bf16, answers uint8 requests of batch 1, 8 and 32 through
    Predictor.run_batch; the launches of every kernel are counted per request
@@ -82,15 +89,21 @@ Phases, each of which fails loudly (non-zero exit):
    activations over fp32 parameters, trains through Trainer.train_step at
    batch 32 (24 GT slots, 40% valid, augmentation on, clip 1.0): 3 warm-up
    and 10 timed steps, with the launches of the SPPF max-pool backward
-   kernel (3 a step) and of K8 (bn_moments and bn_moments_bwd 99 a step
-   each, all on the 16-byte route) counted over them, finite losses, peak
-   memory and a profile; the loss on one fixed batch falls over 20 steps;
+   kernel (3 a step), of K8 (bn_moments and bn_moments_bwd 99 a step
+   each, all on the 16-byte route) and of the assignment (tal_candidates
+   and tal_targets 2 a step each) counted over them, finite losses, peak
+   memory and a profile; the assignment on one step's own inputs (k = 10
+   and 1) bit-equal to its plain version; the loss on one fixed batch falls
+   over 20 steps;
    one fp32 step with the kernels against the all-plain step from the same
    state (deterministic cuDNN), and one fp32 step on the card against the
    CPU (yolov10n, 128 px); then mpbwd and K8 timed (K8 summed over the
    step's 99 BN inputs, with torch.batch_norm_stats as the forward's library
    call and torch.addcmul as the backward's; its device time from profiles
-   whose kernel records are matched to their launches' shapes);
+   whose kernel records are matched to their launches' shapes); the
+   assignment's two kernels timed each alone on that step's own inputs,
+   summed over its two calls, beside the plain version's matching pass and
+   the bound of the data's valid slots (no library call computes it);
 9. official weights (run after 6): the yolov10s of 4 written as a THU-MIG
    release file (`model.{idx}.` keys, fp16, a pickled DetectionModel whose
    module cannot be imported, so the reader must stub it), once unfused and
@@ -131,13 +144,14 @@ Phases, each of which fails loudly (non-zero exit):
    noise (64 train and 32 val JPEGs at COCO-like sizes) feeds
    DataLoader(shuffle=True) and Trainer (yolov10s 640 bf16, batch 32,
    augment, clip 1.0) with the host and with the device letterbox: finite
-   losses, mpbwd 3 launches a step and K8 99 + 99, ms a step (also in turns, host,
+   losses, mpbwd 3 launches a step, K8 99 + 99 and the assignment 2 + 2, ms a step (also in turns, host,
    device, device, host) and peak memory for each; the
    CLIs' validation (fp32 unfolded top-k) launches top-k; remat="full"
    against "none" on one fp32 step from one state (deterministic cuDNN:
    gradients and parameters within 1e-5 of scale, BN statistics advanced
    once and equal; K8's launches a step 99 + 99, and 198 + 99 with remat,
-   whose recompute runs every BN's forward again) and the peak memory and step time of both in bf16 at
+   whose recompute runs every BN's forward again; the assignment's 2 + 2
+   either way) and the peak memory and step time of both in bf16 at
    batch 32 (full must be lower); then the CLIs in subprocesses, two at a
    time, beside 14's QT-001 training: the train CLI (3
    epochs, bf16, augment, device letterbox: a history row with finite
@@ -176,7 +190,7 @@ Phases, each of which fails loudly (non-zero exit):
    version; one NCCL rank: Trainer(mesh=make_mesh()) on yolov10s 640 at
    batch 32 (augment, clip 1.0) bit-equal to the plain Trainer in one fp32
    and one bf16 step (losses, every gradient, statistic and parameter;
-   deterministic cuDNN), mpbwd 3 launches a step, both bf16 steps timed in
+   deterministic cuDNN), mpbwd 3 and the assignment 2 + 2 launches a step, both bf16 steps timed in
    turns (median of 6 after 3 warm-ups) and the mesh step's collectives
    from the profiler; two ranks of 16 rows (NCCL on two cards, or gloo on
    the one card: printed): the fp32 step against the one-process step on
@@ -188,7 +202,7 @@ Phases, each of which fails loudly (non-zero exit):
    each within 1e-4 of its tensor's scale or the one-process step's own
    card-vs-CPU spread (the same draws), whichever is larger, and so their
    relative L2; the bf16 step within bf16's own gap
-   from fp32, parameters equal on both ranks, mpbwd 3 a rank, the bf16
+   from fp32, parameters equal on both ranks, mpbwd 3 and the assignment 2 + 2 a rank, the bf16
    step timed (two ranks on one card are no scaling number), a bf16
    folded Predictor(mesh=) of each decode (top-k; class-wise NMS) with
    every serving kernel launched on each rank and each rank's rows equal to
@@ -203,8 +217,8 @@ Phases, each of which fails loudly (non-zero exit):
    stem 1, dw7x7 2, s2dconv 2, bmm 45, argmax 1, top-k 2, gather_rows 1,
    dfl_boxes 1; NMS decode: argmax 1, top-k 1, dfl_boxes 1, nms 1 and the
    rest) and whose device time a step is within 10% of 5's profile of the
-   same step; on the training step (mpbwd 3, bn_moments 99 and
-   bn_moments_bwd 99 a step), printed beside
+   same step; on the training step (mpbwd 3, bn_moments 99,
+   bn_moments_bwd 99, tal_candidates 2 and tal_targets 2 a step), printed beside
    PERF.md's figure; a shortened QT-001 (the JAX package's SQA convergence
    step, 20 of its 30 epochs; its training runs beside 11's CLIs and the
    checks below, and is read last) through the port's CLIs (make_learnable_coco's
@@ -252,7 +266,8 @@ Phases, each of which fails loudly (non-zero exit):
 
 Before the card's line at the end, the run prints the seconds it spent on
 the gather (K2) and box decode (K3) kernels' checks and times, those of
-the batch moments (K8), and the run's whole time. The
+the batch moments (K8) and of the assignment (K6, K7), and the run's whole
+time. The
 second-to-last line is a JSON object with one entry per kernel; the last is
 {"ok": true, "device": {...}}.
 
@@ -515,10 +530,11 @@ def device_ms(fn, reps: int = KERNEL_INNER) -> float:
 
 
 # Seconds this run spends on the checks and times of the decode's gather
-# (K2) and box decode (K3) kernels, and of the training BN's batch moments
-# (K8), printed at its end.
+# (K2) and box decode (K3) kernels, of the training BN's batch moments (K8)
+# and of the task-aligned assignment (K6, K7), printed at its end.
 DECODE_CHECK_S: dict = {}
 BN_CHECK_S: dict = {}
+TAL_CHECK_S: dict = {}
 
 
 @contextlib.contextmanager
@@ -543,11 +559,11 @@ def plain_kernels():
     for the all-plain reference run on the card only.
     """
     from leanyolo_tpu_torch.kernels import (argmax, bnstats, dfl, dwconv, gather, matmul, mpbwd, nms, s2dconv, stem,
-                                            topk)
+                                            tal, topk)
 
     saved = (stem.fused_stem, dwconv.dw7x7_bias_silu, topk.topk, mpbwd.mpbwd, s2dconv.conv3x3_c32_bias_silu,
              matmul.bmm, argmax.max_argmax_levels, nms.nms_compact, nms.nms_keep, gather.gather_rows, dfl.dfl_boxes,
-             bnstats.bn_moments, bnstats.bn_moments_bwd)
+             bnstats.bn_moments, bnstats.bn_moments_bwd, tal.assign)
     stem.fused_stem = lambda *a, dtype=None, packed=None: stem.fused_stem_plain(*a, dtype=dtype or a[1].dtype)
     dwconv.dw7x7_bias_silu = dwconv.dw7x7_bias_silu_plain
     topk.topk = topk.topk_plain
@@ -561,12 +577,13 @@ def plain_kernels():
     dfl.dfl_boxes = dfl.dfl_boxes_plain
     bnstats.bn_moments = bnstats.bn_moments_plain
     bnstats.bn_moments_bwd = bnstats.bn_moments_bwd_plain
+    tal.assign = tal.assign_plain
     try:
         yield
     finally:
         (stem.fused_stem, dwconv.dw7x7_bias_silu, topk.topk, mpbwd.mpbwd, s2dconv.conv3x3_c32_bias_silu,
          matmul.bmm, argmax.max_argmax_levels, nms.nms_compact, nms.nms_keep, gather.gather_rows,
-         dfl.dfl_boxes, bnstats.bn_moments, bnstats.bn_moments_bwd) = saved
+         dfl.dfl_boxes, bnstats.bn_moments, bnstats.bn_moments_bwd, tal.assign) = saved
 
 
 def capture_path_calls(folded, images):
@@ -2399,6 +2416,64 @@ def phase_variants(seed: int, records: dict) -> None:
     records["stem"]["by_width"] = by_width
 
 
+# The task-aligned assignment (K6, K7): tests/tal_cases.py's cases and the
+# training step's shape ([32, 16, 8400], 80 classes), k = 10 and 1.
+TAL_KS = (10, 1)
+
+
+def tal_check(args, topk: int, label: str) -> None:
+    """K6 + K7 on `args` against the plain version on the card, bit for bit:
+    the five outputs, and the CIoU and alignment of the check mode; one
+    launch of each kernel a call."""
+    import torch
+    from leanyolo_tpu_torch import kernels
+    from leanyolo_tpu_torch.kernels import tal
+
+    nc = args[0].shape[-1]
+    before = dict(kernels.LAUNCHES)
+    out, mid = tal.assign(*args, topk=topk, num_classes=nc, check=True)
+    fast = tal.assign(*args, topk=topk, num_classes=nc)
+    ref, ref_mid = tal.assign_plain(*args, topk=topk, num_classes=nc, check=True)
+    torch.cuda.synchronize()
+    launched = {k: kernels.LAUNCHES[k] - before[k] for k in TAL_PER_STEP}
+    same = [same_bits(g, r) for g, r in zip(out, ref)] + [same_bits(g, r) for g, r in zip(fast, ref)]
+    same_mid = [same_bits(g, r) for g, r in zip(mid, ref_mid)]
+    if launched != {"tal_candidates": 2, "tal_targets": 2} or not all(same + same_mid):
+        fg_gap = int((out[3] != ref[3]).sum()) if out[3].shape == ref[3].shape else -1
+        fail(f"tal at {label}, k = {topk}: launches {launched}; bits equal (labels, boxes, scores, fg, slot; "
+             f"twice) {same}, (overlaps, align) {same_mid}; anchors whose foreground differs {fg_gap}")
+
+
+def phase_tal_kernels(seed: int, records: dict) -> None:
+    """The assignment's kernels against the plain version at every case of
+    tests/tal_cases.py and at the training step's shape, k = 10 and 1, and a
+    batch against its halves (images are independent)."""
+    import torch
+    from leanyolo_tpu_torch.kernels import tal
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from tal_cases import CARD_CASES, tal_case, tensors
+
+    for name in CARD_CASES:
+        c = tal_case(name, seed)
+        args = tensors(c, "cuda")
+        for topk in TAL_KS:
+            tal_check(args, topk, name)
+        print(f"kernel tal_candidates and tal_targets, case {name} {list(args[0].shape)} x {c['gt_labels'].shape[1]} "
+              f"slots ({int(c['mask_gt'].sum())} valid), k = {TAL_KS}: the five outputs, CIoU and align bit-equal to "
+              f"the plain version", flush=True)
+    c = tal_case("step", seed)
+    b = c["gt_labels"].shape[0]
+    whole = tal.assign(*tensors(c, "cuda"), topk=10, num_classes=c["pd_scores"].shape[-1])
+    halves = [tal.assign(*tensors(c, "cuda", r), topk=10, num_classes=c["pd_scores"].shape[-1])
+              for r in (slice(0, b // 2), slice(b // 2, b))]
+    if not all(same_bits(w, torch.cat([h0, h1])) for w, h0, h1 in zip(whole, *halves)):
+        fail("tal: a batch's assignment on the card differs from its halves'")
+    print(f"tal at the step's shape: the batch of {b} equals its two halves' assignments bit for bit", flush=True)
+    for name in TAL_PER_STEP:
+        records[name]["max_abs_err"] = 0.0
+
+
 TRAIN_GT = 24  # GT slots per image, 40% valid: bench_train.py's draw
 
 
@@ -2430,6 +2505,18 @@ def train_batch(rng, b: int, imgsz: int, device):
 # the one differentiated).
 BN_PER_STEP = {"bn_moments": 99, "bn_moments_bwd": 99}
 BN_PER_STEP_REMAT = {"bn_moments": 198, "bn_moments_bwd": 99}
+# The assignment's launches a training step: each kernel once for each
+# branch's assignment (one2many at k = 10, one2one at k = 1). The loss lies
+# outside remat's checkpoints, so remat="full" recomputes none.
+TAL_PER_STEP = {"tal_candidates": 2, "tal_targets": 2}
+
+
+def check_tal_launches(launches: dict, steps: int, what: str) -> None:
+    """Hold the assignment's launches over `steps` steps to TAL_PER_STEP a step."""
+    want = {name: k * steps for name, k in TAL_PER_STEP.items()}
+    got = {name: launches[name] for name in want}
+    if got != want:
+        fail(f"tal over {steps} {what}: launches {got}, expected {want}")
 
 
 def check_bn_launches(launches: dict, steps: int, what: str, per_step: dict) -> None:
@@ -2477,7 +2564,8 @@ def phase_train(seed: int, records: dict) -> None:
     if launches["mpbwd"] != 3 * 13:
         fail(f"mpbwd launched {launches['mpbwd']} times over 13 train steps, expected 3 per step")
     check_bn_launches(launches, 13, "train steps", BN_PER_STEP)
-    for name in ("bn_moments", "bn_moments_bwd"):
+    check_tal_launches(launches, 13, "train steps")
+    for name in ("bn_moments", "bn_moments_bwd", *TAL_PER_STEP):
         records[name]["launches"] = launches[name]
     totals = [float(l["total"]) for l in losses]
     if not all(np.isfinite([float(v) for l in losses for v in l.values()])):
@@ -2511,6 +2599,8 @@ def phase_train(seed: int, records: dict) -> None:
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:20]:
         print(f"  {e.self_device_time_total / 2 / 1e3:9.4f} ms/step {e.count // 2:5d} calls/step  {e.key[:90]}",
               flush=True)
+    with check_time(TAL_CHECK_S, "K6 and K7 on a training step's own inputs"):
+        tal_calls = capture_tal_calls(tr, batch, gen)
     del tr, batch, losses
     torch.cuda.empty_cache()
 
@@ -2540,6 +2630,7 @@ def phase_train(seed: int, records: dict) -> None:
     if kernels.LAUNCHES["mpbwd"] != before["mpbwd"] + 3:
         fail("the fp32 kernel step did not launch mpbwd three times")
     check_bn_launches({k: v - before[k] for k, v in kernels.LAUNCHES.items()}, 1, "fp32 kernel steps", BN_PER_STEP)
+    check_tal_launches({k: v - before[k] for k, v in kernels.LAUNCHES.items()}, 1, "fp32 kernel steps")
     with plain_kernels():
         lp = tp.forward_backward(batch)
     torch.cuda.synchronize()
@@ -2568,11 +2659,42 @@ def phase_train(seed: int, records: dict) -> None:
           f"relative gap {gap:.3g}", flush=True)
     if not gap <= 1e-4:
         fail("fp32 train step: the card disagrees with the CPU")
+    return tal_calls
 
 
-def phase_train_times(seed: int, records: dict) -> None:
+def capture_tal_calls(tr, batch, gen) -> list:
+    """The assignment's inputs in one training step of `tr` (one2many at k =
+    10, one2one at k = 1), copied, each held: the kernels against the plain
+    version, bit for bit (check mode)."""
+    import torch
+    from leanyolo_tpu_torch.kernels import tal
+
+    calls, assign = [], tal.assign
+
+    def spy(*a, **kw):  # copies that keep each input's strides
+        calls.append(([torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=t.device).copy_(t) for t in a],
+                      dict(kw)))
+        return assign(*a, **kw)
+
+    tal.assign = spy
+    try:
+        tr.train_step(batch, gen)
+    finally:
+        tal.assign = assign
+    if [kw["topk"] for _, kw in calls] != [10, 1]:
+        fail(f"a training step called the assignment with topk {[kw['topk'] for _, kw in calls]}, expected [10, 1]")
+    for args, kw in calls:
+        tal_check(args, kw["topk"], f"a training step's inputs {list(args[0].shape)} x {args[3].shape[1]} slots "
+                                    f"({int(args[5].sum())} valid), strides {args[0].stride()}")
+    print(f"tal on a batch-{BATCH} training step's own inputs (k = 10 and 1): bit-equal to the plain version, "
+          f"the CIoU and align too", flush=True)
+    return calls
+
+
+def phase_train_times(seed: int, records: dict, tal_calls: list) -> None:
     """mpbwd at the training path's SPPF shape: the kernel, its plain
-    version, and aten's max-pool backward with indices from the forward."""
+    version, and aten's max-pool backward with indices from the forward;
+    then K8 (`time_bn_moments`) and K6 + K7 (`time_tal`)."""
     import torch
     import torch.nn.functional as F
     from leanyolo_tpu_torch.kernels import bounds, mpbwd
@@ -2601,6 +2723,61 @@ def phase_train_times(seed: int, records: dict) -> None:
     del x, dy, xg, dyg, xc, dyc, idx
     with check_time(BN_CHECK_S, "K8 timed"):
         time_bn_moments(seed, records)
+    with check_time(TAL_CHECK_S, "K6 and K7 timed"):
+        time_tal(records, tal_calls)
+
+
+def time_tal(records: dict, calls: list) -> None:
+    """The assignment's two kernels on a training step's own inputs (`calls`:
+    one2many at k = 10 and one2one at k = 1), each kernel alone, summed over
+    the step's two calls: CUDA events (the mean of 10 back-to-back launches),
+    the profiler's device time, the plain version's matching pass
+    (candidates_plain, targets_plain), and the bound (bounds.tal_work, on the
+    valid slots and distinct labels of these inputs). No single PyTorch call
+    computes the assignment: library none."""
+    import torch
+    from leanyolo_tpu_torch.kernels import bounds, tal
+
+    recs = {name: records[name] for name in TAL_PER_STEP}
+    for r in recs.values():
+        r.update(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None)
+    nbytes, nops = {"candidates": 0, "targets": 0}, {"candidates": 0, "targets": 0}
+    for args, kw in calls:
+        scores, pd, anc, labels, gt, mask = args
+        topk, nc = kw["topk"], kw["num_classes"]
+        b, a, c = scores.shape
+        inputs = tal._inputs(*args, topk)
+        w, h = tal.candidates(scores, inputs)[:2]
+        k = min(topk, a)
+        plain_in = tal.candidates_plain(*args, k)
+        winners, has_any, mask_in, overlaps, _ = plain_in
+        row = {"candidates": (lambda: tal.candidates(scores, inputs), lambda: tal.candidates_plain(*args, k)),
+               "targets": (lambda: tal.targets(inputs, w, h, nc),
+                           lambda: tal.targets_plain(winners, has_any, mask_in, overlaps, labels, gt, nc,
+                                                     scores.dtype))}
+        valid = int(mask.sum())
+        distinct = int(torch.unique(labels.long().clamp_min(0)[mask] + nc * torch.nonzero(mask)[:, 0]).numel())
+        line = []
+        for part, (kernel, plain) in row.items():
+            r = recs[f"tal_{part}"]
+            t = (cuda_ms(kernel, inner=KERNEL_INNER), device_ms(kernel),
+                 cuda_ms(plain, warmup=1, runs=5, inner=2))
+            work = bounds.tal_work(b, labels.shape[1], a, c, topk, valid=valid, labels=distinct, part=part)
+            nbytes[part] += work[0]
+            nops[part] += work[1]
+            for key, v in zip(("ms", "device_ms", "plain_ms"), t):
+                r[key] += v
+            line.append(f"{part} {t[0]:.5f} ms (device {t[1]:.5f}), plain {t[2]:.5f}, bound "
+                        f"{bounds.bound(*work, bounds.FP32_OPS_PER_S)[0]:.6f}")
+        print(f"tal k = {topk}, [{b}, {labels.shape[1]}, {a}] {c} classes, {valid} valid slots, {distinct} distinct "
+              f"(image, label): {'; '.join(line)}", flush=True)
+    for part in ("candidates", "targets"):
+        set_bound(recs[f"tal_{part}"], nbytes[part], nops[part], "fp32")
+    f, t = recs["tal_candidates"], recs["tal_targets"]
+    print(f"tal, a batch-{BATCH} yolov10s {IMGSZ} training step's two calls summed: tal_candidates {f['ms']:.5f} ms "
+          f"(device {f['device_ms']:.5f}), plain {f['plain_ms']:.4f}, bound {f['bound_ms']:.6f} ({f['bound_by']}); "
+          f"tal_targets {t['ms']:.5f} ms (device {t['device_ms']:.5f}), plain {t['plain_ms']:.4f}, bound "
+          f"{t['bound_ms']:.6f} ({t['bound_by']}); library: none; {card_line()}", flush=True)
 
 
 def time_bn_moments(seed: int, records: dict) -> None:
@@ -2853,6 +3030,7 @@ def phase_train_folder(seed: int, records: dict, card: str, tmp: str) -> tuple:
             fail(f"train from a folder ({mode}): mpbwd launched {launches['mpbwd']} times over "
                  f"{FOLDER_STEPS} steps, expected 3 a step")
         check_bn_launches(launches, FOLDER_STEPS, f"steps from a folder ({mode} letterbox)", BN_PER_STEP)
+        check_tal_launches(launches, FOLDER_STEPS, f"steps from a folder ({mode} letterbox)")
         records["mpbwd"][f"launches_folder_{mode}"] = launches["mpbwd"]
         print(f"train from a folder, {mode} letterbox, yolov10s 640 bf16 batch {BATCH} ({FOLDER_TRAIN} images, "
               f"augment, clip 1.0): ms/step median {statistics.median(step_ms):.4f} (CUDA events, "
@@ -2908,6 +3086,7 @@ def phase_train_folder(seed: int, records: dict, card: str, tmp: str) -> tuple:
         loss[r] = float(t.train_step(small)["total"])
         check_bn_launches({k: v - before[k] for k, v in kernels.LAUNCHES.items()}, 1, f"remat={r!r} fp32 steps",
                           BN_PER_STEP_REMAT if r == "full" else BN_PER_STEP)
+        check_tal_launches({k: v - before[k] for k, v in kernels.LAUNCHES.items()}, 1, f"remat={r!r} fp32 steps")
     torch.cuda.synchronize()
     cudnn.deterministic, cudnn.benchmark = saved
     mn, mf = f32["none"].model, f32["full"].model
@@ -3033,10 +3212,11 @@ PROFILE_FAMILIES = {"stem_tc_kernel": "stem", "dw7x7_kernel": "dw7x7", "topk_ker
                     "s2d_wgmma_kernel": "s2dconv", "gemm_kernel": "bmm", "argmax_kernel": "argmax",
                     "nms_kernel": "nms", "mpbwd_vec_kernel": "mpbwd", "mpbwd_kernel": "mpbwd",
                     "gather_rows_kernel": "gather_rows", "dfl_boxes_kernel": "dfl_boxes",
-                    "bn_moments_kernel": "bn_moments", "bn_moments_bwd_kernel": "bn_moments_bwd"}
+                    "bn_moments_kernel": "bn_moments", "bn_moments_bwd_kernel": "bn_moments_bwd",
+                    "tal_candidates_kernel": "tal_candidates", "tal_targets_kernel": "tal_targets"}
 PROFILE_STEPS = 3
 TRAIN_PROFILE_STEPS = 2
-TRAIN_DEVICE_MS = 80.81  # PERF.md section 5: device time a training step by profile_step
+TRAIN_DEVICE_MS = 74.72  # PERF.md section 5: device time a training step by profile_step
 # The JAX package's SQA step QT-001 (sqa.yaml): make_learnable_coco sets of
 # 240 (seed 0) and 60 held-out (seed 777) images at 160 px, yolov10n trained
 # at batch 16 (bf16, augment, clip 1.0, 8 boxes), validated by the top-k
@@ -3146,7 +3326,7 @@ def phase_profile_step(card: str, serving_profile: dict) -> None:
             data = json.load(f)
         print(f"profile_step --mode train (yolov10s {IMGSZ} bf16, batch {BATCH}, {TRAIN_PROFILE_STEPS} steps) in "
               f"{wall:.1f} s wall; {card}:\n{out.rstrip()}", flush=True)
-        profile_counts("train", data, out_dir, TRAIN_PROFILE_STEPS, {"mpbwd": 3, **BN_PER_STEP})
+        profile_counts("train", data, out_dir, TRAIN_PROFILE_STEPS, {"mpbwd": 3, **BN_PER_STEP, **TAL_PER_STEP})
         print(f"training step device time: profile_step {data['total_ms_per_step']:.4f} ms/step beside PERF.md "
               f"section 5's {TRAIN_DEVICE_MS} ms; {card}", flush=True)
 
@@ -3874,11 +4054,12 @@ def dp_rank(argv) -> int:
                 kernels.reset_launches()
                 meshed = dp_step(Trainer(copy.deepcopy(model), cfgs[d], mesh=mesh), batch, seed)
                 mpbwd = kernels.LAUNCHES["mpbwd"]
+                tal_launches = [kernels.LAUNCHES[k] for k in TAL_PER_STEP]
             torch.cuda.empty_cache()
             same = (plain["losses"] == meshed["losses"] and plain["grads"].keys() == meshed["grads"].keys()
                     and all(torch.equal(plain["grads"][k], meshed["grads"][k]) for k in plain["grads"])
                     and all(torch.equal(plain["state"][k], meshed["state"][k]) for k in plain["state"]))
-            out[d] = {"plain": plain, "bit_equal": same, "mpbwd": mpbwd}
+            out[d] = {"plain": plain, "bit_equal": same, "mpbwd": mpbwd, "tal": tal_launches}
             if d == "fp32":  # the box-backward comparison's references, on the card and on the CPU
                 on_cpu = SimpleNamespace(images=batch.images.cpu(), gt_labels=batch.gt_labels.cpu(),
                                          gt_boxes=batch.gt_boxes.cpu(), gt_mask=batch.gt_mask)
@@ -3942,6 +4123,7 @@ def dp_rank(argv) -> int:
                 out[d] = dp_step(Trainer(copy.deepcopy(model), cfgs[d], mesh=mesh), rows_batch, seed,
                                  probe=d == "fp32")
                 out[d]["mpbwd"] = kernels.LAUNCHES["mpbwd"]
+                out[d]["tal"] = [kernels.LAUNCHES[k] for k in TAL_PER_STEP]
                 if d == "fp32":
                     with box_pool_backward():
                         out["fp32_box"] = dp_step(Trainer(copy.deepcopy(model), cfgs[d], mesh=mesh), rows_batch,
@@ -4078,8 +4260,9 @@ def phase_parallel(model, seed: int, card: str) -> None:
             w1_run, pair_run = w1_run.result(), pair_run.result()
         (w1,) = report("world1", 1, *w1_run)
         for d in ("fp32", "bf16"):
-            if not w1[d]["bit_equal"] or w1[d]["mpbwd"] != 3:
-                fail(f"parallel world-1 {d}: mesh step bit-equal {w1[d]['bit_equal']}, mpbwd {w1[d]['mpbwd']}")
+            if not w1[d]["bit_equal"] or w1[d]["mpbwd"] != 3 or w1[d]["tal"] != [2, 2]:
+                fail(f"parallel world-1 {d}: mesh step bit-equal {w1[d]['bit_equal']}, mpbwd {w1[d]['mpbwd']}, "
+                     f"tal {w1[d]['tal']} (2 + 2)")
         over = w1["ms"]["mesh"] / w1["ms"]["plain"] - 1
         print(f"parallel world-1 (NCCL, one rank): bf16 step {w1['ms']['plain']!r} ms plain, {w1['ms']['mesh']!r} "
               f"ms on the mesh ({over:+.4f}); collectives a step {w1['collectives']}; {card}", flush=True)
@@ -4094,8 +4277,9 @@ def phase_parallel(model, seed: int, card: str) -> None:
             a, b = pair[0][d], pair[1][d]
             if a["losses"] != b["losses"] or any(not torch.equal(a["state"][k], b["state"][k]) for k in a["state"]):
                 fail(f"parallel two ranks {d}: the ranks' losses or parameters differ after the step")
-            if (a["mpbwd"], b["mpbwd"]) != (3, 3):
-                fail(f"parallel two ranks {d}: mpbwd launches {a['mpbwd']}, {b['mpbwd']} (3 a rank)")
+            if (a["mpbwd"], b["mpbwd"]) != (3, 3) or a["tal"] != b["tal"] or a["tal"] != [2, 2]:
+                fail(f"parallel two ranks {d}: mpbwd launches {a['mpbwd']}, {b['mpbwd']} (3 a rank), tal "
+                     f"{a['tal']}, {b['tal']} (2 + 2 a rank)")
 
         def gaps(got, against, grad):
             stats = [k for k in against["state"] if "running" in k]
@@ -4786,6 +4970,8 @@ def main() -> int:
             ("bn_moments", "leanyolo_tpu_torch/kernels/csrc/bnstats.cu", "leanyolo_tpu/models/yolov10/layers.py:202"),
             ("bn_moments_bwd", "leanyolo_tpu_torch/kernels/csrc/bnstats.cu",
              "leanyolo_tpu/models/yolov10/layers.py:202"),
+            ("tal_candidates", "leanyolo_tpu_torch/kernels/csrc/tal.cu", "leanyolo_tpu/ops/tal.py:47"),
+            ("tal_targets", "leanyolo_tpu_torch/kernels/csrc/tal.cu", "leanyolo_tpu/ops/tal.py:99"),
         )
     }
     # Kernels rebuilt for Hopper after their first port, by the port's slice
@@ -4805,6 +4991,8 @@ def main() -> int:
         phase_decode_kernels(SEED, records)
     with check_time(BN_CHECK_S, "K8 against its plain versions"):
         phase_bn_kernels(SEED, records)
+    with check_time(TAL_CHECK_S, "K6 and K7 against the plain version"):
+        phase_tal_kernels(SEED, records)
     done("kernels")
     pred, x32 = phase_main(model, SEED, records)
     done("serving")
@@ -4826,8 +5014,9 @@ def main() -> int:
     phase_variants(SEED, records)
     done("variants")
     with torch.enable_grad():
-        phase_train(SEED, records)
-    phase_train_times(SEED, records)
+        tal_calls = phase_train(SEED, records)
+    phase_train_times(SEED, records, tal_calls)
+    del tal_calls
     done("train")
     phase_profile_step(card, serving_profile)
     done("profile_step")
@@ -4855,7 +5044,9 @@ def main() -> int:
     print(f"the decode kernels' (K2, K3) checks and times took {sum(DECODE_CHECK_S.values()):.1f} s: "
           f"{ {k: round(v, 1) for k, v in DECODE_CHECK_S.items()} }", flush=True)
     print(f"the batch moments' (K8) checks and times took {sum(BN_CHECK_S.values()):.1f} s: "
-          f"{ {k: round(v, 1) for k, v in BN_CHECK_S.items()} }; the run took {time.perf_counter() - t_start:.1f} s "
+          f"{ {k: round(v, 1) for k, v in BN_CHECK_S.items()} }", flush=True)
+    print(f"the assignment's (K6, K7) checks and times took {sum(TAL_CHECK_S.values()):.1f} s: "
+          f"{ {k: round(v, 1) for k, v in TAL_CHECK_S.items()} }; the run took {time.perf_counter() - t_start:.1f} s "
           f"in all, the build included", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": list(records.values())}), flush=True)

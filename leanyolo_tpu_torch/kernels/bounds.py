@@ -162,6 +162,33 @@ def bn_moments_bwd_work(rows: int, c: int, elt: int = 2) -> Tuple[int, int]:
     return 2 * rows * c * elt + 2 * c * 4, 3 * rows * c
 
 
+TAL_PAIR_OPS = 90  # a (GT, anchor) pair: the CIoU 71, the inside test 8, the sigmoid 4, the alignment 6, a selection compare
+
+
+def tal_work(b: int, n: int, a: int, c: int, k: int, valid: int = None, labels: int = None,
+             part: str = None) -> Tuple[int, int]:
+    """(bytes, operations) of the task-aligned assignment of [b, n] GT slots
+    to [b, a] anchors of c classes with top-k k (the work does not grow with
+    k: a selection compare a pair), in fp32. Read once: the predicted boxes
+    [b, a, 4] and the anchors [a, 2], the GT slots (box, label and mask, 21
+    bytes each), and a class logits for each distinct (image, label) of the
+    valid slots (`labels`; default `valid`, whose default is b n). Written
+    once: a label and a slot (int32), a box (4 fp32), the foreground byte and
+    c fp32 scores an anchor. TAL_PAIR_OPS fp32 operations a valid (GT,
+    anchor) pair; the CIoUs of anchors two GTs claim depend on the data and
+    are not counted. part: "candidates" (the inputs and the operations) or
+    "targets" (the outputs); None, both (the sum)."""
+    valid = b * n if valid is None else valid
+    labels = valid if labels is None else labels
+    read = b * a * 16 + a * 8 + b * n * 21 + labels * a * 4, valid * a * TAL_PAIR_OPS
+    written = b * a * (4 + 4 + 16 + 1 + 4 * c), 0
+    if part == "candidates":
+        return read
+    if part == "targets":
+        return written
+    return read[0] + written[0], read[1]
+
+
 def train_bn_shapes(variant: str = "yolov10s", imgsz: int = 640, batch: int = 32) -> List[Tuple[int, int, int, int]]:
     """[N, C, H, W] of each training-mode BatchNorm input of one training
     forward (both branches, as `Trainer` runs it), in call order: spied on
@@ -266,6 +293,11 @@ def kernel_bounds(batch: int = 32):
                  *bound(nbytes, nops, FP32_OPS_PER_S)))
     nbytes, nops = mpbwd_work(batch, 20, 20, 256)
     rows.append(("mpbwd", f"[{batch},20,20,256] bf16, k=5", nbytes, nops, *bound(nbytes, nops, FP32_OPS_PER_S)))
+    valid = round(0.4 * 16 * batch)  # bench_train.py's draw: 40% of the slots valid, cut to the bucket of 16
+    for part in ("candidates", "targets"):
+        nbytes, nops = tal_work(batch, 16, 8400, 80, 10, valid=valid, part=part)
+        rows.append((f"tal_{part}", f"[{batch},16,8400] 80 classes, ~{valid} valid, a call", nbytes, nops,
+                     *bound(nbytes, nops, FP32_OPS_PER_S)))
     shapes = train_bn_shapes("yolov10s", 640, batch)
     for name, work in (("bn_moments", bn_moments_work), ("bn_moments_bwd", bn_moments_bwd_work)):
         works = [work(n * h * w, c) for n, c, h, w in shapes]

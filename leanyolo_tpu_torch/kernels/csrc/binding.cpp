@@ -435,6 +435,112 @@ std::tuple<torch::Tensor, torch::Tensor, torch::Tensor> nms(torch::Tensor boxes,
   return {keep, dets, num};
 }
 
+bool aligned16(const torch::Tensor& t) { return reinterpret_cast<uintptr_t>(t.data_ptr()) % 16 == 0; }
+
+// The assignment's GT inputs (tal.cu) into `a`, checked against pd_bboxes
+// [B, A, 4] and the anchors [A, 2].
+void tal_inputs(TalArgs& a, const torch::Tensor& pd, const torch::Tensor& anc, const torch::Tensor& labels,
+                const torch::Tensor& gt, const torch::Tensor& mask, int64_t k, bool all_members) {
+  check(pd, "tal pd_bboxes");
+  check(anc, "tal anc_points");
+  check(labels, "tal gt_labels");
+  check(gt, "tal gt_bboxes");
+  check(mask, "tal mask_gt");
+  for (const torch::Tensor* t : {&anc, &labels, &gt, &mask})
+    TORCH_CHECK(t->device() == pd.device(), "tal: every tensor on one device");
+  TORCH_CHECK(pd.scalar_type() == at::kFloat && pd.dim() == 3 && pd.size(2) == 4 && aligned16(pd),
+              "tal: pd_bboxes float32 [B, A, 4], 16-byte aligned");
+  const int64_t B = pd.size(0), A = pd.size(1), N = labels.dim() == 2 ? labels.size(1) : 0;
+  TORCH_CHECK(anc.scalar_type() == at::kFloat && anc.dim() == 2 && anc.size(0) == A && anc.size(1) == 2,
+              "tal: anc_points float32 [A, 2]");
+  TORCH_CHECK(labels.scalar_type() == at::kInt && labels.dim() == 2 && labels.size(0) == B,
+              "tal: gt_labels int32 [B, N]");
+  TORCH_CHECK(gt.scalar_type() == at::kFloat && gt.dim() == 3 && gt.size(0) == B && gt.size(1) == N &&
+                  gt.size(2) == 4 && aligned16(gt),
+              "tal: gt_bboxes float32 [B, N, 4], 16-byte aligned");
+  TORCH_CHECK((mask.scalar_type() == at::kBool || mask.scalar_type() == at::kByte) && mask.dim() == 2 &&
+                  mask.size(0) == B && mask.size(1) == N,
+              "tal: mask_gt bool [B, N]");
+  TORCH_CHECK(B >= 1 && B < 65536 && N >= 1 && N < (int64_t(1) << 31) && A >= 1 && A < (int64_t(1) << 31),
+              "tal: 1 <= B < 2^16, 1 <= N, A < 2^31");
+  TORCH_CHECK(all_members || (k >= 0 && k <= TAL_MAX_K && k < A), "tal: 0 <= k <= ", TAL_MAX_K,
+              " and k < A, or every anchor a member");
+  a.pd = pd.data_ptr<float>();
+  a.anc = anc.data_ptr<float>();
+  a.labels = labels.data_ptr<int32_t>();
+  a.gt = gt.data_ptr<float>();
+  a.mask = static_cast<const uint8_t*>(mask.data_ptr());
+  a.B = static_cast<int>(B), a.N = static_cast<int>(N), a.A = static_cast<int>(A);
+  a.k = static_cast<int>(all_members ? 0 : k);
+  a.all_members = all_members;
+}
+
+// The candidates kernel: (winners, has_any), then overlaps and align in
+// check mode, allocated here.
+std::vector<torch::Tensor> tal_candidates(torch::Tensor scores, torch::Tensor pd, torch::Tensor anc,
+                                          torch::Tensor labels, torch::Tensor gt, torch::Tensor mask, int64_t k,
+                                          bool all_members, double beta, double eps, double cv, bool check_mode) {
+  TalArgs a{};
+  tal_inputs(a, pd, anc, labels, gt, mask, k, all_members);
+  TORCH_CHECK(scores.is_cuda() && scores.device() == pd.device() && scores.scalar_type() == at::kFloat &&
+                  scores.dim() == 3 && scores.size(0) == a.B && scores.size(1) == a.A && scores.stride(2) == 1 &&
+                  scores.size(2) >= 1 && scores.size(2) < (int64_t(1) << 31),
+              "tal_candidates: pd_scores float32 [B, A, C] beside pd_bboxes, unit stride in C");
+  const auto f = scores.options();
+  std::vector<torch::Tensor> out{torch::empty({a.B, a.N, TAL_MAX_K}, f.dtype(at::kInt)),
+                                 torch::empty({a.B, a.N}, f.dtype(at::kByte))};
+  if (check_mode) {
+    out.push_back(torch::empty({a.B, a.N, a.A}, f));
+    out.push_back(torch::empty({a.B, a.N, a.A}, f));
+    a.overlaps = out[2].data_ptr<float>();
+    a.align = out[3].data_ptr<float>();
+  }
+  a.scores = scores.data_ptr<float>();
+  a.score_sb = scores.stride(0);
+  a.score_sa = scores.stride(1);
+  a.C = static_cast<int>(scores.size(2));
+  a.beta = static_cast<float>(beta), a.eps = static_cast<float>(eps), a.cv = static_cast<float>(cv);
+  a.winners = out[0].data_ptr<int32_t>();
+  a.has_any = out[1].data_ptr<uint8_t>();
+  C10_CUDA_CHECK(launch_tal_candidates(a, at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
+}
+
+// The targets kernel over the candidates kernel's (winners, has_any):
+// (labels, bboxes, scores, fg, gt_idx), allocated here.
+std::vector<torch::Tensor> tal_targets(torch::Tensor pd, torch::Tensor anc, torch::Tensor labels, torch::Tensor gt,
+                                       torch::Tensor mask, torch::Tensor winners, torch::Tensor has_any, int64_t k,
+                                       bool all_members, int64_t num_classes, double cv) {
+  TalArgs a{};
+  tal_inputs(a, pd, anc, labels, gt, mask, k, all_members);
+  check(winners, "tal_targets winners");
+  check(has_any, "tal_targets has_any");
+  TORCH_CHECK(winners.scalar_type() == at::kInt && winners.dim() == 3 && winners.size(0) == a.B &&
+                  winners.size(1) == a.N && winners.size(2) == TAL_MAX_K && winners.device() == pd.device(),
+              "tal_targets: winners int32 [B, N, ", TAL_MAX_K, "]");
+  TORCH_CHECK(has_any.scalar_type() == at::kByte && has_any.dim() == 2 && has_any.size(0) == a.B &&
+                  has_any.size(1) == a.N && has_any.device() == pd.device(),
+              "tal_targets: has_any uint8 [B, N]");
+  TORCH_CHECK(num_classes >= 1 && num_classes < (int64_t(1) << 23), "tal_targets: 1 <= num_classes < 2^23");
+  const auto f = pd.options();
+  std::vector<torch::Tensor> out{torch::empty({a.B, a.A}, f.dtype(at::kInt)), torch::empty({a.B, a.A, 4}, f),
+                                 torch::empty({a.B, a.A, num_classes}, f), torch::empty({a.B, a.A}, f.dtype(at::kBool)),
+                                 torch::empty({a.B, a.A}, f.dtype(at::kInt))};
+  a.nc = static_cast<int>(num_classes);
+  a.cv = static_cast<float>(cv);
+  a.winners = winners.data_ptr<int32_t>();
+  a.has_any = has_any.data_ptr<uint8_t>();
+  a.out_labels = out[0].data_ptr<int32_t>();
+  a.out_bboxes = out[1].data_ptr<float>();
+  a.out_scores = out[2].data_ptr<float>();
+  a.out_fg = static_cast<uint8_t*>(out[3].data_ptr());
+  a.out_idx = out[4].data_ptr<int32_t>();
+  C10_CUDA_CHECK(launch_tal_targets(a, at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -444,6 +550,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("topk", &topk, "exact per-row top-k: (values, int32 indices), allocated here");
   m.def("mpbwd", &mpbwd, "backward of the k x k stride-1 same max pool");
   m.def("bn_moments", &bn_moments, "training BatchNorm batch moments (sum, sum of squares) in a fixed order");
+  m.def("tal_candidates", &tal_candidates, "task-aligned assignment, pass 1: each GT row's winners and has_any");
+  m.def("tal_targets", &tal_targets, "task-aligned assignment, pass 2: each anchor's GT, label, box and scores");
   m.def("bn_moments_bwd", &bn_moments_bwd, "backward of the batch moments: g_s1 + 2 y g_s2, cast to y's type");
   m.def("bmm", &bmm, "matrix product with an fp32 sum and the folded conv epilogue (mma.sync)");
   m.def("bmm_wgmma", &bmm_wgmma, "matrix product with an fp32 sum and the folded conv epilogue (TMA + wgmma)");

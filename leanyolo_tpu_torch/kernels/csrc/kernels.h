@@ -165,3 +165,46 @@ cudaError_t launch_bn_moments(const void* y, const int* size, const long long* s
 cudaError_t launch_bn_moments_bwd(const void* y, const float* g_s1, const float* g_s2, void* dy, const int* size,
                                   const long long* y_stride, const long long* dy_stride, bool bf16, bool vec,
                                   cudaStream_t stream);
+
+// The task-aligned assignment of the training loss (tal.cu), two kernels
+// (kernels/tal.py says what each computes): launch_tal_candidates, a CTA a
+// GT row, writes winners [B, N, TAL_MAX_K] int32 (the first k of a row, in
+// rank order; a padded row's only in check mode) and has_any [B, N] 0/1
+// bytes; launch_tal_targets, a thread an anchor, reads them and writes the
+// outputs. scores: pd_scores [B, A, C] fp32 logits, unit stride in C,
+// element (b, a, c) at b * score_sb + a * score_sa + c; pd [B, A, 4] and gt
+// [B, N, 4] fp32 xyxy, dense and 16-byte aligned; anc [A, 2] fp32 dense;
+// labels [B, N] int32; mask [B, N] 0/1 bytes. k: the winners of a row, at
+// most TAL_MAX_K and below A, unless all_members (k >= A: every anchor a
+// member). The alignment is s ** 0.5 (sqrt) * CIoU ** beta (powf, beta =
+// 6 at run time, as torch's kernel takes it). eps: has_any's threshold; cv:
+// float(4 / pi ** 2). overlaps and align [B, N, A]
+// fp32, or nullptr: with them (check mode) the candidates kernel writes every
+// row's CIoU and alignment. Outputs of the targets kernel, dense: out_labels
+// and out_idx [B, A] int32, out_bboxes [B, A, 4] fp32 (16-byte aligned),
+// out_scores [B, A, nc] fp32 (16-byte aligned), out_fg [B, A] 0/1 bytes.
+// B, N, A >= 1; B < 2^16.
+#define TAL_MAX_K 16
+struct TalArgs {
+  const float* scores;
+  long long score_sb, score_sa;
+  const float* pd;
+  const float* anc;
+  const int32_t* labels;
+  const float* gt;
+  const uint8_t* mask;
+  int B, N, A, C, nc, k;
+  bool all_members;
+  float beta, eps, cv;
+  int32_t* winners;
+  uint8_t* has_any;
+  float* overlaps;
+  float* align;
+  int32_t* out_labels;
+  float* out_bboxes;
+  float* out_scores;
+  uint8_t* out_fg;
+  int32_t* out_idx;
+};
+cudaError_t launch_tal_candidates(const TalArgs& args, cudaStream_t stream);
+cudaError_t launch_tal_targets(const TalArgs& args, cudaStream_t stream);

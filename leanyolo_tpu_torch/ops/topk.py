@@ -76,8 +76,10 @@ def topk_membership(x: torch.Tensor, k: int) -> torch.Tensor:
     """Boolean top-k membership over the last dimension (no order): k rounds
     of first-occurrence argmax, each masking its winner to -inf, so equal
     values are admitted in ascending index order as lax.top_k admits them
-    (JAX `ops/topk.py:113-143`). The TAL assignment's candidate sets; a plain
-    PyTorch version, its kernel (K6) is later work.
+    (JAX `ops/topk.py:113-143`), in plain PyTorch. The TAL assignment no
+    longer calls it: its candidate sets come from the assignment's kernel
+    (K6, kernels/tal.py and csrc/tal.cu), whose plain version takes the same
+    k rounds and keeps their indices.
     """
     n = x.shape[-1]
     if k >= n:

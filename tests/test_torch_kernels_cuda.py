@@ -21,7 +21,10 @@ decode's level gather (gather_rows), its box decode (dfl_boxes) and the
 training BN's batch moments (bn_moments, bn_moments_bwd) are bit-exact:
 dfl_boxes' plain version fixes the kernel's order of operations, one
 rounding each, and both run on the card's exp; bn_moments' plain version
-spells the kernel's fixed order of additions.
+spells the kernel's fixed order of additions. So is the task-aligned
+assignment (tal_candidates, tal_targets), on all five outputs and on the
+CIoU and alignment of its check mode: its kernels round after each
+operation where torch's operations do.
 """
 
 from __future__ import annotations
@@ -30,8 +33,10 @@ import pytest
 import torch
 
 from leanyolo_tpu_torch import kernels
-from leanyolo_tpu_torch.kernels import argmax, bnstats, dfl, dwconv, gather, matmul, mpbwd, nms, s2dconv, stem, topk
+from leanyolo_tpu_torch.kernels import (argmax, bnstats, dfl, dwconv, gather, matmul, mpbwd, nms, s2dconv, stem, tal,
+                                        topk)
 from leanyolo_tpu_torch.models.yolov10.layers import maxpool2d_same
+from tal_cases import CARD_CASES, tal_case, tensors
 from torch_parity import cuda_device  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.cuda
@@ -914,3 +919,52 @@ def test_predictor_decode_launches(cuda_device, dtype, monkeypatch):
     ref = decode_topk(raw, num_classes=80)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == n0 and torch.equal(got, ref)
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.view(torch.int32), b.view(torch.int32)) if a.dtype == torch.float32 else torch.equal(a, b)
+
+
+@pytest.mark.parametrize("topk", [10, 1])
+@pytest.mark.parametrize("name", CARD_CASES)
+def test_tal_kernels(cuda_device, name, topk):
+    """The assignment's two kernels bit-equal to the plain version on the
+    card, on the five outputs and, in check mode, on the CIoU and the
+    alignment of every row; one launch each a call."""
+    c = tal_case(name)
+    args = tensors(c, cuda_device)
+    nc = args[0].shape[-1]
+    before = dict(kernels.LAUNCHES)
+    out, mid = tal.assign(*args, topk=topk, num_classes=nc, check=True)
+    plain = tal.assign(*args, topk=topk, num_classes=nc)
+    ref, ref_mid = tal.assign_plain(*args, topk=topk, num_classes=nc, check=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["tal_candidates"] == before["tal_candidates"] + 2
+    assert kernels.LAUNCHES["tal_targets"] == before["tal_targets"] + 2
+    for got in (out, plain):
+        assert all(_same_bits(g, r) for g, r in zip(got, ref)), [_same_bits(g, r) for g, r in zip(got, ref)]
+    assert all(_same_bits(g, r) for g, r in zip(mid, ref_mid))
+
+
+def test_tal_kernels_images_are_independent(cuda_device):
+    """A batch's assignment on the card is the concatenation of its halves'."""
+    c = tal_case("n16", seed=7)
+    whole = tal.assign(*tensors(c, cuda_device), topk=10, num_classes=6)
+    halves = [tal.assign(*tensors(c, cuda_device, r), topk=10, num_classes=6) for r in (slice(0, 1), slice(1, 3))]
+    for w, h0, h1 in zip(whole, *halves):
+        assert _same_bits(w, torch.cat([h0, h1]))
+
+
+def test_tal_wrapper_raises_on_unsupported(cuda_device):
+    c = tal_case("n16")
+    s, *rest = tensors(c, cuda_device)
+    with pytest.raises(ValueError):  # the card takes fp32 scores
+        tal.assign(s.bfloat16(), *rest, topk=10, num_classes=6)
+    with pytest.raises(ValueError):  # above MAX_K, below A
+        tal.assign(s, *rest, topk=tal.MAX_K + 1, num_classes=6)
+    with pytest.raises(ValueError):  # no unit stride in C
+        tal.assign(s.transpose(1, 2).contiguous().transpose(1, 2), *rest, topk=10, num_classes=6)
+    with pytest.raises(ValueError):  # the card computes the reference's exponents only
+        tal.assign(s, *rest, topk=10, num_classes=6, alpha=1.0)
