@@ -927,9 +927,11 @@ def phase_decode_kernels(seed: int, records: dict) -> None:
 # The training BN's batch moments (K8): every input shape of a batch-32
 # yolov10s 640 training forward (kernels/bounds.py::train_bn_shapes: 99 BNs,
 # 14 shapes) in bf16, these three in fp32 too, and odd shapes: C = 33 (the
-# general route), one row, row counts that leave the last block partial
-# (blocks of 32 R rows, kernels/bnstats.py::rows_per_lane), C = 8, and a
-# contiguous NCHW input (the general route, read in the same logical order).
+# general route), one row, row counts that leave the last step partial
+# (steps of 32 G rows, kernels/bnstats.py::slots), C = 8, and a contiguous
+# NCHW input (the general route, read in the same logical order). The step's
+# shapes take the last CTA's reads in one round (G <= 128) and in two (its
+# three maps above 2^18 rows, G = 256).
 BN_FP32_SHAPES = ((BATCH, 32, 320, 320), (BATCH, 128, 80, 80), (BATCH, 512, 20, 20))
 BN_ODD_SHAPES = ((2, 33, 17, 19), (1, 64, 1, 1), (3, 40, 37, 41), (5, 8, 45, 45))
 
@@ -963,10 +965,10 @@ def bn_check(y, g, label: str, records: dict) -> None:
     got = {k: kernels.LAUNCHES[k] - before[k] for k in want}
     same = all(same_bits(a, b) for run in runs for a, b in zip(run, ref))
     dsame = all(same_bits(d, dref) and d.stride() == y.stride() for d in druns)
-    r = bnstats.rows_per_lane(n * h * w, c)
-    print(f"kernel bn_moments {label} {str(y.dtype)[6:]} {list(y.shape)} ({route} route, R {r}, "
-          f"{-(-n * h * w // (bnstats.LANES * r))} blocks): s1, s2 bit-equal to the plain version in each of three "
-          f"launches {same}; bn_moments_bwd dy bit-equal in each of three {dsame}", flush=True)
+    g_, r = bnstats.slots(n * h * w, c), bnstats.rows_per_lane(n * h * w, c)
+    print(f"kernel bn_moments {label} {str(y.dtype)[6:]} {list(y.shape)} ({route} route, {g_} slots, "
+          f"{r} steps a lane): s1, s2 bit-equal to the plain version in each of three launches {same}; "
+          f"bn_moments_bwd dy bit-equal in each of three {dsame}", flush=True)
     if got != want:
         fail(f"bn_moments {label} {list(y.shape)}: launches {got}, expected {want}")
     if not (same and dsame):
@@ -2733,8 +2735,9 @@ def time_tal(records: dict, calls: list) -> None:
     the step's two calls: CUDA events (the mean of 10 back-to-back launches),
     the profiler's device time, the plain version's matching pass
     (candidates_plain, targets_plain), and the bound (bounds.tal_work, on the
-    valid slots and distinct labels of these inputs). No single PyTorch call
-    computes the assignment: library none."""
+    valid slots, the images that hold one and the (slot, anchor) pairs
+    inside a box of these inputs). No single PyTorch call computes the
+    assignment: library none."""
     import torch
     from leanyolo_tpu_torch.kernels import bounds, tal
 
@@ -2756,21 +2759,23 @@ def time_tal(records: dict, calls: list) -> None:
                            lambda: tal.targets_plain(winners, has_any, mask_in, overlaps, labels, gt, nc,
                                                      scores.dtype))}
         valid = int(mask.sum())
-        distinct = int(torch.unique(labels.long().clamp_min(0)[mask] + nc * torch.nonzero(mask)[:, 0]).numel())
+        images = int(mask.any(1).sum())
+        inside = int(mask_in.sum())
         line = []
         for part, (kernel, plain) in row.items():
             r = recs[f"tal_{part}"]
             t = (cuda_ms(kernel, inner=KERNEL_INNER), device_ms(kernel),
                  cuda_ms(plain, warmup=1, runs=5, inner=2))
-            work = bounds.tal_work(b, labels.shape[1], a, c, topk, valid=valid, labels=distinct, part=part)
+            work = bounds.tal_work(b, labels.shape[1], a, c, topk, valid=valid, images=images, inside=inside,
+                                   part=part)
             nbytes[part] += work[0]
             nops[part] += work[1]
             for key, v in zip(("ms", "device_ms", "plain_ms"), t):
                 r[key] += v
             line.append(f"{part} {t[0]:.5f} ms (device {t[1]:.5f}), plain {t[2]:.5f}, bound "
                         f"{bounds.bound(*work, bounds.FP32_OPS_PER_S)[0]:.6f}")
-        print(f"tal k = {topk}, [{b}, {labels.shape[1]}, {a}] {c} classes, {valid} valid slots, {distinct} distinct "
-              f"(image, label): {'; '.join(line)}", flush=True)
+        print(f"tal k = {topk}, [{b}, {labels.shape[1]}, {a}] {c} classes, {valid} valid slots in {images} images, "
+              f"{inside} (slot, anchor) pairs inside: {'; '.join(line)}", flush=True)
     for part in ("candidates", "targets"):
         set_bound(recs[f"tal_{part}"], nbytes[part], nops[part], "fp32")
     f, t = recs["tal_candidates"], recs["tal_targets"]
@@ -2823,12 +2828,14 @@ def time_bn_moments(seed: int, records: dict) -> None:
         for r, part in ((f, row[:4]), (b, row[4:])):
             for key, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"), part):
                 r[key] += k * v
-        print(f"  {list(shape)} x{k} R {bnstats.rows_per_lane(rows, shape[1])}: "
+        print(f"  {list(shape)} x{k} G {bnstats.slots(rows, shape[1])} steps {bnstats.rows_per_lane(rows, shape[1])}: "
               f"{' '.join(f'{v:.5f}' for v in row[:4])} | {' '.join(f'{v:.5f}' for v in row[4:])}", flush=True)
     step = [(tuple(shape), ins[shape]) for shape in train_bn_shapes()]
-    f["device_ms"], f["device_records"] = bn_step_device_ms(
+    f["device_ms"], f["device_records"], by_shape = bn_step_device_ms(
         "bn_moments", [(shape, lambda y=y: bnstats.bn_moments(y)) for shape, (y, _, _) in step])
-    b["device_ms"], b["device_records"] = bn_step_device_ms(
+    print("bn_moments device ms a launch by shape (the step's launches in a row): "
+          + ", ".join(f"{list(sh)} x{counts[sh]} {ms:.5f}" for sh, ms in by_shape.items()), flush=True)
+    b["device_ms"], b["device_records"], _ = bn_step_device_ms(
         "bn_moments_bwd", [(shape, lambda a=a: bnstats.bn_moments_bwd(*a)) for shape, a in step])
     print(f"bn_moments, the {len(step)} BNs of a batch-{BATCH} yolov10s {IMGSZ} bf16 training forward, summed: "
           f"kernel {f['ms']:.4f} ms (device {f['device_ms']:.4f}, the 99 in a row, {f['device_records']}), plain "
@@ -2839,7 +2846,8 @@ def time_bn_moments(seed: int, records: dict) -> None:
 
 
 def bn_step_device_ms(kernel: str, launches: list, calls: int = 2) -> tuple:
-    """(device ms of the step's launches, "K of M kernel records kept"):
+    """(device ms of the step's launches, "K of M kernel records kept",
+    {shape: mean device ms of its kept records}):
     `launches` is [(shape, fn)], each fn launching `kernel` once, run in
     order `calls` times a profile.
 
@@ -2892,10 +2900,11 @@ def bn_step_device_ms(kernel: str, launches: list, calls: int = 2) -> tuple:
     if not all(kept[shape] for shape in counts):
         fail(f"{kernel} step profile: shapes with no kernel record in {attempt + 1} profiles: "
              f"{[list(s) for s in counts if not kept[s]]}")
-    ms = sum(us[shape] / kept[shape] * n for shape, n in counts.items()) / 1e3
+    by_shape = {shape: us[shape] / kept[shape] / 1e3 for shape in counts}
+    ms = sum(by_shape[shape] * n for shape, n in counts.items())
     kept_line = f"{sum(kept.values())} of {taken} kernel records kept"
     print(f"{kernel} step profile: {kept_line}", flush=True)
-    return ms, kept_line
+    return ms, kept_line, by_shape
 
 
 # Phase 11: training from a folder, as a user trains.

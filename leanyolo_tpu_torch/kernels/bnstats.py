@@ -11,17 +11,16 @@ and the all-reduce over a data-parallel group stay there.
 `bn_moments(y)`: y [N, C, H, W] bf16 or fp32 -> (s1, s2), fp32 [C] each. The
 order of the additions is fixed by the shape alone, so a tensor gives the
 same bits on every launch, in either memory layout, and in the plain
-version. The N*H*W rows (row r is pixel (n, h, w), in that order) are cut
-into blocks of 32 R rows, R = `rows_per_lane(rows, C)`. In a block, lane l
-(of 32) adds rows l, l + 32, ..., l + 32 (R - 1) one after another from
-+0.0 (s2 adds y*y rounded, then the sum rounded: no fused multiply-add);
-then the 32 lane sums meet in a tree, a[l] += a[l + h] for h = 16, 8, 4,
-2, 1. That gives each block's partial sums [blocks, C]. Then lane l adds
-partials l, l + 32, ... one after another, and the same tree gives the
-result. Rows past the end add nothing, as +0.0 would (a sum started at +0.0
-is never -0.0). The kernel's blocks run as CTAs; for each tile of channels
-the last CTA to finish (an integer ticket, kept by the binding for each
-device and stream; no floating-point atomics) sums the tile's partials.
+version. The N*H*W rows (row r is pixel (n, h, w), in that order) are dealt
+to G = `slots(rows, C)` slots of 32 lanes: row r goes to lane r % 32 of
+slot (r // 32) % G as its step r // (32 G). Each lane adds its rows in step
+order from +0.0 (s2 adds y*y rounded, then the sum rounded: no fused
+multiply-add); a slot's 32 lane sums meet in a pairwise tree, a[l] += a[l +
+h] for l a multiple of 2h, h = 1, 2, 4, 8, 16, and the G slot sums meet in
+the same pairwise tree. Rows past the end add nothing, as +0.0 would (a sum
+started at +0.0 is never -0.0). On the card a CTA is a slot, and the last
+CTA of a channel tile to finish (an integer ticket, kept by the binding for
+each device and stream; no floating-point atomics) combines the slot sums.
 
 `bn_moments_bwd(y, g_s1, g_s2)`: dy = g_s1[c] + (2 y) g_s2[c] in fp32,
 rounded after the product and after the sum, then cast once to y's dtype
@@ -49,47 +48,65 @@ import torch
 from . import LAUNCHES
 from ._build import check_cuda, ext
 
-LANES = 32  # row lanes of a block (csrc/bnstats.cu kLanes)
-MIN_ROWS_PER_LANE = 8  # a lane's loads go out 8 rows at a time
-MAX_ROWS_PER_LANE = 256
-PARTIALS = 16384  # the most partial sums of a moment (blocks x C) where R allows
+LANES = 32  # row lanes of a slot (csrc/bnstats.cu kLanes)
+PARTIALS = 16384  # slots x C, the target of `slots`: 65,536 threads a bf16 launch
+MAX_SLOTS = 256  # the kernel's last CTA reads at most 8 slots a lane, in two rounds
+ONE_ROUND = 128  # ... and 4 in one round: the most slots of a map of at most BIG_ROWS rows
+BIG_ROWS = 1 << 18
+
+
+def slots(rows: int, c: int) -> int:
+    """G, the slots the rows are dealt to: the largest power of two with G C
+    <= PARTIALS, 32 G <= rows and G <= ONE_ROUND (MAX_SLOTS where rows >
+    BIG_ROWS), at least 1. By the shape alone: never by the card's SM
+    count."""
+    most = min(PARTIALS // max(c, 1), rows // LANES, MAX_SLOTS if rows > BIG_ROWS else ONE_ROUND)
+    g = 1
+    while 2 * g <= most:
+        g *= 2
+    return g
 
 
 def rows_per_lane(rows: int, c: int) -> int:
-    """R, the rows each lane of a block adds: the least power of two from 8
-    to 256 for which the blocks (32 R rows each) number at most
-    PARTIALS / C. By the shape alone: never by the card's SM count."""
-    most = max(1, PARTIALS // max(c, 1))
-    r = MIN_ROWS_PER_LANE
-    while r < MAX_ROWS_PER_LANE and -(-rows // (LANES * r)) > most:
-        r *= 2
-    return r
+    """The steps of a lane: the rows each lane adds (the last step of some
+    lanes past the end)."""
+    return -(-rows // (LANES * slots(rows, c)))
 
 
 def _tree(a: torch.Tensor) -> torch.Tensor:
-    """[..., LANES, C] -> [..., C]: a[l] += a[l + h] for h = 16, 8, 4, 2, 1."""
-    h = LANES // 2
-    while h:
-        a = a[..., :h, :] + a[..., h:2 * h, :]
-        h //= 2
+    """[..., n, C] -> [..., C], n a power of two: the pairwise tree, a[l] +=
+    a[l + h] for l a multiple of 2h, h = 1, 2, 4, ..., n / 2."""
+    while a.shape[-2] > 1:
+        a = a[..., 0::2, :] + a[..., 1::2, :]
     return a[..., 0, :]
 
 
-def _lane_sums(xb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """xb [blocks, K, LANES, C] fp32 -> the blocks' (s1, s2) [blocks, C]:
-    each lane adds its K rows in order, then the tree."""
-    a1 = xb.new_zeros(xb.shape[0], LANES, xb.shape[3])
-    a2 = torch.zeros_like(a1)
-    for k in range(xb.shape[1]):
-        xk = xb[:, k]
+def _lane_sums(steps) -> Tuple[torch.Tensor, torch.Tensor]:
+    """steps: [G, LANES, C] fp32 tensors in step order -> the lanes' serial
+    sums of them and of their squares, each [G, LANES, C]."""
+    a1 = a2 = None
+    for xk in steps:
+        if a1 is None:
+            a1, a2 = torch.zeros_like(xk), torch.zeros_like(xk)
         a1 += xk
         a2 += xk * xk
-    return _tree(a1), _tree(a2)
+    return a1, a2
 
 
 def _padded(x: torch.Tensor, rows: int) -> torch.Tensor:
     """x [r, C] with zero rows appended up to `rows`."""
     return torch.cat([x, x.new_zeros(rows - x.shape[0], x.shape[1])]) if rows > x.shape[0] else x
+
+
+def _steps(x: torch.Tensor, g: int):
+    """x [rows, C] -> its steps, [g, LANES, C] each (the last padded with
+    zero rows)."""
+    step = g * LANES
+    full = x.shape[0] // step
+    for k in range(full):
+        yield x[k * step:(k + 1) * step].view(g, LANES, x.shape[1])
+    if x.shape[0] > full * step:
+        yield _padded(x[full * step:], step).view(g, LANES, x.shape[1])
 
 
 def bn_moments_plain(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -99,25 +116,8 @@ def bn_moments_plain(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if rows == 0 or c == 0:
         return y.new_zeros(c, dtype=torch.float32), y.new_zeros(c, dtype=torch.float32)
     x = y.permute(0, 2, 3, 1).reshape(rows, c).float()  # row r = pixel (n, h, w); a view in channels_last
-    r = rows_per_lane(rows, c)
-    block = LANES * r
-    full = rows // block
-    parts = []
-    if full:
-        parts.append(_lane_sums(x[: full * block].view(full, r, LANES, c)))
-    tail = rows - full * block
-    if tail:  # the last block: rows past the end add nothing, so its empty row steps are skipped
-        k = -(-tail // LANES)
-        parts.append(_lane_sums(_padded(x[full * block:], k * LANES).view(1, k, LANES, c)))
-    out = []
-    for i in (0, 1):
-        p = torch.cat([s[i] for s in parts]) if len(parts) > 1 else parts[0][i]
-        k = -(-p.shape[0] // LANES)
-        a = p.new_zeros(LANES, c)
-        for pk in _padded(p, k * LANES).view(k, LANES, c):
-            a += pk
-        out.append(_tree(a))
-    return out[0], out[1]
+    g = slots(rows, c)
+    return tuple(_tree(_tree(part)) for part in _lane_sums(_steps(x, g)))  # lanes, then slots
 
 
 def bn_moments_bwd_plain(y: torch.Tensor, g_s1: torch.Tensor, g_s2: torch.Tensor) -> torch.Tensor:
@@ -149,12 +149,11 @@ def bn_moments(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     rows = n * h * w
     if rows == 0 or c == 0:
         return y.new_zeros(c, dtype=torch.float32), y.new_zeros(c, dtype=torch.float32)
-    r = rows_per_lane(rows, c)
-    blocks = -(-rows // (LANES * r))
-    buf = torch.empty((2 * blocks + 2) * c, dtype=torch.float32, device=y.device)  # the partials, then s1, s2
-    partials, s1, s2 = buf[: 2 * blocks * c], buf[2 * blocks * c: (2 * blocks + 1) * c], buf[(2 * blocks + 1) * c:]
+    g = slots(rows, c)
+    buf = torch.empty((2 * g + 2) * c, dtype=torch.float32, device=y.device)  # the partials, then s1, s2
+    partials, s1, s2 = buf[: 2 * g * c], buf[2 * g * c: (2 * g + 1) * c], buf[(2 * g + 1) * c:]
     vec = route(y) == "vec"
-    ext().bn_moments(y, partials, s1, s2, r, vec)
+    ext().bn_moments(y, partials, s1, s2, g, vec)
     LAUNCHES["bn_moments_vec"] += vec
     LAUNCHES["bn_moments"] += 1
     return s1, s2

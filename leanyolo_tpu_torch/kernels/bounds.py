@@ -162,25 +162,39 @@ def bn_moments_bwd_work(rows: int, c: int, elt: int = 2) -> Tuple[int, int]:
     return 2 * rows * c * elt + 2 * c * 4, 3 * rows * c
 
 
-TAL_PAIR_OPS = 90  # a (GT, anchor) pair: the CIoU 71, the inside test 8, the sigmoid 4, the alignment 6, a selection compare
+# Operations of a (GT, anchor) pair of the candidates kernel, counted from
+# the SASS of csrc/tal.cu's device functions as the build compiles them
+# (python -m leanyolo_tpu_torch.tools.tal_pair_ops, sm_90a): the full chain
+# (CIoU on the precomputed aspect angles, sigmoid, sqrt, powf, the alignment
+# and its key: 46 FADD, 45 FFMA, 29 FMUL, 42 FSETP, 16 FMNMX, 7 MUFU, ...)
+# and what every pair of a valid row costs (the inside test, the outside
+# pair's skip test and its key). Counted as fp32 operations.
+TAL_PAIR_OPS = 218
+TAL_TEST_OPS = 16
 
 
-def tal_work(b: int, n: int, a: int, c: int, k: int, valid: int = None, labels: int = None,
+def tal_work(b: int, n: int, a: int, c: int, k: int, valid: int = None, images: int = None, inside: int = None,
              part: str = None) -> Tuple[int, int]:
     """(bytes, operations) of the task-aligned assignment of [b, n] GT slots
     to [b, a] anchors of c classes with top-k k (the work does not grow with
-    k: a selection compare a pair), in fp32. Read once: the predicted boxes
-    [b, a, 4] and the anchors [a, 2], the GT slots (box, label and mask, 21
-    bytes each), and a class logits for each distinct (image, label) of the
-    valid slots (`labels`; default `valid`, whose default is b n). Written
-    once: a label and a slot (int32), a box (4 fp32), the foreground byte and
-    c fp32 scores an anchor. TAL_PAIR_OPS fp32 operations a valid (GT,
-    anchor) pair; the CIoUs of anchors two GTs claim depend on the data and
-    are not counted. part: "candidates" (the inputs and the operations) or
-    "targets" (the outputs); None, both (the sum)."""
+    k), in fp32. Read once: the predicted boxes [b, a, 4] and the anchors
+    [a, 2], the GT slots (box, label and mask, 21 bytes each), and every
+    class logit of each image with a valid slot (`images`, default b: a NaN
+    logit of any class makes the anchor's score NaN, as JAX's one-hot
+    contraction does). Written once: a label and a slot (int32), a box (4
+    fp32), the foreground byte and c fp32 scores an anchor. Operations: a NaN
+    test a logit read, TAL_TEST_OPS a (valid slot, anchor) pair (`valid`
+    slots, default b n) and TAL_PAIR_OPS a pair whose anchor lies inside
+    the slot's box (`inside`, the data's count; default every valid pair);
+    an outside pair's alignment is +0.0 without the chain wherever its
+    inputs are finite. The CIoUs of anchors two GTs claim depend on the data
+    and are not counted. part: "candidates" (the inputs and the operations)
+    or "targets" (the outputs); None, both (the sum)."""
     valid = b * n if valid is None else valid
-    labels = valid if labels is None else labels
-    read = b * a * 16 + a * 8 + b * n * 21 + labels * a * 4, valid * a * TAL_PAIR_OPS
+    images = b if images is None else images
+    inside = valid * a if inside is None else inside
+    read = (b * a * 16 + a * 8 + b * n * 21 + images * a * c * 4,
+            images * a * c + valid * a * TAL_TEST_OPS + inside * TAL_PAIR_OPS)
     written = b * a * (4 + 4 + 16 + 1 + 4 * c), 0
     if part == "candidates":
         return read
@@ -294,8 +308,9 @@ def kernel_bounds(batch: int = 32):
     nbytes, nops = mpbwd_work(batch, 20, 20, 256)
     rows.append(("mpbwd", f"[{batch},20,20,256] bf16, k=5", nbytes, nops, *bound(nbytes, nops, FP32_OPS_PER_S)))
     valid = round(0.4 * 16 * batch)  # bench_train.py's draw: 40% of the slots valid, cut to the bucket of 16
+    inside = valid * 24  # boxes 8-60 px a side: about 24 of the 8,400 anchor centres inside one
     for part in ("candidates", "targets"):
-        nbytes, nops = tal_work(batch, 16, 8400, 80, 10, valid=valid, part=part)
+        nbytes, nops = tal_work(batch, 16, 8400, 80, 10, valid=valid, inside=inside, part=part)
         rows.append((f"tal_{part}", f"[{batch},16,8400] 80 classes, ~{valid} valid, a call", nbytes, nops,
                      *bound(nbytes, nops, FP32_OPS_PER_S)))
     shapes = train_bn_shapes("yolov10s", 640, batch)

@@ -138,8 +138,7 @@ torch::Tensor bn_tickets(const torch::Tensor& y, int64_t need) {
   return t;
 }
 
-void bn_moments(torch::Tensor y, torch::Tensor partials, torch::Tensor s1, torch::Tensor s2, int64_t rows_per_lane,
-                bool vec) {
+void bn_moments(torch::Tensor y, torch::Tensor partials, torch::Tensor s1, torch::Tensor s2, int64_t slots, bool vec) {
   int size[4];
   long long stride[4];
   bn_shape(y, size, stride, "bn_moments");
@@ -149,13 +148,14 @@ void bn_moments(torch::Tensor y, torch::Tensor partials, torch::Tensor s1, torch
     TORCH_CHECK(p->scalar_type() == at::kFloat, "bn_moments: fp32 sums and partials");
   }
   TORCH_CHECK(reinterpret_cast<uintptr_t>(partials.data_ptr()) % 16 == 0, "bn_moments: partials 16-byte aligned");
-  const int64_t C = y.size(1), rows = y.size(0) * y.size(2) * y.size(3), block = 32 * rows_per_lane;
-  TORCH_CHECK(rows_per_lane >= 1 && rows_per_lane < (int64_t(1) << 24), "bn_moments: rows_per_lane out of range");
+  const int64_t C = y.size(1);
+  TORCH_CHECK(slots >= 1 && slots <= 256 && (slots & (slots - 1)) == 0,
+              "bn_moments: slots a power of two in [1, 256]");
   TORCH_CHECK(s1.numel() == C && s2.numel() == C, "bn_moments: s1, s2 [C]");
-  TORCH_CHECK(partials.numel() >= 2 * ((rows + block - 1) / block) * C, "bn_moments: partials too small");
+  TORCH_CHECK(partials.numel() >= 2 * slots * C, "bn_moments: partials too small");
   TORCH_CHECK(!vec || bn_vec_ok(y), "bn_moments: the 16-byte route needs y channels_last, dense and aligned");
   const torch::Tensor tickets = bn_tickets(y, C);  // a channel tile takes one; C is always enough
-  C10_CUDA_CHECK(launch_bn_moments(y.data_ptr(), size, stride, static_cast<int>(rows_per_lane), bf16, vec,
+  C10_CUDA_CHECK(launch_bn_moments(y.data_ptr(), size, stride, static_cast<int>(slots), bf16, vec,
                                    partials.data_ptr<float>(), reinterpret_cast<unsigned*>(tickets.data_ptr<int32_t>()),
                                    static_cast<int>(tickets.numel()), s1.data_ptr<float>(), s2.data_ptr<float>(),
                                    at::cuda::getCurrentCUDAStream()));
@@ -486,6 +486,9 @@ std::vector<torch::Tensor> tal_candidates(torch::Tensor scores, torch::Tensor pd
                   scores.dim() == 3 && scores.size(0) == a.B && scores.size(1) == a.A && scores.stride(2) == 1 &&
                   scores.size(2) >= 1 && scores.size(2) < (int64_t(1) << 31),
               "tal_candidates: pd_scores float32 [B, A, C] beside pd_bboxes, unit stride in C");
+  TORCH_CHECK(a.A <= TAL_CLUSTER * TAL_MAX_CHUNK, "tal_candidates: A at most ", TAL_CLUSTER * TAL_MAX_CHUNK);
+  TORCH_CHECK(int64_t((a.A + TAL_CLUSTER - 1) / TAL_CLUSTER) * scores.size(2) < (int64_t(1) << 30),
+              "tal_candidates: a chunk's logits (A / ", TAL_CLUSTER, " x C) under 2^30");
   const auto f = scores.options();
   std::vector<torch::Tensor> out{torch::empty({a.B, a.N, TAL_MAX_K}, f.dtype(at::kInt)),
                                  torch::empty({a.B, a.N}, f.dtype(at::kByte))};

@@ -8,25 +8,39 @@
 // Forward (bn_moments_kernel): y [N, C, H, W] -> s1, s2 fp32 [C]. The order
 // of the additions is fixed by the shape alone (the module doc of
 // kernels/bnstats.py, whose plain version spells it in torch operations):
-// the N*H*W rows, row r = pixel (n, h, w), are cut into blocks of 32 R rows,
-// one CTA (blockIdx.x) each, R = rows_per_lane(rows, C) from the wrapper. In
-// a block, row lane l adds rows l, l + 32, ..., l + 32 (R - 1) in that order,
-// from +0.0, with __fmul_rn / __fadd_rn (no fused multiply-add, so the plain
-// version's separate roundings match); the 32 lane sums meet in a tree in
-// shared memory, a[l] += a[l + h] for h = 16, 8, 4, 2, 1. Each CTA writes its
-// block's partial sums of its channels; the last CTA of a channel tile to
-// take the tile's ticket (atomicInc on an integer that wraps back to 0, so
-// the counter needs no reset) sums the tile's partials the same way, with
-// the same threads on the same channels: lane l adds partials l, l + 32,
-// ..., then the tree. No floating-point atomics: the same input gives the
-// same bits on every launch. A row past the end is loaded as 0, which adds
-// nothing (a sum started at +0.0 is never -0.0).
+// G = slots(rows, C) slots of 32 lanes each; lane l of slot g adds rows
+// (k G + g) 32 + l for k = 0, 1, ... in that order, from +0.0, with
+// __fmul_rn / __fadd_rn (no fused multiply-add, so the plain version's
+// separate roundings match); a slot's 32 lane sums meet in a pairwise tree
+// (a[l] += a[l + h] for l a multiple of 2h, h = 1, 2, 4, 8, 16), and the G
+// slot sums in the same pairwise tree. A row past the end is loaded as 0,
+// which adds nothing (a sum started at +0.0 is never -0.0). No
+// floating-point atomics, and nothing of the order is read from the device:
+// the same input gives the same bits on every launch.
 //
-// Channels: blockIdx.y takes a tile of up to 8 vector lanes. The 16-byte
-// route (y in channels_last memory, C a multiple of 8 bf16 or 4 fp32 values,
-// 16-byte aligned) gives a thread one 16-byte vector of channels of a row,
-// neighbouring threads neighbouring vectors of a row; the general route (any
-// strides and C) one value, neighbouring threads neighbouring rows.
+// How the CTAs run that order (constants and the shape only):
+// - A CTA is one slot of a channel tile: 32 lanes x vt channel vectors (up to
+//   8; 256 threads). The 16-byte route gives a thread one 16-byte vector of
+//   channels of a row, neighbouring threads neighbouring vectors of a row,
+//   so a warp reads whole 128-byte spans of 32 / vt rows; the general route
+//   (any strides and C) one value, a warp the 32 lanes of one channel. The
+//   row steps are a grid stride: every CTA loads the same count of rows, 16
+//   steps in flight a thread (kBatch).
+// - The slot's tree: its levels inside a warp by __shfl_xor_sync (the two
+//   partners of a level add the same two values, so both hold the same
+//   bits), the rest through shared memory in one barrier.
+// - The slot's sums go to the partials [G, C] of each moment; the last CTA
+//   of the tile to take its ticket (atomicInc on an integer that wraps back
+//   to 0, so the counter needs no reset) reads them, warp w the sums of
+//   vector w, lane j the G / 32 adjacent slots from j G / 32, 16-byte loads
+//   in one round where G <= 128 (two where G is 256: maps of more than 2^18
+//   rows only), and finishes the tree.
+//   Only the threads that wrote fence before the ticket.
+// At the training path's BNs: G * C = 16,384 where C >= 128, G = 256 at its
+// three maps above 2^18 rows (C = 64 and 32), G = 128 at its smaller maps
+// of C = 64. So 128 to 256 CTAs of 256 threads in bf16 (of 128 where C is
+// 32): one to two CTAs an SM on 132 SMs, all resident at once, each
+// loading the same count of rows.
 //
 // Backward (bn_moments_bwd_kernel): dy = g_s1[c] + (2 y) g_s2[c], rounded
 // after the product and after the sum, then cast once to y's type: one read
@@ -34,11 +48,12 @@
 //
 // Bound on an H100: bytes. Forward: y read once (at the step's largest BN,
 // [32, 32, 320, 320] bf16, 210 MB: 63 us at 3.35 TB/s), the partials (at
-// most 16,384 of each moment where R allows, 128 KB) are noise; backward: y
-// read and dy written. A tile's last CTA sums its partials, the forward's
-// serial tail; the tiles' tails run in parallel.
+// most 16,384 of each moment) are noise; backward: y read and dy written.
+// The serial tail of a launch is a slot's tree, a fence, the ticket and one
+// or two rounds of L2 reads.
 #include <cuda_bf16.h>
 
+#include <algorithm>
 #include <cstdint>
 
 #include "common.cuh"
@@ -46,11 +61,11 @@
 
 namespace {
 
-constexpr int kLanes = 32;     // row lanes of a CTA
-constexpr int kVecLanes = 8;   // most vector lanes (channel vectors) of a CTA
-constexpr int kCols = 64;      // shared-memory columns: the most channels of a tile (8 vectors of 8 bf16)
-constexpr int kBatch = 16;     // rows a lane loads before it adds them
-constexpr int kSteps = 4;      // the last CTA: partials of each lane it loads before it adds them
+constexpr int kLanes = 32;      // row lanes of a slot
+constexpr int kMaxVt = 8;       // most channel vectors of a tile (a CTA is one slot: 32 x vt threads)
+constexpr int kBatch = 16;      // row steps a thread loads before it adds them
+constexpr int kRound = 4;       // the last CTA: slots of a lane loaded at once
+constexpr int kMaxSlots = 256;  // bnstats.py MAX_SLOTS: at most two rounds of kRound a lane
 
 // V values of T of a row: one 16-byte load (V > 1) or one value, kept as
 // loaded (`Raw`) until `at` converts value j to float.
@@ -97,33 +112,15 @@ __device__ __forceinline__ long long row_offset(const Shape& s, long long r) {
   return n * s.sN + h * s.sH + w * s.sW;
 }
 
-// The tree over the 32 row lanes of sm1 and sm2 [kLanes][kCols], columns
-// [col, col + V) of lane l; every thread of the CTA calls it. Leaves the
-// sums in row 0.
+// V sums at p (16-byte loads where V allows: p is then 16-byte aligned),
+// read from L2, where another CTA wrote them; zeros where !in.
 template <int V>
-__device__ __forceinline__ void lane_tree(float (*sm1)[kCols], float (*sm2)[kCols], int l, int col) {
-  __syncthreads();
-#pragma unroll
-  for (int h = kLanes / 2; h > 0; h /= 2) {
-    if (l < h) {
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        sm1[l][col + j] = __fadd_rn(sm1[l][col + j], sm1[l + h][col + j]);
-        sm2[l][col + j] = __fadd_rn(sm2[l][col + j], sm2[l + h][col + j]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// V partial sums at p (16-byte loads where V allows: p is then 16-byte
-// aligned), from L2, where another CTA wrote them; zeros where !in.
-template <int V>
-__device__ __forceinline__ void load_partials(const float* p, bool in, float* out) {
+__device__ __forceinline__ void load_sums(const float* p, bool in, float* out) {
   if constexpr (V % 4 == 0) {
 #pragma unroll
     for (int q = 0; q < V / 4; ++q) {
-      const float4 f = in ? __ldcg(reinterpret_cast<const float4*>(p) + q) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float4 f = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (in) f = __ldcg(reinterpret_cast<const float4*>(p) + q);
       out[4 * q] = f.x;
       out[4 * q + 1] = f.y;
       out[4 * q + 2] = f.z;
@@ -135,103 +132,161 @@ __device__ __forceinline__ void load_partials(const float* p, bool in, float* ou
   }
 }
 
+// The pairwise tree over the lanes of a warp whose offsets are below `n`
+// (a power of two): levels h = 1, 2, ..., n / 2 by __shfl_xor_sync; the two
+// partners of a level add the same two values, so both hold the same bits.
+template <int V>
+__device__ __forceinline__ void lane_tree(float* a1, float* a2, int n, int step) {
+  for (int h = 1; h < n; h <<= 1) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      a1[j] = __fadd_rn(a1[j], __shfl_xor_sync(0xFFFFFFFFu, a1[j], h * step));
+      a2[j] = __fadd_rn(a2[j], __shfl_xor_sync(0xFFFFFFFFu, a2[j], h * step));
+    }
+  }
+}
+
 // VEC: the 16-byte route (V values a thread, channels fastest); else the
-// general route (V = 1, rows fastest).
+// general route (V = 1, rows fastest). A CTA is slot blockIdx.x (32 lanes x
+// vt vectors) of channel tile blockIdx.y. Threads: 32 * vt.
 template <typename T, int V, bool VEC>
-__global__ void __launch_bounds__(kLanes* kVecLanes)
-    bn_moments_kernel(const T* __restrict__ y, Shape s, long long rows, int R, float* __restrict__ part,
+__global__ void __launch_bounds__(kLanes* kMaxVt)
+    bn_moments_kernel(const T* __restrict__ y, Shape s, long long rows, int G, int vt, float* __restrict__ part,
                       unsigned* tickets, float* __restrict__ s1, float* __restrict__ s2) {
   using L = Vec<T, V>;
-  __shared__ float sm1[kLanes][kCols];
-  __shared__ float sm2[kLanes][kCols];
+  __shared__ __align__(16) float wsum[2][kMaxVt][kMaxVt * V];  // the slot's warp sums: [moment][warp][vt V]
   __shared__ bool last;
-  const int vt_n = blockDim.x / kLanes;  // vector lanes of this CTA
-  const int l = VEC ? threadIdx.x / vt_n : threadIdx.x % kLanes;
-  const int vt = VEC ? threadIdx.x % vt_n : threadIdx.x / kLanes;
+  const int t = threadIdx.x;
+  const int l = VEC ? t / vt : t % kLanes;
+  const int v = VEC ? t % vt : t / kLanes;
   const int C = s.C;
-  const int c0 = (blockIdx.y * vt_n + vt) * V;  // this thread's first channel; C % V == 0
+  const int c0 = (blockIdx.y * vt + v) * V;  // this thread's first channel; C % V == 0
   const bool active = c0 < C;
-  const long long base = static_cast<long long>(blockIdx.x) * kLanes * R + l;
+  const long long g = blockIdx.x;                                // this CTA's slot
+  const long long stride = static_cast<long long>(G) * kLanes;  // rows a step
 
   float a1[V], a2[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) a1[j] = a2[j] = 0.0f;
-  for (int k0 = 0; k0 < R; k0 += kBatch) {
-    typename L::Raw v[kBatch];
+  for (long long r0 = g * kLanes + l; r0 < rows; r0 += kBatch * stride) {
+    typename L::Raw x[kBatch];
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
-      const long long r = base + static_cast<long long>(k0 + b) * kLanes;
-      v[b] = L::zero();
-      if (active && k0 + b < R && r < rows) v[b] = L::load(y + (VEC ? r * C + c0 : row_offset(s, r) + c0 * s.sC));
+      const long long r = r0 + b * stride;
+      x[b] = L::zero();
+      if (active && r < rows) x[b] = L::load(y + (VEC ? r * C + c0 : row_offset(s, r) + c0 * s.sC));
     }
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
 #pragma unroll
       for (int j = 0; j < V; ++j) {
-        const float x = L::at(v[b], j);
-        a1[j] = __fadd_rn(a1[j], x);
-        a2[j] = __fadd_rn(a2[j], __fmul_rn(x, x));
+        const float f = L::at(x[b], j);
+        a1[j] = __fadd_rn(a1[j], f);
+        a2[j] = __fadd_rn(a2[j], __fmul_rn(f, f));
       }
     }
   }
-  const int col = vt * V;
+
+  // The slot's tree: its levels inside a warp, then, where the slot spans
+  // vt warps (16-byte route), the pairwise tree over the warps' sums by the
+  // thread of lane 0.
+  const int lw = VEC ? kLanes / vt : kLanes;  // lanes of the slot in a warp
+  lane_tree<V>(a1, a2, lw, VEC ? vt : 1);
+  if (VEC && vt > 1) {
+    if (l % lw == 0) {
 #pragma unroll
-  for (int j = 0; j < V; ++j) {
-    sm1[l][col + j] = a1[j];
-    sm2[l][col + j] = a2[j];
+      for (int j = 0; j < V; ++j) {
+        wsum[0][l / lw][v * V + j] = a1[j];
+        wsum[1][l / lw][v * V + j] = a2[j];
+      }
+    }
+    __syncthreads();
+    if (l == 0) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        float b1[kMaxVt], b2[kMaxVt];
+#pragma unroll
+        for (int q = 0; q < kMaxVt; ++q) {
+          b1[q] = q < vt ? wsum[0][q][v * V + j] : 0.0f;
+          b2[q] = q < vt ? wsum[1][q][v * V + j] : 0.0f;
+        }
+#pragma unroll
+        for (int h = 1; h < kMaxVt; h <<= 1) {
+#pragma unroll
+          for (int q = 0; q + h < kMaxVt; q += 2 * h) {
+            if (q + h < vt) {
+              b1[q] = __fadd_rn(b1[q], b1[q + h]);
+              b2[q] = __fadd_rn(b2[q], b2[q + h]);
+            }
+          }
+        }
+        a1[j] = b1[0];
+        a2[j] = b2[0];
+      }
+    }
   }
-  lane_tree<V>(sm1, sm2, l, col);  // a thread past C holds zeros
-  const long long blocks = gridDim.x;
-  float* p1 = part + c0;  // partial b of a moment: [b * C, (b + 1) * C); s2's after s1's
-  float* p2 = part + blocks * C + c0;
+
+  // The slot's sums to the partials, then the ticket: the last CTA of the
+  // tile (atomicInc on an integer that wraps back to 0) finishes the slots'
+  // tree. Only the writing threads fence before the barrier, and only the
+  // thread that finds itself last after the ticket.
   if (l == 0 && active) {
 #pragma unroll
     for (int j = 0; j < V; ++j) {
-      p1[blockIdx.x * static_cast<long long>(C) + j] = sm1[0][col + j];
-      p2[blockIdx.x * static_cast<long long>(C) + j] = sm2[0][col + j];
+      part[g * C + c0 + j] = a1[j];
+      part[(G + g) * C + c0 + j] = a2[j];
     }
+    __threadfence();
   }
-  __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicInc(tickets + blockIdx.y, gridDim.x - 1) == gridDim.x - 1;
+  if (t == 0) {
+    last = atomicInc(tickets + blockIdx.y, G - 1) == static_cast<unsigned>(G - 1);
+    if (last) __threadfence();
+  }
   __syncthreads();
   if (!last) return;
-  __threadfence();
 
-  // The tile's last CTA: lane l adds partials l, l + 32, ... of its
-  // thread's channels (read from L2: other CTAs wrote them), kSteps at a
-  // time, then the tree.
+  // Warp w takes vector w of the tile; lane j reads the adjacent slots [j m,
+  // j m + m), m = G / 32 (at least 1), kRound of them at a time, and adds
+  // them in a pairwise tree; the lanes' pairwise tree then gives the result.
+  const int warp = t / kLanes, lane = t % kLanes;
+  const int c = (blockIdx.y * vt + warp) * V;
+  const int m = G > kLanes ? G / kLanes : 1;
+  float b1[V], b2[V];
+  for (int e0 = 0; e0 < m; e0 += kRound) {
+    float p1[kRound][V], p2[kRound][V];
 #pragma unroll
-  for (int j = 0; j < V; ++j) a1[j] = a2[j] = 0.0f;
-  for (long long i0 = l; i0 < blocks; i0 += kSteps * kLanes) {
-    float v1[kSteps][V], v2[kSteps][V];
-#pragma unroll
-    for (int k = 0; k < kSteps; ++k) {
-      const long long i = i0 + k * kLanes;
-      const bool in = active && i < blocks;
-      load_partials<V>(p1 + i * C, in, v1[k]);
-      load_partials<V>(p2 + i * C, in, v2[k]);
+    for (int e = 0; e < kRound; ++e) {
+      const int i = lane * m + e0 + e;
+      const bool in = e0 + e < m && i < G && c < C;
+      load_sums<V>(in ? part + static_cast<long long>(i) * C + c : nullptr, in, p1[e]);
+      load_sums<V>(in ? part + static_cast<long long>(G + i) * C + c : nullptr, in, p2[e]);
     }
 #pragma unroll
-    for (int k = 0; k < kSteps; ++k) {
+    for (int h = 1; h < kRound; h <<= 1) {
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        a1[j] = __fadd_rn(a1[j], v1[k][j]);
-        a2[j] = __fadd_rn(a2[j], v2[k][j]);
+      for (int e = 0; e + h < kRound; e += 2 * h) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          p1[e][j] = __fadd_rn(p1[e][j], p1[e + h][j]);
+          p2[e][j] = __fadd_rn(p2[e][j], p2[e + h][j]);
+        }
       }
     }
-  }
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-    sm1[l][col + j] = a1[j];
-    sm2[l][col + j] = a2[j];
-  }
-  lane_tree<V>(sm1, sm2, l, col);
-  if (l == 0 && active) {
+    // p[0] is the round's pairwise sum (zeros past m add nothing); m <= 2
+    // kRound, so two rounds at most, and their sums meet last.
 #pragma unroll
     for (int j = 0; j < V; ++j) {
-      s1[c0 + j] = sm1[0][col + j];
-      s2[c0 + j] = sm2[0][col + j];
+      b1[j] = e0 == 0 ? p1[0][j] : __fadd_rn(b1[j], p1[0][j]);
+      b2[j] = e0 == 0 ? p2[0][j] : __fadd_rn(b2[j], p2[0][j]);
+    }
+  }
+  lane_tree<V>(b1, b2, kLanes, 1);
+  if (lane == 0 && c < C) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      s1[c + j] = b1[j];
+      s2[c + j] = b2[j];
     }
   }
 }
@@ -271,17 +326,23 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p *= 2;
+  return p;
+}
+
 template <typename T, int V, bool VEC>
-cudaError_t launch_fwd(const void* y, const Shape& s, int R, float* part, unsigned* tickets, int n_tickets, float* s1,
+cudaError_t launch_fwd(const void* y, const Shape& s, int G, float* part, unsigned* tickets, int n_tickets, float* s1,
                        float* s2, cudaStream_t stream) {
   const long long rows = static_cast<long long>(s.N) * s.H * s.W;
-  const long long blocks = (rows + static_cast<long long>(kLanes) * R - 1) / (static_cast<long long>(kLanes) * R);
+  if (G < 1 || G > kMaxSlots || (G & (G - 1)) != 0) return cudaErrorInvalidValue;
   const int nv = (s.C + V - 1) / V;
-  const int vt = nv < kVecLanes ? nv : kVecLanes;
+  const int vt = std::min(kMaxVt, pow2_at_least(nv));
   const int tiles = (nv + vt - 1) / vt;
-  if (blocks > 0x7fffffffLL || tiles > 65535 || tiles > n_tickets) return cudaErrorInvalidValue;
-  bn_moments_kernel<T, V, VEC><<<dim3(static_cast<unsigned>(blocks), tiles), kLanes * vt, 0, stream>>>(
-      static_cast<const T*>(y), s, rows, R, part, tickets, s1, s2);
+  if (tiles > 65535 || tiles > n_tickets) return cudaErrorInvalidValue;
+  bn_moments_kernel<T, V, VEC><<<dim3(static_cast<unsigned>(G), static_cast<unsigned>(tiles)), kLanes * vt, 0, stream>>>(
+      static_cast<const T*>(y), s, rows, G, vt, part, tickets, s1, s2);
   return cudaGetLastError();
 }
 
@@ -302,16 +363,15 @@ Shape shape_of(const int* size, const long long* stride) {
 
 }  // namespace
 
-cudaError_t launch_bn_moments(const void* y, const int* size, const long long* stride, int rows_per_lane, bool bf16,
-                              bool vec, float* partials, unsigned* tickets, int n_tickets, float* s1, float* s2,
+cudaError_t launch_bn_moments(const void* y, const int* size, const long long* stride, int slots, bool bf16, bool vec,
+                              float* partials, unsigned* tickets, int n_tickets, float* s1, float* s2,
                               cudaStream_t stream) {
-  if (rows_per_lane < 1) return cudaErrorInvalidValue;
   const Shape s = shape_of(size, stride);
   if (vec)
-    return bf16 ? launch_fwd<__nv_bfloat16, 8, true>(y, s, rows_per_lane, partials, tickets, n_tickets, s1, s2, stream)
-                : launch_fwd<float, 4, true>(y, s, rows_per_lane, partials, tickets, n_tickets, s1, s2, stream);
-  return bf16 ? launch_fwd<__nv_bfloat16, 1, false>(y, s, rows_per_lane, partials, tickets, n_tickets, s1, s2, stream)
-              : launch_fwd<float, 1, false>(y, s, rows_per_lane, partials, tickets, n_tickets, s1, s2, stream);
+    return bf16 ? launch_fwd<__nv_bfloat16, 8, true>(y, s, slots, partials, tickets, n_tickets, s1, s2, stream)
+                : launch_fwd<float, 4, true>(y, s, slots, partials, tickets, n_tickets, s1, s2, stream);
+  return bf16 ? launch_fwd<__nv_bfloat16, 1, false>(y, s, slots, partials, tickets, n_tickets, s1, s2, stream)
+              : launch_fwd<float, 1, false>(y, s, slots, partials, tickets, n_tickets, s1, s2, stream);
 }
 
 cudaError_t launch_bn_moments_bwd(const void* y, const float* g_s1, const float* g_s2, void* dy, const int* size,

@@ -151,14 +151,13 @@ cudaError_t launch_dfl_boxes(const DecodeLevels& lv, int B, const int32_t* ancho
 // multiple of 8 bf16 or 4 fp32 values, y and dy 16-byte aligned), else the
 // general route (any strides).
 // launch_bn_moments: s1, s2 fp32 [C] = sum y, sum y^2 over N, H, W in the
-// fixed order of kernels/bnstats.py; rows_per_lane R >= 1 (blocks of 32 R
-// rows); partials: 2 * blocks * C floats of scratch, 16-byte
-// aligned; tickets: n_tickets unsigned counters, at least one a channel tile
-// (C / 64 bf16 or C / 32 fp32 channels on the 16-byte route, C / 8 on the
-// general route; C is always enough), 0 before the launch and 0 again after
-// it, used by one stream's launches only.
-cudaError_t launch_bn_moments(const void* y, const int* size, const long long* stride, int rows_per_lane, bool bf16,
-                              bool vec, float* partials, unsigned* tickets, int n_tickets, float* s1, float* s2,
+// fixed order of kernels/bnstats.py; slots G, a power of two up to 256
+// (slots of 32 lanes; bnstats.py::slots); partials: 2 * G * C floats of
+// scratch, 16-byte aligned; tickets: n_tickets unsigned counters, at
+// least one a channel tile (C is always enough), 0 before the launch and 0
+// again after it, used by one stream's launches only.
+cudaError_t launch_bn_moments(const void* y, const int* size, const long long* stride, int slots, bool bf16, bool vec,
+                              float* partials, unsigned* tickets, int n_tickets, float* s1, float* s2,
                               cudaStream_t stream);
 // launch_bn_moments_bwd: dy = g_s1[c] + (2 y) g_s2[c] (fp32, rounded after the
 // product and the sum) cast to y's type; g_s1, g_s2 fp32 [C]; dy by dy_stride.
@@ -167,8 +166,8 @@ cudaError_t launch_bn_moments_bwd(const void* y, const float* g_s1, const float*
                                   cudaStream_t stream);
 
 // The task-aligned assignment of the training loss (tal.cu), two kernels
-// (kernels/tal.py says what each computes): launch_tal_candidates, a CTA a
-// GT row, writes winners [B, N, TAL_MAX_K] int32 (the first k of a row, in
+// (kernels/tal.py says what each computes): launch_tal_candidates, a
+// cluster of CTAs an image, writes winners [B, N, TAL_MAX_K] int32 (the first k of a row, in
 // rank order; a padded row's only in check mode) and has_any [B, N] 0/1
 // bytes; launch_tal_targets, a thread an anchor, reads them and writes the
 // outputs. scores: pd_scores [B, A, C] fp32 logits, unit stride in C,
@@ -185,6 +184,10 @@ cudaError_t launch_bn_moments_bwd(const void* y, const float* g_s1, const float*
 // out_scores [B, A, nc] fp32 (16-byte aligned), out_fg [B, A] 0/1 bytes.
 // B, N, A >= 1; B < 2^16.
 #define TAL_MAX_K 16
+// The candidates kernel: a cluster of TAL_CLUSTER CTAs an image, each
+// staging A / TAL_CLUSTER anchors (at most TAL_MAX_CHUNK: A <= 48,128).
+#define TAL_CLUSTER 8
+#define TAL_MAX_CHUNK 6016
 struct TalArgs {
   const float* scores;
   long long score_sb, score_sa;

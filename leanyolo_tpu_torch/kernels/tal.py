@@ -14,12 +14,17 @@ gt_labels [B, N], gt_bboxes [B, N, 4], mask_gt [B, N], topk, num_classes)`
 A, num_classes] in pd_scores' dtype, fg_mask [B, A] bool, target_gt_idx [B,
 A] int32), in two passes:
 
-1. candidates (a CTA a GT row on the card): the inside test, the CIoU of
-   each GT against each predicted box, the sigmoid of the GT class's logit,
-   align = clamp(s, 0, 1) ** alpha * clamp(CIoU, 0, 1) ** beta * inside;
-   the row's k winners by (align desc, index asc), torch.argmax's and
-   lax.top_k's order, and has_any = max(align) > eps. With k >= A every
-   anchor is a member. A padded row's align is all zero.
+1. candidates (on the card a cluster of 8 CTAs an image, each a chunk of
+   its anchors, a warp a GT row, the chunks' winners merged through the
+   cluster's shared memory): the inside test, the CIoU of each GT against
+   each predicted box, the sigmoid of the GT class's logit, align =
+   clamp(s, 0, 1) ** alpha * clamp(CIoU, 0, 1) ** beta * inside; the row's
+   k winners by (align desc, index asc), torch.argmax's and lax.top_k's
+   order, and has_any = max(align) > eps. With k >= A every anchor is a
+   member. A padded row's align is all zero. Outside the box align is
+   t * 0, +0.0 unless t is NaN: the kernel skips the chain only where a
+   cheap test proves t is not NaN (a non-NaN logit, every box coordinate
+   finite and at most 1e18 in magnitude).
 2. targets (a thread an anchor): GT n claims the anchor where mask_gt, inside
    and membership (the winners, or anchor 0 where has_any is false) hold;
    one claim takes that GT, several the GT of highest CIoU over every slot,
@@ -39,13 +44,18 @@ On the card: pd_scores, the boxes and the anchors fp32 (the loss runs in
 fp32); pd_scores with unit stride in C, read in place through its row
 stride (the concatenated head's class slice); k at most MAX_K unless k >=
 A; the reference's exponents, alpha 0.5 and beta 6 (the plain version
-takes any); labels < C (the plain version's gather refuses others). `LAUNCHES["tal_candidates"]` and `["tal_targets"]` count
+takes any); labels < C (the plain version's gather refuses others); A
+at most MAX_A. `LAUNCHES["tal_candidates"]` and `["tal_targets"]` count
 the two kernels. CPU tensors take the plain version; CUDA tensors launch
 the kernels or raise. Like mpbwd and bnstats this wrapper is not a
 `torch.library` operator: only the training path calls it.
 
-Bound on an H100: bytes (bounds.tal_work): the outputs, 95 MB at the step's
-[32, 16, 8400] and 80 classes, most of them the one-hot scores.
+Bound on an H100: bytes (bounds.tal_work): every logit of an image with a
+valid slot read once by the candidates (86 MB at the step's [32, 16, 8400]
+and 80 classes), the outputs written once by the targets (95 MB, most of
+them the one-hot scores); the operations (the SASS counts of
+tools/tal_pair_ops: 16 a pair of a valid slot, 218 a pair inside its box)
+come to a third of the candidates' byte time or less.
 """
 
 from __future__ import annotations
@@ -59,6 +69,7 @@ from . import LAUNCHES
 from ._build import ext
 
 MAX_K = 16  # winners a GT row the candidates kernel keeps (csrc/kernels.h TAL_MAX_K)
+MAX_A = 8 * 6016  # anchors the candidates kernel stages (TAL_CLUSTER chunks of TAL_MAX_CHUNK)
 CV = 4 / (math.pi ** 2)  # the CIoU's aspect-ratio constant, as ops/boxes.py writes it
 # The alignment's exponents the kernels compute (the reference's), by torch's
 # routes on the card: ** 0.5 is sqrt, ** 6 is powf.
@@ -93,8 +104,12 @@ def candidates_plain(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mas
     probs = torch.sigmoid(pd_scores)
     gt_ind = torch.clamp_min(gt_labels.long(), 0)  # [B, N]
     # probs[b, a, gt[b, n]]: the gather is exact where JAX's one-hot
-    # contraction sums one product with zeros.
+    # contraction sums one product with zeros ...
     cls_scores = torch.gather(probs, 2, gt_ind[:, None, :].expand(b, a, n)).transpose(1, 2)  # [B, N, A]
+    # ... and NaN wherever any class logit of the anchor is NaN: the
+    # contraction's zero products with a NaN are NaN (0 for a label >= C
+    # otherwise).
+    cls_scores = cls_scores.masked_fill(torch.isnan(pd_scores).any(-1)[:, None, :], float("nan"))
     align = torch.clamp(cls_scores, 0, 1) ** alpha * torch.clamp(overlaps, 0, 1) ** beta
     align = align * mask_in.to(align.dtype)
     # A GT row whose best metric is <= eps takes {anchor 0}, the reference's
@@ -173,6 +188,8 @@ def _inputs(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mask_gt, top
     k = min(topk, a)
     if k < a and k > MAX_K:
         raise ValueError(f"tal: topk {topk} above the kernel's {MAX_K} (and below A = {a})")
+    if a > MAX_A:
+        raise ValueError(f"tal: A = {a} anchors above the candidates kernel's {MAX_A}")
     pd_bboxes, gt_bboxes = (t.contiguous() for t in (pd_bboxes, gt_bboxes))
     pd_bboxes, gt_bboxes = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (pd_bboxes, gt_bboxes))
     return (pd_bboxes, anc_points.contiguous(), gt_labels.to(torch.int32).contiguous(), gt_bboxes,

@@ -32,6 +32,13 @@ CASES = {
     "concat": "the concatenated head's class slice, a strided view",
     "all_masked": "an image with every slot padded",
     "full_size": "640 px (A = 8400), 80 classes, 16 slots 40% valid with boxes 8-60 px",
+    "nan_logit": "a NaN logit (of a valid GT's class) on an anchor outside every box: the anchor's score is NaN for "
+                 "every GT row of the image, as JAX's one-hot contraction makes it, so each row's best align is NaN",
+    "inf_box": "a predicted box with an infinite coordinate, at an anchor outside every box: NaN CIoU, so NaN align",
+    "huge_box": "predicted boxes of coordinates 1e20 (inside a box) and 3e38 (outside every box): areas overflow to "
+                "inf, and the CIoU stays a number",
+    "chunk_ties": "every anchor inside one GT box aligns equally, over all three levels: the winners are the lowest "
+                  "indices, across any split of the anchors into chunks",
 }
 # On the card also the training step's shape, [32, 16, 8400] with 80 classes.
 CARD_CASES = tuple(CASES) + ("step",)
@@ -61,6 +68,19 @@ def _base(rng, b: int, n: int, size: int = 64, strides=(8, 16, 32), nc: int = NC
 
 def _index(anc: np.ndarray, x: float, y: float) -> int:
     return int(np.flatnonzero((anc[:, 0] == x) & (anc[:, 1] == y))[0])
+
+
+def _inside(c: dict, img: int, slot: int) -> int:
+    """The first anchor whose centre lies inside image `img`'s box `slot`."""
+    box = c["gt_bboxes"][img, slot]
+    return int(np.flatnonzero(((c["anc"] > box[:2] + 1e-3) & (c["anc"] < box[2:] - 1e-3)).all(-1))[0])
+
+
+def _outside(c: dict, img: int) -> int:
+    """The last anchor whose centre lies outside every box of image `img`."""
+    lo, hi = c["gt_bboxes"][img, :, None, :2], c["gt_bboxes"][img, :, None, 2:]
+    within = ((c["anc"][None] > lo) & (c["anc"][None] < hi)).all(-1).any(0)
+    return int(np.flatnonzero(~within)[-1])
 
 
 def _clear(c: dict, img: int, keep, lo: float, hi: float) -> None:
@@ -129,6 +149,33 @@ def tal_case(name: str, seed: int = 0) -> dict:
         c["mask_gt"][0, 0] = True
     elif name == "full_size":
         c = _base(rng, 2, 16, size=640, nc=80, wh=(8.0, 60.0))
+    elif name == "nan_logit":
+        c = _base(rng, 2, 8)
+        c["mask_gt"][0, [1, 4]] = True
+        a = _outside(c, 0)
+        c["pd_scores"][0, a, c["gt_labels"][0, 1]] = np.nan
+        c["spot"] = dict(image=0, anchor=a, slot=1)
+    elif name == "inf_box":
+        c = _base(rng, 2, 8)
+        c["mask_gt"][0, 2] = True
+        a = _outside(c, 0)
+        c["pd_bboxes"][0, a, 2] = np.inf
+        c["spot"] = dict(image=0, anchor=a, slot=2)
+    elif name == "huge_box":
+        c = _base(rng, 2, 8)
+        c["mask_gt"][0, 3] = True
+        out, inn = _outside(c, 0), _index(c["anc"], *c["anc"][_inside(c, 0, 3)])
+        c["pd_bboxes"][0, out] = [-3e38, 0, 3e38, 1]  # its width, area and enclosing diagonal overflow to inf
+        c["pd_bboxes"][0, inn] = [-1e20, -1e20, 1e20, 1e20]
+        c["spot"] = dict(image=0, anchor=out, inside=inn, slot=3)
+    elif name == "chunk_ties":
+        c = _base(rng, 2, 8)
+        c["mask_gt"][0, 0] = True
+        c["gt_bboxes"][0, 0] = [2, 2, 62, 62]  # every anchor centre of the 64 px image
+        c["pd_bboxes"][0] = [10, 10, 54, 54]
+        c["pd_scores"][0, :, c["gt_labels"][0, 0]] = 1.5
+        _clear(c, 0, (0,), 0, 64)
+        c["spot"] = dict(image=0, slot=0)
     elif name == "step":
         c = _base(rng, 32, 16, size=640, nc=80, wh=(8.0, 60.0))
     else:

@@ -40,8 +40,7 @@ from leanyolo_tpu_torch.kernels import bnstats, bounds
 from leanyolo_tpu_torch.models.yolov10 import layers as TL
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
-# [N, C, H, W]; multi_block: 64 blocks of 256 rows, so the last step sums two
-# partials a lane.
+# [N, C, H, W]; multi_block: 128 slots of 32 lanes, 128 rows each.
 SHAPES = {"c16": (2, 16, 5, 7), "c33": (2, 33, 4, 6), "one_row": (1, 16, 1, 1), "multi_block": (4, 16, 64, 64)}
 TOL = 5e-4
 
@@ -159,46 +158,44 @@ def _documented_order(x: np.ndarray):
     module doc, one float32 operation at a time."""
     rows, c = x.shape
     lanes = bnstats.LANES
-    r = bnstats.rows_per_lane(rows, c)
+    g = bnstats.slots(rows, c)
     f = np.float32
 
     def tree(a):
-        h = lanes // 2
-        while h:
-            for l in range(h):
+        h = 1
+        while h < lanes:
+            for l in range(0, lanes, 2 * h):
                 a[l] = f(a[l] + a[l + h])
-            h //= 2
+            h *= 2
         return a[0]
 
     out = np.zeros((2, c), np.float32)
     for ch in range(c):
-        parts = ([], [])
-        for start in range(0, rows, lanes * r):
-            a1, a2 = [f(0.0)] * lanes, [f(0.0)] * lanes
-            for l in range(lanes):
-                for k in range(r):
-                    i = start + l + k * lanes
-                    if i < rows:
-                        v = x[i, ch]
-                        a1[l] = f(a1[l] + v)
-                        a2[l] = f(a2[l] + f(v * v))
-            parts[0].append(tree(a1))
-            parts[1].append(tree(a2))
-        for m in (0, 1):
-            b = [f(0.0)] * lanes
-            for i, p in enumerate(parts[m]):
-                b[i % lanes] = f(b[i % lanes] + p)
-            out[m, ch] = tree(b)
+        a1 = [[f(0.0)] * lanes for _ in range(g)]
+        a2 = [[f(0.0)] * lanes for _ in range(g)]
+        for r in range(rows):  # in step order: a lane's rows come in increasing r
+            slot, l, v = (r // lanes) % g, r % lanes, x[r, ch]
+            a1[slot][l] = f(a1[slot][l] + v)
+            a2[slot][l] = f(a2[slot][l] + f(v * v))
+        for m, a in enumerate((a1, a2)):
+            parts = [tree(a[slot]) for slot in range(g)]
+            h = 1
+            while h < g:  # the slots' pairwise tree
+                for i in range(0, g, 2 * h):
+                    parts[i] = f(parts[i] + parts[i + h])
+                h *= 2
+            out[m, ch] = parts[0]
     return out
 
 
 def test_plain_version_pins_the_documented_order():
     # Values over twelve decades with both signs: the order of the additions
-    # decides the last bits. 3 x 13 x 13 = 507 rows, C = 3: two blocks of
-    # 256 rows (R = 8), the second of them partial.
+    # decides the last bits. 3 x 13 x 13 = 507 rows, C = 3: 8 slots of 32
+    # lanes, two steps, the second of them partial.
     rng = np.random.RandomState(4)
     y = (np.exp(rng.uniform(-14, 14, (3, 3, 13, 13))) * rng.choice([-1.0, 1.0], (3, 3, 13, 13))).astype(np.float32)
     x = y.transpose(0, 2, 3, 1).reshape(-1, 3)
+    assert (bnstats.slots(507, 3), bnstats.rows_per_lane(507, 3)) == (8, 2)
     want = _documented_order(x)
     s1, s2 = bnstats.bn_moments_plain(torch.from_numpy(y))
     assert np.array_equal(s1.numpy().view(np.int32), want[0].view(np.int32))
@@ -209,9 +206,15 @@ def test_plain_version_pins_the_documented_order():
     assert not np.array_equal(sequential, want[0])  # another order gives other bits here
 
 
-@pytest.mark.parametrize("rows, c, r", [(3276800, 32, 256), (819200, 64, 128), (204800, 128, 64), (51200, 256, 32),
-                                        (12800, 512, 16), (12800, 64, 8), (1, 33, 8), (10 ** 8, 16, 256)])
-def test_rows_per_lane_by_shape(rows, c, r):
+@pytest.mark.parametrize("rows, c, g, r", [(3276800, 32, 256, 400), (819200, 64, 256, 100), (204800, 128, 128, 50),
+                                           (51200, 256, 64, 25), (12800, 512, 32, 13), (12800, 256, 64, 7),
+                                           (12800, 64, 128, 4), (507, 3, 8, 2), (1, 33, 1, 1),
+                                           (10 ** 8, 16, 256, 12208)])
+def test_rows_per_lane_by_shape(rows, c, g, r):
+    """The slots G (a power of two, G C <= 16,384, 32 G <= rows, G <= 128,
+    or 256 above 2^18 rows) and the steps of a lane, at the step's shapes and
+    at both ends."""
+    assert bnstats.slots(rows, c) == g
     assert bnstats.rows_per_lane(rows, c) == r
 
 

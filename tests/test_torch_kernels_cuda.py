@@ -180,12 +180,16 @@ def test_mpbwd_kernel_routes(cuda_device, dtype, shape, k, misaligned):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape,layout", [((32, 64, 40, 40), "cl"), ((32, 512, 20, 20), "cl"),
                                           ((8, 128, 80, 80), "cl"), ((2, 33, 17, 19), "cl"),
-                                          ((1, 64, 1, 1), "cl"), ((3, 40, 37, 41), "cl"), ((4, 64, 20, 20), "nchw")])
+                                          ((1, 64, 1, 1), "cl"), ((3, 40, 37, 41), "cl"), ((4, 64, 20, 20), "nchw"),
+                                          ((32, 32, 160, 160), "cl"), ((2, 33, 64, 64), "nchw")])
 def test_bn_moments_kernels(cuda_device, dtype, shape, layout):
     """K8 forward and backward bit-equal to their plain versions on both
     routes (the 16-byte route on channels_last inputs whose C holds whole
     vectors; the general route at C = 33 and on a contiguous NCHW input),
-    and the same bits over repeated launches."""
+    from one slot ([1, 64, 1, 1]) to 256 (bnstats.slots; the last CTA's
+    reads in one round where G <= 128, two at 256: [32, 32, 160, 160]), at
+    one step a lane ([1, 64, 1, 1]) and at 100 ([32, 32, 160, 160]), and the
+    same bits over repeated launches."""
     g = torch.Generator(device=cuda_device).manual_seed(18)
     fmt = torch.channels_last if layout == "cl" else torch.contiguous_format
     y = (torch.randn(shape, generator=g, device=cuda_device) * 2 + 1).to(dtype).contiguous(memory_format=fmt)
@@ -927,7 +931,7 @@ def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a.view(torch.int32), b.view(torch.int32)) if a.dtype == torch.float32 else torch.equal(a, b)
 
 
-@pytest.mark.parametrize("topk", [10, 1])
+@pytest.mark.parametrize("topk", [10, 1, 16])
 @pytest.mark.parametrize("name", CARD_CASES)
 def test_tal_kernels(cuda_device, name, topk):
     """The assignment's two kernels bit-equal to the plain version on the

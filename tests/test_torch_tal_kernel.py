@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from leanyolo_tpu.ops import tal as JT
-from leanyolo_tpu_torch.kernels import LAUNCHES
+from leanyolo_tpu_torch.kernels import LAUNCHES, bounds
 from leanyolo_tpu_torch.kernels import tal as KT
 from leanyolo_tpu_torch.ops import tal as TT
 from leanyolo_tpu_torch.ops.topk import topk_membership
@@ -72,6 +72,25 @@ def _spot(name: str, c: dict, topk: int, got) -> None:
         assert (labels[1] == max(c["gt_labels"][1, 0], 0)).all() and (boxes[1] == c["gt_bboxes"][1, 0]).all()
     elif name == "concat":
         assert not tensors(c)[0].is_contiguous()
+    elif name in ("nan_logit", "inf_box", "huge_box"):
+        i, a, slot = spot["image"], spot["anchor"], spot["slot"]
+        winners, has_any, mask_in, overlaps, align = KT.candidates_plain(*tensors(c), topk)
+        assert not mask_in[i, :, a].any()  # outside every box
+        if name == "huge_box":
+            o = overlaps[i, slot, [a, spot["inside"]]]
+            assert bool(torch.isfinite(o).all()) and bool(mask_in[i, slot, spot["inside"]])
+            assert float(align[i, slot, a]) == 0.0 and not np.signbit(float(align[i, slot, a]))
+        else:
+            assert bool(torch.isnan(align[i, slot, a])) and not bool(has_any[i, slot])
+            assert int(winners[i, slot, 0]) == a  # NaN ranks first
+            if name == "nan_logit":  # every valid row of the image, whatever its class
+                assert bool(torch.isnan(align[i, torch.from_numpy(c["mask_gt"][i]), a]).all())
+    elif name == "chunk_ties":
+        i, slot = spot["image"], spot["slot"]
+        winners, _, mask_in, _, align = KT.candidates_plain(*tensors(c), topk)
+        inside = torch.nonzero(mask_in[i, slot]).flatten()
+        assert len(inside) == c["anc"].shape[0] and bool((align[i, slot] == align[i, slot, 0]).all())
+        assert winners[i, slot].tolist() == inside[:topk].tolist()
     elif name == "k_ge_a":
         winners, *_ = KT.candidates_plain(*tensors(c), min(topk, c["anc"].shape[0]))
         assert (winners is None) == (topk >= c["anc"].shape[0])
@@ -150,3 +169,46 @@ def test_profile_families_of_the_kernels():
 
     for name in ("tal_candidates_kernel", "tal_targets_kernel"):
         assert _family(f"(anonymous namespace)::{name}(TalArgs)") == name
+
+
+def test_tal_work_counts_each_byte_once():
+    """bounds.tal_work: the operations a pair (the SASS counts of
+    tools/tal_pair_ops: 218 for the full chain, 16 for every pair of a valid
+    slot) and the bytes: every input read once (every logit of an image with
+    a valid slot, since a NaN at any class makes the anchor's score NaN),
+    every output written once."""
+    assert (bounds.TAL_PAIR_OPS, bounds.TAL_TEST_OPS) == (218, 16)
+    b, n, a, c = 32, 16, 8400, 80
+    read = bounds.tal_work(b, n, a, c, 10, valid=203, images=31, inside=4800, part="candidates")
+    assert read == (b * a * 16 + a * 8 + b * n * 21 + 31 * a * c * 4, 31 * a * c + 203 * a * 16 + 4800 * 218)
+    written = bounds.tal_work(b, n, a, c, 1, part="targets")
+    assert written == (b * a * (4 + 4 + 16 + 1 + 4 * c), 0)
+    assert bounds.tal_work(b, n, a, c, 10, valid=203, images=31, inside=4800) == (read[0] + written[0], read[1])
+    assert bounds.tal_work(2, 3, 5, 4, 1, part="candidates")[1] == 2 * 5 * 4 + 6 * 5 * (16 + 218)  # defaults: all
+    ms, by = bounds.bound(*read, bounds.FP32_OPS_PER_S)
+    assert by == "bytes" and abs(ms - read[0] / 3.35e12 * 1e3) < 1e-12
+
+
+def test_tal_pair_ops_counts_operations_of_the_listing():
+    """tools/tal_pair_ops counts a probe's SASS instructions up to its first
+    EXIT, leaving out loads, stores, moves and control flow (a listing in
+    cuobjdump's format)."""
+    from leanyolo_tpu_torch.tools.tal_pair_ops import count
+
+    sass = """
+        Function : probe_test
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   LDG.E R2, desc[UR4][R2.64] ;
+        /*0020*/                   FADD R5, R2, -R3 ;
+        /*0030*/              @!P0 FSETP.GT.AND P1, PT, R5, 1e-09, PT ;
+        /*0040*/                   MOV R7, 0x1 ;
+        /*0050*/                   MUFU.RCP R8, R5 ;
+        /*0060*/                   STG.E desc[UR4][R4.64], R8 ;
+        /*0070*/                   EXIT ;
+        /*0080*/                   FADD R9, R9, R9 ;
+        Function : probe_chain
+        /*0000*/                   FFMA R1, R2, R3, R4 ;
+        /*0010*/                   EXIT ;
+    """
+    assert count(sass, "probe_test") == {"ops": 3, "by_opcode": {"FADD": 1, "FSETP": 1, "MUFU": 1}}
+    assert count(sass, "probe_chain")["ops"] == 1
