@@ -10,11 +10,18 @@ same serving contract:
 - topk: the best class per anchor on the sigmoid scores (the fused
   max/argmax kernel, fp32 two-reduce route: `jnp.max` and the first
   `jnp.argmax`), masked to -1 below conf, the top min(max_dets, anchors)
-  (the top-k kernel), boxes clamped to [0, imgsz], unmasked scores,
-  num = count >= conf;
+  (the top-k kernel), their boxes (the box decode kernel) clamped to [0,
+  imgsz], unmasked scores, num = count >= conf;
 - nms: the top min(pre_topk, anchors * nc) (anchor, class) pairs by
-  sigmoid score (the top-k kernel over [B, A * nc]), one class-wise greedy
-  NMS pass (the NMS kernel, class offset 81920), boxes clamped.
+  sigmoid score (the top-k kernel over [B, A * nc]), their anchors' boxes
+  (the box decode kernel), one class-wise greedy NMS pass (the NMS kernel,
+  class offset 81920), boxes clamped.
+
+JAX's wrapper decodes every anchor's box densely and gathers the selected
+ones with `take_along_axis`; the port decodes the selected anchors alone
+from the reg maps as they come from the head, bf16 or fp32 (`dfl_boxes`,
+fp32 arithmetic on the bf16 values, as JAX's upcast), with no flags: a true
+gather, each box its own anchor's.
 
 Ranking runs on the sigmoid scores, not on the logits: above a logit of
 about 16.6 fp32 sigmoid saturates to 1.0 and ties go to the lower index,
@@ -40,7 +47,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..models.yolov10.decode import _flatten_pyramid, _nms_single, postprocess_to_original
+from ..kernels.dfl import dfl_boxes
+from ..models.yolov10.decode import _nms_single, _split_levels, postprocess_to_original
 from ..models.yolov10.fold import fold_model
 from ..models.yolov10.model import YOLOv10
 from ..ops.letterbox import choose_bucket, letterbox
@@ -50,7 +58,7 @@ from ..version import __version__
 _DTYPES = {"float32": torch.float32, "fp32": torch.float32, "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
 GROUP_OFFSET = 8192.0 * 10.0  # the class offset of the NMS route (JAX serving.py:122)
 LOAD_NOTE = ("load with leanyolo_tpu_torch.export.serving.load_exported, or torch.export.load after importing "
-             "leanyolo_tpu_torch.kernels' modules (stem, dwconv, s2dconv, matmul, topk, argmax, nms), which "
+             "leanyolo_tpu_torch.kernels' modules (stem, dwconv, s2dconv, matmul, topk, argmax, nms, dfl), which "
              "register the leanyolo_tpu_torch:: operators the program calls")
 
 
@@ -80,16 +88,18 @@ class ServingModule(nn.Module):
         cfg, nc = self.model.cfg, self.model.nc
         raw = self.model(images.to(self.dtype), dtype=self.dtype, branches=(branch,), normalize=self.normalize,
                          concat_head=False)[branch]
-        boxes, cls_logits = _flatten_pyramid([(r.float(), c.float()) for r, c in raw], nc, cfg.strides)
-        scores = torch.sigmoid(cls_logits)  # [B, A, nc]
+        levels, hw_shapes, _ = _split_levels(raw, nc)
+        reg_levels = [reg for reg, _ in levels]  # read in place, in the maps' dtype, by the box decode
+        cls_logits = torch.cat([cls.float() for _, cls in levels], dim=1)  # [B, A, nc]
+        scores = torch.sigmoid(cls_logits)
         b, a = scores.shape[0], scores.shape[1]
         if not self.use_nms:
             best_scores, best_cls = max_argmax_lastdim([scores])
             masked = torch.where(best_scores >= self.conf, best_scores, torch.full_like(best_scores, -1.0))
             k = min(self.max_dets, a)
             _, top_idx = topk_lastdim(masked, k)
+            sel_boxes = dfl_boxes(reg_levels, hw_shapes, cfg.strides, top_idx).clamp(0.0, float(self.imgsz))
             top_idx = top_idx.long()
-            sel_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(-1, -1, 4)).clamp(0.0, float(self.imgsz))
             sel_scores = torch.gather(best_scores, 1, top_idx).clamp_min(0.0)  # unmasked, as JAX's
             sel_cls = torch.gather(best_cls, 1, top_idx).float()
             dets = torch.cat([sel_boxes, sel_scores[..., None], sel_cls[..., None]], dim=-1)
@@ -98,10 +108,9 @@ class ServingModule(nn.Module):
             return dets, (sel_scores >= self.conf).sum(dim=1).to(torch.int32)
         k_pre = min(self.pre_topk, a * nc)
         cand_scores, pre_idx = topk_lastdim(scores.reshape(b, a * nc), k_pre)
-        pre_idx = pre_idx.long()
         anc_idx = torch.div(pre_idx, nc, rounding_mode="floor")
         cand_cls = (pre_idx % nc).float()
-        cand_boxes = torch.gather(boxes, 1, anc_idx[..., None].expand(-1, -1, 4))
+        cand_boxes = dfl_boxes(reg_levels, hw_shapes, cfg.strides, anc_idx)
         dets, num = _nms_single(cand_boxes, cand_scores, cand_cls, iou_thresh=self.iou, conf_thresh=self.conf,
                                 max_det=self.max_dets, class_wise=True, group_offset=GROUP_OFFSET)
         return torch.cat([dets[..., :4].clamp(0.0, float(self.imgsz)), dets[..., 4:]], dim=-1), num
@@ -196,7 +205,7 @@ def export_serving(model: YOLOv10, out_path: str, *, imgsz: int = 640, decode: s
 def load_exported(path: str):
     """Load a `.pt2` artifact (registering the port's operators first) and
     return its callable: images -> (detections, num_dets)."""
-    from ..kernels import argmax, dwconv, matmul, nms, s2dconv, stem, topk  # noqa: F401  (register the operators)
+    from ..kernels import argmax, dfl, dwconv, matmul, nms, s2dconv, stem, topk  # noqa: F401  (register the operators)
 
     return torch.export.load(path).module()
 

@@ -52,24 +52,36 @@ def argmax_work(rows: int, n: int, elt: int = 2, out_elt: int = 4) -> Tuple[int,
     return rows * n * elt + rows * (out_elt + 4), rows * n
 
 
-def gather_rows_work(b: int, k: int, c: int, elt: int = 2) -> Tuple[int, int]:
-    """(bytes, operations) of the decode's level gather: [b, k] int32 indices
-    and the k selected rows of c values in, [b, k, c] out; no arithmetic."""
-    return b * k * 4 + 2 * b * k * c * elt, 0
+def argmax_flags_work(b: int, a: int, n: int, elt: int = 2, reg: int = 64) -> Tuple[int, int]:
+    """(bytes, operations) of the max/argmax that also flags the maps'
+    non-finite values: `argmax_work` of the [b, a, n] class maps, plus the
+    [b, a, reg] reg maps read and the int32 [b, 3 n + 4] flags written; a
+    comparison and a finiteness test a class value, two tests a reg bin."""
+    nbytes, _ = argmax_work(b * a, n, elt)
+    return nbytes + b * a * reg * elt + b * (3 * n + 4) * 4, b * a * (2 * n + 2 * reg)
 
 
 DFL_SIDE_OPS = 15 + 16 * 4 + 15 + 1 + 2  # a side: the max, the subtraction, exp, product and sum a bin, den, d, box
 
 
-def dfl_boxes_work(b: int, k: int, elt: int = 2, topk: bool = False, reg_max: int = 16) -> Tuple[int, int]:
-    """(bytes, operations) of the selected anchors' DFL box decode: the k
-    anchors' 4 * reg_max bins (elt bytes each) and their indices in (NMS
-    mode: an int32 anchor a row; top-k mode: an int32 pair, its logit (elt
-    bytes) and the int32 stage-1 anchor it names), [b, k, 4] fp32 out (top-k:
-    [b, k, 6]); DFL_SIDE_OPS fp32 operations a side (exp counted as one), and
-    the sigmoid in top-k mode."""
-    index = (4 + elt + 4) if topk else 4
-    return b * k * (4 * reg_max * elt + index + (6 if topk else 4) * 4), b * k * (4 * DFL_SIDE_OPS + (3 if topk else 0))
+def dfl_boxes_work(b: int, k: int, elt: int = 2, flags: bool = False, reg_max: int = 16) -> Tuple[int, int]:
+    """(bytes, operations) of the selected anchors' DFL box decode (NMS
+    mode): the k anchors' 4 * reg_max bins (elt bytes each) and an int32
+    anchor a row in, [b, k, 4] fp32 out, with flags an image's four side
+    words in; DFL_SIDE_OPS fp32 operations a side (exp counted as one)."""
+    return b * k * (4 * reg_max * elt + 4 + 4 * 4) + (b * 4 * 4 if flags else 0), b * k * 4 * DFL_SIDE_OPS
+
+
+def topk_decode_work(b: int, k1: int, nc: int, k: int, elt: int = 2, flags: bool = True,
+                     reg_max: int = 16) -> Tuple[int, int]:
+    """(bytes, operations) of the fused second top-k: stage 1's int32 [b, k1]
+    anchors and their class rows of nc values (elt bytes each) in, with
+    flags an image's int32 [3 nc + 4] in; the k winners' 4 * reg_max bins in
+    and their [b, k, 6] fp32 rows out. One key and comparison a pair (the
+    passes a row needs depend on its data), DFL_SIDE_OPS a box side and 3
+    for the sigmoid a winner."""
+    nbytes = b * k1 * (4 + nc * elt) + (b * (3 * nc + 4) * 4 if flags else 0) + b * k * (4 * reg_max * elt + 6 * 4)
+    return nbytes, b * k1 * nc + b * k * (4 * DFL_SIDE_OPS + 3)
 
 
 IOU_OPS = 14  # a pair: 4 min/max, 2 subs, 2 clamps, the product, 2 adds and a sub, the division, the compare
@@ -277,9 +289,10 @@ def serving_1x1_shapes(variant: str = "yolov10s", imgsz: int = 640) -> List[Tupl
 def kernel_bounds(batch: int = 32):
     """Rows of (kernel, shape, MB moved, GFLOP, bound ms, bound by) of the
     stem at each size's widths on [batch,640,640,3] uint8, the top-k pair of
-    a request, the decode's argmax, level gather and box decode (top-k and
-    NMS modes), the NMS (every pair, the most its data can need), mpbwd at
-    the training path's SPPF shape and the batch moments (forward and
+    a request, the decode's argmax (alone and with the flags), fused second
+    top-k and box decode (NMS mode, without and with the flags), the NMS
+    (every pair, the most its data can need), mpbwd at the training path's
+    SPPF shape and the batch moments (forward and
     backward) of a training step's BNs, each bounded alone, then summed."""
     from ..models.yolov10.config import VARIANTS
 
@@ -295,13 +308,16 @@ def kernel_bounds(batch: int = 32):
     nbytes, nops = argmax_work(batch * 8400, 80)
     rows.append(("argmax", f"[{batch},8400,80] bf16 -> fp32 + int32", nbytes, nops,
                  *bound(nbytes, nops, FP32_OPS_PER_S)))
-    nbytes, nops = gather_rows_work(batch, 300, 80)
-    rows.append(("gather_rows", f"[{batch},300,80] bf16 of 3 levels", nbytes, nops,
+    nbytes, nops = argmax_flags_work(batch, 8400, 80)
+    rows.append(("argmax", f"[{batch},8400,80] + [{batch},8400,64] bf16, flags", nbytes, nops,
                  *bound(nbytes, nops, FP32_OPS_PER_S)))
-    for k, topk in ((300, True), (1000, False)):
-        nbytes, nops = dfl_boxes_work(batch, k, topk=topk)
-        rows.append(("dfl_boxes", f"[{batch},{k}] bf16 reg rows, {'top-k' if topk else 'NMS'} mode", nbytes, nops,
-                     *bound(nbytes, nops, FP32_OPS_PER_S)))
+    nbytes, nops = topk_decode_work(batch, 300, 80, 300)
+    rows.append(("topk_decode", f"[{batch},300] x 80 bf16 pairs, k=300, flags", nbytes, nops,
+                 *bound(nbytes, nops, FP32_OPS_PER_S)))
+    for flags in (False, True):
+        nbytes, nops = dfl_boxes_work(batch, 1000, flags=flags)
+        rows.append(("dfl_boxes", f"[{batch},1000] bf16 reg rows, NMS mode{', flags' if flags else ''}", nbytes,
+                     nops, *bound(nbytes, nops, FP32_OPS_PER_S)))
     nbytes, nops = nms_work(batch, 1000, 300)
     rows.append(("nms", f"[{batch},1000] fp32, max_det 300, every pair", nbytes, nops,
                  *bound(nbytes, nops, FP32_OPS_PER_S)))

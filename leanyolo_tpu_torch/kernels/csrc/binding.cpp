@@ -254,21 +254,18 @@ void s2dconv_wgmma(torch::Tensor x, torch::Tensor wk, torch::Tensor b, torch::Te
 }
 
 
-void max_argmax(std::vector<torch::Tensor> levels, torch::Tensor vals, torch::Tensor idx, bool canon_zero) {
-  TORCH_CHECK(!levels.empty() && levels.size() <= ARGMAX_MAX_LEVELS, "max_argmax: 1 to 4 levels");
-  const torch::Tensor& x0 = levels[0];
-  const bool bf16 = act_is_bf16(x0, "max_argmax x");
-  TORCH_CHECK(x0.dim() == 3, "max_argmax: levels [B, rows, n]");
-  const int64_t B = x0.size(0), n = x0.size(2);
+ArgmaxLevels argmax_levels(const std::vector<torch::Tensor>& levels, const torch::Tensor& x0, int64_t n,
+                           const char* name) {
+  TORCH_CHECK(!levels.empty() && levels.size() <= ARGMAX_MAX_LEVELS, name, ": 1 to 4 levels");
   ArgmaxLevels lv{};
   lv.count = static_cast<int>(levels.size());
   int64_t a = 0;
   for (size_t l = 0; l < levels.size(); ++l) {
     const torch::Tensor& x = levels[l];
-    TORCH_CHECK(x.is_cuda() && x.dim() == 3 && x.stride(2) == 1, "max_argmax: a level [B, rows, n] on the card, "
+    TORCH_CHECK(x.is_cuda() && x.dim() == 3 && x.stride(2) == 1, name, ": a level [B, rows, n] on the card, "
                 "unit stride in n");
-    TORCH_CHECK(x.scalar_type() == x0.scalar_type() && x.size(0) == B && x.size(2) == n,
-                "max_argmax: levels differ in dtype, batch or n");
+    TORCH_CHECK(x.scalar_type() == x0.scalar_type() && x.size(0) == x0.size(0) && x.size(2) == n, name,
+                ": levels differ in dtype, batch or n");
     lv.x[l] = x.data_ptr();
     lv.sb[l] = x.stride(0);
     lv.ld[l] = x.stride(1);
@@ -276,6 +273,40 @@ void max_argmax(std::vector<torch::Tensor> levels, torch::Tensor vals, torch::Te
     a += x.size(1);
   }
   lv.start[lv.count] = static_cast<int>(a);
+  return lv;
+}
+
+// The decodes' non-finite flags (kernels.h DecodeFlags): int32 [B, 3 nc + 4]
+// on the card, of nc classes (any where nc < 0). Returns nc.
+int64_t check_decode_flags(const torch::Tensor& flags, int64_t B, int64_t nc, const char* name) {
+  check(flags, name);
+  const int64_t got = flags.dim() == 2 ? DecodeFlags::classes(flags.size(1)) : -1;
+  TORCH_CHECK(flags.scalar_type() == at::kInt && flags.dim() == 2 && flags.size(0) == B && got >= 0 &&
+                  (nc < 0 || got == nc),
+              name, ": int32 [B, 3 nc + 4]");
+  return got;
+}
+
+void max_argmax_into(const std::vector<torch::Tensor>& levels, const std::vector<torch::Tensor>* reg,
+                     torch::Tensor vals, torch::Tensor idx, torch::Tensor* flags, bool canon_zero) {
+  TORCH_CHECK(!levels.empty(), "max_argmax: 1 to 4 levels");
+  const torch::Tensor& x0 = levels[0];
+  const bool bf16 = act_is_bf16(x0, "max_argmax x");
+  TORCH_CHECK(x0.dim() == 3, "max_argmax: levels [B, rows, n]");
+  const int64_t B = x0.size(0), n = x0.size(2);
+  const ArgmaxLevels lv = argmax_levels(levels, x0, n, "max_argmax");
+  const int64_t a = lv.start[lv.count];
+  ArgmaxLevels rl{};
+  if (reg) {
+    TORCH_CHECK(reg->size() == levels.size(), "max_argmax_flags: a reg map a level");
+    const torch::Tensor& r0 = (*reg)[0];
+    TORCH_CHECK(r0.scalar_type() == x0.scalar_type() && r0.dim() == 3 && r0.size(0) == B,
+                "max_argmax_flags: reg maps [B, rows, 64] in the class maps' dtype");
+    rl = argmax_levels(*reg, r0, 64, "max_argmax_flags reg");
+    for (size_t l = 0; l < levels.size(); ++l)
+      TORCH_CHECK((*reg)[l].size(1) == levels[l].size(1), "max_argmax_flags: a reg row a class row");
+    check_decode_flags(*flags, B, n, "max_argmax_flags flags");
+  }
   for (auto* p : {&vals, &idx}) check(*p, "max_argmax out");
   const bool vals_bf16 = vals.scalar_type() == at::kBFloat16;
   TORCH_CHECK(vals_bf16 ? (bf16 && canon_zero) : vals.scalar_type() == at::kFloat,
@@ -283,10 +314,20 @@ void max_argmax(std::vector<torch::Tensor> levels, torch::Tensor vals, torch::Te
   TORCH_CHECK(idx.scalar_type() == at::kInt, "max_argmax: idx int32");
   TORCH_CHECK(vals.dim() == 2 && vals.size(0) == B && vals.size(1) == a && idx.sizes() == vals.sizes(),
               "max_argmax: vals, idx [B, sum rows]");
-  TORCH_CHECK(B * a < (int64_t(1) << 31) && n > 0 && n < (int64_t(1) << 31), "max_argmax: B * rows below 2^31, n > 0");
-  C10_CUDA_CHECK(launch_argmax(lv, static_cast<int>(B), static_cast<int>(n), bf16, canon_zero, vals.data_ptr(),
-                               vals_bf16, idx.data_ptr<int32_t>(), at::cuda::getCurrentCUDAStream()));
+  TORCH_CHECK(B * a < (int64_t(1) << 31) && n > 0 && n < (int64_t(1) << 28), "max_argmax: B * rows below 2^31, n > 0");
+  C10_CUDA_CHECK(launch_argmax(lv, reg ? &rl : nullptr, static_cast<int>(B), static_cast<int>(n), bf16, canon_zero,
+                               vals.data_ptr(), vals_bf16, idx.data_ptr<int32_t>(),
+                               reg ? flags->data_ptr<int32_t>() : nullptr, at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void max_argmax(std::vector<torch::Tensor> levels, torch::Tensor vals, torch::Tensor idx, bool canon_zero) {
+  max_argmax_into(levels, nullptr, vals, idx, nullptr, canon_zero);
+}
+
+void max_argmax_flags(std::vector<torch::Tensor> levels, std::vector<torch::Tensor> reg, torch::Tensor vals,
+                      torch::Tensor idx, torch::Tensor flags, bool canon_zero) {
+  max_argmax_into(levels, &reg, vals, idx, &flags, canon_zero);
 }
 
 DecodeLevels decode_levels(const std::vector<torch::Tensor>& levels, const char* name, bool& bf16, int64_t& B,
@@ -322,62 +363,70 @@ void check_idx(const torch::Tensor& idx, int64_t B, const char* name) {
               ": int32 [B, k], k > 0");
 }
 
-void gather_rows(std::vector<torch::Tensor> levels, torch::Tensor idx, torch::Tensor out) {
-  bool bf16;
-  int64_t B, C;
-  const DecodeLevels lv = decode_levels(levels, "gather_rows", bf16, B, C);
-  check_idx(idx, B, "gather_rows idx");
-  const int64_t k = idx.size(1);
-  check(out, "gather_rows out");
-  TORCH_CHECK(out.scalar_type() == levels[0].scalar_type() && out.dim() == 3 && out.size(0) == B &&
-                  out.size(1) == k && out.size(2) == C,
-              "gather_rows: out [B, k, C] in the levels' dtype");
-  TORCH_CHECK(B * k * C < (int64_t(1) << 40), "gather_rows: output too large");
-  C10_CUDA_CHECK(launch_gather_rows(lv, static_cast<int>(B), static_cast<int>(C), idx.data_ptr<int32_t>(),
-                                    static_cast<int>(k), bf16, out.data_ptr(), at::cuda::getCurrentCUDAStream()));
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+void set_cells(DecodeLevels& lv, const std::vector<torch::Tensor>& levels, const std::vector<int64_t>& widths,
+               const std::vector<double>& strides, const char* name) {
+  TORCH_CHECK(widths.size() == levels.size() && strides.size() == levels.size(), name, ": a width and a stride a "
+              "level");
+  for (size_t l = 0; l < levels.size(); ++l) {
+    TORCH_CHECK(widths[l] > 0 && levels[l].size(1) % widths[l] == 0, name, ": a level's rows are h x w cells");
+    lv.w[l] = static_cast<int>(widths[l]);
+    lv.stride[l] = static_cast<float>(strides[l]);
+  }
 }
 
+
 void dfl_boxes(std::vector<torch::Tensor> levels, std::vector<int64_t> widths, std::vector<double> strides,
-               torch::Tensor anchor_idx, std::optional<torch::Tensor> pair_idx,
-               std::optional<torch::Tensor> pair_logits, int64_t nc, torch::Tensor out) {
+               torch::Tensor anchor_idx, std::optional<torch::Tensor> flags, torch::Tensor out) {
   bool bf16;
   int64_t B, n;
   DecodeLevels lv = decode_levels(levels, "dfl_boxes", bf16, B, n);
   TORCH_CHECK(n == 64, "dfl_boxes: reg rows of 4 x 16 bins");
-  TORCH_CHECK(widths.size() == levels.size() && strides.size() == levels.size(), "dfl_boxes: a width and a stride a "
-              "level");
-  for (size_t l = 0; l < levels.size(); ++l) {
-    TORCH_CHECK(widths[l] > 0 && levels[l].size(1) % widths[l] == 0, "dfl_boxes: a level's rows are h x w cells");
-    lv.w[l] = static_cast<int>(widths[l]);
-    lv.stride[l] = static_cast<float>(strides[l]);
-  }
+  set_cells(lv, levels, widths, strides, "dfl_boxes");
   check_idx(anchor_idx, B, "dfl_boxes anchor_idx");
-  const int64_t k1 = anchor_idx.size(1);
-  int64_t k = k1;
-  const int32_t* pairs = nullptr;
-  const void* logits = nullptr;
-  bool logits_bf16 = false;
-  TORCH_CHECK(pair_idx.has_value() == pair_logits.has_value(), "dfl_boxes: pair_idx and pair_logits together");
-  if (pair_idx) {
-    check_idx(*pair_idx, B, "dfl_boxes pair_idx");
-    k = pair_idx->size(1);
-    check(*pair_logits, "dfl_boxes pair_logits");
-    logits_bf16 = act_is_bf16(*pair_logits, "dfl_boxes pair_logits");
-    TORCH_CHECK(pair_logits->dim() == 2 && pair_logits->size(0) == B && pair_logits->size(1) == k,
-                "dfl_boxes: pair_logits [B, k]");
-    TORCH_CHECK(nc > 0 && k1 * nc < (int64_t(1) << 31), "dfl_boxes: nc > 0, k1 * nc below 2^31");
-    pairs = pair_idx->data_ptr<int32_t>();
-    logits = pair_logits->data_ptr();
-  }
+  const int64_t k = anchor_idx.size(1);
+  const int64_t nc = flags ? check_decode_flags(*flags, B, -1, "dfl_boxes flags") : 0;
   check(out, "dfl_boxes out");
   TORCH_CHECK(out.scalar_type() == at::kFloat && out.dim() == 3 && out.size(0) == B && out.size(1) == k &&
-                  out.size(2) == (pairs ? 6 : 4),
-              "dfl_boxes: out float32 [B, k, 6] (pairs) or [B, k, 4]");
+                  out.size(2) == 4,
+              "dfl_boxes: out float32 [B, k, 4]");
   TORCH_CHECK(4 * B * k < (int64_t(1) << 40), "dfl_boxes: output too large");
-  C10_CUDA_CHECK(launch_dfl_boxes(lv, static_cast<int>(B), anchor_idx.data_ptr<int32_t>(), static_cast<int>(k1),
-                                  pairs, logits, logits_bf16, static_cast<int>(k), static_cast<int>(nc), bf16,
+  C10_CUDA_CHECK(launch_dfl_boxes(lv, static_cast<int>(B), anchor_idx.data_ptr<int32_t>(), static_cast<int>(k),
+                                  flags ? flags->data_ptr<int32_t>() : nullptr, static_cast<int>(nc), bf16,
                                   out.data_ptr<float>(), at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void topk_decode(std::vector<torch::Tensor> cls_levels, std::vector<torch::Tensor> reg_levels,
+                 std::vector<int64_t> widths, std::vector<double> strides, torch::Tensor anchor_idx, int64_t k,
+                 bool canon_zero, torch::Tensor flags, torch::Tensor out) {
+  bool bf16, reg_bf16;
+  int64_t B, nc, rb, rn;
+  TopkDecodeArgs args{};
+  args.cls = decode_levels(cls_levels, "topk_decode cls", bf16, B, nc);
+  args.reg = decode_levels(reg_levels, "topk_decode reg", reg_bf16, rb, rn);
+  TORCH_CHECK(reg_bf16 == bf16 && rb == B && rn == 64 && reg_levels.size() == cls_levels.size(),
+              "topk_decode: reg maps [B, rows, 64] in the class maps' dtype, a level each");
+  for (size_t l = 0; l < cls_levels.size(); ++l)
+    TORCH_CHECK(reg_levels[l].size(1) == cls_levels[l].size(1), "topk_decode: a reg row a class row");
+  set_cells(args.reg, reg_levels, widths, strides, "topk_decode");
+  check_idx(anchor_idx, B, "topk_decode anchor_idx");
+  const int64_t k1 = anchor_idx.size(1);
+  TORCH_CHECK(k1 * nc < (int64_t(1) << 31) && k >= 1 && k <= k1 * nc, "topk_decode: 1 <= k <= k1 * nc < 2^31");
+  check_decode_flags(flags, B, nc, "topk_decode flags");
+  check(out, "topk_decode out");
+  TORCH_CHECK(out.scalar_type() == at::kFloat && out.dim() == 3 && out.size(0) == B && out.size(1) == k &&
+                  out.size(2) == 6,
+              "topk_decode: out float32 [B, k, 6]");
+  args.anchor_idx = anchor_idx.data_ptr<int32_t>();
+  args.k1 = static_cast<int>(k1);
+  args.nc = static_cast<int>(nc);
+  args.flags = flags.data_ptr<int32_t>();
+  args.dets = out.data_ptr<float>();
+  const int n = static_cast<int>(k1 * nc);
+  auto scratch = torch::empty({static_cast<int64_t>(topk_scratch_bytes(B, n, static_cast<int>(k), bf16))},
+                              anchor_idx.options().dtype(at::kByte));
+  C10_CUDA_CHECK(launch_topk_decode(args, static_cast<int>(B), static_cast<int>(k), canon_zero, bf16,
+                                    scratch.data_ptr(), at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -560,8 +609,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("bmm_wgmma", &bmm_wgmma, "matrix product with an fp32 sum and the folded conv epilogue (TMA + wgmma)");
   m.def("s2dconv", &s2dconv, "3x3 conv 32->32 + bias + SiLU over the space-to-depth form (fp32)");
   m.def("max_argmax", &max_argmax, "per-row (max, first argmax) of up to four levels, into [B, sum rows] outputs");
+  m.def("max_argmax_flags", &max_argmax_flags, "max_argmax plus the per-image flags of the maps' non-finite values");
   m.def("nms", &nms, "exact greedy NMS over score-sorted candidates: (keep, dets, num), allocated here");
-  m.def("gather_rows", &gather_rows, "rows of k anchors by global index from up to four levels, -0.0 as +0.0");
-  m.def("dfl_boxes", &dfl_boxes, "DFL expectation and xyxy pixel boxes of the selected anchors (+ score, class)");
+  m.def("dfl_boxes", &dfl_boxes, "DFL expectation and xyxy pixel boxes of the selected anchors");
+  m.def("topk_decode", &topk_decode, "the top-k decode's second stage: gather, top-k and box decode in one launch");
   m.def("s2dconv_wgmma", &s2dconv_wgmma, "3x3 conv 32->32 + bias + SiLU over the space-to-depth form (bf16, wgmma)");
 }

@@ -78,9 +78,13 @@ cudaError_t launch_s2dconv_wgmma(const void* x, const void* wk, const void* bias
 // ARGMAX_MAX_LEVELS levels in one launch. Level l: x[l] [B, rows_l, n]
 // with unit stride in n, rows ld[l] and images sb[l] elements apart; its
 // rows land at columns start[l] .. start[l + 1] of the [B, start[count]]
-// outputs. All levels bf16 (bf16) or fp32. canon_zero: -0.0 ties +0.0 (the
-// packed route); else -0.0 ranks below +0.0 in the max and the index is the
-// first equal to it as a number. vals: bf16 (vals_bf16) or fp32; idx int32.
+// outputs. All levels bf16 (bf16) or fp32. canon_zero: lax's total order
+// of the bits, -0.0 tying +0.0 (the packed route); else a NaN first, then
+// the largest number, -0.0 below +0.0 in the max, and the index the first
+// holding it. vals: bf16 (vals_bf16) or fp32; idx int32. reg (or nullptr):
+// the same levels' reg maps [B, rows_l, 64] in x's type; with it, the
+// DecodeFlags of the maps (nc = n; zeroed here by a memset, then set by
+// integer atomics; kernels/argmax.py flags_plain).
 #define ARGMAX_MAX_LEVELS 4
 struct ArgmaxLevels {
   const void* x[ARGMAX_MAX_LEVELS];
@@ -89,8 +93,8 @@ struct ArgmaxLevels {
   int start[ARGMAX_MAX_LEVELS + 1];
   int count;
 };
-cudaError_t launch_argmax(const ArgmaxLevels& lv, int B, int n, bool bf16, bool canon_zero, void* vals,
-                          bool vals_bf16, int32_t* idx, cudaStream_t stream);
+cudaError_t launch_argmax(const ArgmaxLevels& lv, const ArgmaxLevels* reg, int B, int n, bool bf16, bool canon_zero,
+                          void* vals, bool vals_bf16, int32_t* idx, int32_t* flags, cudaStream_t stream);
 
 // Exact greedy NMS over score-sorted candidates, one CTA an image (nms.cu).
 // boxes [B, n, 4] xyxy; scores and cls [B, n]; all bf16 (bf16) or fp32
@@ -114,8 +118,9 @@ cudaError_t launch_nms(const void* boxes, const void* scores, const void* cls, c
                        uint8_t* keep, float* dets, int32_t* num, int max_det, bool bf16, void* scratch,
                        cudaStream_t stream);
 
-// The decode's per-anchor kernels (decode.cu), over up to DECODE_MAX_LEVELS
-// levels of head maps. Level l: x[l] [B, rows_l, n] with unit stride in n,
+// The decode's per-anchor kernels (decode.cu, topk.cu), over up to
+// DECODE_MAX_LEVELS levels of head maps. Level l: x[l] [B, rows_l, n] with
+// unit stride in n,
 // rows ld[l] and images sb[l] elements apart, its anchors the global indices
 // start[l] .. start[l + 1] (start[0] = 0), its rows w[l] cells wide at
 // stride[l] pixels; all levels bf16 (bf16) or fp32.
@@ -129,21 +134,63 @@ struct DecodeLevels {
   float stride[DECODE_MAX_LEVELS];
   int count;
 };
-// launch_gather_rows: out [B, k, C] dense, in the levels' type, row (b, j) =
-// row idx[b, j] (int32 [B, k], a global index) of its level, bits copied but
-// -0.0 written as +0.0; an index outside [0, start[count]) gives a zero row.
-cudaError_t launch_gather_rows(const DecodeLevels& lv, int B, int C, const int32_t* idx, int k, bool bf16,
-                               void* out, cudaStream_t stream);
-// launch_dfl_boxes: the levels' rows are the reg maps, n = 4 * 16 (reg_max
-// 16, the four sides' bins in order l, t, r, b). NMS mode (pair_idx null):
-// out [B, k, 4] fp32, the xyxy pixel box of anchor anchor_idx[b, j] (int32
-// [B, k], k1 = k). Top-k mode: pair_idx int32 [B, k] indexes the [B, k1 * nc]
-// (anchor, class) pairs of anchor_idx [B, k1]; out [B, k, 6] fp32 = the box
-// of anchor_idx[b, pair / nc], 1 / (1 + exp(-logit)) of pair_logits [B, k]
-// (bf16 if logits_bf16, else fp32) and the class pair % nc.
-cudaError_t launch_dfl_boxes(const DecodeLevels& lv, int B, const int32_t* anchor_idx, int k1,
-                             const int32_t* pair_idx, const void* pair_logits, bool logits_bf16, int k, int nc,
-                             bool bf16, float* out, cudaStream_t stream);
+// The decodes' per-image non-finite flags, written by launch_argmax and read
+// by launch_dfl_boxes and launch_topk_decode (kernels/flags.py holds the same
+// layout): int32 [B, 3 nc + 4], a row an image over the levels' A anchors.
+// For class column c: lo(c) = A - the first anchor whose logit in c is not
+// finite (0: none), hi(c) = 1 + the last, nan_bits(c) = the largest of
+// their NaN bits as fp32 with the quiet bit set, read unsigned (0: none).
+// For box side s (l, t, r, b): side(s) = 1 where some anchor's 16 bins hold
+// a NaN or +inf or are all -inf.
+#if defined(__CUDACC__)
+#define DECODE_FLAGS_FN __host__ __device__ __forceinline__
+#else
+#define DECODE_FLAGS_FN inline
+#endif
+struct DecodeFlags {
+  int nc;
+  DECODE_FLAGS_FN long long width() const { return 3LL * nc + 4; }
+  DECODE_FLAGS_FN int lo(int c) const { return c; }
+  DECODE_FLAGS_FN int hi(int c) const { return nc + c; }
+  DECODE_FLAGS_FN int nan_bits(int c) const { return 2 * nc + c; }
+  DECODE_FLAGS_FN int side(int s) const { return 3 * nc + s; }
+  // Image b's row (nullptr where flags is).
+  template <typename P>
+  DECODE_FLAGS_FN P* row(P* flags, int b) const {
+    return flags ? flags + b * width() : nullptr;
+  }
+  // The class count of a row of w words, or -1 where none gives it.
+  static DECODE_FLAGS_FN long long classes(long long w) { return w >= 4 && (w - 4) % 3 == 0 ? (w - 4) / 3 : -1; }
+};
+
+// launch_dfl_boxes (decode.cu): the levels' rows are the reg maps, n = 4 *
+// 16 (reg_max 16, the four sides' bins in order l, t, r, b); out [B, k, 4]
+// fp32, the xyxy pixel box of anchor anchor_idx[b, j] (int32 [B, k]); NaN
+// written as 0x7FC00000. flags (or nullptr): launch_argmax's DecodeFlags of
+// nc classes; a side flagged non-finite is NaN in every box of its image.
+cudaError_t launch_dfl_boxes(const DecodeLevels& lv, int B, const int32_t* anchor_idx, int k, const int32_t* flags,
+                             int nc, bool bf16, float* out, cudaStream_t stream);
+
+// The top-k decode's second stage in one launch (topk.cu): the top k of the
+// [k1, nc] (anchor, class) pairs of anchor_idx [B, k1] (int32, global
+// anchors of the levels), their class logits read from cls's levels as
+// the JAX package's one-hot dot gathers them (-0.0 as +0.0; flags,
+// launch_argmax's DecodeFlags: a column non-finite at an anchor other than
+// the row's own alone is NaN), ranked as launch_topk ranks (bf16 pairs on 32-bit keys
+// up to 32768, else 64-bit) -> dets [B, k, 6] fp32: the winner's anchor's
+// box from reg's levels (launch_dfl_boxes, the same flags), 1 / (1 +
+// exp(-logit)) and the class pair % nc. cls and reg: the same levels'
+// class maps [B, rows_l, nc] and reg maps [B, rows_l, 64], all bf16 (bf16) or
+// fp32. scratch: topk_scratch_bytes(B, k1 * nc, k, bf16) bytes.
+struct TopkDecodeArgs {
+  DecodeLevels cls, reg;
+  const int32_t* anchor_idx;
+  int k1, nc;
+  const int32_t* flags;
+  float* dets;
+};
+cudaError_t launch_topk_decode(const TopkDecodeArgs& args, int B, int k, bool canon_zero, bool bf16, void* scratch,
+                               cudaStream_t stream);
 
 // The training BatchNorm's one-pass batch moments (bnstats.cu). y [N, C, H,
 // W] bf16 (bf16) or fp32, size {N, C, H, W} and stride (elements) as the

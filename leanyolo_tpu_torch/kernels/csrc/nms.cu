@@ -33,7 +33,13 @@
 //    cls] rows (the unshifted boxes, read in the input's type a step ahead,
 //    so that no load waits on the chain) in rank order as they are settled;
 //    nms_compact stops once min(max_det, n) slots are filled, then writes
-//    the zero rows and the count.
+//    the zero rows and the count. JAX moves the rows by a one-hot dot, so a
+//    payload column holding a non-finite value (0 * inf = NaN) is NaN in
+//    every slot below min(max_det, n) but the one whose own candidate is
+//    the column's only non-finite one: the CTA notes each column's first
+//    and last non-finite candidate (shared-memory atomics, none on finite
+//    candidates) while it reads the scores, and writes those NaNs as
+//    0x7FC00000.
 //
 // IoU is boxes.py:37-46's sequence in IEEE single precision with explicit
 // roundings (__fadd_rn and friends), so no multiply and add contract into
@@ -64,7 +70,7 @@ namespace {
 
 constexpr int THREADS = 1024;
 constexpr int WARPS = THREADS / 32;
-constexpr int SMEM_LIMIT = 227 * 1024;  // dynamic shared memory a CTA may take on sm_90
+constexpr int SMEM_LIMIT = 227 * 1024 - 64;  // dynamic shared memory a CTA may take on sm_90, less the static 48 bytes
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
 __host__ __device__ inline int words(int n) { return (n + 31) / 32; }
@@ -128,7 +134,13 @@ __device__ __forceinline__ Cand prepare(const Args<T>& a, size_t i) {
     q = make_float4(rnd<T>(__fadd_rn(q.x, off)), rnd<T>(__fadd_rn(q.y, off)), rnd<T>(__fadd_rn(q.z, off)),
                     rnd<T>(__fadd_rn(q.w, off)));
   }
-  return {q, rnd<T>(__fmul_rn(fmaxf(rnd<T>(__fsub_rn(q.z, q.x)), 0.0f), fmaxf(rnd<T>(__fsub_rn(q.w, q.y)), 0.0f)))};
+  // A NaN coordinate makes the area NaN, as torch's and JAX's clamps keep it
+  // (fmaxf would drop it): every IoU of the box is then NaN, above no
+  // threshold, so the candidate neither suppresses nor is suppressed.
+  const bool nan = q.x != q.x || q.y != q.y || q.z != q.z || q.w != q.w;
+  const float area =
+      rnd<T>(__fmul_rn(fmaxf(rnd<T>(__fsub_rn(q.z, q.x)), 0.0f), fmaxf(rnd<T>(__fsub_rn(q.w, q.y)), 0.0f)));
+  return {q, nan ? __uint_as_float(0x7FC00000u) : area};
 }
 
 // iou(p, c) > thresh, boxes.py:37-46 rounded as JAX rounds it (p the
@@ -161,6 +173,8 @@ __global__ void __launch_bounds__(THREADS) nms_kernel(Args<T> a) {
   float* area = reinterpret_cast<float*>(box + (TABLE ? n : 0));
   // TABLE: rank i's diagonal word at diag[i]; else block w's at diag[(w & 1) * 32 + k].
   uint32_t* diag = reinterpret_cast<uint32_t*>(area + (TABLE ? n : 0));
+  __shared__ int bad_lo[6], bad_hi[6];  // each payload column's first and last non-finite candidate
+  if (threadIdx.x < 6) bad_lo[threadIdx.x] = n, bad_hi[threadIdx.x] = -1;
   const auto cand = [&](int i) -> Cand {
     if constexpr (TABLE) {
       return {box[i], area[i]};
@@ -183,6 +197,7 @@ __global__ void __launch_bounds__(THREADS) nms_kernel(Args<T> a) {
     }
   };
 
+  __syncthreads();  // bad_lo, bad_hi set
   if constexpr (TABLE) {
     for (int i = threadIdx.x; i < n; i += THREADS) {
       const Cand c = prepare(a, base + i);
@@ -194,6 +209,14 @@ __global__ void __launch_bounds__(THREADS) nms_kernel(Args<T> a) {
     const int i = v * 32 + lane;
     bool ok = i < n && (a.valid == nullptr || a.valid[base + i]);
     if (a.use_conf) ok = ok && load1(a.scores + base + i) > a.conf_thresh;
+    if (a.num && i < n) {
+      const float4 q = load_box(a.boxes + 4 * (base + i));
+      const float p[6] = {q.x, q.y, q.z, q.w, load1(a.scores + base + i), load1(a.cls + base + i)};
+#pragma unroll
+      for (int c = 0; c < 6; ++c) {
+        if ((__float_as_uint(p[c]) & 0x7F800000u) == 0x7F800000u) atomicMin(bad_lo + c, i), atomicMax(bad_hi + c, i);
+      }
+    }
     const uint32_t live = __ballot_sync(FULL, ok);
     if (lane == 0) dead[v] = ~live;  // ranks past n are dead from the start
   }
@@ -238,7 +261,12 @@ __global__ void __launch_bounds__(THREADS) nms_kernel(Args<T> a) {
       const int pos = count + __popc(kept & ((1u << lane) - 1u));
       if (a.num && kp && pos < a.k_out) {
         float* row = a.dets + (size_t(b) * a.max_det + pos) * 6;
-        row[0] = pq.x, row[1] = pq.y, row[2] = pq.z, row[3] = pq.w, row[4] = ps, row[5] = pc;
+        const float p[6] = {pq.x, pq.y, pq.z, pq.w, ps, pc};
+#pragma unroll
+        for (int c = 0; c < 6; ++c) {
+          const bool poison = bad_lo[c] <= bad_hi[c] && !(bad_lo[c] == i && bad_hi[c] == i);
+          row[c] = poison ? __uint_as_float(0x7FC00000u) : p[c];
+        }
       }
     }
     count += __popc(kept);
@@ -277,7 +305,10 @@ __global__ void __launch_bounds__(THREADS) nms_kernel(Args<T> a) {
   if (a.num) {
     const int num = min(count, a.k_out);
     float* d = a.dets + size_t(b) * a.max_det * 6;
-    for (int e = num * 6 + threadIdx.x; e < a.max_det * 6; e += THREADS) d[e] = 0.0f;
+    for (int e = num * 6 + threadIdx.x; e < a.max_det * 6; e += THREADS) {
+      const int c = e % 6;  // a slot without a candidate: NaN where its column holds a non-finite value
+      d[e] = e / 6 < a.k_out && bad_lo[c] <= bad_hi[c] ? __uint_as_float(0x7FC00000u) : 0.0f;
+    }
     if (threadIdx.x == 0) a.num[b] = num;
   }
 }

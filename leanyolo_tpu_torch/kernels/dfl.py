@@ -10,10 +10,18 @@ anchor: its level and cell, the centre (x + 0.5, y + 0.5), per side a
 softmax expectation over the reg_max bins, l, t, r, b to x1, y1, x2, y2,
 times the level's stride. Two modes:
 
-- NMS (`pair_idx` None): anchor_idx [B, k] -> the candidates' boxes [B, k, 4];
-- top-k: pair_idx [B, k] indexes the (anchor, class) pairs of anchor_idx
-  [B, k1] (anchor = anchor_idx[pair // nc], class = pair % nc) ->
-  the detections [B, k, 6] = box, sigmoid(pair_logits) in fp32, class.
+- NMS: anchor_idx [B, k] -> the candidates' boxes [B, k, 4] (the kernel and
+  its operator);
+- top-k (the plain version only; on the card the fused second top-k's
+  epilogue, kernels/topk.py): pair_idx [B, k] indexes the (anchor, class)
+  pairs of anchor_idx [B, k1] (anchor = anchor_idx[pair // nc], class =
+  pair % nc) -> the detections [B, k, 6] = box, sigmoid(pair_logits) in
+  fp32, class.
+
+JAX gathers the dense boxes by a one-hot dot, so a box side whose DFL is
+NaN at any anchor is NaN in every selected box of the image; `flags`
+(`argmax.flags_plain`) names those sides. Every NaN is written as
+0x7FC00000.
 
 The order of operations is fixed, one rounding an operation, so the kernel
 and the plain version are bit-equal on the card: m = the bins' max; e_i =
@@ -36,7 +44,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from . import LAUNCHES
-from ._build import check_cuda, ext, operator
+from . import flags as _flags
+from ._build import ext, operator
 from .gather import check_index, check_levels, gather_levels_plain
 
 REG_MAX = 16  # the kernel's bins a side
@@ -61,8 +70,11 @@ def _cells(widths: Sequence[int], strides: Sequence[float], rows: Sequence[int],
 
 def dfl_boxes_plain(levels: Sequence[torch.Tensor], hw_shapes: Sequence[Tuple[int, int]], strides: Sequence[float],
                     anchor_idx: torch.Tensor, pair_idx: Optional[torch.Tensor] = None,
-                    pair_logits: Optional[torch.Tensor] = None, num_classes: int = 0) -> torch.Tensor:
-    """Plain version of `dfl_boxes` (the same arguments), for any reg_max."""
+                    pair_logits: Optional[torch.Tensor] = None, num_classes: int = 0,
+                    flags: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of `dfl_boxes` (the same arguments), for any reg_max;
+    with pair_idx and pair_logits, top-k mode (the fused second top-k's
+    epilogue, kernels/topk.py)."""
     if pair_idx is not None:
         rel = torch.div(pair_idx.long(), num_classes, rounding_mode="floor")
         g = torch.gather(anchor_idx.long(), 1, rel)
@@ -83,11 +95,20 @@ def dfl_boxes_plain(levels: Sequence[torch.Tensor], hw_shapes: Sequence[Tuple[in
                       dim=-1)
     inside = (g >= 0) & (g < sum(x.shape[1] for x in levels))
     out = torch.where(inside[..., None], out, torch.zeros_like(out))
+    if flags is not None:
+        # JAX's dot spreads a side's NaN to every row of the image.
+        out = torch.where(_flags.sides(flags)[:, None, :], torch.full_like(out, float("nan")), out)
+    out = _canon_nan(out)
     if pair_idx is None:
         return out
-    score = torch.sigmoid(pair_logits.float())
+    score = _canon_nan(torch.sigmoid(pair_logits.float()))
     cls = (pair_idx.long() % num_classes).float()
     return torch.cat([out, score[..., None], cls[..., None]], dim=-1)
+
+
+def _canon_nan(x: torch.Tensor) -> torch.Tensor:
+    """Every NaN as 0x7FC00000, as the kernels write it."""
+    return torch.where(torch.isnan(x), torch.full_like(x, float("nan")), x)
 
 
 def _check_count(levels: List[torch.Tensor], widths: List[int], strides: List[float]) -> None:
@@ -100,60 +121,52 @@ def _check_count(levels: List[torch.Tensor], widths: List[int], strides: List[fl
 
 
 def _dfl_cpu(levels: List[torch.Tensor], widths: List[int], strides: List[float], anchor_idx: torch.Tensor,
-             pair_idx: Optional[torch.Tensor], pair_logits: Optional[torch.Tensor], num_classes: int) -> torch.Tensor:
+             flags: Optional[torch.Tensor]) -> torch.Tensor:
     _check_count(levels, widths, strides)
     hw_shapes = [(x.shape[1] // w, w) for x, w in zip(levels, widths)]
-    return dfl_boxes_plain(levels, hw_shapes, strides, anchor_idx, pair_idx, pair_logits, num_classes).contiguous()
+    return dfl_boxes_plain(levels, hw_shapes, strides, anchor_idx, flags=flags).contiguous()
 
 
 def _dfl_fake(levels: List[torch.Tensor], widths: List[int], strides: List[float], anchor_idx: torch.Tensor,
-              pair_idx: Optional[torch.Tensor], pair_logits: Optional[torch.Tensor], num_classes: int) -> torch.Tensor:
-    rows = anchor_idx if pair_idx is None else pair_idx
-    return anchor_idx.new_empty((rows.shape[0], rows.shape[1], 4 if pair_idx is None else 6), dtype=torch.float32)
+              flags: Optional[torch.Tensor]) -> torch.Tensor:
+    return anchor_idx.new_empty((anchor_idx.shape[0], anchor_idx.shape[1], 4), dtype=torch.float32)
+
+
+def check_reg(levels: List[torch.Tensor], name: str) -> None:
+    """Raise unless the levels are reg maps on the card with rows of 4 x REG_MAX bins."""
+    check_levels(levels, name)
+    if levels[0].shape[2] != 4 * REG_MAX:
+        raise ValueError(f"{name}: the kernel takes reg_max {REG_MAX} (rows of {4 * REG_MAX}), got rows of "
+                         f"{levels[0].shape[2]}")
 
 
 def _dfl_cuda(levels: List[torch.Tensor], widths: List[int], strides: List[float], anchor_idx: torch.Tensor,
-              pair_idx: Optional[torch.Tensor], pair_logits: Optional[torch.Tensor], num_classes: int) -> torch.Tensor:
+              flags: Optional[torch.Tensor]) -> torch.Tensor:
     _check_count(levels, widths, strides)
-    check_levels(levels, "dfl_boxes")
-    x0 = levels[0]
-    if x0.shape[2] != 4 * REG_MAX:
-        raise ValueError(f"dfl_boxes: the kernel takes reg_max {REG_MAX} (rows of {4 * REG_MAX}), got rows of "
-                         f"{x0.shape[2]}")
-    b = x0.shape[0]
+    check_reg(levels, "dfl_boxes")
+    b = levels[0].shape[0]
     check_index(anchor_idx, b, "dfl_boxes anchor_idx")
-    rows = anchor_idx
-    if (pair_idx is None) != (pair_logits is None):
-        raise ValueError("dfl_boxes: pair_idx and pair_logits come together")
-    if pair_idx is not None:
-        check_index(pair_idx, b, "dfl_boxes pair_idx")
-        check_cuda(pair_logits, "dfl_boxes pair_logits")
-        if pair_logits.dtype not in (torch.bfloat16, torch.float32) or pair_logits.shape != pair_idx.shape:
-            raise ValueError(f"dfl_boxes: pair_logits bf16 or fp32 [B, k], got {pair_logits.dtype} "
-                             f"{tuple(pair_logits.shape)}")
-        if num_classes < 1:
-            raise ValueError("dfl_boxes: top-k mode needs num_classes")
-        rows = pair_idx
-    out = torch.empty(b, rows.shape[1], 4 if pair_idx is None else 6, dtype=torch.float32, device=x0.device)
+    if flags is not None:
+        _flags.check(flags, b, None, "dfl_boxes flags")
+    out = torch.empty(b, anchor_idx.shape[1], 4, dtype=torch.float32, device=levels[0].device)
     if out.numel():
-        ext().dfl_boxes(levels, widths, strides, anchor_idx, pair_idx, pair_logits, num_classes, out)
+        ext().dfl_boxes(levels, widths, strides, anchor_idx, flags, out)
         LAUNCHES["dfl_boxes"] += 1
     return out
 
 
 _DFL_BOXES = operator("dfl_boxes", "(Tensor[] levels, int[] widths, float[] strides, Tensor anchor_idx, "
-                                   "Tensor? pair_idx, Tensor? pair_logits, int num_classes) -> Tensor",
+                                   "Tensor? flags) -> Tensor",
                       cpu=_dfl_cpu, cuda=_dfl_cuda, fake=_dfl_fake)
 
 
 def dfl_boxes(levels: Sequence[torch.Tensor], hw_shapes: Sequence[Tuple[int, int]], strides: Sequence[float],
-              anchor_idx: torch.Tensor, pair_idx: Optional[torch.Tensor] = None,
-              pair_logits: Optional[torch.Tensor] = None, num_classes: int = 0) -> torch.Tensor:
+              anchor_idx: torch.Tensor, flags: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Reg maps [B, HW_l, 4 * reg_max] of levels with (h, w) shapes and
-    strides, anchor_idx int32 [B, k1] over their concatenated anchors ->
-    fp32 [B, k1, 4] xyxy pixel boxes (NMS mode), or, with pair_idx int32
-    [B, k] and pair_logits [B, k] of the [B, k1 * num_classes] pairs, [B, k,
-    6] detections (top-k mode). Through the operator
+    strides, anchor_idx int32 [B, k] over their concatenated anchors -> fp32
+    [B, k, 4] xyxy pixel boxes. flags: `argmax.flags_plain`'s [B, 3 nc + 4]
+    of these maps: each side flagged non-finite is NaN in every box of its
+    image, as JAX's one-hot-dot gather gives it (None: a true gather, as
+    JAX's export takes). Through the operator
     `leanyolo_tpu_torch::dfl_boxes`."""
-    return _DFL_BOXES(list(levels), [int(w) for _, w in hw_shapes], [float(s) for s in strides], anchor_idx,
-                      pair_idx, pair_logits, int(num_classes))
+    return _DFL_BOXES(list(levels), [int(w) for _, w in hw_shapes], [float(s) for s in strides], anchor_idx, flags)

@@ -1,32 +1,50 @@
 """The decode's level gather (K2): rows of k anchors by global index from
-per-level maps, in one launch; CUDA kernel (csrc/decode.cu) and plain
-version.
+per-level maps, as JAX's one-hot dot gives them. Plain version; on the card
+it is the key builder of the fused second top-k (kernels/topk.py
+`topk_decode`, csrc/topk.cu), which never writes the gathered rows.
 
 Replaces the JAX package's one-hot-dot gather
 `leanyolo_tpu/models/yolov10/decode.py:102 _gather_levels` (and its use at
-`:168-170`, the class rows of stage 1's anchors). That dot adds each
-selected row to zeros, so it copies every value but -0.0, which comes out
-as +0.0; the kernel and the plain version write the same. On fp32 maps the
-second top-k ranks -0.0 below +0.0, so the sign decides the order. An
-index outside [0, A) gives a zero row, as the one-hot matches no anchor.
+`:168-170`, the class rows of stage 1's anchors). Each gathered element is
+a sum over every anchor of the image of `onehot * x`:
+
+- where the column holds only finite values, the selected value added to
+  zeros: every value is copied but -0.0, which comes out as +0.0 (on fp32
+  maps the second top-k ranks -0.0 below +0.0, so the sign decides the
+  order);
+- where the column holds a non-finite value at an anchor other than the
+  row's own (0 * inf and 0 * NaN are NaN), NaN: the NaN's bits where the
+  column holds one (the largest, read unsigned, of several), else
+  0xFFC00000, the NaN that 0 * inf gives on the CPU JAX runs on; where the
+  row's own anchor is the column's only non-finite one, its value.
+
+The non-finite columns come from `argmax.flags_plain`'s flags (flags.py:
+the first and last such anchor and the NaN bits of each column). An index outside
+[0, A) gives a zero row, as the one-hot matches no anchor.
 
 Levels are [B, HW_l, C] maps of one dtype (bf16 or fp32), unit stride in C,
 rows evenly strided (the class slice of a concatenated [B, H, W, 4R+nc] map
 is read in place); idx is int32 [B, k] over the levels' concatenated
-anchors. Bound: bytes (each selected row read once, written once). The
-wrapper is the operator `leanyolo_tpu_torch::gather_rows` (_build.operator).
+anchors.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
-from . import LAUNCHES
-from ._build import check_cuda, ext, operator
+from . import flags as _flags
+from ._build import check_cuda
 
-_MAX_LEVELS = 4
+DOT_NAN = -0x00400000  # 0xFFC00000 as int32: the NaN of 0 * inf on the CPU JAX runs on
+
+
+def gather_bits(x: torch.Tensor, dim: int, idx: torch.Tensor) -> torch.Tensor:
+    """`torch.gather` of float values through their bits (the CPU's bf16
+    gather rewrites a NaN as 0xFFFF)."""
+    bits = torch.int16 if x.element_size() == 2 else torch.int32
+    return torch.gather(x.view(bits), dim, idx).view(x.dtype)
 
 
 def gather_levels_plain(levels: Sequence[torch.Tensor], idx: torch.Tensor) -> torch.Tensor:
@@ -40,29 +58,35 @@ def gather_levels_plain(levels: Sequence[torch.Tensor], idx: torch.Tensor) -> to
         hw = lv.shape[1]
         local = idx.long() - off
         inside = (local >= 0) & (local < hw)
-        g = torch.gather(lv, 1, local.clamp(0, hw - 1)[..., None].expand(-1, -1, c))
+        g = gather_bits(lv, 1, local.clamp(0, hw - 1)[..., None].expand(-1, -1, c))
         out = torch.where(inside[..., None], g, out)
         off += hw
     return out
 
 
-def gather_rows_plain(levels: Sequence[torch.Tensor], idx: torch.Tensor) -> torch.Tensor:
-    """Plain version of `gather_rows`."""
-    return gather_levels_plain(levels, idx) + 0.0  # -0.0 -> +0.0; the identity elsewhere
+def dot_nan(flags: torch.Tensor, idx: torch.Tensor, a: int) -> torch.Tensor:
+    """int32 [B, k, nc] bits as fp32: the NaN JAX's one-hot dot writes at
+    row (b, j), column c, or 0 where it writes the gathered value."""
+    lo, hi, nan = (f[:, None, :] for f in _flags.columns(flags))
+    first = a - lo.long()  # the column's first non-finite anchor (a: none)
+    last = hi.long() - 1
+    own = (first == last) & (first == idx.long()[..., None])
+    nan = torch.where(nan != 0, nan, torch.full_like(nan, DOT_NAN))
+    return torch.where((first < a) & ~own, nan, torch.zeros_like(nan))
 
 
-def _check_count(levels: List[torch.Tensor]) -> None:
-    if not levels or len(levels) > _MAX_LEVELS:
-        raise ValueError(f"gather_rows: 1 to {_MAX_LEVELS} levels, got {len(levels)}")
-
-
-def _gather_cpu(levels: List[torch.Tensor], idx: torch.Tensor) -> torch.Tensor:
-    _check_count(levels)
-    return gather_rows_plain(levels, idx).contiguous()
-
-
-def _gather_fake(levels: List[torch.Tensor], idx: torch.Tensor) -> torch.Tensor:
-    return levels[0].new_empty((idx.shape[0], idx.shape[1], levels[0].shape[2]))
+def gather_rows_plain(levels: Sequence[torch.Tensor], idx: torch.Tensor,
+                      flags: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B, k, C] in the levels' dtype, JAX's one-hot-dot gather: -0.0 as
+    +0.0 and, with `argmax.flags_plain`'s flags of these levels (C = nc),
+    the columns' NaNs."""
+    g = gather_levels_plain(levels, idx)
+    g = torch.where(g == 0, torch.zeros_like(g), g)  # -0.0 -> +0.0
+    if flags is None:
+        return g
+    nan = dot_nan(flags, idx, sum(x.shape[1] for x in levels))
+    bits = nan if g.dtype == torch.float32 else (nan >> 16).to(torch.int16)
+    return torch.where(nan != 0, bits.view(g.dtype), g)
 
 
 def check_levels(levels: List[torch.Tensor], name: str) -> None:
@@ -85,26 +109,3 @@ def check_index(idx: torch.Tensor, b: int, name: str) -> None:
     check_cuda(idx, name)
     if idx.dtype != torch.int32 or idx.ndim != 2 or idx.shape[0] != b or idx.shape[1] < 1:
         raise ValueError(f"{name}: int32 [B, k] with k >= 1, got {idx.dtype} {tuple(idx.shape)}")
-
-
-def _gather_cuda(levels: List[torch.Tensor], idx: torch.Tensor) -> torch.Tensor:
-    _check_count(levels)
-    check_levels(levels, "gather_rows")
-    x0 = levels[0]
-    check_index(idx, x0.shape[0], "gather_rows idx")
-    out = torch.empty(x0.shape[0], idx.shape[1], x0.shape[2], dtype=x0.dtype, device=x0.device)
-    if out.numel():
-        ext().gather_rows(levels, idx, out)
-        LAUNCHES["gather_rows"] += 1
-    return out
-
-
-_GATHER_ROWS = operator("gather_rows", "(Tensor[] levels, Tensor idx) -> Tensor",
-                        cpu=_gather_cpu, cuda=_gather_cuda, fake=_gather_fake)
-
-
-def gather_rows(levels: Sequence[torch.Tensor], idx: torch.Tensor) -> torch.Tensor:
-    """Per level [B, HW_l, C] (same B, C and dtype), idx int32 [B, k] over the
-    levels' concatenated rows -> [B, k, C] in the levels' dtype, -0.0 as
-    +0.0. Through the operator `leanyolo_tpu_torch::gather_rows`."""
-    return _GATHER_ROWS(list(levels), idx)

@@ -107,14 +107,27 @@ def _shifted(boxes: torch.Tensor, cls: torch.Tensor, group_offset: float) -> tor
 def compact_plain(keep: torch.Tensor, boxes: torch.Tensor, scores: torch.Tensor, cls: torch.Tensor,
                   max_det: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The stable partition of `_nms_single`: the j-th kept row to slot j
-    while j < min(max_det, n), zero rows after; num = min(kept, that)."""
+    while j < min(max_det, n), zero rows after; num = min(kept, that).
+    JAX moves the rows by a one-hot dot, so where a payload column holds a
+    non-finite value (0 * inf = NaN), every slot below min(max_det, n) is
+    NaN in that column but the one whose own candidate is the column's only
+    non-finite one (written as 0x7FC00000)."""
     b, n = keep.shape
     k_out = min(max_det, n)
     pos = torch.cumsum(keep.to(torch.int32), dim=1) - 1
     payload = torch.cat([boxes, scores[..., None], cls[..., None]], dim=-1).float()
     dets = torch.zeros(b, max_det, 6, dtype=torch.float32, device=boxes.device)
+    own = torch.full((b, max_det), -1, dtype=torch.int64, device=boxes.device)  # each slot's candidate
     bi, ii = (keep & (pos < k_out)).nonzero(as_tuple=True)
     dets[bi, pos[bi, ii].long()] = payload[bi, ii]
+    own[bi, pos[bi, ii].long()] = ii
+    bad = ~torch.isfinite(payload)  # [B, n, 6]
+    rank = torch.arange(n, device=boxes.device)[None, :, None]
+    lo = torch.where(bad, rank, n).amin(dim=1)[:, None]  # [B, 1, 6]: the first and last non-finite candidate
+    hi = torch.where(bad, rank, -1).amax(dim=1)[:, None]
+    mine = (lo == hi) & (lo == own[..., None])
+    poison = (lo < n) & ~mine & (torch.arange(max_det, device=boxes.device) < k_out)[None, :, None]
+    dets = torch.where(poison, torch.full_like(dets, float("nan")), dets)
     return dets, keep.sum(dim=1).clamp(max=k_out).to(torch.int32)
 
 

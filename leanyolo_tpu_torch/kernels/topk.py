@@ -24,16 +24,30 @@ or a bitonic sort (larger k). Details in csrc/topk.cu. Bound: bytes (each
 input read once, each output written once). The wrapper is the operator
 `leanyolo_tpu_torch::topk` (_build.operator); the key width is chosen
 inside its CUDA implementation.
+
+`topk_decode` is the top-k decode's second stage in one launch (the top-k
+kernel's body with another key source and epilogue, launched under a name
+of its own, `topk_decode_kernel`; csrc/topk.cu says how): the
+keys are built from the class rows of stage 1's anchors, gathered as JAX's
+one-hot dot gives them (kernels/gather.py, K2), and each of the k winners
+is written as its detection row, box decoded from its anchor's reg bins
+(kernels/dfl.py, K3), sigmoid score and class. Its plain version is the
+composition `gather_rows_plain` -> `topk_plain` -> `dfl_boxes_plain`. The
+wrapper is the operator `leanyolo_tpu_torch::topk_decode`; it counts as a
+`topk` launch and as a `topk_decode` one.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
 from . import LAUNCHES
+from . import flags as _flags
 from ._build import check_cuda, ext, operator
+from .dfl import check_reg, dfl_boxes_plain
+from .gather import check_index, check_levels, gather_rows_plain
 
 _PACK32_MAX_N = 32768
 
@@ -41,7 +55,7 @@ _PACK32_MAX_N = 32768
 def pack_bf16_desc(x: torch.Tensor, canon_zero: bool = True) -> torch.Tensor:
     """bf16 [..., n<=32768] -> s32 keys: descending key order == (value desc, index asc)."""
     if canon_zero:
-        x = x + 0.0  # -0.0 -> +0.0; the identity elsewhere
+        x = torch.where(x == 0, torch.zeros_like(x), x)  # -0.0 -> +0.0; every other bit pattern kept
     bits = x.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
     key = torch.where(bits >= 0x8000, 0xFFFF - bits, bits + 0x8000)  # u16, ascending
     idx = torch.arange(x.shape[-1], dtype=torch.int32, device=x.device)
@@ -58,7 +72,7 @@ def pack_f32_desc(x: torch.Tensor, canon_zero: bool) -> torch.Tensor:
     """float [..., n] -> s64 keys, the value's order-preserving bits high."""
     x = x.float()
     if canon_zero:
-        x = x + 0.0
+        x = torch.where(x == 0, torch.zeros_like(x), x)
     bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
     key = torch.where(bits >= 0x80000000, 0xFFFFFFFF - bits, bits + 0x80000000)  # u32, ascending
     idx = torch.arange(x.shape[-1], dtype=torch.int64, device=x.device)
@@ -124,3 +138,77 @@ def topk(x: torch.Tensor, k: int, *, canon_zero: bool) -> Tuple[torch.Tensor, to
     """Exact top-k (values, int32 indices) over the last dim of a bf16/fp32
     tensor, through the operator `leanyolo_tpu_torch::topk`."""
     return _TOPK(x, k, canon_zero)
+
+
+def topk_decode_plain(cls_levels: Sequence[torch.Tensor], reg_levels: Sequence[torch.Tensor],
+                      hw_shapes: Sequence[Tuple[int, int]], strides: Sequence[float], anchor_idx: torch.Tensor,
+                      k: int, *, canon_zero: bool, flags: torch.Tensor) -> torch.Tensor:
+    """Plain version of `topk_decode` (the same arguments)."""
+    b, nc = anchor_idx.shape[0], cls_levels[0].shape[-1]
+    sel = gather_rows_plain(cls_levels, anchor_idx, flags)  # [B, k1, nc]
+    vals, pair = topk_plain(sel.reshape(b, -1), k, canon_zero=canon_zero)
+    return dfl_boxes_plain(reg_levels, hw_shapes, strides, anchor_idx, pair_idx=pair, pair_logits=vals,
+                           num_classes=nc, flags=flags)
+
+
+def _hw(levels: List[torch.Tensor], widths: List[int]) -> List[Tuple[int, int]]:
+    if len(widths) != len(levels) or any(w < 1 or x.shape[1] % w for x, w in zip(levels, widths)):
+        raise ValueError("topk_decode: a width for each level, dividing its rows")
+    return [(x.shape[1] // w, w) for x, w in zip(levels, widths)]
+
+
+def _decode_cpu(cls_levels: List[torch.Tensor], reg_levels: List[torch.Tensor], widths: List[int],
+                strides: List[float], anchor_idx: torch.Tensor, k: int, canon_zero: bool,
+                flags: torch.Tensor) -> torch.Tensor:
+    _check_k(anchor_idx.shape[1] * cls_levels[0].shape[-1], k)
+    return topk_decode_plain(cls_levels, reg_levels, _hw(reg_levels, widths), strides, anchor_idx, k,
+                             canon_zero=canon_zero, flags=flags).contiguous()
+
+
+def _decode_fake(cls_levels: List[torch.Tensor], reg_levels: List[torch.Tensor], widths: List[int],
+                 strides: List[float], anchor_idx: torch.Tensor, k: int, canon_zero: bool,
+                 flags: torch.Tensor) -> torch.Tensor:
+    return anchor_idx.new_empty((anchor_idx.shape[0], k, 6), dtype=torch.float32)
+
+
+def _decode_cuda(cls_levels: List[torch.Tensor], reg_levels: List[torch.Tensor], widths: List[int],
+                 strides: List[float], anchor_idx: torch.Tensor, k: int, canon_zero: bool,
+                 flags: torch.Tensor) -> torch.Tensor:
+    if not 1 <= len(cls_levels) <= 4 or len(reg_levels) != len(cls_levels) or len(strides) != len(cls_levels):
+        raise ValueError("topk_decode: 1 to 4 levels, each with its class and reg maps, a width and a stride")
+    _hw(reg_levels, widths)
+    check_levels(cls_levels, "topk_decode class maps")
+    check_reg(reg_levels, "topk_decode reg maps")
+    b, nc = cls_levels[0].shape[0], cls_levels[0].shape[2]
+    if reg_levels[0].shape[0] != b or any(r.shape[1] != c.shape[1] for r, c in zip(reg_levels, cls_levels)):
+        raise ValueError("topk_decode: the reg maps' batch and rows are the class maps'")
+    check_index(anchor_idx, b, "topk_decode anchor_idx")
+    _check_k(anchor_idx.shape[1] * nc, k)
+    _flags.check(flags, b, nc, "topk_decode flags")
+    out = torch.empty(b, k, 6, dtype=torch.float32, device=anchor_idx.device)
+    if out.numel():
+        ext().topk_decode(cls_levels, reg_levels, widths, strides, anchor_idx, int(k), bool(canon_zero), flags, out)
+        LAUNCHES["topk"] += 1
+        LAUNCHES["topk_decode"] += 1
+    return out
+
+
+_TOPK_DECODE = operator("topk_decode", "(Tensor[] cls_levels, Tensor[] reg_levels, int[] widths, float[] strides, "
+                                       "Tensor anchor_idx, int k, bool canon_zero, Tensor flags) -> Tensor",
+                        cpu=_decode_cpu, cuda=_decode_cuda, fake=_decode_fake)
+
+
+def topk_decode(cls_levels: Sequence[torch.Tensor], reg_levels: Sequence[torch.Tensor],
+                hw_shapes: Sequence[Tuple[int, int]], strides: Sequence[float], anchor_idx: torch.Tensor, k: int, *,
+                canon_zero: bool, flags: torch.Tensor) -> torch.Tensor:
+    """The top k of the (anchor, class) pairs of stage 1's anchors
+    anchor_idx int32 [B, k1] (over the levels' concatenated anchors), ranked
+    as `topk(gather_rows_plain(cls_levels, anchor_idx, flags).reshape(B,
+    -1), k, canon_zero=canon_zero)` ranks them -> fp32 [B, k, 6] detections: the
+    winner's anchor's box from the reg maps (`dfl_boxes` with the same
+    flags), sigmoid(logit), class. Class maps [B, HW_l, nc] and reg maps
+    [B, HW_l, 64] of levels with (h, w) shapes and strides, one dtype (bf16
+    or fp32); flags: `argmax.max_argmax_flags`' of these maps. Through
+    the operator `leanyolo_tpu_torch::topk_decode`."""
+    return _TOPK_DECODE(list(cls_levels), list(reg_levels), [int(w) for _, w in hw_shapes],
+                        [float(s) for s in strides], anchor_idx, int(k), bool(canon_zero), flags)

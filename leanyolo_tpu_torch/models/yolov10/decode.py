@@ -6,10 +6,11 @@ Counterpart of the JAX package's `leanyolo_tpu/models/yolov10/decode.py`
 - `decode_topk` (one2one branch): ranking runs on logits (the sigmoid is
   monotonic), in the maps' dtype: stage 1 ranks the per-anchor class max
   (the fused max/argmax kernel over the three levels, `jnp.max`'s zero
-  rule: -0.0 below +0.0), stage 2 the (anchor, class) pairs of the
-  survivors, whose class rows the level-gather kernel reads (-0.0 as +0.0,
-  as JAX's one-hot dot gives); the box decode kernel then decodes the
-  final anchors and writes the detections: five launches;
+  rule: -0.0 below +0.0, NaN propagated), stage 2 (the fused second top-k,
+  `kernels/topk.py::topk_decode`) the (anchor, class) pairs of the
+  survivors, whose class rows it reads as JAX's one-hot dot gathers them,
+  and writes the detections of the winners, boxes decoded from their reg
+  bins: three launches (max/argmax, top-k, fused top-k);
 - `decode_nms` (one2many branch): candidates are the best class of each
   anchor (the fused max/argmax kernel, one launch for all levels) or, with
   `multi_label`, the top (anchor, class) pairs; the top `pre_topk` by logit,
@@ -22,9 +23,14 @@ Counterpart of the JAX package's `leanyolo_tpu/models/yolov10/decode.py`
   to bf16 and the NMS kernel runs its bf16 mode.
 
 The DFL and the box decode run in fp32 on the selected anchors' reg logits
-only (kernels/dfl.py), never densely; `_flatten_pyramid` keeps the dense
-decode for the serving export. `detections_to_list` and
-`postprocess_to_original` are the host side, in numpy.
+only (kernels/dfl.py), never densely, also in the serving export.
+
+JAX gathers the selected rows and boxes by one-hot dots, so a non-finite
+value anywhere in an image's maps spreads (0 * inf = NaN): the max/argmax
+launch also writes per-image flags of the maps' non-finite values
+(kernels/argmax.py), from which the gather and the box decode write the
+same NaNs. `detections_to_list` and `postprocess_to_original` are the host
+side, in numpy.
 """
 
 from __future__ import annotations
@@ -36,11 +42,9 @@ import torch
 
 from ...kernels import argmax as _kargmax
 from ...kernels import dfl as _kdfl
-from ...kernels import gather as _kgather
 from ...kernels import nms as _knms
 from ...kernels import topk as _ktopk
-from ...ops.anchors import dfl_expectation, dist2bbox, make_anchors
-from ...ops.topk import canon_zero, max_argmax_lastdim, topk_lastdim
+from ...ops.topk import _rank_dtype, canon_zero, max_argmax_lastdim, topk_lastdim
 
 Tensor = torch.Tensor
 
@@ -67,42 +71,26 @@ def _split_levels(preds: Sequence, num_classes: int):
     return levels, hw_shapes, reg_max
 
 
-def _flatten_levels(preds: Sequence, num_classes: int, strides: Sequence[int]):
-    """Concat levels -> (flat [B, A, 4R+nc], anchors [A, 2], stride [A, 1], reg_max)."""
-    assert len(preds) == len(strides)
-    levels, hw_shapes, reg_max = _split_levels(list(preds), num_classes)
-    anchors, stride_t = make_anchors(hw_shapes, strides, device=levels[0][0].device)
-    flat = torch.cat([torch.cat([reg, cls], dim=-1) for reg, cls in levels], dim=1)
-    return flat, anchors, stride_t, reg_max
-
-
-def _flatten_pyramid(preds: Sequence, num_classes: int, strides: Sequence[int]):
-    """Dense decode: (boxes [B, A, 4] pixels, cls logits [B, A, nc])."""
-    flat, anchors, stride_t, reg_max = _flatten_levels(list(preds), num_classes, strides)
-    dist = dfl_expectation(flat[..., : 4 * reg_max].float(), reg_max)
-    return dist2bbox(dist, anchors[None]) * stride_t[None], flat[..., 4 * reg_max:]
-
-
 def decode_topk(preds: Sequence, *, num_classes: int, strides: Sequence[int] = (8, 16, 32),
                 max_det: int = 300) -> Tensor:
     """[B, k, 6] = [x1, y1, x2, y2, score, cls], k = min(max_det, anchors)."""
     levels, hw_shapes, _ = _split_levels(list(preds), num_classes)
-    b = levels[0][0].shape[0]
     a = sum(h * w for h, w in hw_shapes)
     k = min(max_det, a)
-    cls_levels = [cls for _, cls in levels]
+    cls_levels, reg_levels = [cls for _, cls in levels], [reg for reg, _ in levels]
+    dtype = cls_levels[0].dtype
 
     # Stage 1: jnp.max per anchor (fp32 values, exact for bf16), ranked as the
-    # maps' dtype with JAX's tie rule for it.
-    max_per_anchor, _ = _kargmax.max_argmax_levels(cls_levels, canon_zero=False)  # [B, A]
-    _, top_anchor_idx = _ktopk.topk(max_per_anchor, k, canon_zero=canon_zero(cls_levels[0].dtype, k, a))  # [B, k]
-    sel_logits = _kgather.gather_rows(cls_levels, top_anchor_idx)  # [B, k, nc]
+    # maps' dtype with JAX's tie rule for it; the same launch flags the maps'
+    # non-finite values for stage 2's gathers.
+    max_per_anchor, _, flags = _kargmax.max_argmax_flags(cls_levels, reg_levels, canon_zero=False)  # [B, A]
+    _, top_anchor_idx = _ktopk.topk(max_per_anchor, k, canon_zero=canon_zero(dtype, k, a))  # [B, k]
 
-    # Stage 2: the (anchor, class) pairs of the survivors; the kernel decodes
-    # the boxes of the final anchors and writes the rows.
-    flat_logits, flat_idx = topk_lastdim(sel_logits.reshape(b, -1), k)  # [B, k]
-    return _kdfl.dfl_boxes([reg for reg, _ in levels], hw_shapes, strides, top_anchor_idx, pair_idx=flat_idx,
-                           pair_logits=flat_logits, num_classes=num_classes)
+    # Stage 2: the (anchor, class) pairs of the survivors, gathered as JAX's
+    # one-hot dot gives them, ranked, and written as detections (boxes of
+    # the final anchors only), in one launch.
+    return _ktopk.topk_decode(cls_levels, reg_levels, hw_shapes, strides, top_anchor_idx, k,
+                              canon_zero=canon_zero(dtype, k, k * num_classes), flags=flags)
 
 
 GROUP_OFFSET = _knms.GROUP_OFFSET  # class offset of the class-wise NMS (JAX decode.py:341)
@@ -148,11 +136,18 @@ def decode_nms(preds: Sequence, *, num_classes: int, strides: Sequence[int] = (8
     b = levels[0][0].shape[0]
     a = sum(h * w for h, w in hw_shapes)
     nc = num_classes
+    cls_levels, reg_levels = [cls for _, cls in levels], [reg for reg, _ in levels]
+    dtype = _rank_dtype(cls_levels[0].dtype, rank_dtype)
+    # The best class per anchor, and the flags of the maps' non-finite values
+    # (JAX's one-hot-dot gather of the boxes spreads a NaN side), in one
+    # launch; multi_label takes the flags alone.
+    best_logits, best_cls, flags = _kargmax.max_argmax_flags(cls_levels, reg_levels,
+                                                             canon_zero=_kargmax.packed_route(dtype, nc))
     if multi_label:
         k_pre = min(pre_topk, a * nc)
         merged_logits, merged_pair = [], []
         off = 0
-        for _, cls in levels:
+        for cls in cls_levels:
             hw = cls.shape[1]
             v, p = topk_lastdim(cls.reshape(b, hw * nc), min(k_pre, hw * nc), dtype=rank_dtype)
             merged_logits.append(v)
@@ -163,12 +158,11 @@ def decode_nms(preds: Sequence, *, num_classes: int, strides: Sequence[int] = (8
         anc_idx = pre_idx // nc
         cand_cls = (pre_idx % nc).float()
     else:
-        best_logits, best_cls = max_argmax_lastdim([cls for _, cls in levels], dtype=rank_dtype)
         k_pre = min(pre_topk, a)
-        cand_logits, anc_idx = topk_lastdim(best_logits, k_pre)
+        cand_logits, anc_idx = topk_lastdim(best_logits.to(dtype), k_pre)
         cand_cls = torch.gather(best_cls, 1, anc_idx.long()).float()
     cand_scores = torch.sigmoid(cand_logits.float())
-    cand_boxes = _kdfl.dfl_boxes([reg for reg, _ in levels], hw_shapes, strides, anc_idx)
+    cand_boxes = _kdfl.dfl_boxes(reg_levels, hw_shapes, strides, anc_idx, flags=flags)
     return _nms_single(cand_boxes, cand_scores, cand_cls, iou_thresh=iou_thresh, conf_thresh=conf_thresh,
                        max_det=max_det, class_wise=class_wise)
 

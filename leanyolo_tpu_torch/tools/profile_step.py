@@ -5,13 +5,16 @@ warm-up step outside the trace, which also builds the kernels) and sums
 the device's kernel time per family (utils/profiling.py): each of the port's
 hand-written kernels is a family of its own. Beside the table it prints the
 median wall ms of the profiled steps (host clock, each step ending in a
-synchronize; under the profiler) and, on the card, the peak GiB allocated
-over them. Counterpart of the JAX
-package's `tools/profile_step.py`, with the same flags and JSON, plus
---device and `--mode decode` (the inference step's decode alone, on the
-head maps of one forward made before the trace); runs on the card unless
---device names another (on the CPU the table holds the CPU operators' self
-time).
+synchronize; under the profiler), on the card the median of as many
+unprofiled steps by CUDA events (each from an idle card, its synchronize
+inside the span) and the peak GiB allocated over the profiled ones.
+Counterpart of the JAX package's `tools/profile_step.py`, with the same
+flags and JSON, plus --device, `--mode decode` (the inference step's decode
+alone, on the head maps of one forward made before the trace) and `--mode
+export` (a request of the serving export's `.pt2` artifact, export/serving.py:
+exported with --decode and --dtype, always folded, saved and loaded again,
+on random float32 pixels); runs on the card unless --device names another
+(on the CPU the table holds the CPU operators' self time).
 
 Examples:
     python -m leanyolo_tpu_torch.tools.profile_step --mode infer --model yolov10s \\
@@ -20,13 +23,17 @@ Examples:
         --imgsz 640 --batch-size 32 --out-dir runs/prof --json prof.json
     python -m leanyolo_tpu_torch.tools.profile_step --mode decode --decode nms --fuse \\
         --batch-size 1 --top 40
+    python -m leanyolo_tpu_torch.tools.profile_step --mode export --decode topk \\
+        --batch-size 32 --steps 20 --json export.json
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
+import tempfile
 import time
 from typing import Optional, Sequence
 
@@ -39,8 +46,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model", default="yolov10s")
     p.add_argument("--weights", default="none", help="'none' (random), 'PRETRAINED_COCO', or a checkpoint path")
-    p.add_argument("--mode", choices=["infer", "train", "decode"], default="infer",
-                   help="decode: the infer step's decode alone, on the head maps of one forward")
+    p.add_argument("--mode", choices=["infer", "train", "decode", "export"], default="infer",
+                   help="decode: the infer step's decode alone, on the head maps of one forward; export: a "
+                        "request of the serving export's artifact")
     p.add_argument("--imgsz", type=int, default=640)
     p.add_argument("--batch-size", type=int, default=128)
     p.add_argument("--dtype", choices=["float32", "bf16"], default="bf16")
@@ -68,6 +76,22 @@ def build_step(args: argparse.Namespace):
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
 
     rng = np.random.RandomState(0)
+    if args.mode == "export":
+        from ..export.serving import export_serving, load_exported
+
+        with tempfile.TemporaryDirectory() as tmp:  # the artifact is held in memory once loaded
+            art = load_exported(export_serving(model, os.path.join(tmp, "serving"), imgsz=args.imgsz,
+                                               decode=args.decode, dtype=args.dtype, device=device))
+        x = torch.from_numpy(rng.rand(args.batch_size, args.imgsz, args.imgsz, 3).astype(np.float32) * 255)
+        x = x.to(device)
+
+        def step():
+            with torch.no_grad():
+                art(x)
+            sync()
+
+        return step
+
     if args.mode in ("infer", "decode"):
         from ..engine.predictor import Predictor
 
@@ -122,6 +146,17 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     cuda = torch.device(args.device).type == "cuda"
     step = build_step(args)
     step()  # warm-up (and the kernels' build) outside the trace
+    event_ms = None
+    if cuda:
+        events = []
+        for _ in range(args.steps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            step()
+            end.record()
+            torch.cuda.synchronize()
+            events.append(start.elapsed_time(end))
+        event_ms = statistics.median(events)
     for attempt in range(CAPTURE_TRIES):
         if cuda:
             torch.cuda.reset_peak_memory_stats()
@@ -141,8 +176,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     wall_ms = statistics.median(walls)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
     print(format_table(summary, top=args.top))
-    print(f"wall {wall_ms:.3f} ms/step (host clock, median of the {args.steps} profiled steps); peak "
-          + (f"{peak_gib:.3f} GiB allocated" if cuda else "not measured (CPU)"))
+    print(f"wall {wall_ms:.3f} ms/step (host clock, median of the {args.steps} profiled steps); "
+          + (f"{event_ms:.4f} ms/step by CUDA events (median of {args.steps} unprofiled steps); peak "
+             f"{peak_gib:.3f} GiB allocated" if cuda else "CUDA events and peak not measured (CPU)"))
     if args.json:
         with open(args.json, "w", encoding="utf-8") as f:
             json.dump(
@@ -151,6 +187,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     "total_ms_per_step": summary.total_ms,
                     "steps": summary.steps,
                     "wall_ms_median": wall_ms,
+                    "event_ms_median": event_ms,
                     "peak_gib": peak_gib,
                     "families": [
                         {"name": fa.name, "ms_per_step": fa.total_ms, "count": fa.count, "example": fa.example}

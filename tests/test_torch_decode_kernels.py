@@ -1,16 +1,19 @@
-"""The decode's level gather (K2, kernels/gather.py) and selected-anchor DFL
-box decode (K3, kernels/dfl.py) against the JAX package on the CPU, where
-their operators run the plain versions; and the top-k decode's signed-zero
-ranking on fp32 maps.
+"""The decode's level gather (K2, kernels/gather.py, a plain version: on the
+card the fused second top-k's key builder) and selected-anchor DFL box
+decode (K3, kernels/dfl.py) against the JAX package on the CPU, where the
+operators run the plain versions; the fused second top-k's, the box
+decode's and the flagging max/argmax's operators; and the top-k decode's
+signed-zero ranking on fp32 maps.
 
-- `gather_rows` is bit-exact against JAX's one-hot-dot `_gather_levels`,
-  which writes -0.0 as +0.0 and copies every other value.
+- `gather_rows_plain` is bit-exact against JAX's one-hot-dot
+  `_gather_levels`, which writes -0.0 as +0.0 and copies every other value.
 - `dfl_boxes` (NMS mode) against JAX's `_gather_levels(_boxes_per_level(...))`
-  and (top-k mode) against the same boxes of `take_along_axis(anchors, pair
-  // nc)` with `sigmoid(logit)` and `pair % nc`: boxes within 5e-4 of the
-  pixel scale (relative), as tests/test_torch_decode.py holds the whole
-  decode; scores within 2.4e-7 (torch's and XLA's fp32 sigmoids are one ulp
-  apart on a few inputs, tests/test_torch_decode_nms.py); classes exact.
+  and `dfl_boxes_plain` (top-k mode, the fused second top-k's epilogue)
+  against the same boxes of `take_along_axis(anchors, pair // nc)` with
+  `sigmoid(logit)` and `pair % nc`: boxes within 5e-4 of the pixel scale
+  (relative), as tests/test_torch_decode.py holds the whole decode; scores
+  within 2.4e-7 (torch's and XLA's fp32 sigmoids are one ulp apart on a few
+  inputs, tests/test_torch_decode_nms.py); classes exact.
 - `decode_topk` on maps whose class logits hold exact zeros of both signs
   selects JAX's anchors and classes in JAX's order, fp32 and bf16.
 """
@@ -24,8 +27,7 @@ import pytest
 import torch
 
 from leanyolo_tpu.models.yolov10 import decode as JD
-from leanyolo_tpu_torch import kernels
-from leanyolo_tpu_torch.kernels import dfl, gather
+from leanyolo_tpu_torch.kernels import argmax, dfl, gather, topk
 from leanyolo_tpu_torch.models.yolov10 import decode as TD
 
 REG = 16
@@ -90,9 +92,7 @@ def test_gather_rows_bit_exact_to_jax(dtype, concat, nc, k):
     k = a if k == "A" else k
     idx = _index(np.random.RandomState(k), 2, a, k)
     ref = JD._gather_levels([c for _, c in jl], jnp.asarray(idx))
-    n0 = kernels.LAUNCHES["gather_rows"]
-    got = gather.gather_rows([c for _, c in tl], torch.from_numpy(idx))
-    assert kernels.LAUNCHES["gather_rows"] == n0  # the CPU runs the plain version
+    got = gather.gather_rows_plain([c for _, c in tl], torch.from_numpy(idx))
     assert got.dtype == DTYPES[dtype][1] and tuple(got.shape) == (2, k, nc) and got.is_contiguous()
     np.testing.assert_array_equal(_bits(got), _bits(np.asarray(ref.astype(jnp.float32))))
     # The rows hold -0.0 where the maps do; none comes out.
@@ -108,7 +108,7 @@ def test_gather_rows_outside_the_levels_gives_zero_rows():
     a = sum(c.shape[1] for _, c in tl)
     idx = np.asarray([[0, a, a - 1], [a + 7, 3, 1]], np.int32)
     ref = np.asarray(JD._gather_levels([c for _, c in jl], jnp.asarray(idx)))
-    got = gather.gather_rows([c for _, c in tl], torch.from_numpy(idx)).numpy()
+    got = gather.gather_rows_plain([c for _, c in tl], torch.from_numpy(idx)).numpy()
     np.testing.assert_array_equal(_bits(got), _bits(ref))
     assert not got[0, 1].any() and not got[1, 0].any()
 
@@ -154,8 +154,9 @@ def test_dfl_boxes_topk_mode_matches_jax(dtype, k):
     anchors = _index(rng, 2, a, k)
     pairs = np.stack([rng.permutation(k * nc)[:k] for _ in range(2)]).astype(np.int32)
     logits = (rng.randn(2, k) * 4).astype(np.float32)
-    got = dfl.dfl_boxes([r for r, _ in tl], hw, STRIDES, torch.from_numpy(anchors), pair_idx=torch.from_numpy(pairs),
-                        pair_logits=torch.from_numpy(logits).to(td), num_classes=nc).numpy()
+    got = dfl.dfl_boxes_plain([r for r, _ in tl], hw, STRIDES, torch.from_numpy(anchors),
+                              pair_idx=torch.from_numpy(pairs), pair_logits=torch.from_numpy(logits).to(td),
+                              num_classes=nc).numpy()
     assert got.shape == (2, k, 6)
     final = np.take_along_axis(anchors, pairs // nc, axis=1)
     _assert_boxes(got[..., :4], _jax_boxes(jl, hw, final), size)
@@ -263,18 +264,24 @@ def _op_cases():
     cat = torch.randn(2, 20, 64 + 7, generator=g)
     small = torch.randn(2, 6, 64 + 7, generator=g)
     idx = torch.randint(0, 26, (2, 9), generator=g, dtype=torch.int32)
-    pairs = torch.randint(0, 9 * 7, (2, 5), generator=g, dtype=torch.int32)
-    logits = torch.randn(2, 5, generator=g)
+    cls, reg = [cat[..., 64:], small[..., 64:]], [cat[..., :64], small[..., :64]]
+    bcls, breg = [c.bfloat16() for c in cls], [r.bfloat16() for r in reg]
+    flags = argmax.flags_plain(cls, reg)
+    nan_cls = [c.clone() for c in cls]
+    nan_cls[1][1, 2, 3] = float("inf")
+    nan_flags = argmax.flags_plain(nan_cls, reg)
+    bnan_cls = [c.bfloat16() for c in nan_cls]
     return [
-        ("gather_rows", ([cat[..., 64:], small[..., 64:]], idx)),
-        ("gather_rows", ([cat.bfloat16(), small.bfloat16()], idx)),
-        ("dfl_boxes", ([cat[..., :64], small[..., :64]], [5, 3], [8.0, 16.0], idx, None, None, 0)),
-        ("dfl_boxes", ([cat[..., :64].bfloat16(), small[..., :64].bfloat16()], [5, 3], [8.0, 16.0], idx, pairs,
-                       logits.bfloat16(), 7)),
+        ("topk_decode", (cls, reg, [5, 3], [8.0, 16.0], idx, 9, False, flags)),
+        ("topk_decode", (bnan_cls, breg, [5, 3], [8.0, 16.0], idx, 40, True, argmax.flags_plain(bnan_cls, breg))),
+        ("dfl_boxes", (reg, [5, 3], [8.0, 16.0], idx, None)),
+        ("dfl_boxes", (breg, [5, 3], [8.0, 16.0], idx, nan_flags)),
+        ("max_argmax_flags", (nan_cls, reg, False)),
+        ("max_argmax_flags", (bcls, breg, True)),
     ]
 
 
-@pytest.mark.parametrize("case", range(4))
+@pytest.mark.parametrize("case", range(6))
 def test_decode_kernel_operators(case):
     """Each wrapper is the operator leanyolo_tpu_torch::<name>: on CPU
     tensors its plain version (bit-equal, contiguous output); its fake
@@ -284,24 +291,32 @@ def test_decode_kernel_operators(case):
     name, args = _op_cases()[case]
     op = getattr(torch.ops.leanyolo_tpu_torch, name).default
     got = op(*args)
-    if name == "gather_rows":
-        want = gather.gather_rows_plain(*args)
-    else:  # the operator takes each level's width, the plain version its (h, w)
-        levels, widths, *rest = args
-        want = dfl.dfl_boxes_plain(levels, [(x.shape[1] // w, w) for x, w in zip(levels, widths)], *rest)
-    assert got.dtype == want.dtype and got.shape == want.shape and got.is_contiguous() and torch.equal(got, want)
+    if name == "max_argmax_flags":
+        want = (*argmax.max_argmax_levels_plain(args[0], canon_zero=args[2]), argmax.flags_plain(args[0], args[1]))
+    elif name == "topk_decode":  # the operator takes each level's width, the plain version its (h, w)
+        cls, reg, widths, strides, idx, k, canon, flags = args
+        hw = [(x.shape[1] // w, w) for x, w in zip(reg, widths)]
+        want = topk.topk_decode_plain(cls, reg, hw, strides, idx, k, canon_zero=canon, flags=flags)
+    else:
+        levels, widths, strides, idx, flags = args
+        want = dfl.dfl_boxes_plain(levels, [(x.shape[1] // w, w) for x, w in zip(levels, widths)], strides, idx,
+                                   flags=flags)
+    for g_, w_ in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+        assert g_.dtype == w_.dtype and g_.shape == w_.shape and g_.is_contiguous()
+        assert torch.equal(g_.view(torch.int16 if g_.element_size() == 2 else torch.int32),
+                           w_.view(torch.int16 if w_.element_size() == 2 else torch.int32))  # NaNs' bits too
     fake = op(*[_meta(a) for a in args])
-    assert fake.device.type == "meta" and (fake.shape, fake.dtype) == (got.shape, got.dtype)
+    for f_, g_ in zip(fake if isinstance(fake, tuple) else (fake,), got if isinstance(got, tuple) else (got,)):
+        assert f_.device.type == "meta" and (f_.shape, f_.dtype) == (g_.shape, g_.dtype)
     if hasattr(torch.library, "opcheck"):
         torch.library.opcheck(op, args, test_utils=("test_schema", "test_faketensor", "test_aot_dispatch_dynamic"))
 
 
 def test_decode_topk_runs_through_the_decode_operators(monkeypatch):
-    """decode_topk's kernels: one max/argmax, two top-k, one gather_rows and
-    one dfl_boxes call (counted at the wrappers; on the CPU they run the
-    plain versions); decode_nms one dfl_boxes."""
-    from leanyolo_tpu_torch.kernels import argmax, topk
-
+    """decode_topk's kernels: one max/argmax (with the flags), one top-k and
+    one fused second top-k call (counted at the wrappers; on the CPU they run
+    the plain versions); decode_nms one max/argmax, one top-k and one
+    dfl_boxes."""
     calls = {}
 
     def spy(mod, name):
@@ -313,48 +328,59 @@ def test_decode_topk_runs_through_the_decode_operators(monkeypatch):
 
         monkeypatch.setattr(mod, name, wrapped)
 
-    for mod, name in ((argmax, "max_argmax_levels"), (topk, "topk"), (gather, "gather_rows"), (dfl, "dfl_boxes")):
+    for mod, name in ((argmax, "max_argmax_flags"), (argmax, "max_argmax_levels"), (topk, "topk"),
+                      (topk, "topk_decode"), (dfl, "dfl_boxes")):
         spy(mod, name)
     maps = [tuple(torch.from_numpy(t) for t in m) for m in _maps(3, 1, 64, 80)]
     TD.decode_topk(maps, num_classes=80)
-    assert calls == {"max_argmax_levels": 1, "topk": 2, "gather_rows": 1, "dfl_boxes": 1}
+    assert calls == {"max_argmax_flags": 1, "topk": 1, "topk_decode": 1}
     calls.clear()
     TD.decode_nms(maps, num_classes=80)
-    assert calls == {"max_argmax_levels": 1, "topk": 1, "dfl_boxes": 1}
+    assert calls == {"max_argmax_flags": 1, "topk": 1, "dfl_boxes": 1}
 
 
 # (mode, elt, k): bytes and operations worked out by hand. NMS mode: each
-# row's 64 bins, its int32 anchor and 4 fp32 out. Top-k mode: the 64 bins,
-# the int32 pair, its logit and the int32 stage-1 anchor it names, and 6
-# fp32 out. 97 fp32 operations a side (bounds.DFL_SIDE_OPS), and 3 for the
-# sigmoid in top-k mode.
+# row's 64 bins, its int32 anchor and 4 fp32 out, with flags an image's four
+# int32 side words; 97 fp32 operations a side (bounds.DFL_SIDE_OPS). The
+# fused second top-k ("topk", k1 = k = 300, nc = 80): the int32 anchor and
+# its 80 class logits a stage-1 row, an image's 3 * 80 + 4 int32 flags, then
+# a winner's 64 bins and 6 fp32 out; a key a pair, 4 * 97 + 3 a winner.
 _K3_WORK = [
     ("nms", 2, 1000, 32 * 1000 * (64 * 2 + 4 + 16), 32 * 1000 * 4 * 97),
     ("nms", 4, 1000, 32 * 1000 * (64 * 4 + 4 + 16), 32 * 1000 * 4 * 97),
-    ("topk", 2, 300, 32 * 300 * (64 * 2 + 4 + 2 + 4 + 24), 32 * 300 * (4 * 97 + 3)),
-    ("topk", 4, 300, 32 * 300 * (64 * 4 + 4 + 4 + 4 + 24), 32 * 300 * (4 * 97 + 3)),
+    ("nms_flags", 2, 1000, 32 * 1000 * (64 * 2 + 4 + 16) + 32 * 16, 32 * 1000 * 4 * 97),
+    ("topk", 2, 300, 32 * 300 * (4 + 80 * 2) + 32 * 244 * 4 + 32 * 300 * (64 * 2 + 24),
+     32 * 300 * 80 + 32 * 300 * (4 * 97 + 3)),
+    ("topk", 4, 300, 32 * 300 * (4 + 80 * 4) + 32 * 244 * 4 + 32 * 300 * (64 * 4 + 24),
+     32 * 300 * 80 + 32 * 300 * (4 * 97 + 3)),
 ]
 
 
 @pytest.mark.parametrize("case", range(len(_K3_WORK)))
 def test_dfl_boxes_work_counts_each_byte_once(case):
-    """K3's bound counts each index a row reads once in either mode: at
-    [32, 300] bf16 top-k, 1,555,200 bytes, 0.000464 ms over 3.35 TB/s."""
+    """K3's bound and the fused second top-k's count each index a row reads
+    once: the fused op at [32, 300] x 80 bf16, k = 300, 3,064,832 bytes,
+    0.000915 ms over 3.35 TB/s."""
     from leanyolo_tpu_torch.kernels import bounds
 
     mode, elt, k, nbytes, nops = _K3_WORK[case]
-    assert bounds.dfl_boxes_work(32, k, elt, topk=mode == "topk") == (nbytes, nops)
+    if mode == "topk":
+        assert bounds.topk_decode_work(32, k, 80, k, elt) == (nbytes, nops)
+    else:
+        assert bounds.dfl_boxes_work(32, k, elt, flags=mode == "nms_flags") == (nbytes, nops)
     if (mode, elt) == ("topk", 2):
         ms, by = bounds.bound(nbytes, nops, bounds.FP32_OPS_PER_S)
-        assert nbytes == 1_555_200 and by == "bytes" and round(ms, 6) == 0.000464
+        assert nbytes == 3_064_832 and by == "bytes" and round(ms, 6) == 0.000915
 
 
-def test_gather_rows_work_counts_each_byte_once():
-    """K2's bound: the [32, 300] int32 indices, 300 rows of 80 bf16 values
-    read and written, no arithmetic."""
+def test_argmax_flags_work_counts_each_byte_once():
+    """The flagging max/argmax's bound: the class maps and values, indices
+    out as `argmax_work`, plus the reg maps read and the flags written."""
     from leanyolo_tpu_torch.kernels import bounds
 
-    assert bounds.gather_rows_work(32, 300, 80) == (32 * 300 * 4 + 2 * 32 * 300 * 80 * 2, 0)
+    base, _ = bounds.argmax_work(32 * 8400, 80)
+    assert bounds.argmax_flags_work(32, 8400, 80) == (base + 32 * 8400 * 64 * 2 + 32 * 244 * 4,
+                                                      32 * 8400 * (160 + 128))
 
 
 @pytest.mark.parametrize("decode", ["topk", "nms"])

@@ -16,11 +16,13 @@ bias-free kernel followed by PyTorch's bias add and SiLU is held to one
 bf16 ulp per element: both round the same fp32 sums at the same points, but
 the wgmma route's SiLU uses the hardware's approximate exp2 and reciprocal,
 a few fp32 ulps from PyTorch's, which flips a bf16 rounding now and then.
-Top-k, the max-pool backward (mpbwd), the fused max/argmax, the NMS, the
-decode's level gather (gather_rows), its box decode (dfl_boxes) and the
-training BN's batch moments (bn_moments, bn_moments_bwd) are bit-exact:
-dfl_boxes' plain version fixes the kernel's order of operations, one
-rounding each, and both run on the card's exp; bn_moments' plain version
+Top-k, the max-pool backward (mpbwd), the fused max/argmax (with its
+non-finite flags), the NMS, the top-k decode's fused second top-k
+(topk_decode: the level gather, top-k and box decode), the box decode
+(dfl_boxes) and the training BN's batch moments (bn_moments,
+bn_moments_bwd) are bit-exact, NaNs' bits included: dfl_boxes' plain
+version fixes the kernel's order of operations, one rounding each, and
+both run on the card's exp; bn_moments' plain version
 spells the kernel's fixed order of additions. So is the task-aligned
 assignment (tal_candidates, tal_targets), on all five outputs and on the
 CIoU and alignment of its check mode: its kernels round after each
@@ -33,8 +35,7 @@ import pytest
 import torch
 
 from leanyolo_tpu_torch import kernels
-from leanyolo_tpu_torch.kernels import (argmax, bnstats, dfl, dwconv, gather, matmul, mpbwd, nms, s2dconv, stem, tal,
-                                        topk)
+from leanyolo_tpu_torch.kernels import argmax, bnstats, dfl, dwconv, matmul, mpbwd, nms, s2dconv, stem, tal, topk
 from leanyolo_tpu_torch.models.yolov10.layers import maxpool2d_same
 from tal_cases import CARD_CASES, tal_case, tensors
 from torch_parity import cuda_device  # noqa: F401  (fixture)
@@ -503,6 +504,56 @@ def test_argmax_kernel(cuda_device, dtype, canon, b, n, sliced):
     assert torch.equal(gi, pi) and torch.equal(gv.view(bits), pv.view(bits))
 
 
+def poke(levels, where, value, g):
+    """Copies of per-level (reg, cls) maps with non-finite values in image 1
+    (image 0 stays finite): `value` ("+inf", "-inf", "nan", "-inf16": a
+    side's 16 bins, "two": +inf at two anchors of one class column) at a
+    random anchor of each level, in a class logit ("cls") or a reg bin."""
+    out = [(r.clone(), c.clone()) for r, c in levels]
+    for r, c in out:
+        a = int(torch.randint(0, c.shape[1], (1,), generator=g, device=c.device))
+        col = int(torch.randint(0, c.shape[2], (1,), generator=g, device=c.device))
+        side = col % 4
+        v = {"+inf": float("inf"), "-inf": float("-inf"), "nan": float("nan"), "two": float("inf"),
+             "-inf16": float("-inf")}[value]
+        if where == "cls":
+            c[1, a, col] = v
+            if value == "two":
+                c[1, (a + 5) % c.shape[1], col] = v
+        elif value == "-inf16":
+            r[1, a, side * 16:(side + 1) * 16] = v
+        else:
+            r[1, a, side * 16 + 3] = v
+    return out
+
+
+NONFINITE = [(w, v) for w in ("cls", "reg") for v in ("+inf", "-inf", "nan", "two")] + [("reg", "-inf16")]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("canon", [True, False])
+@pytest.mark.parametrize("case", [None] + NONFINITE)
+def test_argmax_flags_kernel(cuda_device, dtype, canon, case):
+    """max_argmax_flags on a batch-32 640 px map's levels (the class and reg
+    slices of concatenated maps, read in place): values, indices and flags
+    bit-equal to the plain version on the card and on the CPU, finite and
+    with non-finite values; one launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+    levels = _decode_levels(g, 32, 640, 80, dtype, True, cuda_device)
+    if case is not None:
+        levels = poke(levels, *case, g)
+    cls, reg = [c for _, c in levels], [r for r, _ in levels]
+    n0 = kernels.LAUNCHES["argmax"]
+    got = argmax.max_argmax_flags(cls, reg, canon_zero=canon)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["argmax"] == n0 + 1
+    for ref in (argmax.max_argmax_flags_plain(cls, reg, canon_zero=canon),
+                argmax.max_argmax_flags([c.cpu() for c in cls], [r.cpu() for r in reg], canon_zero=canon)):
+        assert all(_same_bits(a.cpu(), b.cpu()) for a, b in zip(got, ref))
+    # Image 1 flagged, but for a single -inf bin (its side's DFL is finite); image 0 never.
+    assert bool(got[2][1].any()) == (case not in (None, ("reg", "-inf"))) and not bool(got[2][0].any())
+
+
 def nms_inputs(g, b, n, device, grid):
     """Score-sorted candidates: boxes on an integer grid (IoUs exactly at
     0.5, 1/3, ...) or spread, scores descending with ties, classes 0..79."""
@@ -563,6 +614,32 @@ def test_nms_compact_kernel(cuda_device, b, n, class_wise, conf, iou, max_det):
     torch.cuda.synchronize()
     assert gd.shape == (b, max_det, 6) and gn.dtype == torch.int32
     assert torch.equal(gn, rn) and torch.equal(gd, rd)
+
+
+@pytest.mark.parametrize("column", [0, 2, 4])
+@pytest.mark.parametrize("value", ["nan", "inf", "two"])
+@pytest.mark.parametrize("max_det", [300, 20])
+def test_nms_compact_nonfinite_kernel(cuda_device, column, value, max_det):
+    """The compaction's one-hot-dot NaNs: a non-finite payload value of
+    image 1 (a box side, a score; at a kept or a dropped candidate, once or
+    twice in the column) makes its column NaN in every slot below
+    min(max_det, n) but its own candidate's alone; bit-equal to the plain
+    version."""
+    g = torch.Generator(device=cuda_device).manual_seed(16)
+    boxes, scores, cls = nms_inputs(g, 3, 1000, cuda_device, False)
+    for i in (0, 7, 500):
+        p = torch.cat([boxes, scores[..., None], cls[..., None]], dim=-1)
+        p[1, i, column] = float("nan") if value == "nan" else float("inf")
+        if value == "two":
+            p[1, i + 3, column] = float("inf")
+        b2, s2, c2 = p[..., :4].contiguous(), p[..., 4].contiguous(), p[..., 5].contiguous()
+        for class_wise in (False, True):
+            kw = dict(iou_thresh=0.45, conf_thresh=0.25, max_det=max_det, class_wise=class_wise)
+            gd, gn = nms.nms_compact(b2, s2, c2, **kw)
+            rd, rn = nms.nms_compact_plain(b2, s2, c2, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(gn, rn) and _same_bits(gd, rd)
+            assert not bool(torch.isnan(gd[[0, 2]]).any())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -713,12 +790,12 @@ def test_predictor_nms_on_the_card(cuda_device, dtype, monkeypatch):
     dets, num = pred.run_batch(imgs)
     torch.cuda.synchronize()
     assert (kernels.LAUNCHES["argmax"], kernels.LAUNCHES["topk"], kernels.LAUNCHES["nms"]) == (1, 1, 1)
-    assert (kernels.LAUNCHES["dfl_boxes"], kernels.LAUNCHES["gather_rows"]) == (1, 0)
+    assert kernels.LAUNCHES["dfl_boxes"] == 1
     assert dets.shape == (2, 300, 6) and num.shape == (2,)
     raw = pred.raw(imgs)
     kw = dict(num_classes=80, conf_thresh=0.001, iou_thresh=0.65, rank_dtype=torch.float32)
     got = decode_nms(raw, **kw)
-    monkeypatch.setattr(argmax, "max_argmax_levels", argmax.max_argmax_levels_plain)
+    monkeypatch.setattr(argmax, "max_argmax_flags", argmax.max_argmax_flags_plain)
     monkeypatch.setattr(topk, "topk", topk.topk_plain)
     monkeypatch.setattr(nms, "nms_compact", nms.nms_compact_plain)
     monkeypatch.setattr(dfl, "dfl_boxes", dfl.dfl_boxes_plain)
@@ -787,6 +864,7 @@ def test_serving_export_on_the_card(cuda_device, tmp_path, decode):
         torch.cuda.synchronize()
         assert kernels.LAUNCHES["stem_tc"] == 1 and kernels.LAUNCHES["bmm"] > 0 and kernels.LAUNCHES["topk"] == 1
         assert kernels.LAUNCHES["nms" if decode == "nms" else "argmax"] == 1
+        assert kernels.LAUNCHES["dfl_boxes"] == 1  # the selected anchors' boxes, no dense decode
         with torch.no_grad():
             ref = fn(x)
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
@@ -814,100 +892,161 @@ DECODE_SHAPES = [(32, 640, 300, 80), (32, 640, 1000, 80), (8, 320, 1500, 80), (1
                  (2, 128, 336, 80), (4, 320, 300, 3), (2, 256, 700, 37)]
 
 
+def _decode_inputs(levels, k1, g, device):
+    """Stage 1's anchors (k1 distinct a row, the last past the levels: a
+    zero row) and the levels' (h, w)."""
+    b, a = levels[0][0].shape[0], sum(r.shape[1] for r, _ in levels)
+    idx = torch.stack([torch.randperm(a, generator=g, device=device)[:k1] for _ in range(b)]).int()
+    idx[:, -1] = a + 3
+    side = int(round(levels[0][0].shape[1] ** 0.5))
+    return idx, [(side >> i, side >> i) for i in range(len(levels))]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,size,k,nc", DECODE_SHAPES)
 @pytest.mark.parametrize("concat", [False, True])
-def test_gather_rows_kernel(cuda_device, dtype, b, size, k, nc, concat):
+@pytest.mark.parametrize("k2", ["k", "1", "big"])
+def test_topk_decode_kernel(cuda_device, dtype, b, size, k, nc, concat, k2):
+    """The fused second top-k (K2's gather as its key builder, K3 as its
+    epilogue) bit-equal to its plain composition gather_rows_plain ->
+    topk_plain -> dfl_boxes_plain on the card, with stage 1's k anchors,
+    ties and signed zeros (coarse logits), at k2 = min(k, pairs), 1 and
+    above RANK_MAX_K (the bitonic route) where the pairs allow; and within
+    5e-4 of the pixel scale of the plain version on the CPU, classes and
+    order exact."""
     g = torch.Generator(device=cuda_device).manual_seed(12)
-    cls = [c for _, c in _decode_levels(g, b, size, nc, dtype, concat, cuda_device)]
-    a = sum(c.shape[1] for c in cls)
-    idx = torch.stack([torch.randperm(a, generator=g, device=cuda_device)[:k] for _ in range(b)]).int()
-    idx[:, -1] = a + 3  # past the levels: a zero row
-    n0 = kernels.LAUNCHES["gather_rows"]
-    got = gather.gather_rows(cls, idx)
+    levels = _decode_levels(g, b, size, nc, dtype, concat, cuda_device)
+    idx, hw = _decode_inputs(levels, k, g, cuda_device)
+    kk = {"k": min(k, k * nc), "1": 1, "big": min(k * nc, 2600)}[k2]
+    cls, reg = [c for _, c in levels], [r for r, _ in levels]
+    canon = dtype == torch.bfloat16 and kk < k * nc <= 32768
+    flags = argmax.flags_plain(cls, reg)
+    n0 = kernels.LAUNCHES["topk"]
+    got = topk.topk_decode(cls, reg, hw, (8, 16, 32), idx, kk, canon_zero=canon, flags=flags)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["gather_rows"] == n0 + 1
-    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
-    ref = gather.gather_rows_plain(cls, idx)
-    assert got.shape == (b, k, nc) and torch.equal(got.view(bits), ref.view(bits))
-    assert torch.equal(got.cpu().view(bits), gather.gather_rows([c.cpu() for c in cls], idx.cpu()).view(bits))
-    assert not bool(torch.signbit(got[got == 0].float()).any()) and not got[:, -1].any()
+    assert kernels.LAUNCHES["topk"] == n0 + 1 and got.shape == (b, kk, 6) and got.dtype == torch.float32
+    ref = topk.topk_decode_plain(cls, reg, hw, (8, 16, 32), idx, kk, canon_zero=canon, flags=flags)
+    assert _same_bits(got, ref)
+    cpu = topk.topk_decode([c.cpu() for c in cls], [r.cpu() for r in reg], hw, (8, 16, 32), idx.cpu(), kk,
+                           canon_zero=canon, flags=flags.cpu())
+    assert torch.equal(got.cpu()[..., 5], cpu[..., 5])
+    assert float((got.cpu()[..., :4] - cpu[..., :4]).abs().max()) <= 5e-4 * size
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", NONFINITE)
+@pytest.mark.parametrize("k", [300, 1])
+def test_topk_decode_nonfinite_kernel(cuda_device, dtype, case, k):
+    """The fused second top-k on batch-32 640 px maps with non-finite values
+    in image 1 (flags from the max/argmax kernel, stage 1's anchors from the
+    top-k kernel, as decode_topk runs them): bit-equal to its plain
+    composition, NaNs' bits included; image 0's rows equal to the finite
+    maps'."""
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    levels = _decode_levels(g, 32, 640, 80, dtype, True, cuda_device)
+    poked = poke(levels, *case, g)
+    hw = [(80, 80), (40, 40), (20, 20)]
+    outs = []
+    for lv in (poked, levels):
+        cls, reg = [c for _, c in lv], [r for r, _ in lv]
+        vals, _, flags = argmax.max_argmax_flags(cls, reg, canon_zero=False)
+        _, idx = topk.topk(vals, 300, canon_zero=dtype == torch.bfloat16)
+        canon = dtype == torch.bfloat16 and k < 300 * 80
+        got = topk.topk_decode(cls, reg, hw, (8, 16, 32), idx, k, canon_zero=canon, flags=flags)
+        ref = topk.topk_decode_plain(cls, reg, hw, (8, 16, 32), idx, k, canon_zero=canon, flags=flags)
+        torch.cuda.synchronize()
+        assert _same_bits(got, ref)
+        outs.append(got)
+    assert _same_bits(outs[0][0], outs[1][0])
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,size,k,nc", DECODE_SHAPES)
 @pytest.mark.parametrize("concat", [False, True])
-@pytest.mark.parametrize("mode", ["nms", "topk"])
+@pytest.mark.parametrize("mode", ["nms", "flags"])
 def test_dfl_boxes_kernel(cuda_device, dtype, b, size, k, nc, concat, mode):
-    """Both modes bit-equal to the plain version on the card (every column),
-    and within 5e-4 of the pixel scale of the plain version on the CPU."""
+    """NMS mode bit-equal to the plain version on the card, without flags
+    and with the flags of maps holding non-finite values (every column,
+    NaNs' bits included), and within 5e-4 of the pixel scale of the plain
+    version on the CPU where finite."""
     g = torch.Generator(device=cuda_device).manual_seed(13)
     levels = _decode_levels(g, b, size, nc, dtype, concat, cuda_device)
+    flags = None
+    if mode == "flags" and b > 1:
+        levels = poke(levels, "reg", "nan", g)
+    if mode == "flags":
+        flags = argmax.flags_plain([c for _, c in levels], [r for r, _ in levels])
     regs = [r for r, _ in levels]
     hw = [(size // s, size // s) for s in (8, 16, 32)]
-    a = sum(r.shape[1] for r in regs)
-    anchors = torch.stack([torch.randperm(a, generator=g, device=cuda_device)[:k] for _ in range(b)]).int()
-    kw = {}
-    if mode == "topk":
-        pairs = torch.stack([torch.randperm(k * nc, generator=g, device=cuda_device)[:k] for _ in range(b)]).int()
-        kw = dict(pair_idx=pairs, pair_logits=(torch.randn(b, k, generator=g, device=cuda_device) * 4).to(dtype),
-                  num_classes=nc)
+    anchors, _ = _decode_inputs(levels, k, g, cuda_device)
     n0 = kernels.LAUNCHES["dfl_boxes"]
-    got = dfl.dfl_boxes(regs, hw, (8, 16, 32), anchors, **kw)
+    got = dfl.dfl_boxes(regs, hw, (8, 16, 32), anchors, flags=flags)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["dfl_boxes"] == n0 + 1
-    assert got.shape == (b, k, 6 if mode == "topk" else 4) and got.dtype == torch.float32
-    ref = dfl.dfl_boxes_plain(regs, hw, (8, 16, 32), anchors, **kw)
-    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert got.shape == (b, k, 4) and got.dtype == torch.float32
+    ref = dfl.dfl_boxes_plain(regs, hw, (8, 16, 32), anchors, flags=flags)
+    assert _same_bits(got, ref)
     cpu = dfl.dfl_boxes_plain([r.cpu() for r in regs], hw, (8, 16, 32), anchors.cpu(),
-                              **{n: (v.cpu() if torch.is_tensor(v) else v) for n, v in kw.items()})
-    assert float((got.cpu()[..., :4] - cpu[..., :4]).abs().max()) <= 5e-4 * size
+                              flags=None if flags is None else flags.cpu())
+    assert torch.equal(torch.isnan(got.cpu()), torch.isnan(cpu))
+    fin = ~torch.isnan(cpu)
+    assert float((got.cpu()[fin] - cpu[fin]).abs().max()) <= 5e-4 * size
 
 
 def test_decode_wrappers_route_by_device_and_raise(cuda_device, monkeypatch):
     """CPU tensors never reach the kernels, CUDA tensors never the plain
-    versions; the kernel takes reg_max 16 only and int32 indices."""
+    versions; the kernels take reg_max 16 only, int32 indices and flags of
+    the class maps' width."""
     g = torch.Generator(device=cuda_device).manual_seed(14)
     levels = _decode_levels(g, 2, 64, 80, torch.bfloat16, True, cuda_device)
     regs, cls = [r for r, _ in levels], [c for _, c in levels]
     hw = [(8, 8), (4, 4), (2, 2)]
     idx = torch.randint(0, 84, (2, 9), generator=g, device=cuda_device, dtype=torch.int32)
     counts = dict(kernels.LAUNCHES)
-    gather.gather_rows([c.cpu() for c in cls], idx.cpu())
-    dfl.dfl_boxes([r.cpu() for r in regs], hw, (8, 16, 32), idx.cpu())
+    flags = argmax.max_argmax_flags([c.cpu() for c in cls], [r.cpu() for r in regs], canon_zero=False)[2]
+    topk.topk_decode([c.cpu() for c in cls], [r.cpu() for r in regs], hw, (8, 16, 32), idx.cpu(), 5,
+                     canon_zero=True, flags=flags)
+    dfl.dfl_boxes([r.cpu() for r in regs], hw, (8, 16, 32), idx.cpu(), flags=flags)
     assert kernels.LAUNCHES == counts
 
     def refuse(*a, **k):
         raise AssertionError("a CUDA tensor reached a plain version")
 
-    monkeypatch.setattr(gather, "gather_rows_plain", refuse)
-    monkeypatch.setattr(dfl, "dfl_boxes_plain", refuse)
-    gather.gather_rows(cls, idx)
-    dfl.dfl_boxes(regs, hw, (8, 16, 32), idx)
+    for mod, name in ((topk, "topk_decode_plain"), (topk, "topk_plain"), (dfl, "dfl_boxes_plain"),
+                      (argmax, "max_argmax_flags_plain"), (argmax, "flags_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    flags = argmax.max_argmax_flags(cls, regs, canon_zero=False)[2]
+    topk.topk_decode(cls, regs, hw, (8, 16, 32), idx, 5, canon_zero=True, flags=flags)
+    dfl.dfl_boxes(regs, hw, (8, 16, 32), idx, flags=flags)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["gather_rows"] == counts["gather_rows"] + 1
+    assert kernels.LAUNCHES["topk"] == counts["topk"] + 1
     assert kernels.LAUNCHES["dfl_boxes"] == counts["dfl_boxes"] + 1
+    assert kernels.LAUNCHES["argmax"] == counts["argmax"] + 1
     with pytest.raises(ValueError):  # reg_max 8
         dfl.dfl_boxes([r[..., :32] for r in regs], hw, (8, 16, 32), idx)
     with pytest.raises(ValueError):  # int64 indices
-        gather.gather_rows(cls, idx.long())
+        topk.topk_decode(cls, regs, hw, (8, 16, 32), idx.long(), 5, canon_zero=True, flags=flags)
     with pytest.raises(ValueError):
-        gather.gather_rows([c.half() for c in cls], idx)
+        topk.topk_decode([c.half() for c in cls], regs, hw, (8, 16, 32), idx, 5, canon_zero=True, flags=flags)
+    with pytest.raises(ValueError):  # flags on the CPU
+        topk.topk_decode(cls, regs, hw, (8, 16, 32), idx, 5, canon_zero=True, flags=flags.cpu())
+    with pytest.raises(ValueError):  # flags of another class count
+        topk.topk_decode(cls, regs, hw, (8, 16, 32), idx, 5, canon_zero=True, flags=flags[:, :-3])
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_predictor_decode_launches(cuda_device, dtype, monkeypatch):
-    """A folded Predictor's top-k request launches argmax 1, top-k 2,
-    gather_rows 1 and dfl_boxes 1; its NMS request argmax 1, top-k 1,
-    dfl_boxes 1 and nms 1; each decode bit-equal to the all-plain decode on
-    the same head maps."""
+    """A folded Predictor's top-k request launches argmax 1 and top-k 2
+    (stage 1 and the fused second top-k), no dfl_boxes; its NMS request
+    argmax 1, top-k 1, dfl_boxes 1 and nms 1; each decode bit-equal to the
+    all-plain decode on the same head maps."""
     from leanyolo_tpu_torch import Predictor, YOLOv10
     from leanyolo_tpu_torch.models.yolov10.decode import decode_topk
 
     model = YOLOv10.create("yolov10s", class_names=[f"c{i}" for i in range(80)], seed=0)
     imgs = torch.randint(0, 256, (2, 320, 320, 3), dtype=torch.uint8, device=cuda_device)
-    names = ("argmax", "topk", "gather_rows", "dfl_boxes", "nms")
-    for decode, want in (("topk", (1, 2, 1, 1, 0)), ("nms", (1, 1, 0, 1, 1))):
+    names = ("argmax", "topk", "dfl_boxes", "nms")
+    for decode, want in (("topk", (1, 2, 0, 0)), ("nms", (1, 1, 1, 1))):
         pred = Predictor(model, imgsz=320, decode=decode, dtype=dtype, fuse=True)
         kernels.reset_launches()
         pred.run_batch(imgs)
@@ -915,8 +1054,8 @@ def test_predictor_decode_launches(cuda_device, dtype, monkeypatch):
         assert tuple(kernels.LAUNCHES[n] for n in names) == want, decode
     raw = pred.raw(imgs)  # the NMS branch's maps serve both decodes here
     got = decode_topk(raw, num_classes=80)
-    for mod, name, plain in ((argmax, "max_argmax_levels", argmax.max_argmax_levels_plain),
-                             (topk, "topk", topk.topk_plain), (gather, "gather_rows", gather.gather_rows_plain),
+    for mod, name, plain in ((argmax, "max_argmax_flags", argmax.max_argmax_flags_plain),
+                             (topk, "topk", topk.topk_plain), (topk, "topk_decode", topk.topk_decode_plain),
                              (dfl, "dfl_boxes", dfl.dfl_boxes_plain)):
         monkeypatch.setattr(mod, name, plain)
     n0 = dict(kernels.LAUNCHES)
@@ -928,7 +1067,8 @@ def test_predictor_decode_launches(cuda_device, dtype, monkeypatch):
 def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     if a.dtype != b.dtype or a.shape != b.shape:
         return False
-    return torch.equal(a.view(torch.int32), b.view(torch.int32)) if a.dtype == torch.float32 else torch.equal(a, b)
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}.get(a.dtype)
+    return torch.equal(a.view(bits), b.view(bits)) if bits else torch.equal(a, b)
 
 
 @pytest.mark.parametrize("topk", [10, 1, 16])

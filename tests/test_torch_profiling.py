@@ -307,9 +307,10 @@ def test_capture_and_summarize_trace(tmp_path):
     assert "ms/step" in txt and s.plane in txt and "CPU operator self time" in txt
 
 
-@pytest.mark.parametrize("mode", ["infer", "train"])
+@pytest.mark.parametrize("mode", ["infer", "train", "export"])
 def test_profile_step_cli(tmp_path, capsys, mode):
-    """profile_step end to end on a tiny model on the CPU, with its JSON."""
+    """profile_step end to end on a tiny model on the CPU, with its JSON
+    (export: a request of the serving export's reloaded artifact)."""
     argv = ["--model", "yolov10n", "--weights", "none", "--mode", mode, "--imgsz", "64", "--batch-size", "2",
             "--dtype", "float32", "--steps", "2", "--max-boxes", "4", "--device", "cpu",
             "--out-dir", str(tmp_path / "prof"), "--json", str(tmp_path / "p.json")]
@@ -317,9 +318,11 @@ def test_profile_step_cli(tmp_path, capsys, mode):
     out = capsys.readouterr().out
     assert "CPU operator self time" in out and "plane: cpu" in out
     data = json.load(open(tmp_path / "p.json"))
-    assert set(data) == {"plane", "total_ms_per_step", "steps", "wall_ms_median", "peak_gib", "families"}
+    assert set(data) == {"plane", "total_ms_per_step", "steps", "wall_ms_median", "event_ms_median", "peak_gib",
+                         "families"}
     assert data["plane"] == "cpu" and data["steps"] == 2 and data["total_ms_per_step"] > 0 and data["families"]
-    assert data["wall_ms_median"] > 0 and data["peak_gib"] is None  # peak memory is the card's
+    assert data["wall_ms_median"] > 0
+    assert data["event_ms_median"] is None and data["peak_gib"] is None  # CUDA events and peak memory are the card's
     assert "ms/step (host clock, median of the 2 profiled steps)" in out
     assert all(set(f) == {"name", "ms_per_step", "count", "example"} for f in data["families"])
     names = {f["name"] for f in data["families"]}
