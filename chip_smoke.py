@@ -39,8 +39,10 @@ Phases, each of which fails loudly (non-zero exit):
    at k = 10 and 1, at each case of tests/tal_cases.py (a padded slot that
    wins the highest-CIoU resolve, the anchor-0 fallback, zero-align
    members, identical boxes, k >= A, 1, 16 and 128 slots, the concatenated
-   head's strided scores, an all-padded image, 640 px) and at the training
-   step's [32, 16, 8400] with 80 classes, and a batch against its halves;
+   head's strided scores, an all-padded image, 640 px, 1536 px with ties
+   and a NaN logit on both sides of the candidates kernel's first pass,
+   2560 px in three passes) and at the training step's [32, 16, 8400] with
+   80 classes, and a batch against its halves;
 4. the serving path: yolov10s at full width and depth, random weights from a
    seed, folded to bf16, answers uint8 requests of batch 1, 8 and 32 through
    Predictor.run_batch; the launches of every kernel are counted per request
@@ -268,6 +270,20 @@ Phases, each of which fails loudly (non-zero exit):
    The bf16 top-k's agreement with one process is printed, not held: a
    cuDNN sum rounded the other way moves these random weights' bf16 logits
    by whole units.
+16. training past one pass of the candidates kernel (run after 8): one
+   yolov10n step at 1536 px, batch 2 (A = 48,384; 3's cases hold the
+   kernel at 48,384 and 134,400 anchors): a finite loss, the assignment's
+   2 + 2 launches, and the step's two assignments bit-equal to the plain
+   version in check mode;
+17. the bench CLIs (run after 14's profile_step): bench on yolov10s 640
+   top-k at batch 32 with a short chain as a user runs it (`python -m
+   leanyolo_tpu_torch.tools.bench`), alone on the card, printed beside 32 /
+   5's request time from an idle card; then through their main(argv) in
+   this process bench --latency for both decodes, bench_train (yolov10n,
+   batch 8, 4 steps) and bench_matrix over yolov10n's infer, nms and train
+   cells at batch 8 with --out; bench_regression (`python -m`) of that file
+   against itself (exit 0) and against a copy with one cell doubled (exit
+   1). Each JSON line names its metric as the JAX bench does, and the card.
 
 Before the card's line at the end, the run prints the seconds it spent on
 the decode kernels' (the fused second top-k, K3, K4's flags) checks and
@@ -295,6 +311,8 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+from leanyolo_tpu_torch.utils.profiling import card_line, events_ms, wall_ms  # noqa: E402  (the port's timers)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense) for the bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -415,37 +433,6 @@ def stop_jobs() -> None:
         if j.proc.poll() is None:
             j.proc.kill()
             j.proc.wait()
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()
-    return out[0]
-
-
-def cuda_ms(fn, *, warmup: int = 3, runs: int = 20, inner: int = 1) -> float:
-    """Median milliseconds of fn() over `runs` timed runs, CUDA events, each
-    run the mean of `inner` back-to-back calls. With inner=1 the card waits
-    for the host to launch fn (a request from an idle card); kernel times
-    use KERNEL_INNER, so the card runs them back to back and a short
-    kernel's time is not its launch's."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
 
 
 KERNEL_INNER = 10
@@ -1286,10 +1273,10 @@ def phase_main(model, seed: int, records: dict):
     return pred, torch.from_numpy(requests[BATCH]).cuda()
 
 
-def time_stem(bb, g, plain: bool = False) -> dict:
+def time_stem(bb, g, plain: bool = False, device: bool = True) -> dict:
     """The bf16 stem of a folded backbone `bb` at [32,640,640,3] uint8, as
-    the path calls it (weights packed once): the kernel (CUDA events and
-    device time), cuDNN's conv + bias + SiLU twice in channels_last, the
+    the path calls it (weights packed once): the kernel (CUDA events and,
+    where `device`, device time), cuDNN's conv + bias + SiLU twice in channels_last, the
     plain version where asked, the bound, and the SiLU floor (two
     special-function operations (ex2, rcp) per conv0 output, with the 8x16
     tile's halo 561 of every 512, and per conv1 output, 16 a clock per SM; a
@@ -1311,11 +1298,12 @@ def time_stem(bb, g, plain: bool = False) -> dict:
 
     packed = (bb.stem_w0p, bb.stem_w1p)
     r = {}
-    r["ms"] = cuda_ms(lambda: stem.fused_stem(images, w0, b0, w1, b1, packed=packed), inner=KERNEL_INNER)
-    r["device_ms"] = device_ms(lambda: stem.fused_stem(images, w0, b0, w1, b1, packed=packed))
+    r["ms"] = events_ms(lambda: stem.fused_stem(images, w0, b0, w1, b1, packed=packed), inner=KERNEL_INNER)
+    if device:
+        r["device_ms"] = device_ms(lambda: stem.fused_stem(images, w0, b0, w1, b1, packed=packed))
     if plain:
-        r["plain_ms"] = cuda_ms(lambda: stem.fused_stem_plain(images, w0, b0, w1, b1, dtype=bf), inner=KERNEL_INNER)
-    r["library_ms"] = cuda_ms(library, inner=KERNEL_INNER)
+        r["plain_ms"] = events_ms(lambda: stem.fused_stem_plain(images, w0, b0, w1, b1, dtype=bf), inner=KERNEL_INNER)
+    r["library_ms"] = events_ms(library, inner=KERNEL_INNER)
     r["bound_ms"], r["bound_by"] = bounds.bound(*bounds.stem_work(BATCH, IMGSZ, IMGSZ, c0, c1))
     sms, clock = torch.cuda.get_device_properties(0).multi_processor_count, sm_clock_hz()
     h0, h1 = IMGSZ // 2, IMGSZ // 4
@@ -1341,16 +1329,16 @@ def time_decode_kernels(records: dict, pred, x32) -> None:
     call = lambda: topk.topk_decode(cls, regs, hw, STRIDES, idx, MAX_DET, canon_zero=True,  # noqa: E731
                                     flags=flags)
     r = records["topk_decode"]
-    r["ms"] = cuda_ms(call, inner=KERNEL_INNER)
+    r["ms"] = events_ms(call, inner=KERNEL_INNER)
     r["device_ms"] = device_ms(call)
     r["host_us"] = host_us(call, n=200)
-    r["plain_ms"] = cuda_ms(lambda: topk.topk_decode_plain(cls, regs, hw, STRIDES, idx, MAX_DET, canon_zero=True,
+    r["plain_ms"] = events_ms(lambda: topk.topk_decode_plain(cls, regs, hw, STRIDES, idx, MAX_DET, canon_zero=True,
                                                            flags=flags), inner=KERNEL_INNER)
     r["library_ms"] = None
     set_bound(r, *bounds.topk_decode_work(BATCH, MAX_DET, NC, MAX_DET, cls[0].element_size()), "fp32")
     sel = gather.gather_rows_plain(cls, idx, flags).reshape(BATCH, -1)
     alone = lambda: topk.topk(sel, MAX_DET, canon_zero=True)  # noqa: E731
-    r["stage2_topk_ms"], r["stage2_topk_device_ms"] = cuda_ms(alone, inner=KERNEL_INNER), device_ms(alone)
+    r["stage2_topk_ms"], r["stage2_topk_device_ms"] = events_ms(alone, inner=KERNEL_INNER), device_ms(alone)
     print(f"topk_decode [{BATCH},{MAX_DET}] x {NC} bf16 pairs of the three levels -> [{BATCH},{MAX_DET},6], one "
           f"launch: kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), host {r['host_us']:.2f} us a call; plain "
           f"composition {r['plain_ms']:.4f}, library none, bound {r['bound_ms']:.6f} ({r['bound_by']}); the "
@@ -1386,9 +1374,9 @@ def phase_times(folded, seed: int, records: dict, pred, x32, calls: dict) -> dic
     xc = x.permute(0, 3, 1, 2)  # channels_last view of the NHWC tensor
     wc = w.contiguous(memory_format=torch.channels_last)
     r = records["dw7x7"]
-    r["ms"] = cuda_ms(lambda: dwconv.dw7x7_bias_silu(x, w49, b), inner=KERNEL_INNER)
-    r["plain_ms"] = cuda_ms(lambda: dwconv.dw7x7_bias_silu_plain(x, w49, b), inner=KERNEL_INNER)
-    r["library_ms"] = cuda_ms(lambda: F.silu(F.conv2d(xc, wc, b, 1, 3, 1, c)), inner=KERNEL_INNER)
+    r["ms"] = events_ms(lambda: dwconv.dw7x7_bias_silu(x, w49, b), inner=KERNEL_INNER)
+    r["plain_ms"] = events_ms(lambda: dwconv.dw7x7_bias_silu_plain(x, w49, b), inner=KERNEL_INNER)
+    r["library_ms"] = events_ms(lambda: F.silu(F.conv2d(xc, wc, b, 1, 3, 1, c)), inner=KERNEL_INNER)
     set_bound(r, 2 * x.numel() * 2 + 2 * (w.numel() + b.numel()), 2 * 49 * x.numel(), "bf16")
     print(f"dw7x7 {list(x.shape)} bf16: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, cuDNN conv+bias+SiLU "
           f"{r['library_ms']:.4f}, bound {r['bound_ms']:.6f} ({r['bound_by']})", flush=True)
@@ -1401,15 +1389,15 @@ def phase_times(folded, seed: int, records: dict, pred, x32, calls: dict) -> dic
     nbytes = nops = 0
     for n in (8400, 24000):
         xs = torch.randn(BATCH, n, generator=g, device=dev).to(bf)
-        ms += cuda_ms(lambda: topk.topk(xs, MAX_DET, canon_zero=True), inner=KERNEL_INNER)
+        ms += events_ms(lambda: topk.topk(xs, MAX_DET, canon_zero=True), inner=KERNEL_INNER)
         dev_ms += device_ms(lambda: topk.topk(xs, MAX_DET, canon_zero=True))
-        plain += cuda_ms(lambda: topk.topk_plain(xs, MAX_DET, canon_zero=True), inner=KERNEL_INNER)
-        lib += cuda_ms(lambda: torch.topk(xs, MAX_DET, dim=-1), inner=KERNEL_INNER)
+        plain += events_ms(lambda: topk.topk_plain(xs, MAX_DET, canon_zero=True), inner=KERNEL_INNER)
+        lib += events_ms(lambda: torch.topk(xs, MAX_DET, dim=-1), inner=KERNEL_INNER)
         print(f"topk [{BATCH},{n}] k={MAX_DET}: cumulative kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
               f"{plain:.4f}, torch.topk {lib:.4f}", flush=True)
         for k in (1500, n):
-            t_k = cuda_ms(lambda: topk.topk(xs, k, canon_zero=True), inner=KERNEL_INNER)
-            t_l = cuda_ms(lambda: torch.topk(xs, k, dim=-1), inner=KERNEL_INNER)
+            t_k = events_ms(lambda: topk.topk(xs, k, canon_zero=True), inner=KERNEL_INNER)
+            t_l = events_ms(lambda: torch.topk(xs, k, dim=-1), inner=KERNEL_INNER)
             print(f"topk [{BATCH},{n}] bf16 k={k}: kernel {t_k:.4f} ms, torch.topk {t_l:.4f}", flush=True)
         nb, no = bounds.topk_work(BATCH, n, MAX_DET, xs.element_size())
         nbytes, nops = nbytes + nb, nops + no
@@ -1427,10 +1415,10 @@ def phase_times(folded, seed: int, records: dict, pred, x32, calls: dict) -> dic
     w3 = cv1.conv.weight.contiguous(memory_format=torch.channels_last)
     xc = x.permute(0, 3, 1, 2)  # channels_last view of the NHWC tensor
     r = records["s2dconv"]
-    r["ms"] = cuda_ms(lambda: s2dconv.conv3x3_c32_bias_silu(x, w_s2d, b), inner=KERNEL_INNER)
+    r["ms"] = events_ms(lambda: s2dconv.conv3x3_c32_bias_silu(x, w_s2d, b), inner=KERNEL_INNER)
     r["device_ms"] = device_ms(lambda: s2dconv.conv3x3_c32_bias_silu(x, w_s2d, b))
-    r["plain_ms"] = cuda_ms(lambda: s2dconv.conv3x3_c32_bias_silu_plain(x, w_s2d, b), inner=KERNEL_INNER)
-    r["library_ms"] = cuda_ms(lambda: F.silu(F.conv2d(xc, w3, b, 1, 1)), inner=KERNEL_INNER)
+    r["plain_ms"] = events_ms(lambda: s2dconv.conv3x3_c32_bias_silu_plain(x, w_s2d, b), inner=KERNEL_INNER)
+    r["library_ms"] = events_ms(lambda: F.silu(F.conv2d(xc, w3, b, 1, 1)), inner=KERNEL_INNER)
     set_bound(r, *bounds.s2dconv_work(*x.shape[:3], elt=x.element_size()), "bf16")
     silu_floor = 2 * x.numel() / (16 * sms * clock) * 1e3
     print(f"s2dconv {list(x.shape)} bf16: kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
@@ -1448,9 +1436,9 @@ def phase_times(folded, seed: int, records: dict, pred, x32, calls: dict) -> dic
     ms = plain = lib = bound_ms = t_bytes = t_ops = k_dev = l_dev = 0.0
     per_shape = {}
     for x, w, bias, act in calls["bmm"]:
-        k_ms = cuda_ms(lambda: matmul.bmm(x, w, bias, act), inner=KERNEL_INNER)
-        plain += cuda_ms(lambda: matmul.bmm_plain(x, w, bias, act), inner=KERNEL_INNER)
-        l_ms = cuda_ms(lambda: torch.matmul(x, w), inner=KERNEL_INNER)
+        k_ms = events_ms(lambda: matmul.bmm(x, w, bias, act), inner=KERNEL_INNER)
+        plain += events_ms(lambda: matmul.bmm_plain(x, w, bias, act), inner=KERNEL_INNER)
+        l_ms = events_ms(lambda: torch.matmul(x, w), inner=KERNEL_INNER)
         kd_ms = device_ms(lambda: matmul.bmm(x, w, bias, act))
         ld_ms = device_ms(lambda: torch.matmul(x, w))
         k_dev, l_dev = k_dev + kd_ms, l_dev + ld_ms
@@ -1486,7 +1474,7 @@ def phase_times(folded, seed: int, records: dict, pred, x32, calls: dict) -> dic
     for which in ("plain", "kernels", "kernels", "plain"):
         ctx = plain_kernels() if which == "plain" else contextlib.nullcontext()
         with ctx:
-            step[which].append(cuda_ms(lambda: pred.run_batch(x32), warmup=3, runs=20))
+            step[which].append(events_ms(lambda: pred.run_batch(x32), warmup=3, runs=20))
     for which, ms in step.items():
         print(f"serving path yolov10s 640 bf16 batch {BATCH}, {which}: ms/batch {ms[0]:.4f} {ms[1]:.4f}, "
               f"img/s {BATCH / ms[0] * 1e3:.2f} {BATCH / ms[1] * 1e3:.2f} (uint8 batch already on the card)",
@@ -1528,7 +1516,7 @@ def phase_times(folded, seed: int, records: dict, pred, x32, calls: dict) -> dic
     families = {}
     for e in events:
         families[_family(e.key)] = families.get(_family(e.key), 0.0) + e.self_device_time_total / 5 / 1e3
-    return {"total_ms": total / 5 / 1e3, "families": families}
+    return {"total_ms": total / 5 / 1e3, "families": families, "run_batch_ms": min(step["kernels"])}
 
 
 def argmax_rows(g, shape, dtype):
@@ -1782,12 +1770,12 @@ def phase_nms_times(seed: int, records: dict, pred, x32) -> None:
     maps = pred.raw(x32)
     levels = [c.reshape(BATCH, -1, NC) for _, c in maps]
     r = records["argmax"]
-    r["ms"] = cuda_ms(lambda: argmax.max_argmax_levels(levels, canon_zero=False), inner=KERNEL_INNER)
+    r["ms"] = events_ms(lambda: argmax.max_argmax_levels(levels, canon_zero=False), inner=KERNEL_INNER)
     r["device_ms"] = device_ms(lambda: argmax.max_argmax_levels(levels, canon_zero=False))
-    r["plain_ms"] = cuda_ms(lambda: argmax.max_argmax_levels_plain(levels, canon_zero=False), inner=KERNEL_INNER)
-    r["library_ms"] = cuda_ms(lambda: [torch.max(c, dim=-1) for c in levels], inner=KERNEL_INNER)
+    r["plain_ms"] = events_ms(lambda: argmax.max_argmax_levels_plain(levels, canon_zero=False), inner=KERNEL_INNER)
+    r["library_ms"] = events_ms(lambda: [torch.max(c, dim=-1) for c in levels], inner=KERNEL_INNER)
     set_bound(r, *bounds.argmax_work(BATCH * sum(c.shape[1] for c in levels), NC), "fp32")
-    per_level = [cuda_ms(lambda: argmax.max_argmax_levels([c], canon_zero=False), inner=KERNEL_INNER)
+    per_level = [events_ms(lambda: argmax.max_argmax_levels([c], canon_zero=False), inner=KERNEL_INNER)
                  for c in levels]
     print(f"argmax levels {[list(c.shape) for c in levels]} bf16, one launch: kernel {r['ms']:.4f} ms (device "
           f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f}, torch.max x3 {r['library_ms']:.4f}, bound "
@@ -1796,8 +1784,8 @@ def phase_nms_times(seed: int, records: dict, pred, x32) -> None:
     # reg maps read too, the flags zeroed by a memset first.
     regs = [r_.reshape(BATCH, -1, r_.shape[-1]) for r_, _ in maps]
     call = lambda: argmax.max_argmax_flags(levels, regs, canon_zero=False)  # noqa: E731
-    t = {"ms": cuda_ms(call, inner=KERNEL_INNER), "device_ms": device_ms(call), "host_us": host_us(call, n=200),
-         "plain_ms": cuda_ms(lambda: argmax.max_argmax_flags_plain(levels, regs, canon_zero=False),
+    t = {"ms": events_ms(call, inner=KERNEL_INNER), "device_ms": device_ms(call), "host_us": host_us(call, n=200),
+         "plain_ms": events_ms(lambda: argmax.max_argmax_flags_plain(levels, regs, canon_zero=False),
                              inner=KERNEL_INNER)}
     set_bound(t, *bounds.argmax_flags_work(BATCH, sum(c.shape[1] for c in levels), NC), "fp32")
     r["flags"] = t
@@ -1813,9 +1801,9 @@ def phase_nms_times(seed: int, records: dict, pred, x32) -> None:
         _, anc = topk.topk(best, 1000, canon_zero=False)
         for name, fl in (("flags", flags), ("no flags", None)):
             call = lambda: dfl.dfl_boxes(regs, hw, STRIDES, anc, flags=fl)  # noqa: E731
-            t = {"ms": cuda_ms(call, inner=KERNEL_INNER), "device_ms": device_ms(call),
+            t = {"ms": events_ms(call, inner=KERNEL_INNER), "device_ms": device_ms(call),
                  "host_us": host_us(call, n=200),
-                 "plain_ms": cuda_ms(lambda: dfl.dfl_boxes_plain(regs, hw, STRIDES, anc, flags=fl),
+                 "plain_ms": events_ms(lambda: dfl.dfl_boxes_plain(regs, hw, STRIDES, anc, flags=fl),
                                      inner=KERNEL_INNER)}
             set_bound(t, *bounds.dfl_boxes_work(BATCH, 1000, regs[0].element_size(), flags=fl is not None), "fp32")
             if fl is not None:
@@ -1862,8 +1850,8 @@ def phase_nms_times(seed: int, records: dict, pred, x32) -> None:
             direct = lambda: ext.nms(bx, sc, cl, None, nms.f32(iou), True, nms.f32(conf),  # noqa: E731
                                      kw["class_wise"], off, False, kw["max_det"])
             # Device time at the path's batch; batch 1 by CUDA events.
-            t = {"ms": cuda_ms(call, inner=KERNEL_INNER), **({"device_ms": device_ms(call)} if b == BATCH else {}),
-                 "plain_ms": cuda_ms(lambda: nms.nms_compact_plain(bx, sc, cl, **kw), warmup=1, runs=3),
+            t = {"ms": events_ms(call, inner=KERNEL_INNER), **({"device_ms": device_ms(call)} if b == BATCH else {}),
+                 "plain_ms": events_ms(lambda: nms.nms_compact_plain(bx, sc, cl, **kw), warmup=1, runs=3),
                  "host_us": host_us(call, n=200), "host_us_direct": host_us(direct, n=200),
                  "pairs_evaluated": evaluated, "pairs_needed": needed}
             set_bound(t, nbytes, nops, "fp32")
@@ -1883,7 +1871,7 @@ def phase_nms_times(seed: int, records: dict, pred, x32) -> None:
     # The NMS request: batch 32 and batch 1, one request from an idle card.
     x1 = x32[:1].contiguous()
     for b, x in ((BATCH, x32), (1, x1)):
-        ms = cuda_ms(lambda: pred.run_batch(x), warmup=3, runs=20)
+        ms = events_ms(lambda: pred.run_batch(x), warmup=3, runs=20)
         print(f"nms serving path yolov10s 640 bf16 batch {b}: ms/request {ms:.4f}, img/s {b / ms * 1e3:.2f} "
               f"(uint8 batch already on the card)", flush=True)
     from torch.profiler import ProfilerActivity, profile
@@ -2107,7 +2095,7 @@ def phase_weights(model, seed: int, card: str) -> None:
         cudnn.deterministic, cudnn.benchmark = saved
     # Timed with cuDNN's usual algorithms, as the serving phase times the path;
     # the device time tells the card's share from the host's.
-    request_ms = cuda_ms(lambda: pred.run_batch(x32))
+    request_ms = events_ms(lambda: pred.run_batch(x32))
     request_device_ms = device_ms(lambda: pred.run_batch(x32), reps=5)
     del pred
     for lvl, (f_lvl, s_lvl) in enumerate(zip(fused32, src32)):
@@ -2498,13 +2486,17 @@ def phase_variants(seed: int, records: dict) -> None:
         check_paths(preds["bfloat16"], preds["float32"], x, name, cpu32)
         del cpu32
         bb = preds["bfloat16"].model.backbone
-        t = time_stem(bb, torch.Generator(device="cuda").manual_seed(seed + 20 + i))
-        # The stem kernels its device-time profile recorded, of KERNEL_INNER launched.
-        records_seen = sum(n for k, n in LAST_PROFILE.items() if "stem_tc_kernel" in k)
+        # The device profile only where it is held (yolov10s, against
+        # profile_step's): a profile late in a run can take several padded
+        # tries (`profiled`), seconds each.
+        t = time_stem(bb, torch.Generator(device="cuda").manual_seed(seed + 20 + i), device=name == "yolov10s")
         t = {"variant": name, "c0": bb.cv0.conv.weight.shape[0], "c1": bb.cv1.conv.weight.shape[0], **t}
+        # The stem kernels its device-time profile recorded, of KERNEL_INNER launched.
+        seen = sum(n for k, n in LAST_PROFILE.items() if "stem_tc_kernel" in k)
+        dev = (f" (device {t['device_ms']:.4f}, from {seen} kernel records of {KERNEL_INNER} launches)"
+               if "device_ms" in t else "")
         print(f"stem {name} (c0, c1) = ({t['c0']}, {t['c1']}) [{BATCH},{IMGSZ},{IMGSZ},3] uint8 -> bf16: kernel "
-              f"{t['ms']:.4f} ms (device {t['device_ms']:.4f}, from {records_seen} kernel records of "
-              f"{KERNEL_INNER} launches), cuDNN conv+bias+SiLU x2 {t['library_ms']:.4f}, "
+              f"{t['ms']:.4f} ms{dev}, cuDNN conv+bias+SiLU x2 {t['library_ms']:.4f}, "
               f"bound {t['bound_ms']:.6f} ({t['bound_by']}), SiLU floor {t.pop('silu_floor_ms'):.6f}", flush=True)
         by_width.append(t)
         lo, hi = STEM_PROFILE_STEP_MS
@@ -2765,21 +2757,9 @@ def capture_tal_calls(tr, batch, gen) -> list:
     """The assignment's inputs in one training step of `tr` (one2many at k =
     10, one2one at k = 1), copied, each held: the kernels against the plain
     version, bit for bit (check mode)."""
-    import torch
-    from leanyolo_tpu_torch.kernels import tal
+    from leanyolo_tpu_torch.tools.time_train_kernels import capture_tal_calls as capture
 
-    calls, assign = [], tal.assign
-
-    def spy(*a, **kw):  # copies that keep each input's strides
-        calls.append(([torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=t.device).copy_(t) for t in a],
-                      dict(kw)))
-        return assign(*a, **kw)
-
-    tal.assign = spy
-    try:
-        tr.train_step(batch, gen)
-    finally:
-        tal.assign = assign
+    calls = capture(tr, batch, gen)
     if [kw["topk"] for _, kw in calls] != [10, 1]:
         fail(f"a training step called the assignment with topk {[kw['topk'] for _, kw in calls]}, expected [10, 1]")
     for args, kw in calls:
@@ -2804,10 +2784,10 @@ def phase_train_times(seed: int, records: dict, tal_calls: list) -> None:
     xc, dyc = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)  # channels_last NCHW views, as in the model
     _, idx = F.max_pool2d(xc, 5, 1, 2, return_indices=True)
     r = records["mpbwd"]
-    r["ms"] = cuda_ms(lambda: mpbwd.mpbwd(x, dy), inner=KERNEL_INNER)
+    r["ms"] = events_ms(lambda: mpbwd.mpbwd(x, dy), inner=KERNEL_INNER)
     r["device_ms"] = device_ms(lambda: mpbwd.mpbwd(x, dy))
-    r["plain_ms"] = cuda_ms(lambda: mpbwd.mpbwd_plain(x, dy), inner=KERNEL_INNER)
-    r["library_ms"] = cuda_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+    r["plain_ms"] = events_ms(lambda: mpbwd.mpbwd_plain(x, dy), inner=KERNEL_INNER)
+    r["library_ms"] = events_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
         dyc, xc, [5, 5], [1, 1], [2, 2], [1, 1], False, idx), inner=KERNEL_INNER)
     set_bound(r, *bounds.mpbwd_work(*x.shape, k=5, elt=x.element_size()), "fp32")
     print(f"mpbwd [{BATCH},20,20,256] bf16 ({mpbwd.route(x, dy, x)} route): kernel {r['ms']:.4f} ms (device "
@@ -2817,7 +2797,7 @@ def phase_train_times(seed: int, records: dict, tal_calls: list) -> None:
     # 16-byte vector (printed, no record).
     xg = torch.randn(BATCH, 20, 20, 255, generator=g, device="cuda").to(torch.bfloat16)
     dyg = torch.randn(BATCH, 20, 20, 255, generator=g, device="cuda").to(torch.bfloat16)
-    t_g = cuda_ms(lambda: mpbwd.mpbwd(xg, dyg), inner=KERNEL_INNER)
+    t_g = events_ms(lambda: mpbwd.mpbwd(xg, dyg), inner=KERNEL_INNER)
     print(f"mpbwd [{BATCH},20,20,255] bf16 ({mpbwd.route(xg, dyg, xg)} route): kernel {t_g:.4f} ms", flush=True)
     del x, dy, xg, dyg, xc, dyc, idx
     with check_time(BN_CHECK_S, "K8 timed"):
@@ -2829,53 +2809,16 @@ def phase_train_times(seed: int, records: dict, tal_calls: list) -> None:
 def time_tal(records: dict, calls: list) -> None:
     """The assignment's two kernels on a training step's own inputs (`calls`:
     one2many at k = 10 and one2one at k = 1), each kernel alone, summed over
-    the step's two calls: CUDA events (the mean of 10 back-to-back launches),
-    the profiler's device time, the plain version's matching pass
-    (candidates_plain, targets_plain), and the bound (bounds.tal_work, on the
-    valid slots, the images that hold one and the (slot, anchor) pairs
-    inside a box of these inputs). No single PyTorch call computes the
-    assignment: library none."""
-    import torch
-    from leanyolo_tpu_torch.kernels import bounds, tal
+    the step's two calls (tools/time_train_kernels.py::time_tal_calls):
+    CUDA events (the mean of 10 back-to-back launches), the profiler's
+    device time, the plain version's matching pass and the bound. No single
+    PyTorch call computes the assignment: library none."""
+    from leanyolo_tpu_torch.tools.time_train_kernels import time_tal_calls
 
-    recs = {name: records[name] for name in TAL_PER_STEP}
-    for r in recs.values():
-        r.update(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None)
-    nbytes, nops = {"candidates": 0, "targets": 0}, {"candidates": 0, "targets": 0}
-    for args, kw in calls:
-        scores, pd, anc, labels, gt, mask = args
-        topk, nc = kw["topk"], kw["num_classes"]
-        b, a, c = scores.shape
-        inputs = tal._inputs(*args, topk)
-        w, h = tal.candidates(scores, inputs)[:2]
-        k = min(topk, a)
-        plain_in = tal.candidates_plain(*args, k)
-        winners, has_any, mask_in, overlaps, _ = plain_in
-        row = {"candidates": (lambda: tal.candidates(scores, inputs), lambda: tal.candidates_plain(*args, k)),
-               "targets": (lambda: tal.targets(inputs, w, h, nc),
-                           lambda: tal.targets_plain(winners, has_any, mask_in, overlaps, labels, gt, nc,
-                                                     scores.dtype))}
-        valid = int(mask.sum())
-        images = int(mask.any(1).sum())
-        inside = int(mask_in.sum())
-        line = []
-        for part, (kernel, plain) in row.items():
-            r = recs[f"tal_{part}"]
-            t = (cuda_ms(kernel, inner=KERNEL_INNER), device_ms(kernel),
-                 cuda_ms(plain, warmup=1, runs=5, inner=2))
-            work = bounds.tal_work(b, labels.shape[1], a, c, topk, valid=valid, images=images, inside=inside,
-                                   part=part)
-            nbytes[part] += work[0]
-            nops[part] += work[1]
-            for key, v in zip(("ms", "device_ms", "plain_ms"), t):
-                r[key] += v
-            line.append(f"{part} {t[0]:.5f} ms (device {t[1]:.5f}), plain {t[2]:.5f}, bound "
-                        f"{bounds.bound(*work, bounds.FP32_OPS_PER_S)[0]:.6f}")
-        print(f"tal k = {topk}, [{b}, {labels.shape[1]}, {a}] {c} classes, {valid} valid slots in {images} images, "
-              f"{inside} (slot, anchor) pairs inside: {'; '.join(line)}", flush=True)
-    for part in ("candidates", "targets"):
-        set_bound(recs[f"tal_{part}"], nbytes[part], nops[part], "fp32")
-    f, t = recs["tal_candidates"], recs["tal_targets"]
+    timed = time_tal_calls(calls, full=True)
+    for name in TAL_PER_STEP:
+        records[name].update(timed[name], library_ms=None)
+    f, t = records["tal_candidates"], records["tal_targets"]
     print(f"tal, a batch-{BATCH} yolov10s {IMGSZ} training step's two calls summed: tal_candidates {f['ms']:.5f} ms "
           f"(device {f['device_ms']:.5f}), plain {f['plain_ms']:.4f}, bound {f['bound_ms']:.6f} ({f['bound_by']}); "
           f"tal_targets {t['ms']:.5f} ms (device {t['device_ms']:.5f}), plain {t['plain_ms']:.4f}, bound "
@@ -2884,124 +2827,143 @@ def time_tal(records: dict, calls: list) -> None:
 
 def time_bn_moments(seed: int, records: dict) -> None:
     """K8 forward and backward summed over the 99 BN inputs of a batch-32
-    yolov10s 640 bf16 training forward, as bmm's 45 calls are summed: each of
-    the 14 shapes timed once (CUDA events, mean of 10 back-to-back launches)
-    and counted as often as the step has it, beside the plain version and
-    the library's one call for the same function: torch.batch_norm_stats(y,
-    1e-3) for the forward (mean and invstd), torch.addcmul(g_s1, y, g_s2,
-    value=2, out=dy) for the backward (fp32 math, written to a tensor of
-    y's dtype and layout); timed only. The device time (profiler) from
-    profiles of the step's 99 launches in order (`bn_step_device_ms`)."""
-    from collections import Counter
+    yolov10s 640 bf16 training forward (tools/time_train_kernels.py::time_bn:
+    each of the 14 shapes timed once and counted as often as the step has
+    it), beside the plain version and the library's one call for the same
+    function (torch.batch_norm_stats, torch.addcmul; timed only); the device
+    time from profiles of the step's 99 launches in order."""
+    from leanyolo_tpu_torch.tools.time_train_kernels import time_bn
 
-    import torch
-    from leanyolo_tpu_torch.kernels import bnstats, bounds
-
-    g = torch.Generator(device="cuda").manual_seed(seed + 19)
-    counts = Counter(train_bn_shapes())
+    timed = time_bn(seed, full=True)
     f, b = records["bn_moments"], records["bn_moments_bwd"]
-    for r in (f, b):
-        r.update(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bound_by="bytes")
-    ins = {}
-    print("bn_moments per shape (bf16 channels_last, BNs of the step, R): kernel ms, plain ms, "
-          "torch.batch_norm_stats ms, bound ms | backward: kernel ms, plain ms, torch.addcmul ms, bound ms",
-          flush=True)
-    for shape, k in sorted(counts.items(), key=lambda kv: -kv[0][1] * kv[0][2] * kv[0][3]):
-        y = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16).contiguous(
-            memory_format=torch.channels_last)
-        g1, g2 = torch.randn(shape[1], generator=g, device="cuda"), torch.randn(shape[1], generator=g, device="cuda")
-        ins[shape] = (y, g1, g2)
-        rows = shape[0] * shape[2] * shape[3]
-        dy = torch.empty_like(y)
-        row = [cuda_ms(lambda: bnstats.bn_moments(y), inner=KERNEL_INNER),
-               cuda_ms(lambda: bnstats.bn_moments_plain(y), warmup=1, runs=5, inner=2),
-               cuda_ms(lambda: torch.batch_norm_stats(y, 1e-3), inner=KERNEL_INNER),
-               bounds.bound(*bounds.bn_moments_work(rows, shape[1]), bounds.FP32_OPS_PER_S)[0],
-               cuda_ms(lambda: bnstats.bn_moments_bwd(y, g1, g2), inner=KERNEL_INNER),
-               cuda_ms(lambda: bnstats.bn_moments_bwd_plain(y, g1, g2), warmup=1, runs=5, inner=2),
-               cuda_ms(lambda: torch.addcmul(g1.view(1, -1, 1, 1), y, g2.view(1, -1, 1, 1), value=2.0, out=dy),
-                       inner=KERNEL_INNER),
-               bounds.bound(*bounds.bn_moments_bwd_work(rows, shape[1]), bounds.FP32_OPS_PER_S)[0]]
-        for r, part in ((f, row[:4]), (b, row[4:])):
-            for key, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"), part):
-                r[key] += k * v
-        print(f"  {list(shape)} x{k} G {bnstats.slots(rows, shape[1])} steps {bnstats.rows_per_lane(rows, shape[1])}: "
-              f"{' '.join(f'{v:.5f}' for v in row[:4])} | {' '.join(f'{v:.5f}' for v in row[4:])}", flush=True)
-    step = [(tuple(shape), ins[shape]) for shape in train_bn_shapes()]
-    f["device_ms"], f["device_records"], by_shape = bn_step_device_ms(
-        "bn_moments", [(shape, lambda y=y: bnstats.bn_moments(y)) for shape, (y, _, _) in step])
-    print("bn_moments device ms a launch by shape (the step's launches in a row): "
-          + ", ".join(f"{list(sh)} x{counts[sh]} {ms:.5f}" for sh, ms in by_shape.items()), flush=True)
-    b["device_ms"], b["device_records"], _ = bn_step_device_ms(
-        "bn_moments_bwd", [(shape, lambda a=a: bnstats.bn_moments_bwd(*a)) for shape, a in step])
-    print(f"bn_moments, the {len(step)} BNs of a batch-{BATCH} yolov10s {IMGSZ} bf16 training forward, summed: "
-          f"kernel {f['ms']:.4f} ms (device {f['device_ms']:.4f}, the 99 in a row, {f['device_records']}), plain "
-          f"{f['plain_ms']:.4f}, torch.batch_norm_stats {f['library_ms']:.4f}, bound {f['bound_ms']:.4f} (bytes); "
-          f"bn_moments_bwd: kernel {b['ms']:.4f} ms (device {b['device_ms']:.4f}, {b['device_records']}), plain "
-          f"{b['plain_ms']:.4f}, torch.addcmul {b['library_ms']:.4f}, bound {b['bound_ms']:.4f} (bytes); "
+    f.update(timed["bn_moments"])
+    b.update(timed["bn_moments_bwd"])
+    print(f"bn_moments, the {len(train_bn_shapes())} BNs of a batch-{BATCH} yolov10s {IMGSZ} bf16 training forward, "
+          f"summed: kernel {f['ms']:.4f} ms (device {f['device_ms']:.4f}, the 99 in a row, {f['device_records']}), "
+          f"plain {f['plain_ms']:.4f}, torch.batch_norm_stats {f['library_ms']:.4f}, bound {f['bound_ms']:.4f} "
+          f"(bytes); bn_moments_bwd: kernel {b['ms']:.4f} ms (device {b['device_ms']:.4f}, {b['device_records']}), "
+          f"plain {b['plain_ms']:.4f}, torch.addcmul {b['library_ms']:.4f}, bound {b['bound_ms']:.4f} (bytes); "
           f"{card_line()}", flush=True)
 
 
-def bn_step_device_ms(kernel: str, launches: list, calls: int = 2) -> tuple:
-    """(device ms of the step's launches, "K of M kernel records kept",
-    {shape: mean device ms of its kept records}):
-    `launches` is [(shape, fn)], each fn launching `kernel` once, run in
-    order `calls` times a profile.
+WIDE_IMGSZ = 1536  # 192^2 + 96^2 + 48^2 = 48,384 anchors: the candidates kernel in two passes
 
-    A profile can lose kernel records (`profiled`), and one kernel of 14
-    shapes whose launches differ 7x in time gives no mean that stands for
-    the step. Each kept kernel record is matched to its launch by the
-    correlation id it shares with the launch's runtime record, so its shape
-    is known, and the step's time is each shape's mean kept record times the
-    step's count of the shape: a lost record moves no weight between shapes.
-    A profile is taken again, four times at most, until every shape has a
-    record; a profile whose runtime records are not one a launch is not
-    used."""
-    from collections import Counter
+
+def phase_wide_train(seed: int) -> None:
+    """One yolov10n training step at 1536 px, batch 2 (bench_train.py's
+    draw): A = 48,384 anchors, past the candidates kernel's one pass; the
+    step's two assignments held to the plain version bit for bit (check
+    mode), and the step's launches."""
+    import numpy as np
+    import torch
+    from leanyolo_tpu_torch import TrainConfig, Trainer, YOLOv10, kernels
+    from leanyolo_tpu_torch.kernels import tal
+    from leanyolo_tpu_torch.tools.bench_train import synthetic_batch
+    from leanyolo_tpu_torch.tools.time_train_kernels import capture_tal_calls as capture
+    from types import SimpleNamespace
+
+    images, labels, boxes, mask = synthetic_batch(2, WIDE_IMGSZ, TRAIN_GT, seed)
+    mask[:, :2] = True
+    up = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    batch = SimpleNamespace(images=up(images), gt_labels=up(labels), gt_boxes=up(boxes), gt_mask=mask)
+    tr = Trainer(YOLOv10.create("yolov10n", class_names=[f"c{i}" for i in range(NC)], seed=seed),
+                 TrainConfig(bf16=True, augment=True, grad_clip=1.0, steps_per_epoch=1000))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    before = dict(kernels.LAUNCHES)
+    losses = tr.train_step(batch, gen)
+    torch.cuda.synchronize()
+    launched = {name: kernels.LAUNCHES[name] - before[name] for name in TAL_PER_STEP}
+    total = float(losses["total"])
+    if launched != TAL_PER_STEP or not np.isfinite(total):
+        fail(f"yolov10n {WIDE_IMGSZ} px training step: tal launches {launched}, loss {total}")
+    calls = capture(tr, batch, gen)
+    for args, kw in calls:
+        if args[0].shape[1] <= tal.PASS_A:
+            fail(f"the {WIDE_IMGSZ} px step's assignment has {args[0].shape[1]} anchors, not past {tal.PASS_A}")
+        tal_check(args, kw["topk"], f"a {WIDE_IMGSZ} px training step's inputs {list(args[0].shape)}")
+    print(f"train yolov10n {WIDE_IMGSZ} px bf16 batch 2: loss {total:.4f}, tal launches {launched}; its "
+          f"assignments (A = {calls[0][0][0].shape[1]}, k = 10 and 1) bit-equal to the plain version", flush=True)
+
+
+BENCH_CHAIN = 8  # back-to-back requests a timed chain of the bench phase
+BENCH_GAP = 0.15  # the chained figure and the idle-card request's, apart by more: explained in PERF.md
+
+
+def bench_json(out: str, metric: str, card: str) -> dict:
+    """The bench CLI's JSON line, held to its metric name and the card."""
+    import torch
+
+    line = json.loads(out.strip().splitlines()[-1])
+    d = line["detail"]
+    if line["metric"] != metric or not line["value"] > 0 or (d["device"], d["card"]) != (
+            torch.cuda.get_device_name(0), card):
+        fail(f"bench: {line}, expected {metric} on {card}")
+    return line
+
+
+def bench_main(main, argv) -> str:
+    """A bench CLI's main(argv) in this process (grad on, as a CLI runs):
+    its standard output."""
+    import io
 
     import torch
-    from leanyolo_tpu_torch.utils.profiling import _family
-    from torch.profiler import ProfilerActivity, profile
 
-    for _, fn in launches:
-        fn()
-    torch.cuda.synchronize()
-    counts = Counter(shape for shape, _ in launches)
-    kept, us = Counter(), Counter()
-    taken = 0
-    for attempt in range(4):
-        pad = PROFILE_PAD_S * 2 ** attempt
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(pad)
-            for _ in range(calls):
-                for _, fn in launches:
-                    fn()
-            torch.cuda.synchronize()
-            time.sleep(pad)
-        events = prof.events()
-        runtime = sorted((e for e in events if e.device_type.name == "CPU" and "LaunchKernel" in e.name),
-                         key=lambda e: e.time_range.start)
-        records = {e.id: e.time_range.elapsed_us() for e in events
-                   if e.device_type.name == "CUDA" and _family(e.name) == kernel + "_kernel"}
-        if len(runtime) != calls * len(launches):
-            print(f"{kernel} step profile {attempt + 1}: {len(runtime)} launch records of "
-                  f"{calls * len(launches)}; profiling again", flush=True)
-            continue
-        taken += calls * len(launches)
-        for (shape, _), e in zip(launches * calls, runtime):
-            if e.id in records:
-                kept[shape] += 1
-                us[shape] += records[e.id]
-        if all(kept[shape] for shape in counts):
-            break
-    if not all(kept[shape] for shape in counts):
-        fail(f"{kernel} step profile: shapes with no kernel record in {attempt + 1} profiles: "
-             f"{[list(s) for s in counts if not kept[s]]}")
-    by_shape = {shape: us[shape] / kept[shape] / 1e3 for shape in counts}
-    ms = sum(by_shape[shape] * n for shape, n in counts.items())
-    kept_line = f"{sum(kept.values())} of {taken} kernel records kept"
-    print(f"{kernel} step profile: {kept_line}", flush=True)
-    return ms, kept_line, by_shape
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), torch.enable_grad():
+        main(argv)
+    return out.getvalue()
+
+
+def phase_bench(card: str, run_batch_ms: float, tmp: str) -> None:
+    """The bench CLIs: bench (yolov10s 640 top-k, batch 32, a chain of
+    BENCH_CHAIN) as a user runs it, a process of its own alone on the card,
+    beside 32 / the serving path's batch-32 request time from an idle card
+    (phase 5's CUDA events); in this process, through their main(argv),
+    bench --latency for both decodes, bench_train (yolov10n 640, batch 8, 4
+    steps) and bench_matrix over yolov10n's infer, nms and train cells at
+    batch 8 with --out; then, two processes at once, bench_regression of
+    that file against itself (exit 0) and against a copy with one cell
+    doubled (exit 1)."""
+    from leanyolo_tpu_torch.tools import bench, bench_matrix, bench_train
+
+    out, _, wall = run_tool("bench", ["--batch-sizes", BATCH, "--chain", BENCH_CHAIN])
+    ips = bench_json(out, "yolov10s_640_bf16_images_per_sec_per_chip", card)["value"]
+    idle = BATCH / run_batch_ms * 1e3
+    print(f"bench yolov10s 640 bf16 top-k batch {BATCH}, a chain of {BENCH_CHAIN}: {ips} img/s ({wall:.1f} s); "
+          f"{BATCH} / the idle-card request's {run_batch_ms:.4f} ms: {idle:.2f} img/s; chained / idle "
+          f"{ips / idle:.3f}{' (apart by more than 15%)' if abs(ips / idle - 1) > BENCH_GAP else ''}; {card}",
+          flush=True)
+    t0 = time.perf_counter()
+    for decode, tag in (("topk", ""), ("nms", "_nms")):
+        out = bench_main(bench.main, ["--latency", "--decode", decode, "--chains", "8,32"])
+        line = bench_json(out, f"yolov10s_640_bf16{tag}_bs1_latency_ms", card)
+        print(f"bench --latency --decode {decode}: {line['value']} ms a request, "
+              f"{line['detail']['wall_ms_per_step_by_chain']} ms a request by chain", flush=True)
+    out = bench_main(bench_train.main, ["--variant", "yolov10n", "--batch-sizes", "8", "--steps", "4"])
+    line = bench_json(out, "yolov10n_640_bf16_train_images_per_sec_per_chip", card)
+    print(f"bench_train yolov10n 640 bf16 batch 8, 4 steps: {line['value']} img/s", flush=True)
+    path = os.path.join(tmp, "bench_matrix.json")
+    out = bench_main(bench_matrix.main, ["--variants", "yolov10n", "--modes", "infer,nms,train", "--batch-sizes", "8",
+                                         "--chain", "4", "--steps", "2", "--out", path])
+    with open(path) as f:
+        table = json.load(f)
+    cells = table["cells"]
+    if sorted(cells) != ["yolov10n/infer", "yolov10n/nms", "yolov10n/train"] or table["card"] != card or not all(
+            c["batch_size"] == 8 and c["images_per_sec_per_chip"] > 0 for c in cells.values()):
+        fail(f"bench_matrix: {table}")
+    print(f"bench_matrix yolov10n at batch 8: {out.strip().splitlines()[-5:-2]}; the three CLIs in this process "
+          f"took {time.perf_counter() - t0:.1f} s", flush=True)
+    doubled = json.loads(json.dumps(table))
+    doubled["cells"]["yolov10n/nms"]["images_per_sec_per_chip"] *= 2
+    with open(os.path.join(tmp, "doubled.json"), "w") as f:
+        json.dump(doubled, f)
+    same, gate = run_at_once([tool_argv("bench_regression", ["--baseline", base, "--current", path])
+                              for base in (path, os.path.join(tmp, "doubled.json"))])
+    if same[2] != 0 or gate[2] != 1 or "yolov10n/nms" not in gate[0].split("FAILED")[-1]:
+        fail(f"bench_regression: against itself rc {same[2]}: {same[0]}; against a doubled cell rc {gate[2]}: "
+             f"{gate[0]}")
+    print("bench_regression: the matrix against itself exits 0, against a copy with yolov10n/nms doubled exits 1",
+          flush=True)
 
 
 # Phase 11: training from a folder, as a user trains.
@@ -3621,22 +3583,6 @@ def host_us(fn, n: int = 2000) -> float:
     return dt / n * 1e6
 
 
-def wall_ms(fn, runs: int = 20) -> float:
-    """Median host milliseconds of fn() from an idle card to its finish."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
-
-
 def same_bits(a, b) -> bool:
     import torch
 
@@ -3751,10 +3697,10 @@ def phase_nms_bf16(seed: int, records: dict) -> None:
     modes = {"bf16": lambda: nms.nms_compact(*b16, **kw), "fp32": lambda: nms.nms_compact(boxes, scores, cls, **kw)}
     ms = {k: [] for k in modes}
     for k in ("bf16", "fp32", "fp32", "bf16"):
-        ms[k].append(cuda_ms(modes[k], inner=KERNEL_INNER))
+        ms[k].append(events_ms(modes[k], inner=KERNEL_INNER))
     records["nms"]["bf16_ms"] = statistics.mean(ms["bf16"])
     records["nms"]["bf16_device_ms"] = device_ms(modes["bf16"])
-    records["nms"]["bf16_plain_ms"] = cuda_ms(lambda: nms.nms_compact_plain(*b16, **kw), warmup=1, runs=3)
+    records["nms"]["bf16_plain_ms"] = events_ms(lambda: nms.nms_compact_plain(*b16, **kw), warmup=1, runs=3)
     print(f"kernel nms at [{BATCH},1000] class-wise, conf 0.25, IoU 0.45 (CUDA events, mean of 10 launches, median "
           f"of 20, in turns bf16, fp32, fp32, bf16): bf16 mode {ms['bf16']}, fp32 mode {ms['fp32']} ms; bf16 "
           f"device {records['nms']['bf16_device_ms']:.4f} ms; plain bf16 {records['nms']['bf16_plain_ms']:.3f} ms",
@@ -3825,7 +3771,7 @@ def phase_export(model, seed: int, card: str) -> None:
                 runs = {"artifact": lambda: art(xs[b]), "live": lambda: fn(xs[b]), "predictor": lambda: pred.run_batch(xb)}
                 ms = {k: [] for k in runs}
                 for k in ("artifact", "live", "predictor", "predictor", "live", "artifact"):
-                    ms[k].append(cuda_ms(runs[k], runs=EXPORT_RUNS))
+                    ms[k].append(events_ms(runs[k], runs=EXPORT_RUNS))
                 print(f"{label} request ms at batch {b} (CUDA events, median of {EXPORT_RUNS} from an idle card, two "
                       f"runs in "
                       f"turns): artifact {ms['artifact']}, live build_serving_fn {ms['live']}, Predictor.run_batch "
@@ -5040,15 +4986,11 @@ def set_bound(r: dict, nbytes: float, nops: float, kind: str) -> None:
 
 
 def main() -> int:
-    if not os.path.isdir(os.path.join(HERE, "leanyolo_tpu_torch")):
-        print("chip_smoke.py: the leanyolo_tpu_torch package is not beside this script", file=sys.stderr)
-        return 2
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, HERE)
     # fp32 comparisons hold plain fp32 math: no TF32 in cuDNN or matmuls.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5135,9 +5077,14 @@ def main() -> int:
     phase_train_times(SEED, records, tal_calls)
     del tal_calls
     done("train")
+    with torch.enable_grad():
+        phase_wide_train(SEED)
+    done(f"train at {WIDE_IMGSZ} px")
     phase_profile_step(card, serving_profile)
     done("profile_step")
     with tempfile.TemporaryDirectory() as tmp:
+        phase_bench(card, serving_profile["run_batch_ms"], tmp)
+        done("bench CLIs")
         with torch.enable_grad():
             sets = phase_train_folder(SEED, records, card, tmp)
         # From here to the end of phase_tools the card is shared: the

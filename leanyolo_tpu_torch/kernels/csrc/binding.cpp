@@ -535,12 +535,19 @@ std::vector<torch::Tensor> tal_candidates(torch::Tensor scores, torch::Tensor pd
                   scores.dim() == 3 && scores.size(0) == a.B && scores.size(1) == a.A && scores.stride(2) == 1 &&
                   scores.size(2) >= 1 && scores.size(2) < (int64_t(1) << 31),
               "tal_candidates: pd_scores float32 [B, A, C] beside pd_bboxes, unit stride in C");
-  TORCH_CHECK(a.A <= TAL_CLUSTER * TAL_MAX_CHUNK, "tal_candidates: A at most ", TAL_CLUSTER * TAL_MAX_CHUNK);
-  TORCH_CHECK(int64_t((a.A + TAL_CLUSTER - 1) / TAL_CLUSTER) * scores.size(2) < (int64_t(1) << 30),
-              "tal_candidates: a chunk's logits (A / ", TAL_CLUSTER, " x C) under 2^30");
+  const int64_t pass_a = int64_t(TAL_CLUSTER) * TAL_MAX_CHUNK;  // anchors of a pass
+  TORCH_CHECK(int64_t((std::min<int64_t>(a.A, pass_a) + TAL_CLUSTER - 1) / TAL_CLUSTER) * scores.size(2) <
+                  (int64_t(1) << 30),
+              "tal_candidates: a chunk's logits (A / ", TAL_CLUSTER, " x C, a pass) under 2^30");
   const auto f = scores.options();
   std::vector<torch::Tensor> out{torch::empty({a.B, a.N, TAL_MAX_K}, f.dtype(at::kInt)),
                                  torch::empty({a.B, a.N}, f.dtype(at::kByte))};
+  // Each row's winners carried from pass to pass, where the anchors take more than one.
+  torch::Tensor carry;
+  if (a.A > pass_a) {
+    carry = torch::empty({a.B, a.N, TAL_MAX_K}, f.dtype(at::kLong));
+    a.carry = reinterpret_cast<unsigned long long*>(carry.data_ptr<int64_t>());
+  }
   if (check_mode) {
     out.push_back(torch::empty({a.B, a.N, a.A}, f));
     out.push_back(torch::empty({a.B, a.N, a.A}, f));

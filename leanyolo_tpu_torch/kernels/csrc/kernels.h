@@ -224,7 +224,10 @@ cudaError_t launch_bn_moments_bwd(const void* y, const float* g_s1, const float*
 // most TAL_MAX_K and below A, unless all_members (k >= A: every anchor a
 // member). The alignment is s ** 0.5 (sqrt) * CIoU ** beta (powf, beta =
 // 6 at run time, as torch's kernel takes it). eps: has_any's threshold; cv:
-// float(4 / pi ** 2). overlaps and align [B, N, A]
+// float(4 / pi ** 2). carry: [B, N, TAL_MAX_K] 64-bit keys of scratch where
+// A > TAL_CLUSTER * TAL_MAX_CHUNK (the candidates kernel then takes the
+// anchors in passes and carries each row's winners across them), else
+// nullptr. overlaps and align [B, N, A]
 // fp32, or nullptr: with them (check mode) the candidates kernel writes every
 // row's CIoU and alignment. Outputs of the targets kernel, dense: out_labels
 // and out_idx [B, A] int32, out_bboxes [B, A, 4] fp32 (16-byte aligned),
@@ -232,7 +235,8 @@ cudaError_t launch_bn_moments_bwd(const void* y, const float* g_s1, const float*
 // B, N, A >= 1; B < 2^16.
 #define TAL_MAX_K 16
 // The candidates kernel: a cluster of TAL_CLUSTER CTAs an image, each
-// staging A / TAL_CLUSTER anchors (at most TAL_MAX_CHUNK: A <= 48,128).
+// staging A / TAL_CLUSTER anchors, at most TAL_MAX_CHUNK at a time: above
+// A = 48,128 in passes of that many.
 #define TAL_CLUSTER 8
 #define TAL_MAX_CHUNK 6016
 struct TalArgs {
@@ -248,6 +252,7 @@ struct TalArgs {
   float beta, eps, cv;
   int32_t* winners;
   uint8_t* has_any;
+  unsigned long long* carry;
   float* overlaps;
   float* align;
   int32_t* out_labels;

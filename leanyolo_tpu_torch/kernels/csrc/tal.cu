@@ -12,7 +12,9 @@
 //
 // tal_candidates_kernel: a cluster of TAL_CLUSTER (8) CTAs an image, CTA q
 // of it a chunk of A / 8 anchors, staged once in shared memory with each
-// predicted box's aspect angle (atanf once an anchor). A warp takes a GT row
+// predicted box's aspect angle (atanf once an anchor). Above TAL_CLUSTER x
+// TAL_MAX_CHUNK anchors (48,128) the image's anchors are taken in passes of
+// at most that many, each pass staged in turn (see "Passes" below). A warp takes a GT row
 // (the image's valid rows; every row in check mode) and walks the chunk, 32
 // anchors at a time, 8 logits of a lane in flight; per (row, anchor): the
 // inside test (each of the anchor's four distances to the box's sides >
@@ -37,6 +39,21 @@
 // a member and only has_any is needed. A check-only flag writes every row's
 // CIoU and align (padded ones too) so a caller can hold them to the plain
 // version's bits.
+//
+// Passes: where an image has more anchors than one staging holds, pass P
+// takes its anchors [P x 48,128, (P + 1) x 48,128), dealt to the cluster's
+// CTAs as above, and the row's merge takes the pass's 8 x k chunk winners
+// together with the row's k winners of the earlier passes, which the
+// merging warp carries from pass to pass in a small device-memory scratch
+// of [B, N, TAL_MAX_K] keys (the wrapper's; a row is merged by the same
+// warp of the same CTA in every pass, which alone reads and writes the
+// row's keys, across the CTA's barriers between passes). Keys
+// are unique, so the merge of exact per-pass winners is the exact top k in
+// rank order, whatever the split. The last pass writes winners and has_any.
+// A single pass (A <= 48,128, the 640 px step's 8,400) reads and writes no
+// scratch. Carrying the winners in device memory rather than in a register
+// list a row costs k 8-byte stores and loads a row a pass, and leaves the
+// row queue, which spreads the rows over every warp, as it is.
 //
 // tal_targets_kernel: one thread an anchor (b, a). GT n claims the anchor
 // when mask_gt[b, n], the anchor is inside GT n and it is in n's set (its
@@ -212,6 +229,7 @@ constexpr int ROW_GROUP = 64;  // rows whose chunk winners a CTA holds at once
 constexpr int MERGE_KEYS = TAL_CLUSTER * TAL_MAX_K / 32;  // keys a lane takes in the cluster's merge
 constexpr int BATCH = 8;       // anchors of a lane whose logits are loaded before they are used
 constexpr int SCAN = 8;        // loads of a lane in flight in the NaN scan
+constexpr int PASS_A = TAL_CLUSTER * TAL_MAX_CHUNK;  // anchors of an image a pass stages
 
 // One anchor of the CTA's chunk, staged once: its predicted box, its centre,
 // the box's aspect angle and whether the box is `tame`.
@@ -304,12 +322,12 @@ __device__ __forceinline__ void stripe_data(const Anchor* anc, const int* nan_an
   }
 }
 
-// The CTA's k best keys of GT row n over its anchors (list[rounds]), by one
-// warp.
+// The CTA's k best keys of GT row n over its anchors of the pass that starts
+// at anchor `base` (list[rounds]), by one warp.
 template <int KD>
-__device__ __forceinline__ void row_winners(const TalArgs& p, int q, int b, int n, int na, int mine, int rounds,
-                                            bool check, const Anchor* anc, const Stripe* stripe, const int* nan_any,
-                                            unsigned long long* list) {
+__device__ __forceinline__ void row_winners(const TalArgs& p, int q, int b, int n, int base, int na, int mine,
+                                            int rounds, bool check, const Anchor* anc, const Stripe* stripe,
+                                            const int* nan_any, unsigned long long* list) {
   const int lane = threadIdx.x % 32;
   const float* scores = p.scores + b * p.score_sb;
   const long long row = static_cast<long long>(b) * p.N + n;
@@ -347,7 +365,8 @@ __device__ __forceinline__ void row_winners(const TalArgs& p, int q, int b, int 
         const bool full = check || in || !(g_tame && d.tame && !nan);
         in_bits |= static_cast<unsigned>(in) << u;
         full_bits |= static_cast<unsigned>(full) << u;
-        if (full && has_cls && !nan) x[u] = __ldg(scores + static_cast<long long>(anchor_of(q, j)) * p.score_sa + cls);
+        if (full && has_cls && !nan)
+          x[u] = __ldg(scores + static_cast<long long>(base + anchor_of(q, j)) * p.score_sa + cls);
       }
     }
 #pragma unroll
@@ -355,7 +374,7 @@ __device__ __forceinline__ void row_winners(const TalArgs& p, int q, int b, int 
       const int m = m0 + u, j = m * STRIPE + lane;
       if (m >= mine) break;
       if ((skip_bits >> u & 1u) || j >= na) continue;
-      const int a = anchor_of(q, j);
+      const int a = base + anchor_of(q, j);
       float al = 0.0f;
       if (full_bits >> u & 1u) {
         const Anchor& d = anc[j];
@@ -382,14 +401,19 @@ __device__ __forceinline__ void row_winners(const TalArgs& p, int q, int b, int 
   }
 }
 
-// A CTA an (image b, TAL_CLUSTER-th of its anchors: stripes of 32 dealt in
-// turn, so a box's anchors spread over the cluster), the image's TAL_CLUSTER
-// CTAs one cluster. The CTA's anchors are staged first: each one's box data,
-// and whether any of its C logits is NaN (every logit read once). The warps
-// then take the rows to assign (the valid ones; every row in check mode)
-// from a queue, one at a time, and the cluster's CTAs merge each row's chunk
-// winners from their shared memory. KD >= rounds: the depth of a lane's list.
-template <int KD>
+// A CTA an (image b, TAL_CLUSTER-th of its anchors of a pass: stripes of 32
+// dealt in turn, so a box's anchors spread over the cluster), the image's
+// TAL_CLUSTER CTAs one cluster. A pass's anchors are staged first: each
+// one's box data, and whether any of its C logits is NaN (every logit read
+// once). The warps then take the rows to assign (the valid ones; every row
+// in check mode) from a queue, one at a time, and the cluster's CTAs merge
+// each row's chunk winners from their shared memory, with the row's winners
+// of the earlier passes. KD >= rounds: the depth of a lane's list. MULTI:
+// the anchors take more than one pass; the one-pass instance (every A up to
+// PASS_A, the 640 px step's 8,400 among them) carries nothing and keeps the
+// one-pass kernel's code: the pass loop and the carry slot in the one
+// kernel for every A made the 640 px step's candidates 38% slower.
+template <int KD, bool MULTI>
 __global__ void __launch_bounds__(CAND_THREADS, 3) tal_candidates_kernel(TalArgs p, int chunk, bool vec4) {
   extern __shared__ float4 dyn[];
   Anchor* anc = reinterpret_cast<Anchor*>(dyn);
@@ -402,81 +426,95 @@ __global__ void __launch_bounds__(CAND_THREADS, 3) tal_candidates_kernel(TalArgs
   const int q = static_cast<int>(cluster.block_rank()), b = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const bool check = p.overlaps != nullptr;
-  // The CTA's stripes: q, q + TAL_CLUSTER, ...; the image's last one may be short.
-  const int stripes = (p.A + STRIPE - 1) / STRIPE;
-  const int mine = q < stripes ? (stripes - 1 - q) / TAL_CLUSTER + 1 : 0;
-  const int na = mine * STRIPE - ((stripes - 1) % TAL_CLUSTER == q ? stripes * STRIPE - p.A : 0);
   const int rounds = p.all_members ? 1 : max(p.k, 1);  // the k winners, or one (has_any)
+  const int passes = MULTI ? (p.A + PASS_A - 1) / PASS_A : 1;
   const float* scores = p.scores + b * p.score_sb;
 
-  for (int i = threadIdx.x; i < na; i += CAND_THREADS) {
-    const int a = anchor_of(q, i);
-    const Box pb = load_box(p.pd + (static_cast<long long>(b) * p.A + a) * 4);
-    anc[i] = Anchor{make_float4(pb.x1, pb.y1, pb.x2, pb.y2), p.anc[2 * a], p.anc[2 * a + 1], aspect_atan(pb),
-                    tame(pb)};
-    nan_any[i] = 0;
-  }
   if (q == 0 && !check) {  // a padded row claims nothing
     for (int n = threadIdx.x; n < p.N; n += CAND_THREADS)
       if (!p.mask[static_cast<long long>(b) * p.N + n]) p.has_any[static_cast<long long>(b) * p.N + n] = 0;
   }
-  __syncthreads();
-  if (vec4) {
-    scan_nans<float4>(scores, p.score_sa, p.C / 4, q, na, nan_any);
-  } else {
-    scan_nans<float>(scores, p.score_sa, p.C, q, na, nan_any);
-  }
-  __syncthreads();
-  stripe_data(anc, nan_any, na, mine, stripe);
+  for (int pass = 0; pass < passes; ++pass) {
+    const int base = MULTI ? pass * PASS_A : 0;
+    const bool last = !MULTI || pass + 1 == passes;
+    // The CTA's stripes of the pass: q, q + TAL_CLUSTER, ...; the image's last one may be short.
+    const int pa = MULTI ? min(p.A - base, PASS_A) : p.A;
+    const int stripes = (pa + STRIPE - 1) / STRIPE;
+    const int mine = q < stripes ? (stripes - 1 - q) / TAL_CLUSTER + 1 : 0;
+    const int na = mine * STRIPE - ((stripes - 1) % TAL_CLUSTER == q ? stripes * STRIPE - pa : 0);
 
-  for (int n0 = 0; n0 < p.N; n0 += ROW_GROUP) {
-    if (warp == 0) {  // the group's rows to assign, in order
-      int c = 0;
-      for (int h = 0; h < ROW_GROUP; h += 32) {
-        const int n = n0 + h + lane;
-        const bool take = n < p.N && (check || p.mask[static_cast<long long>(b) * p.N + n]);
-        const unsigned m = __ballot_sync(0xFFFFFFFFu, take);
-        if (take) rows[c + __popc(m & ((1u << lane) - 1u))] = n;
-        c += __popc(m);
-      }
-      if (lane == 0) {
-        count = c;
-        next = 0;
-      }
+    // The previous pass's last cluster barrier: no warp reads the staging any more.
+    for (int i = threadIdx.x; i < na; i += CAND_THREADS) {
+      const int a = base + anchor_of(q, i);
+      const Box pb = load_box(p.pd + (static_cast<long long>(b) * p.A + a) * 4);
+      anc[i] = Anchor{make_float4(pb.x1, pb.y1, pb.x2, pb.y2), p.anc[2 * a], p.anc[2 * a + 1], aspect_atan(pb),
+                      tame(pb)};
+      nan_any[i] = 0;
     }
-    __syncthreads();  // also: the chunk and its stripes are staged
-    for (;;) {  // rows from the queue, one a warp
-      int i = 0;
-      if (lane == 0) i = atomicAdd(&next, 1);
-      i = __shfl_sync(0xFFFFFFFFu, i, 0);
-      if (i >= count) break;
-      row_winners<KD>(p, q, b, rows[i], na, mine, rounds, check, anc, stripe, nan_any, lists[i]);
+    __syncthreads();
+    if (vec4) {
+      scan_nans<float4>(scores + base * p.score_sa, p.score_sa, p.C / 4, q, na, nan_any);
+    } else {
+      scan_nans<float>(scores + base * p.score_sa, p.score_sa, p.C, q, na, nan_any);
     }
-    cluster.sync();  // every chunk's winners of the group's rows are in the cluster's shared memory
+    __syncthreads();
+    stripe_data(anc, nan_any, na, mine, stripe);
 
-    // Row i of the group is merged by CTA i % TAL_CLUSTER: lane e takes keys
-    // e, e + 32, ... of the TAL_CLUSTER x rounds, then `rounds` warp maxima.
-    for (int i = q + TAL_CLUSTER * warp; i < count; i += TAL_CLUSTER * CAND_WARPS) {
-      const long long row = static_cast<long long>(b) * p.N + rows[i];
-      unsigned long long best[MERGE_KEYS];
-#pragma unroll
-      for (int j = 0; j < MERGE_KEYS; ++j) best[j] = 0ull;
-#pragma unroll
-      for (int e = 0; e < MERGE_KEYS; ++e) {
-        const int idx = lane + 32 * e;
-        if (idx < TAL_CLUSTER * rounds)
-          insert(best, *cluster.map_shared_rank(&lists[i][idx % rounds], idx / rounds), MERGE_KEYS);
-      }
-      for (int r = 0; r < rounds; ++r) {
-        const unsigned long long win = pop_max(best);
+    for (int n0 = 0; n0 < p.N; n0 += ROW_GROUP) {
+      if (warp == 0) {  // the group's rows to assign, in order
+        int c = 0;
+        for (int h = 0; h < ROW_GROUP; h += 32) {
+          const int n = n0 + h + lane;
+          const bool take = n < p.N && (check || p.mask[static_cast<long long>(b) * p.N + n]);
+          const unsigned m = __ballot_sync(0xFFFFFFFFu, take);
+          if (take) rows[c + __popc(m & ((1u << lane) - 1u))] = n;
+          c += __popc(m);
+        }
         if (lane == 0) {
+          count = c;
+          next = 0;
+        }
+      }
+      __syncthreads();  // also: the chunk and its stripes are staged
+      for (;;) {  // rows from the queue, one a warp
+        int i = 0;
+        if (lane == 0) i = atomicAdd(&next, 1);
+        i = __shfl_sync(0xFFFFFFFFu, i, 0);
+        if (i >= count) break;
+        row_winners<KD>(p, q, b, rows[i], base, na, mine, rounds, check, anc, stripe, nan_any, lists[i]);
+      }
+      cluster.sync();  // every chunk's winners of the group's rows are in the cluster's shared memory
+
+      // Row i of the group is merged by CTA i % TAL_CLUSTER: lane e takes keys
+      // e, e + 32, ... of the TAL_CLUSTER x rounds, and lane e < rounds the
+      // row's e-th winner of the earlier passes; then `rounds` warp maxima.
+      for (int i = q + TAL_CLUSTER * warp; i < count; i += TAL_CLUSTER * CAND_WARPS) {
+        const long long row = static_cast<long long>(b) * p.N + rows[i];
+        constexpr int KEYS = MULTI ? MERGE_KEYS + 1 : MERGE_KEYS;
+        unsigned long long best[KEYS];
+#pragma unroll
+        for (int j = 0; j < KEYS; ++j) best[j] = 0ull;
+#pragma unroll
+        for (int e = 0; e < MERGE_KEYS; ++e) {
+          const int idx = lane + 32 * e;
+          if (idx < TAL_CLUSTER * rounds)
+            insert(best, *cluster.map_shared_rank(&lists[i][idx % rounds], idx / rounds), KEYS);
+        }
+        if (MULTI && pass > 0 && lane < rounds) insert(best, p.carry[row * TAL_MAX_K + lane], KEYS);
+        for (int r = 0; r < rounds; ++r) {
+          const unsigned long long win = pop_max(best);
+          if (lane != 0) continue;
+          if (!last) {
+            p.carry[row * TAL_MAX_K + r] = win;
+            continue;
+          }
           if (r == 0) p.has_any[row] = p.mask[row] && from_order_bits(static_cast<uint32_t>(win >> 32)) > p.eps;
           if (!p.all_members && r < p.k)
             p.winners[row * TAL_MAX_K + r] = win ? static_cast<int32_t>(0xFFFFFFFFu - static_cast<uint32_t>(win)) : -1;
         }
       }
+      cluster.sync();  // the lists and rows are free again
     }
-    cluster.sync();  // the lists and rows are free again
   }
 }
 
@@ -551,10 +589,12 @@ __global__ void __launch_bounds__(THREADS) tal_targets_kernel(TalArgs p) {
 // a 32nd of its stripe's Stripe.
 constexpr int kAnchorBytes = sizeof(Anchor) + sizeof(int) + (sizeof(Stripe) + STRIPE - 1) / STRIPE;
 
-template <int KD>
+template <int KD, bool MULTI>
 cudaError_t launch_candidates(const TalArgs& args, cudaStream_t stream) {
-  const int chunk = ((args.A + STRIPE - 1) / STRIPE + TAL_CLUSTER - 1) / TAL_CLUSTER * STRIPE;
-  auto kernel = tal_candidates_kernel<KD>;
+  // The staging a CTA needs: A / TAL_CLUSTER anchors in stripes, at most TAL_MAX_CHUNK (then in passes).
+  const int need = ((args.A + STRIPE - 1) / STRIPE + TAL_CLUSTER - 1) / TAL_CLUSTER * STRIPE;
+  const int chunk = need < TAL_MAX_CHUNK ? need : TAL_MAX_CHUNK;
+  auto kernel = tal_candidates_kernel<KD, MULTI>;
   // Room for two CTAs an SM: the most shared memory, the least L1.
   static const cudaError_t set =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TAL_MAX_CHUNK * kAnchorBytes);
@@ -562,7 +602,7 @@ cudaError_t launch_candidates(const TalArgs& args, cudaStream_t stream) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
   if (set != cudaSuccess) return set;
   if (carve != cudaSuccess) return carve;
-  if (chunk > TAL_MAX_CHUNK) return cudaErrorInvalidValue;
+  if (MULTI && args.carry == nullptr) return cudaErrorInvalidValue;
   // 16-byte loads of the logits where every anchor's span of C is 16-byte aligned.
   const bool vec4 = args.C % 4 == 0 && args.score_sa % 4 == 0 && args.score_sb % 4 == 0 &&
                     reinterpret_cast<uintptr_t>(args.scores) % 16 == 0;
@@ -581,16 +621,21 @@ cudaError_t launch_candidates(const TalArgs& args, cudaStream_t stream) {
   return cudaLaunchKernelEx(&cfg, kernel, args, chunk, vec4);
 }
 
+template <bool MULTI>
+cudaError_t launch_by_depth(const TalArgs& args, cudaStream_t stream) {
+  const int rounds = args.all_members ? 1 : (args.k > 1 ? args.k : 1);
+  if (rounds <= 1) return launch_candidates<1, MULTI>(args, stream);
+  if (rounds <= 2) return launch_candidates<2, MULTI>(args, stream);
+  if (rounds <= 4) return launch_candidates<4, MULTI>(args, stream);
+  if (rounds <= 8) return launch_candidates<8, MULTI>(args, stream);
+  if (rounds <= 10) return launch_candidates<10, MULTI>(args, stream);  // one2many's k
+  return launch_candidates<16, MULTI>(args, stream);
+}
+
 }  // namespace
 
 cudaError_t launch_tal_candidates(const TalArgs& args, cudaStream_t stream) {
-  const int rounds = args.all_members ? 1 : (args.k > 1 ? args.k : 1);
-  if (rounds <= 1) return launch_candidates<1>(args, stream);
-  if (rounds <= 2) return launch_candidates<2>(args, stream);
-  if (rounds <= 4) return launch_candidates<4>(args, stream);
-  if (rounds <= 8) return launch_candidates<8>(args, stream);
-  if (rounds <= 10) return launch_candidates<10>(args, stream);  // one2many's k
-  return launch_candidates<16>(args, stream);
+  return args.A > PASS_A ? launch_by_depth<true>(args, stream) : launch_by_depth<false>(args, stream);
 }
 
 cudaError_t launch_tal_targets(const TalArgs& args, cudaStream_t stream) {

@@ -16,7 +16,8 @@ A] int32), in two passes:
 
 1. candidates (on the card a cluster of 8 CTAs an image, each a chunk of
    its anchors, a warp a GT row, the chunks' winners merged through the
-   cluster's shared memory): the inside test, the CIoU of each GT against
+   cluster's shared memory; above PASS_A anchors in passes of PASS_A, each
+   row's winners carried from pass to pass): the inside test, the CIoU of each GT against
    each predicted box, the sigmoid of the GT class's logit, align =
    clamp(s, 0, 1) ** alpha * clamp(CIoU, 0, 1) ** beta * inside; the row's
    k winners by (align desc, index asc), torch.argmax's and lax.top_k's
@@ -44,8 +45,8 @@ On the card: pd_scores, the boxes and the anchors fp32 (the loss runs in
 fp32); pd_scores with unit stride in C, read in place through its row
 stride (the concatenated head's class slice); k at most MAX_K unless k >=
 A; the reference's exponents, alpha 0.5 and beta 6 (the plain version
-takes any); labels < C (the plain version's gather refuses others); A
-at most MAX_A. `LAUNCHES["tal_candidates"]` and `["tal_targets"]` count
+takes any); labels < C (the plain version's gather refuses others); any
+A. `LAUNCHES["tal_candidates"]` and `["tal_targets"]` count
 the two kernels. CPU tensors take the plain version; CUDA tensors launch
 the kernels or raise. Like mpbwd and bnstats this wrapper is not a
 `torch.library` operator: only the training path calls it.
@@ -69,7 +70,7 @@ from . import LAUNCHES
 from ._build import ext
 
 MAX_K = 16  # winners a GT row the candidates kernel keeps (csrc/kernels.h TAL_MAX_K)
-MAX_A = 8 * 6016  # anchors the candidates kernel stages (TAL_CLUSTER chunks of TAL_MAX_CHUNK)
+PASS_A = 8 * 6016  # anchors the candidates kernel stages at once (TAL_CLUSTER chunks of TAL_MAX_CHUNK)
 CV = 4 / (math.pi ** 2)  # the CIoU's aspect-ratio constant, as ops/boxes.py writes it
 # The alignment's exponents the kernels compute (the reference's), by torch's
 # routes on the card: ** 0.5 is sqrt, ** 6 is powf.
@@ -188,8 +189,6 @@ def _inputs(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mask_gt, top
     k = min(topk, a)
     if k < a and k > MAX_K:
         raise ValueError(f"tal: topk {topk} above the kernel's {MAX_K} (and below A = {a})")
-    if a > MAX_A:
-        raise ValueError(f"tal: A = {a} anchors above the candidates kernel's {MAX_A}")
     pd_bboxes, gt_bboxes = (t.contiguous() for t in (pd_bboxes, gt_bboxes))
     pd_bboxes, gt_bboxes = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (pd_bboxes, gt_bboxes))
     return (pd_bboxes, anc_points.contiguous(), gt_labels.to(torch.int32).contiguous(), gt_bboxes,

@@ -18,6 +18,12 @@ Usage:
     table = summarize_trace(out_dir, steps=steps)
     print(format_table(table))
 
+It also holds the port's timers, which every benchmark and timing script
+imports (`tools/bench*.py`, `tools/time_train_kernels.py`, `chip_smoke.py`):
+`events_ms` (CUDA events around back-to-back calls: the card's time),
+`chain_s` and `wall_ms` (the host's clock to the device's finish), and
+`card_line` (the card's name and power limit, as nvidia-smi gives them).
+
 Events are aggregated into families. A CUDA kernel's name is demangled C++
 (`void (anonymous namespace)::stem_tc_kernel<64, 128, unsigned char>(...)`);
 its family is the base identifier, without return type, namespaces, template
@@ -31,11 +37,13 @@ import glob
 import json
 import os
 import re
+import statistics
+import subprocess
 import time
 from collections import defaultdict
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -46,6 +54,60 @@ import torch
 # summed kernel durations.
 PAD_S = 0.25
 CPU_PLANE = "cpu"
+
+
+def card_line() -> str:
+    """The card's name and power limit: `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`, its first line."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()
+    return out[0]
+
+
+def events_ms(fn: Callable, *, warmup: int = 3, runs: int = 20, inner: int = 1) -> float:
+    """Median milliseconds of fn() over `runs` timed runs, CUDA events, each
+    run the mean of `inner` back-to-back calls, after `warmup` calls. With
+    inner=1 the card waits for the host to launch fn (a request from an idle
+    card); a kernel's time wants inner=10 or so, so the card runs the
+    launches back to back and a short kernel's time is not its launch's."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def chain_s(fn: Callable, n: int, device="cuda") -> float:
+    """Host seconds from the first of n back-to-back calls of fn() to the
+    device's finish of the last: one synchronize after the chain, none
+    between calls (on the CPU, the calls' own time)."""
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    _sync(device)
+    return time.perf_counter() - t0
+
+
+def wall_ms(fn: Callable, runs: int = 20, device="cuda") -> float:
+    """Median host milliseconds of fn() from an idle device to its finish,
+    after three calls."""
+    for _ in range(3):
+        fn()
+    return statistics.median(chain_s(fn, 1, device) * 1e3 for _ in range(runs))
 
 
 @dataclass

@@ -39,9 +39,14 @@ CASES = {
                 "inf, and the CIoU stays a number",
     "chunk_ties": "every anchor inside one GT box aligns equally, over all three levels: the winners are the lowest "
                   "indices, across any split of the anchors into chunks",
+    "pass_split": "1536 px (A = 48,384, past the candidates kernel's one pass of PASS_A = 48,128 anchors): a box "
+                  "whose equally aligned anchors lie on both sides of the boundary, so its winners come from both "
+                  "passes in index order; a box whose anchors lie past it; a NaN logit past it",
 }
-# On the card also the training step's shape, [32, 16, 8400] with 80 classes.
-CARD_CASES = tuple(CASES) + ("step",)
+# On the card also the training step's shape, [32, 16, 8400] with 80 classes,
+# and 2560 px (A = 134,400: three passes of the candidates kernel).
+CARD_CASES = tuple(CASES) + ("step", "wide")
+PASS_A = 8 * 6016  # anchors the candidates kernel stages in one pass (kernels/tal.py PASS_A)
 
 
 def anchors(size: int, strides=(8, 16, 32)) -> np.ndarray:
@@ -176,8 +181,40 @@ def tal_case(name: str, seed: int = 0) -> dict:
         c["pd_scores"][0, :, c["gt_labels"][0, 0]] = 1.5
         _clear(c, 0, (0,), 0, 64)
         c["spot"] = dict(image=0, slot=0)
+    elif name == "pass_split":
+        c = _base(rng, 2, 8, size=1536, wh=(8.0, 120.0))
+        anc = c["anc"]
+        # Image 0, slot 0: the stride-32 anchors of rows 41-43, columns 31-37
+        # (centres x 1008-1200, y 1328-1392), 48,079-48,181, straddle the
+        # boundary (48,127 before it, 48,128 after it). Each aligns 1: its
+        # box is the GT's and its logit high. The box's other anchors
+        # (strides 8 and 16, lower indices) align low.
+        c["mask_gt"][0, [0, 1]] = True
+        c["gt_bboxes"][0, 0] = [1000, 1320, 1200, 1400]
+        _clear(c, 0, (0, 1), 900, 1500)
+        inside = ((anc > c["gt_bboxes"][0, 0, :2]) & (anc < c["gt_bboxes"][0, 0, 2:])).all(-1)
+        c["pd_scores"][0, inside, c["gt_labels"][0, 0]] = -6.0
+        tied = inside & (np.arange(len(anc)) >= 46080)
+        c["pd_bboxes"][0, tied] = c["gt_bboxes"][0, 0]
+        c["pd_scores"][0, tied, c["gt_labels"][0, 0]] = 9.0
+        # Slot 1: a box at the bottom right whose stride-32 anchors (all past
+        # the boundary) lead, the others (strides 8 and 16) align low.
+        c["gt_bboxes"][0, 1] = [1410, 1410, 1530, 1530]
+        _clear(c, 0, (0, 1), 1400, 1536)
+        inside = ((anc > c["gt_bboxes"][0, 1, :2]) & (anc < c["gt_bboxes"][0, 1, 2:])).all(-1)
+        c["pd_scores"][0, inside, c["gt_labels"][0, 1]] = -6.0
+        lead = inside & (np.arange(len(anc)) >= 46080)
+        c["pd_bboxes"][0, lead] = [1412, 1412, 1528, 1528]
+        c["pd_scores"][0, lead, c["gt_labels"][0, 1]] = 4.0
+        # Image 1: a NaN logit at an anchor past the boundary, outside every box.
+        c["mask_gt"][1, 0] = True
+        a = _outside(c, 1)
+        c["pd_scores"][1, a, c["gt_labels"][1, 0]] = np.nan
+        c["spot"] = dict(image=0, slot=0, tied=np.flatnonzero(tied), nan_image=1, nan_anchor=a)
     elif name == "step":
         c = _base(rng, 32, 16, size=640, nc=80, wh=(8.0, 60.0))
+    elif name == "wide":
+        c = _base(rng, 2, 8, size=2560, wh=(8.0, 200.0))
     else:
         raise KeyError(name)
     return c

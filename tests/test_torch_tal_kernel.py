@@ -23,6 +23,7 @@ from leanyolo_tpu_torch.kernels import LAUNCHES, bounds
 from leanyolo_tpu_torch.kernels import tal as KT
 from leanyolo_tpu_torch.ops import tal as TT
 from leanyolo_tpu_torch.ops.topk import topk_membership
+import tal_cases
 from tal_cases import CASES, _base, scores_of, tal_case, tensors
 
 FIELDS = ("target_labels", "target_bboxes", "target_scores", "fg_mask", "target_gt_idx")
@@ -91,6 +92,16 @@ def _spot(name: str, c: dict, topk: int, got) -> None:
         inside = torch.nonzero(mask_in[i, slot]).flatten()
         assert len(inside) == c["anc"].shape[0] and bool((align[i, slot] == align[i, slot, 0]).all())
         assert winners[i, slot].tolist() == inside[:topk].tolist()
+    elif name == "pass_split":
+        i, slot, tied = spot["image"], spot["slot"], spot["tied"]
+        assert c["anc"].shape[0] == 48384 and tal_cases.PASS_A == KT.PASS_A
+        assert tied[0] < KT.PASS_A <= tied[-1]
+        winners, has_any, mask_in, _, align = KT.candidates_plain(*tensors(c), topk)
+        assert bool((align[i, slot, tied] == align[i, slot, tied[0]]).all()) and bool(has_any[i, slot])
+        assert winners[i, slot].tolist() == tied[:topk].tolist()  # from both passes at k = 10
+        assert min(winners[i, 1].tolist()) >= KT.PASS_A and bool(fg[i, winners[i, 1, 0]])
+        j, a = spot["nan_image"], spot["nan_anchor"]
+        assert a >= KT.PASS_A and not mask_in[j, :, a].any() and int(winners[j, 0, 0]) == a
     elif name == "k_ge_a":
         winners, *_ = KT.candidates_plain(*tensors(c), min(topk, c["anc"].shape[0]))
         assert (winners is None) == (topk >= c["anc"].shape[0])
